@@ -6,24 +6,37 @@ Phases, each of which exits non-zero on failure:
 
 1. card: name and power limit (``nvidia-smi``) and the device torch sees;
 2. build: compile the CUDA kernels of ``swarmkit_tpu_torch/csrc`` with
-   ``nvcc`` for sm_90a (``-Xptxas -v``: registers and shared memory);
+   ``nvcc`` for sm_90a (``-Xptxas -v``: registers and shared memory), all
+   sources in parallel;
 3. kernels: each kernel against its plain PyTorch version on the card, on
-   seeded inputs at the headline shapes (node bucket 16384, leaf bucket
-   256, 4 constraint slots, 4 platform rows) with branch totals around
-   2^24; outputs must be bit-equal.  Times come from CUDA events;
-4. main path: the headline cluster (10,000 nodes, 100,000 tasks of one
+   seeded inputs at the main paths' shapes (node bucket 16384; leaf bucket
+   256, 4 constraint slots, 4 platform rows, branch totals around 2^24 for
+   K1-K3; a cfg7 chunk of 4 group slots over 16 service slots for K4-K6);
+   outputs must be bit-equal, and so must one fused chunk on the card and
+   on the CPU.  Times come from CUDA events and torch.profiler;
+4. headline path: the headline cluster (10,000 nodes, 100,000 tasks of one
    replicated service, 20% preassigned, spread over 20 racks) through
    ``Scheduler`` + ``TorchPlanner()``: every task placed on the device,
-   racks balanced within 1, every kernel of the path launched;
+   racks balanced within 1, K1-K3 launched;
 5. traced tick: a second headline tick under the span tracer and
    torch.profiler -- where the wall time goes, the device's busy share;
 6. host oracle: per-node task counts of ``TorchPlanner`` on the card equal
    the host path's on a 1,000-node cluster of the same shape and on a
-   constrained one (tier==web, linux/amd64).
+   constrained one (tier==web, linux/amd64);
+7. many-service path: bench.py's config 7 (10,000 nodes, 10 services of
+   50,000 tasks, one tick) with the services split over spread, binpack,
+   weighted and learned: all 500,000 tasks placed through the fused route
+   (10 groups fused in 3 chunks, none on the host), every kernel launched;
+8. traced many-service tick: its traced twin;
+9. many-service host oracle: at 1,000 nodes x 10,000 tasks, per-service
+   per-node counts of the card's fused tick equal the host path's (the
+   spread tree walk and ``scheduler/strategy.py``'s oracles).
 
-The last lines are the kernels' JSON line, the card's name and power limit,
-and ``{"ok": true, "device": {...}}``.  The full record also goes to
-``chiprun_out/chip_smoke.json``.
+The counts of kernel launches are set to 0 just before each main path and
+read just after it; the kernels' JSON line reports the many-service path's,
+on which every kernel runs.  The last lines are that JSON line, the card's
+name and power limit, and ``{"ok": true, "device": {...}}``.  The full
+record also goes to ``chiprun_out/chip_smoke.json``.
 """
 
 import json
@@ -210,6 +223,77 @@ def plan_inputs(seed, nb=16384, n_valid=10000, n_leaves=20, n_top=0, cc=4,
     return nodes, group, L, hier
 
 
+def fused_inputs(seed, nb=16384, n_valid=10000, strategies=(0, 1, 2, 3),
+                 n_slots=16, n_leaves=20, quota=False):
+    """Seeded inputs of one fused chunk, as numpy (shared, groups, carry,
+    strat, L) in the planner's layout: a cfg7 chunk of group slots (one per
+    entry of ``strategies``, padded to a power of two) over ``n_slots``
+    service slots, spread groups over ``n_leaves`` racks, tasks of 0.1 CPU
+    + 64 MiB on nodes of 64 CPUs / 256 GiB that already run some work.  A
+    few nodes hold exactly one task's worth of a resource, one unit short
+    of it, nothing, or less than nothing; two slots share a service."""
+    import numpy as np
+    from swarmkit_tpu_torch.ops.densify import l_bucket, pow2_bucket
+    from swarmkit_tpu_torch.ops.kernel import (
+        FusedCarry, FusedGroups, FusedShared, FusedStrategy)
+    from swarmkit_tpu_torch.scheduler import strategy as strategy_mod
+    rng = np.random.RandomState(seed)
+    n_real = len(strategies)
+    G = pow2_bucket(n_real)
+    valid = np.zeros(nb, bool)
+    valid[:n_valid] = True
+    cpu_unit, mem_unit = 10**8, 64 << 20
+    cpu = (64 * 10**9 - rng.randint(0, 600, nb) * cpu_unit).astype(np.int64)
+    mem = ((256 << 30) - rng.randint(0, 600, nb) * mem_unit).astype(np.int64)
+    cpu[:50] = cpu_unit
+    cpu[50:60] = cpu_unit - 1
+    cpu[60:70] = 0
+    cpu[70:80] = -7
+    mem[80:100] = 2 * mem_unit + 3
+    shared = FusedShared(
+        valid=valid, ready=rng.rand(nb) < 0.98,
+        os_hash=np.zeros((2, nb), np.int32),
+        arch_hash=np.zeros((2, nb), np.int32),
+        svc0=rng.randint(0, 4, (n_slots, nb)).astype(np.int32))
+    carry = FusedCarry(
+        total=rng.randint(0, 600, nb).astype(np.int32), cpu=cpu, mem=mem,
+        svc_acc=np.zeros((n_slots, nb), np.int32))
+    k = np.zeros(G, np.int32)
+    k[:n_real] = 50000
+    slot = np.zeros(G, np.int32)
+    slot[:n_real] = np.arange(n_real) % max(n_real - 1, 1)  # 0 twice
+    cpu_d = np.zeros(G, np.int64)
+    mem_d = np.zeros(G, np.int64)
+    cpu_d[:n_real] = cpu_unit
+    mem_d[:n_real] = mem_unit
+    plat = np.full((G, 1, 4), -1, np.int32)
+    leaf = np.zeros((G, nb), np.int32)
+    for g, sid in enumerate(strategies):
+        if sid == strategy_mod.STRAT_SPREAD:
+            leaf[g] = np.arange(nb) % n_leaves
+    failures = rng.choice([0] * 12 + [1, 5, 70], (G, nb)).astype(np.int32)
+    quota_ok = None
+    if quota:
+        quota_ok = np.ones((G, nb), bool)
+        quota_ok[n_real - 1] = False
+    groups = FusedGroups(
+        k=k, slot=slot, maxrep=np.zeros(G, np.int32), cpu_d=cpu_d,
+        mem_d=mem_d, con_hash=np.zeros((G, 1, 2, nb), np.int32),
+        con_op=np.full((G, 1), 2, np.int32),
+        con_exp=np.zeros((G, 1, 2), np.int32), plat=plat,
+        failures=failures, leaf=leaf, extra_mask=np.ones((G, nb), bool),
+        quota_ok=quota_ok)
+    sid = np.zeros(G, np.int32)
+    sid[:n_real] = strategies
+    weights = np.zeros((G, 4), np.int32)
+    weights[:] = (2, 3, 1, 1)
+    w1, b1, w2, b2 = strategy_mod.learned_params()
+    strat = FusedStrategy(sid=sid, weights=weights, w1=w1, b1=b1, w2=w2,
+                          b2=np.asarray(b2, np.int32))
+    L = l_bucket(n_leaves) if strategy_mod.STRAT_SPREAD in strategies else 1
+    return shared, groups, carry, strat, L
+
+
 def phase_build(cuda):
     t0 = time.perf_counter()
     res = cuda.build()
@@ -368,13 +452,207 @@ def phase_kernels(torch, K, to_device):
     return rows, dict(ms=plan_ms, device_ms=plan_dev)
 
 
+def phase_kernels_fused(torch, K, fused_to_device):
+    """K4, K5 and K6 against their plain versions on a cfg7 chunk at node
+    bucket 16384, and one fused chunk on the card against the CPU."""
+    dev = torch.device("cuda")
+    i32 = torch.int32
+    inputs = fused_inputs(seed=77)
+    shared, groups, carry, strat = fused_to_device(*inputs[:4], device=dev)
+    L = inputs[4]
+    n = shared.valid.shape[0]
+    s = shared.svc0.shape[0]
+    g = 2                                    # the weighted slot
+    rows = []
+
+    # ---- K4 prologue (with the headroom columns of a weighted group)
+    outs = [torch.empty(n, dtype=torch.bool, device=dev)] + [
+        torch.empty(n, dtype=i32, device=dev) for _ in range(4)]
+
+    def prologue():
+        K._fused_prologue(shared, groups, carry, g, s, *outs)
+
+    def prologue_plain():
+        ok, cap, svc = K._fused_prologue_plain(
+            shared, carry, groups.cpu_d[g], groups.mem_d[g],
+            K._slot_of(groups, g, s))
+        return (ok, cap, svc, K._fused_headroom(carry.cpu, groups.cpu_d[g]),
+                K._fused_headroom(carry.mem, groups.mem_d[g]))
+
+    prologue()
+    want = prologue_plain()
+    err = max_abs_err(torch, outs, want)
+    check(bool((~want[0][:n // 2]).any()) and bool(want[0][:n // 2].any()),
+          "the fused inputs must leave some nodes short of the demand")
+    rows.append(dict(
+        kernel=K.FUSED_PROLOGUE, err=err,
+        bytes=n * (1 + 8 + 8 + 4 + 4) + n * (1 + 4 + 4 + 4 + 4) + 20,
+        ops=16 * n,
+        device_ms=device_ms(torch, prologue, ("fused_prologue_kernel",)),
+        ms=time_ms(torch, prologue), plain_ms=time_ms(torch, prologue_plain),
+        library_ms=None))
+
+    # ---- K4 carry update, with a placement of the chunk's own sizes
+    x = torch.zeros(n, dtype=i32, device=dev)
+    x[:10000] = torch.randint(0, 6, (10000,), generator=torch.Generator(
+        device=dev).manual_seed(5), device=dev, dtype=i32)
+    nnz = int((x != 0).sum())
+    clones = [K.FusedCarry(*(t.clone() for t in carry)) for _ in range(2)]
+    K._fused_carry(groups, clones[0], g, s, x)
+    K._fused_carry_plain(groups, clones[1], g, s, x)
+    err = max_abs_err(torch, tuple(clones[0]), tuple(clones[1]))
+    scratch = K.FusedCarry(*(t.clone() for t in carry))
+    rows.append(dict(
+        kernel=K.FUSED_CARRY, err=err,
+        bytes=4 * n + 2 * 24 * nnz + 20, ops=6 * nnz,
+        device_ms=device_ms(torch, lambda: K._fused_carry(
+            groups, scratch, g, s, x), ("fused_carry_kernel",)),
+        ms=time_ms(torch, lambda: K._fused_carry(groups, scratch, g, s, x)),
+        plain_ms=time_ms(torch, lambda: K._fused_carry_plain(
+            groups, scratch, g, s, x)),
+        library_ms=None))
+
+    # ---- K5 pack fill on the binpack slot's columns
+    gb = 1
+    res_ok, res_cap, svc = K._fused_prologue_plain(
+        shared, carry, groups.cpu_d[gb], groups.mem_d[gb],
+        K._slot_of(groups, gb, s))
+    nodes = K.NodeInputs(
+        valid=shared.valid, ready=shared.ready, res_ok=res_ok,
+        res_cap=res_cap, svc_tasks=svc, total_tasks=carry.total,
+        failures=groups.failures[gb], leaf=groups.leaf[gb],
+        os_hash=shared.os_hash, arch_hash=shared.arch_hash,
+        port_conflict=torch.zeros(n, dtype=torch.bool, device=dev),
+        extra_mask=groups.extra_mask[gb])
+    grp = K.GroupInputs(
+        k=groups.k[gb], con_hash=groups.con_hash[gb],
+        con_op=groups.con_op[gb], con_exp=groups.con_exp[gb],
+        plat=groups.plat[gb], maxrep=groups.maxrep[gb],
+        port_limited=torch.zeros((), dtype=torch.bool, device=dev))
+    _, cap, _ = K._feasibility_plain(nodes, grp)
+    seg = torch.zeros(n, dtype=i32, device=dev)
+    out = torch.empty(n, dtype=i32, device=dev)
+    err = 0
+    for k in (int(groups.k[gb]), int(cap.sum()) + 9, 1):
+        kk = torch.tensor([k], dtype=i32, device=dev)
+        got = K._packfill(res_cap=res_cap, failures=nodes.failures, cap=cap,
+                          k=kk, out=out)
+        want = K._packfill_plain(K._binpack_key(res_cap, nodes.failures),
+                                 cap, kk, seg, 1)
+        err = max(err, max_abs_err(torch, (got,), (want,)))
+    kk = groups.k[gb].reshape(1)
+
+    def packfill():
+        return K._packfill(res_cap=res_cap, failures=nodes.failures,
+                           cap=cap, k=kk, out=out)
+
+    def packfill_plain():
+        return K._packfill_plain(K._binpack_key(res_cap, nodes.failures),
+                                 cap, kk, seg, 1)
+
+    # res_cap, failures and cap in, x out; k
+    rows.append(dict(
+        kernel=K.PACKFILL, err=err, bytes=16 * n + 4,
+        ops=(K.TIE_ITERS + 2) * n * 4,
+        device_ms=device_ms(torch, packfill, ("packfill_kernel",)),
+        ms=time_ms(torch, packfill), plain_ms=time_ms(torch, packfill_plain),
+        library_ms=None))
+
+    # ---- K6 scores: weighted and learned on the same node columns
+    hr = [K._fused_headroom(carry.cpu, groups.cpu_d[g]),
+          K._fused_headroom(carry.mem, groups.mem_d[g]),
+          torch.full((n,), K.HR_CLAMP, dtype=i32, device=dev)]
+    sin = K.StrategyInputs(*hr, weights=strat.weights[g], w1=strat.w1,
+                           b1=strat.b1, w2=strat.w2, b2=strat.b2)
+    err = 0
+    for mode in (K.STRAT_WEIGHTED, K.STRAT_LEARNED):
+        err = max(err, max_abs_err(
+            torch, (K.strategy_score(nodes, sin, mode),),
+            (K._strategy_score_plain(nodes, sin, mode),)))
+    hidden = int(strat.w1.shape[1])
+    # timed in learned mode: svc, total, failures, hr_cpu, hr_mem (int32)
+    # and ready (a byte) in, e out, and the scorer's weights
+    rows.append(dict(
+        kernel=K.SCORE, err=err,
+        bytes=n * (4 * 5 + 1) + 4 * n + 4 * (6 * hidden + 2 * hidden + 1),
+        ops=n * (2 * 6 * hidden + 2 * hidden + 24),
+        device_ms=device_ms(torch, lambda: K.strategy_score(
+            nodes, sin, K.STRAT_LEARNED), ("score_kernel",)),
+        ms=time_ms(torch, lambda: K.strategy_score(nodes, sin,
+                                                   K.STRAT_LEARNED)),
+        plain_ms=time_ms(torch, lambda: K._strategy_score_plain(
+            nodes, sin, K.STRAT_LEARNED)),
+        library_ms=None))
+
+    # ---- K3 over one segment, as a weighted or learned group runs it
+    _, cap_w, _ = K._feasibility_plain(nodes, grp)
+    e = K._strategy_score_plain(nodes, sin, K.STRAT_WEIGHTED)
+    kk_w = groups.k[g].reshape(1)
+    fill = torch.empty(n, dtype=i32, device=dev)
+
+    def waterfill_flat():
+        return K._waterfill(e=e, total=nodes.total_tasks, cap=cap_w,
+                            k_seg=kk_w, seg=seg, L=1, out=fill)
+
+    waterfill_flat()
+    check(torch.equal(fill, K._waterfill_plain(
+        e, cap_w, K._tie_keys(nodes.total_tasks, n, dev), kk_w, seg, 1)),
+        "waterfill over one segment differs from its plain version")
+    flat_ms = time_ms(torch, waterfill_flat)
+    flat_dev = device_ms(torch, waterfill_flat, ("waterfill_kernel",))
+    print(f"kernels: waterfill over one segment (weighted group, 16384 "
+          f"nodes) {flat_ms:.4f} ms per wrapper call, device "
+          + ("not measured" if flat_dev is None else f"{flat_dev:.4f} ms"),
+          flush=True)
+
+    # ---- one fused chunk (spread, binpack, weighted, learned) on the card
+    # against the CPU, then its time per chunk
+    sids = inputs[3].sid.tolist()
+    on_card = K.plan_fused_packed(shared, groups, carry, L, strat, sids)
+    cpu_in = fused_to_device(*inputs[:4], device="cpu")
+    on_cpu = K.plan_fused_packed(*cpu_in[:3], L, cpu_in[3], sids)
+    check(torch.equal(on_card.cpu(), on_cpu),
+          "a fused chunk on the card differs from the CPU plain path")
+    check(torch.equal(carry.cpu.cpu(), cpu_in[2].cpu)
+          and torch.equal(carry.svc_acc.cpu(), cpu_in[2].svc_acc),
+          "the fused carry on the card differs from the CPU's")
+    placed = on_cpu[:, :n].sum(dim=1).tolist()
+    check(all(p > 0 for p in placed), f"a fused group placed nothing: "
+          f"{placed}")
+
+    def chunk():
+        return K.plan_fused_packed(shared, groups, scratch, L, strat, sids)
+
+    chunk_ms = time_ms(torch, chunk, reps=10, warmup=2)
+    chunk_dev = device_ms(torch, chunk, ("",), reps=5)
+    print(f"kernels: fused chunk (4 slots: spread, binpack, weighted, "
+          f"learned) card == cpu, placed {placed}; {chunk_ms:.4f} ms per "
+          f"chunk (CUDA events), device "
+          + ("not measured" if chunk_dev is None
+             else f"{chunk_dev:.4f} ms (torch.profiler, every device op)"),
+          flush=True)
+    for r in rows:
+        check(r["err"] == 0, f"{r['kernel'].name}: kernel differs from its "
+              f"plain version (max abs err {r['err']})")
+        dev_ms = r["device_ms"]
+        print(f"kernels: {r['kernel'].name} {r['ms']:.4f} ms per wrapper "
+              f"call (CUDA events), device "
+              + ("not measured (the profiler saw no device time)"
+                 if dev_ms is None else f"{dev_ms:.4f} ms per call "
+                 "(torch.profiler)"), flush=True)
+    return rows, dict(ms=chunk_ms, device_ms=chunk_dev, placed=placed,
+                      waterfill_one_segment_ms=flat_ms,
+                      waterfill_one_segment_device_ms=flat_dev)
+
+
 def rack_of(node):
     return node.spec.annotations.labels.get("rack")
 
 
 def phase_main_path(torch, K, cuda, workload, Task, Scheduler,
                     TorchPlanner, card):
-    """The headline tick through the port's entry points."""
+    """The headline tick through the port's entry points (the per-group
+    route: one service never fuses)."""
     t0 = time.perf_counter()
     store, _, nodes, _ = workload.headline_cluster()
     build_s = time.perf_counter() - t0
@@ -400,9 +678,9 @@ def phase_main_path(torch, K, cuda, workload, Task, Scheduler,
                 "groups_strategy_host", "groups_breaker_to_host",
                 "groups_fallback"):
         check(stats.get(key, 0) == 0, f"{key} = {stats.get(key)}")
-    for k in K.KERNELS:
-        check(launches[k.name] > 0, f"{k.name} never launched on the main "
-              "path")
+    for k in (K.FEASIBILITY, K.SEG_SUM, K.WATERFILL):
+        check(launches[k.name] > 0, f"{k.name} never launched on the "
+              "headline path")
     check(k1_preassigned >= 1, "the preassigned batch did not go through "
           "the feasibility kernel")
     by_id = {n.id: n for n in nodes}
@@ -425,13 +703,14 @@ def phase_main_path(torch, K, cuda, workload, Task, Scheduler,
                 rack_counts=sorted(racks.values()))
 
 
-def phase_traced_tick(torch, workload, Scheduler, TorchPlanner, tracer,
-                      card):
-    """A second headline tick with the span tracer and torch.profiler on:
-    where the tick's wall time goes, and the device's busy share.  The
-    untraced tick above gives the end-to-end numbers."""
+def phase_traced_tick(torch, build, Scheduler, TorchPlanner, tracer, card,
+                      label="traced tick"):
+    """A second tick of the cluster ``build()`` makes, with the span tracer
+    and torch.profiler on: where the tick's wall time goes, and the
+    device's busy share.  The untraced tick of its path gives the
+    end-to-end numbers."""
     from torch.profiler import ProfilerActivity, profile
-    store, _, _, _ = workload.headline_cluster()
+    store = build()[0]
     sched = Scheduler(store, batch_planner=TorchPlanner())
     store.view(sched._setup_tasks_list)
     tracer.reset()
@@ -447,17 +726,25 @@ def phase_traced_tick(torch, workload, Scheduler, TorchPlanner, tracer,
     spans = Counter()
     for sp in tracer.spans():
         spans[sp.name] += sp.duration
-    device_s = sum(device_us(e) for e in prof.key_averages()) / 1e6
+    by_op = Counter()
+    for e in prof.key_averages():
+        us = device_us(e)
+        if us > 0:
+            by_op[e.key[:60]] += us / 1e3
+    device_s = sum(by_op.values()) / 1e3
     busy = device_s / wall if device_s > 0 else None
     top = ", ".join(f"{name} {sec * 1e3:.1f} ms"
                     for name, sec in spans.most_common(12))
-    print(f"traced tick: {wall:.3f} s wall; device busy "
+    ops = ", ".join(f"{name} {ms:.3f} ms"
+                    for name, ms in by_op.most_common(8))
+    print(f"{label}: {wall:.3f} s wall; device busy "
           + (f"{device_s * 1e3:.3f} ms ({busy:.4%} of the tick)"
              if busy is not None else "not measured")
-          + f" on {card}; spans: {top}", flush=True)
+          + f" on {card}; spans: {top}; device rows: {ops}", flush=True)
     return dict(wall_s=wall, device_busy_s=device_s or None,
                 device_busy_share=busy,
-                spans_s={k: v for k, v in spans.most_common()})
+                spans_s={k: v for k, v in spans.most_common()},
+                device_ms_by_row=dict(by_op.most_common()))
 
 
 def phase_host_oracle(workload, Task, Platform, TorchPlanner):
@@ -493,6 +780,101 @@ def phase_host_oracle(workload, Task, Platform, TorchPlanner):
     return out
 
 
+def service_counts(store, Task, services, nodes):
+    """Tasks per (service name, node hostname) in ``store``."""
+    name = {s.id: s.spec.annotations.name for s in services}
+    host = {n.id: n.description.hostname for n in nodes}
+    return Counter((name[t.service_id], host[t.node_id]) for t in store.view(
+        lambda tx: tx.find(Task)) if t.node_id)
+
+
+def phase_many_service(torch, K, cuda, workload, Task, Scheduler,
+                       TorchPlanner, card):
+    """bench.py's config 7 with mixed strategies, one tick through the
+    port's entry points: every group fused, every kernel launched."""
+    t0 = time.perf_counter()
+    store, services, nodes, _ = workload.many_service_cluster()
+    build_s = time.perf_counter() - t0
+    n_tasks = workload.MANY_SERVICE_TASKS
+    planner = TorchPlanner()
+    sched = Scheduler(store, batch_planner=planner)
+    store.view(sched._setup_tasks_list)
+    cuda.reset_launch_counts(K.KERNELS)
+    t0 = time.perf_counter()
+    n_dec = sched.tick()
+    torch.cuda.synchronize()
+    tick_s = time.perf_counter() - t0
+    launches = cuda.launch_counts(K.KERNELS)
+    stats = dict(planner.stats)
+    n_groups = len(workload.MANY_SERVICE_MIX)
+    check(n_dec == n_tasks, f"decisions {n_dec} != {n_tasks}")
+    check(stats.get("tasks_planned") == n_tasks,
+          f"tasks_planned {stats.get('tasks_planned')}")
+    check(stats.get("groups_fused") == n_groups,
+          f"groups_fused {stats.get('groups_fused')} != {n_groups}")
+    check(stats.get("fused_chunks") == 3,
+          f"fused_chunks {stats.get('fused_chunks')} != 3")
+    for key in ("groups_strategy_host", "groups_fallback", "groups_planned",
+                "groups_spill_to_host", "groups_device_error",
+                "fused_overflows"):
+        check(stats.get(key, 0) == 0, f"{key} = {stats.get(key)}")
+    for k in K.KERNELS:
+        check(launches[k.name] > 0, f"{k.name} never launched on the "
+              "many-service path")
+    counts = service_counts(store, Task, services, nodes)
+    check(sum(counts.values()) == n_tasks, "not every task holds a node")
+    by_host = {n.description.hostname: n for n in nodes}
+    for svc, (strategy, spread, _) in zip(services,
+                                          workload.MANY_SERVICE_MIX):
+        if not spread:
+            continue
+        name = svc.spec.annotations.name
+        racks = Counter()
+        for (sname, host), c in counts.items():
+            if sname == name:
+                racks[rack_of(by_host[host])] += c
+        check(len(racks) == 20 and max(racks.values())
+              - min(racks.values()) <= 1,
+              f"{name}: racks unbalanced: {sorted(racks.values())}")
+    rate = n_dec / tick_s
+    print(f"many-service path: {n_dec} decisions in {tick_s:.3f} s "
+          f"({rate:.0f} decisions/s; cluster build {build_s:.1f} s) on "
+          f"{card}; launches {launches}; stats "
+          f"{ {k: v for k, v in stats.items() if k != 'plan_seconds'} }",
+          flush=True)
+    return dict(decisions=n_dec, tick_s=tick_s, decisions_per_s=rate,
+                cluster_build_s=build_s, launches=launches,
+                plan_seconds=stats["plan_seconds"],
+                groups_fused=stats["groups_fused"],
+                fused_chunks=stats["fused_chunks"])
+
+
+def phase_many_service_oracle(workload, Task, Scheduler, TorchPlanner):
+    """The card's fused many-service tick places as the host path does:
+    tasks per (service, node) equal at 1,000 nodes x 10,000 tasks (spread
+    groups place a multiple of the node count, so no tie among equally
+    loaded nodes is left to a tie-break order)."""
+    counts = []
+    for planner in (TorchPlanner(), None):
+        store, services, nodes, _ = workload.many_service_cluster(1000,
+                                                                   10000)
+        sched = Scheduler(store, batch_planner=planner)
+        store.view(sched._setup_tasks_list)
+        sched.tick()
+        counts.append(service_counts(store, Task, services, nodes))
+        if planner is not None:
+            check(planner.stats.get("groups_fused") == 10,
+                  f"1k many-service: groups_fused "
+                  f"{planner.stats.get('groups_fused')}")
+    check(counts[0] == counts[1],
+          "many-service: card placements differ from the host path")
+    placed = sum(counts[0].values())
+    check(placed == 10000, f"many-service oracle placed {placed}")
+    print(f"host oracle: many_service_1k card == host ({placed} tasks "
+          "placed, 10 groups fused)", flush=True)
+    return placed
+
+
 def main():
     try:
         import torch
@@ -506,7 +888,7 @@ def main():
         from swarmkit_tpu_torch.obs import tracer
         from swarmkit_tpu_torch.ops import TorchPlanner, cuda
         from swarmkit_tpu_torch.ops import kernel as K
-        from swarmkit_tpu_torch.ops.convert import to_device
+        from swarmkit_tpu_torch.ops.convert import fused_to_device, to_device
         from swarmkit_tpu_torch.scheduler import Scheduler
     except ImportError as exc:
         fail(f"the swarmkit_tpu_torch package is not importable: {exc}")
@@ -520,11 +902,20 @@ def main():
 
     build = phase_build(cuda)
     rows, plan = phase_kernels(torch, K, to_device)
+    fused_rows, chunk = phase_kernels_fused(torch, K, fused_to_device)
+    rows += fused_rows
     main_path = phase_main_path(torch, K, cuda, workload, Task, Scheduler,
                                 TorchPlanner, card)
-    traced = phase_traced_tick(torch, workload, Scheduler, TorchPlanner,
-                               tracer, card)
+    traced = phase_traced_tick(torch, workload.headline_cluster, Scheduler,
+                               TorchPlanner, tracer, card)
     oracle = phase_host_oracle(workload, Task, Platform, TorchPlanner)
+    many = phase_many_service(torch, K, cuda, workload, Task, Scheduler,
+                              TorchPlanner, card)
+    many_traced = phase_traced_tick(
+        torch, workload.many_service_cluster, Scheduler, TorchPlanner, tracer,
+        card, label="traced many-service tick")
+    oracle["many_service_1k"] = phase_many_service_oracle(
+        workload, Task, Scheduler, TorchPlanner)
 
     kernels = []
     for r in rows:
@@ -532,15 +923,16 @@ def main():
         bound_ms, bound_by = bound(r["bytes"], r["ops"])
         kernels.append({
             "name": k.name, "route": "cuda", "source": k.source,
-            "replaces": k.replaces, "launches": main_path["launches"][k.name],
+            "replaces": k.replaces, "launches": many["launches"][k.name],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": r["library_ms"]})
     record = {"card": card, "kind": kind, "build_s": build.seconds,
               "kernels": kernels,
               "device_ms": {r["kernel"].name: r["device_ms"] for r in rows},
-              "plan_group": plan,
+              "plan_group": plan, "fused_chunk": chunk,
               "main_path": main_path, "traced_tick": traced,
+              "many_service": many, "traced_many_service": many_traced,
               "host_oracle": oracle,
               "seconds": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)

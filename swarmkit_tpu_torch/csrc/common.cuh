@@ -25,4 +25,29 @@ __device__ __forceinline__ int clamp_int(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
+// Sum of v over a block of kWarps full warps; every thread gets the total.
+// `red` is kWarps + 1 shared slots.  It synchronises the block, so every
+// thread must call it.  The one-segment searches of K3 and K5 use it in
+// place of shared-memory atomics that all hit one address.
+template <int kWarps>
+__device__ long long block_sum(long long v, long long* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    long long w = lane < kWarps ? red[lane] : 0;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      w += __shfl_down_sync(0xffffffffu, w, off);
+    if (lane == 0) red[kWarps] = w;
+  }
+  __syncthreads();
+  const long long total = red[kWarps];
+  __syncthreads();  // red is reused by the next call
+  return total;
+}
+
 }  // namespace sk

@@ -27,7 +27,11 @@
 // (24 bytes per segment: 6 KB at L = 256), the block loops over the
 // element axis each step, and __syncthreads separates the steps.  No
 // launch, host round-trip or global-memory reduction sits between steps.
-// A multi-block or cluster-wide version is later work.
+// With one segment (a weighted or learned group, and stage A's walk over
+// the branches) each thread sums into a register and the block reduces
+// with warp shuffles: shared-memory atomics on one address would
+// serialise every element of every step.  A multi-block or cluster-wide
+// version is later work.
 //
 // Arithmetic mirrors the reference's int32 forms: the midpoint
 // lo + ((hi - lo) >> 1) (a floor division), lam - 1 at lam = 0, the tie
@@ -39,6 +43,7 @@
 namespace {
 
 constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
 
 struct Elems {
   const int32_t* e;
@@ -80,7 +85,9 @@ __global__ void __launch_bounds__(kThreads) waterfill_kernel(
   int32_t* hi = lo + L;                           // [L]: lam after stage 1
   int32_t* thi = hi + L;                          // [L]
   int32_t* rem = thi + L;                         // [L]
+  __shared__ long long red[kWarps + 1];           // one-segment reductions
   const int tid = threadIdx.x, nt = blockDim.x;
+  const bool one = L == 1;
 
   for (int s = tid; s < L; s += nt) {
     lo[s] = 0;
@@ -90,14 +97,23 @@ __global__ void __launch_bounds__(kThreads) waterfill_kernel(
 
   // ---- level search: least lam per segment with fill(lam) >= k
   for (int it = 0; it < sk::LEVEL_ITERS; ++it) {
-    for (int s = tid; s < L; s += nt) sum[s] = 0;
-    __syncthreads();
+    if (!one) {
+      for (int s = tid; s < L; s += nt) sum[s] = 0;
+      __syncthreads();
+    }
+    long long mine = 0;
     for (int i = tid; i < n; i += nt) {
       const int s = el.seg[i];
       if ((unsigned)s >= (unsigned)L) continue;
       const int mid = lo[s] + ((hi[s] - lo[s]) >> 1);
       const int f = fill(mid, el.level(i), el.cap[i]);
-      if (f > 0) atomicAdd(&sum[s], (unsigned long long)f);
+      if (f <= 0) continue;
+      if (one) mine += f;
+      else atomicAdd(&sum[s], (unsigned long long)f);
+    }
+    if (one) {
+      const long long total = sk::block_sum<kWarps>(mine, red);
+      if (tid == 0) sum[0] = (unsigned long long)total;
     }
     __syncthreads();
     for (int s = tid; s < L; s += nt) {
@@ -109,13 +125,22 @@ __global__ void __launch_bounds__(kThreads) waterfill_kernel(
   }
 
   // ---- base fill at lam - 1 and the remainder per segment
-  for (int s = tid; s < L; s += nt) sum[s] = 0;
-  __syncthreads();
+  if (!one) {
+    for (int s = tid; s < L; s += nt) sum[s] = 0;
+    __syncthreads();
+  }
+  long long below = 0;
   for (int i = tid; i < n; i += nt) {
     const int s = el.seg[i];
     if ((unsigned)s >= (unsigned)L) continue;
     const int f = fill(hi[s] - 1, el.level(i), el.cap[i]);
-    if (f > 0) atomicAdd(&sum[s], (unsigned long long)f);
+    if (f <= 0) continue;
+    if (one) below += f;
+    else atomicAdd(&sum[s], (unsigned long long)f);
+  }
+  if (one) {
+    const long long total = sk::block_sum<kWarps>(below, red);
+    if (tid == 0) sum[0] = (unsigned long long)total;
   }
   __syncthreads();
   for (int s = tid; s < L; s += nt) {
@@ -128,8 +153,11 @@ __global__ void __launch_bounds__(kThreads) waterfill_kernel(
 
   // ---- tie search: per segment, the r-th smallest key among marginals
   for (int it = 0; it < sk::TIE_ITERS; ++it) {
-    for (int s = tid; s < L; s += nt) sum[s] = 0;
-    __syncthreads();
+    if (!one) {
+      for (int s = tid; s < L; s += nt) sum[s] = 0;
+      __syncthreads();
+    }
+    long long mine = 0;
     for (int i = tid; i < n; i += nt) {
       const int s = el.seg[i];
       if ((unsigned)s >= (unsigned)L) continue;
@@ -138,7 +166,13 @@ __global__ void __launch_bounds__(kThreads) waterfill_kernel(
       const int c = el.cap[i];
       const bool marginal = e <= lam1 && fill(lam1, e, c) < c;
       const int mid = lo[s] + ((thi[s] - lo[s]) >> 1);
-      if (marginal && el.key(i) <= mid) atomicAdd(&sum[s], 1ull);
+      if (!marginal || el.key(i) > mid) continue;
+      if (one) mine += 1;
+      else atomicAdd(&sum[s], 1ull);
+    }
+    if (one) {
+      const long long total = sk::block_sum<kWarps>(mine, red);
+      if (tid == 0) sum[0] = (unsigned long long)total;
     }
     __syncthreads();
     for (int s = tid; s < L; s += nt) {
@@ -194,7 +228,7 @@ extern "C" int sk_waterfill(int n, int L, const void* e, const void* svc,
                             void* spill, void* stream) {
   if (n <= 0 || L <= 0) return 0;
   const size_t smem = (size_t)sk_waterfill_smem_bytes(L);
-  if (smem > 48 * 1024) {
+  if (smem > 40 * 1024) {  // with the static reduction slots, near 48 KB
     const cudaError_t err = cudaFuncSetAttribute(
         waterfill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);

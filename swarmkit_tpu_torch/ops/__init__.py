@@ -1,13 +1,16 @@
 from .hashing import str_hash
 from .kernel import (
-    GroupInputs, NodeInputs, branch_sums, feasibility,
-    feasibility_and_capacity, fetch_plan, plan_group, seg_waterfill,
-    spread_score,
+    FusedCarry, FusedGroups, FusedShared, FusedStrategy, GroupInputs,
+    NodeInputs, StrategyInputs, branch_sums, feasibility,
+    feasibility_and_capacity, fetch_plan, plan_fused, plan_group,
+    plan_strategy, seg_packfill, seg_waterfill, spread_score, strategy_score,
 )
 from .planner import TorchPlanner
 
 __all__ = [
-    "GroupInputs", "NodeInputs", "TorchPlanner", "branch_sums",
-    "feasibility", "feasibility_and_capacity", "fetch_plan", "plan_group",
-    "seg_waterfill", "spread_score", "str_hash",
+    "FusedCarry", "FusedGroups", "FusedShared", "FusedStrategy",
+    "GroupInputs", "NodeInputs", "StrategyInputs", "TorchPlanner",
+    "branch_sums", "feasibility", "feasibility_and_capacity", "fetch_plan",
+    "plan_fused", "plan_group", "plan_strategy", "seg_packfill",
+    "seg_waterfill", "spread_score", "str_hash", "strategy_score",
 ]

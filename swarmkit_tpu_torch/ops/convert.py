@@ -2,9 +2,11 @@
 
 In this system the "weights" are the densified cluster columns: the numpy
 ``NodeInputs`` / ``GroupInputs`` / ``hier`` that a planner's
-``_build_device_inputs`` builds from the scheduler's mirror.  ``to_device``
-turns any such triple -- this package's own, or one built by another
-implementation with the same field names and layouts -- into this
+``_build_device_inputs`` builds from the scheduler's mirror, the
+``StrategyInputs`` of a strategy group, and the ``FusedShared`` /
+``FusedGroups`` / ``FusedCarry`` / ``FusedStrategy`` of a fused run.  The
+functions here turn any of them -- this package's own, or ones built by
+another implementation with the same field names and layouts -- into this
 package's tensors on a given device, which is how the tests feed two
 implementations the same inputs.
 """
@@ -16,21 +18,38 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .kernel import GroupInputs, NodeInputs
+from .kernel import (
+    FusedCarry, FusedGroups, FusedShared, FusedStrategy, GroupInputs,
+    NodeInputs,
+)
+
+# the int64 columns of the fused run: resource amounts and demands
+INT64_FIELDS = frozenset({"cpu", "mem", "cpu_d", "mem_d"})
 
 
-def tensor(a, device) -> torch.Tensor:
+def tensor(a, device, wide: bool = False) -> torch.Tensor:
     """One numpy array or scalar as a contiguous tensor on ``device``:
     booleans stay ``torch.bool``, integers become ``torch.int32`` (the
-    kernels' only integer width)."""
+    kernels' integer width), or ``torch.int64`` with ``wide``."""
     arr = np.asarray(a)
     if not arr.flags.c_contiguous:
         arr = arr.copy()
     if arr.dtype != np.bool_:
         if arr.dtype.kind not in "iu":
             raise TypeError(f"unsupported input dtype {arr.dtype}")
-        arr = arr.astype(np.int32, copy=False)
+        arr = arr.astype(np.int64 if wide else np.int32, copy=False)
     return torch.from_numpy(arr).to(device)
+
+
+def named_to_device(cls, obj, device):
+    """Any NamedTuple of arrays with ``cls``'s field names as ``cls`` of
+    tensors on ``device``; absent or None members stay None, the
+    ``INT64_FIELDS`` are int64."""
+    dev = torch.device(device)
+    return cls(**{name: (None if getattr(obj, name, None) is None else
+                         tensor(getattr(obj, name), dev,
+                                wide=name in INT64_FIELDS))
+                  for name in cls._fields})
 
 
 def nodes_to_device(nodes, device) -> NodeInputs:
@@ -62,3 +81,17 @@ def to_device(nodes, group, hier=(), device="cpu"):
     dev = torch.device(device)
     return (nodes_to_device(nodes, dev), group_to_device(group, dev),
             hier_to_device(hier, dev))
+
+
+def fused_to_device(shared, groups, carry, strat=None, device="cpu"):
+    """(FusedShared, FusedGroups, FusedCarry, FusedStrategy or None) as
+    this package's tensors on ``device``.  The carry is always a fresh
+    copy: :func:`kernel.plan_fused` updates it in place, and on the CPU a
+    tensor made from a numpy array shares its memory."""
+    carry_t = named_to_device(FusedCarry, carry, device)
+    carry_t = FusedCarry(*(t.clone() if t.device.type == "cpu" else t
+                           for t in carry_t))
+    return (named_to_device(FusedShared, shared, device),
+            named_to_device(FusedGroups, groups, device), carry_t,
+            None if strat is None
+            else named_to_device(FusedStrategy, strat, device))

@@ -31,7 +31,8 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("feasibility.cu", "segsum.cu", "waterfill.cu")
+SOURCES = ("feasibility.cu", "segsum.cu", "waterfill.cu", "packfill.cu",
+           "score.cu", "fused.cu")
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -46,6 +47,10 @@ SIGNATURES = {
     "sk_seg_sum": ([_I, _I] + [_P] * 10, _I),
     "sk_waterfill": ([_I, _I, _P, _P, _P, _I] + [_P] * 9, _I),
     "sk_waterfill_smem_bytes": ([_I], ctypes.c_longlong),
+    "sk_packfill": ([_I, _P, _P, _I] + [_P] * 4, _I),
+    "sk_strategy_score": ([_I] * 4 + [_P] * 14, _I),
+    "sk_fused_prologue": ([_I, _I] + [_P] * 14, _I),
+    "sk_fused_carry": ([_I, _I] + [_P] * 9, _I),
     "sk_error_string": ([_I], ctypes.c_char_p),
 }
 

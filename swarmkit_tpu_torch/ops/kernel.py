@@ -1,14 +1,22 @@
 """The scheduling kernels: batched group placement on the card.
 
-PyTorch counterpart of ``swarmkit_tpu/ops/kernel.py``'s per-group route.
-Three hand-written CUDA kernels (``csrc/``) carry it on Hopper:
+PyTorch counterpart of ``swarmkit_tpu/ops/kernel.py``: the per-group spread
+and strategy routes and the fused many-service route.  Hand-written CUDA
+kernels (``csrc/``) carry them on Hopper:
 
 * ``feasibility`` (K1, ``csrc/feasibility.cu``): the fused filter pipeline,
   per-node capacity and the eight short-circuit failure counts;
 * ``seg_sum`` (K2, ``csrc/segsum.cu``): per-branch int64 load and capacity
   sums for stage A of the hierarchical water-fill;
 * ``waterfill`` (K3, ``csrc/waterfill.cu``): both 34-step binary searches
-  of one capacity-bounded water-fill in a single launch.
+  of one capacity-bounded water-fill in a single launch;
+* ``fused_prologue`` / ``fused_carry`` (K4, ``csrc/fused.cu``): the scan
+  step of the fused plan -- a group's resource columns from the carried
+  cluster state, and its placements added back into that state;
+* ``packfill`` (K5, ``csrc/packfill.cu``): the binpack key, threshold
+  search and pack fill of one group over all nodes;
+* ``strategy_score`` (K6, ``csrc/score.cu``): the weighted and learned
+  (fixed-point MLP) scores, in exact int32.
 
 Every wrapper below takes the kernel for tensors on a CUDA device and its
 plain PyTorch version, in this module, for tensors on the CPU; on any other
@@ -33,12 +41,16 @@ planner moves each result to the host with a single copy
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..scheduler.nodeinfo import MAX_FAILURES
+from ..scheduler.strategy import (
+    BP_CLAMP, FEAT_CLAMP, HR_CLAMP, MLP_FEATURES, MLP_SHIFT, SCORE_CLAMP,
+    STRAT_BINPACK, STRAT_LEARNED, STRAT_SPREAD, STRAT_WEIGHTED,
+)
 from . import cuda as _cuda
 
 F_BIG = 1 << 22          # failure down-weight step (dominates svc counts)
@@ -66,7 +78,23 @@ SEG_SUM = _cuda.CudaKernel(
 WATERFILL = _cuda.CudaKernel(
     "waterfill", "sk_waterfill", "swarmkit_tpu_torch/csrc/waterfill.cu",
     "swarmkit_tpu/ops/kernel.py:127")
-KERNELS = (FEASIBILITY, SEG_SUM, WATERFILL)
+FUSED_PROLOGUE = _cuda.CudaKernel(
+    "fused_prologue", "sk_fused_prologue", "swarmkit_tpu_torch/csrc/fused.cu",
+    "swarmkit_tpu/ops/kernel.py:640")
+FUSED_CARRY = _cuda.CudaKernel(
+    "fused_carry", "sk_fused_carry", "swarmkit_tpu_torch/csrc/fused.cu",
+    "swarmkit_tpu/ops/kernel.py:715")
+PACKFILL = _cuda.CudaKernel(
+    "packfill", "sk_packfill", "swarmkit_tpu_torch/csrc/packfill.cu",
+    "swarmkit_tpu/ops/kernel.py:428")
+SCORE = _cuda.CudaKernel(
+    "strategy_score", "sk_strategy_score", "swarmkit_tpu_torch/csrc/score.cu",
+    "swarmkit_tpu/ops/kernel.py:484")
+KERNELS = (FEASIBILITY, SEG_SUM, WATERFILL, FUSED_PROLOGUE, FUSED_CARRY,
+           PACKFILL, SCORE)
+
+# K6 stages the learned scorer's hidden layer in shared memory
+SCORE_MAX_HIDDEN = 64
 
 
 class GroupInputs(NamedTuple):
@@ -454,10 +482,23 @@ def seg_waterfill(e: torch.Tensor, cap: torch.Tensor, tie: torch.Tensor,
 
 # ------------------------------------------------------------- plan_group
 
+def _plan_buffer(n: int, device, out: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+    """A zeroed int32 ``[x (N) | fail_counts (8) | spill (1)]`` plan row:
+    ``out`` (checked; the caller zeroed it), or a new one."""
+    if out is None:
+        return torch.zeros(n + N_FILTERS + 1, dtype=torch.int32,
+                           device=device)
+    _check("out", out, torch.int32, (n + N_FILTERS + 1,), device)
+    return out
+
+
 def plan_group_packed(nodes: NodeInputs, group: GroupInputs, L: int,
-                      hier: Tuple = ()) -> torch.Tensor:
+                      hier: Tuple = (),
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Place one task group; returns the int32 buffer ``[x (N) |
-    fail_counts (8) | spill (1)]`` on the inputs' device.
+    fail_counts (8) | spill (1)]`` on the inputs' device (``out``, a
+    zeroed row of that layout, when given).
 
     Stage A walks the spread-preference tree top-down: K2 sums each
     level's branch loads and capacities, K3 water-fills the parent's
@@ -469,7 +510,7 @@ def plan_group_packed(nodes: NodeInputs, group: GroupInputs, L: int,
     tree.  Every intermediate stays on the device."""
     n = nodes.valid.shape[0]
     dev = nodes.valid.device
-    buf = torch.zeros(n + N_FILTERS + 1, dtype=torch.int32, device=dev)
+    buf = _plan_buffer(n, dev, out)
     x, fail, spill = buf[:n], buf[n:n + N_FILTERS], buf[n + N_FILTERS:]
     cap = torch.empty(n, dtype=torch.int32, device=dev)
     _feasibility_into(nodes, group, None, cap, fail)
@@ -524,6 +565,483 @@ def plan_group(nodes: NodeInputs, group: GroupInputs, L: int,
     device."""
     return unpack_plan(plan_group_packed(nodes, group, L, hier),
                        nodes.valid.shape[0])
+
+
+# ------------------------------------------------------------- strategies
+
+class StrategyInputs(NamedTuple):
+    """Per-group strategy columns and parameters (the reference's
+    ``StrategyInputs``); members a strategy does not read ship as zeros."""
+
+    hr_cpu: torch.Tensor   # i32[N] cpu headroom in demand units
+    hr_mem: torch.Tensor   # i32[N] memory headroom in demand units
+    hr_gen: torch.Tensor   # i32[N] generic-resource headroom (min kind)
+    weights: torch.Tensor  # i32[4] weighted terms [spread, cpu, mem, gen]
+    w1: torch.Tensor       # i32[F, H] learned-scorer layer 1
+    b1: torch.Tensor       # i32[H]
+    w2: torch.Tensor       # i32[H]
+    b2: torch.Tensor       # i32[] scalar
+
+
+# ------------------------------------------------------ K5: pack filling
+
+def _binpack_key(res_cap: torch.Tensor,
+                 failures: torch.Tensor) -> torch.Tensor:
+    """The binpack fill order (reference ``plan_strategy``,
+    ``kernel.py:521-526``): clip(res_cap, 0, BP_CLAMP), or the failure band
+    above it, in the top bits; the node index below."""
+    idx = torch.arange(res_cap.shape[0], dtype=torch.int32,
+                       device=res_cap.device)
+    score = torch.where(failures >= MAX_FAILURES,
+                        BP_CLAMP + 1 + torch.clamp(failures, 0,
+                                                   FAILURE_CLAMP),
+                        torch.clamp(res_cap, 0, BP_CLAMP))
+    return ((score << IDX_BITS) | idx).to(torch.int32)
+
+
+def _packfill_plain(key, cap, k_seg, seg, L: int) -> torch.Tensor:
+    dev = key.device
+    i32, i64 = torch.int32, torch.int64
+    seg_l = seg.to(i64)
+    k64 = k_seg.to(i64)
+    zero = torch.zeros_like(cap)
+
+    def seg_sum(v):
+        return torch.zeros(L, dtype=i64, device=dev).index_add_(
+            0, seg_l, v.to(i64))
+
+    lo = torch.full((L,), -1, dtype=i32, device=dev)
+    hi = torch.full((L,), SEARCH_HI, dtype=i32, device=dev)
+    for _ in range(TIE_ITERS):
+        mid = lo + ((hi - lo) >> 1)
+        ge = seg_sum(torch.where(key <= mid[seg_l], cap, zero)) >= k64
+        lo, hi = torch.where(ge, lo, mid + 1), torch.where(ge, mid, hi)
+    thr = hi[seg_l]     # least threshold with fill >= k (2^30 if short)
+    x = torch.where(key < thr, cap, zero)
+    r = torch.clamp(k64 - seg_sum(x), min=0)[seg_l]
+    grant = (key == thr) & (r > 0)
+    return (x + torch.where(grant, torch.minimum(cap.to(i64), r),
+                            0).to(i32)).to(i32)
+
+
+def _packfill(*, res_cap: torch.Tensor, failures: torch.Tensor,
+              cap: torch.Tensor, k: torch.Tensor,
+              out: torch.Tensor) -> torch.Tensor:
+    """K5: the binpack fill of one group over all nodes (one segment), in
+    the order of the binpack key of (``res_cap``, ``failures``), placing
+    ``k`` (int32[1]) tasks.  Writes the placement into ``out`` (int32[n])."""
+    n = cap.shape[0]
+    dev = cap.device
+    i32 = torch.int32
+    for name, t in (("res_cap", res_cap), ("failures", failures),
+                    ("cap", cap), ("out", out)):
+        _check(name, t, i32, (n,), dev)
+    _check("k", k, i32, (1,), dev)
+    if not _on_cuda(cap):
+        seg = torch.zeros(n, dtype=i32, device=dev)
+        out.copy_(_packfill_plain(_binpack_key(res_cap, failures), cap, k,
+                                  seg, 1))
+        return out
+    PACKFILL(n, _cuda.ptr(res_cap), _cuda.ptr(failures), MAX_FAILURES,
+             *map(_cuda.ptr, (cap, k, out)))
+    return out
+
+
+def seg_packfill(key: torch.Tensor, cap: torch.Tensor, k_seg: torch.Tensor,
+                 seg: torch.Tensor, L: int) -> torch.Tensor:
+    """Sequential (pack) fill within each segment (reference
+    ``seg_packfill``): nodes take their full capacity in ascending ``key``
+    order until k is placed; the node at the threshold takes the
+    remainder.  Keys must be unique per segment and below 2^30, and
+    ``seg`` must lie in [0, L).
+
+    This general form (any key, any number of segments) is K5's plain
+    version and takes CPU tensors only.  On the card the one form the
+    planner runs -- the binpack key over one segment -- is K5 itself, through
+    :func:`plan_strategy`."""
+    if _on_cuda(cap):
+        raise ValueError("seg_packfill: on the card K5 runs the binpack "
+                         "fill of plan_strategy; this general form is "
+                         "for CPU tensors")
+    return _packfill_plain(key, cap, k_seg, seg, L)
+
+
+# ------------------------------------------------------ K6: scoring stage
+
+def _learned_score(nodes: NodeInputs, sin: StrategyInputs) -> torch.Tensor:
+    """Plain version of K6's learned mode: the fixed-point MLP of
+    ``scheduler/strategy.learned_score_host`` (int32 throughout)."""
+    i32 = torch.int32
+    f = torch.stack([
+        torch.clamp(nodes.svc_tasks, 0, FEAT_CLAMP),
+        torch.clamp(nodes.total_tasks, 0, FEAT_CLAMP),
+        torch.clamp(nodes.failures, 0, FEAT_CLAMP),
+        torch.clamp(sin.hr_cpu, 0, FEAT_CLAMP),
+        torch.clamp(sin.hr_mem, 0, FEAT_CLAMP),
+        nodes.ready.to(i32) * FEAT_CLAMP,
+    ], dim=-1).to(i32)                                     # [N, F]
+    h = (f[:, :, None] * sin.w1[None, :, :]).sum(dim=1, dtype=i32) + sin.b1
+    h = torch.clamp(h >> MLP_SHIFT, 0, FEAT_CLAMP)
+    out = (h * sin.w2[None, :]).sum(dim=1, dtype=i32) + sin.b2
+    return torch.clamp(out >> MLP_SHIFT, 0, SCORE_CLAMP).to(i32)
+
+
+def _strategy_score_plain(nodes: NodeInputs, sin: StrategyInputs,
+                          strategy: int) -> torch.Tensor:
+    down = _downweight(nodes.failures) * F_BIG
+    if strategy == STRAT_WEIGHTED:
+        w = sin.weights
+        return (w[0] * torch.clamp(nodes.svc_tasks, 0, SVC_CLAMP)
+                + w[1] * (HR_CLAMP - sin.hr_cpu)
+                + w[2] * (HR_CLAMP - sin.hr_mem)
+                + w[3] * (HR_CLAMP - sin.hr_gen)
+                + down).to(torch.int32)
+    if strategy == STRAT_LEARNED:
+        return (_learned_score(nodes, sin) + down).to(torch.int32)
+    return spread_score(nodes)
+
+
+def strategy_score(nodes: NodeInputs, sin: StrategyInputs,
+                   strategy: int) -> torch.Tensor:
+    """The pluggable scoring stage (reference ``strategy_score``): each
+    node's effective level i32[N], lower preferred -- the weighted linear
+    score, the learned MLP score, or (any other strategy) the spread
+    score; every one failure-down-weighted."""
+    n = nodes.valid.shape[0]
+    dev = nodes.valid.device
+    i32 = torch.int32
+    for name in ("svc_tasks", "total_tasks", "failures"):
+        _check(name, getattr(nodes, name), i32, (n,), dev)
+    _check("ready", nodes.ready, torch.bool, (n,), dev)
+    hidden = 0
+    if strategy in (STRAT_WEIGHTED, STRAT_LEARNED):
+        for name in ("hr_cpu", "hr_mem", "hr_gen"):
+            _check(name, getattr(sin, name), i32, (n,), dev)
+        _check("weights", sin.weights, i32, (4,), dev)
+    if strategy == STRAT_LEARNED:
+        hidden = sin.w1.shape[-1]
+        if not 0 < hidden <= SCORE_MAX_HIDDEN:
+            raise ValueError(f"learned scorer: {hidden} hidden units "
+                             f"(1..{SCORE_MAX_HIDDEN})")
+        _check("w1", sin.w1, i32, (len(MLP_FEATURES), hidden), dev)
+        _check("b1", sin.b1, i32, (hidden,), dev)
+        _check("w2", sin.w2, i32, (hidden,), dev)
+        _check("b2", sin.b2, i32, (), dev)
+    if not _on_cuda(nodes.valid):
+        return _strategy_score_plain(nodes, sin, strategy)
+    e = torch.empty(n, dtype=i32, device=dev)
+    strat_args = (sin.hr_cpu, sin.hr_mem, sin.hr_gen, sin.weights) \
+        if strategy in (STRAT_WEIGHTED, STRAT_LEARNED) else (None,) * 4
+    mlp_args = (sin.w1, sin.b1, sin.w2, sin.b2) \
+        if strategy == STRAT_LEARNED else (None,) * 4
+    SCORE(n, int(strategy), hidden, MAX_FAILURES, *map(_cuda.ptr, (
+        nodes.svc_tasks, nodes.total_tasks, nodes.failures, nodes.ready,
+        *strat_args, *mlp_args, e)))
+    return e
+
+
+# --------------------------------------------------------- plan_strategy
+
+def plan_strategy_packed(nodes: NodeInputs, group: GroupInputs,
+                         sin: Optional[StrategyInputs], strategy: int,
+                         out: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Place one task group under a non-spread strategy; the int32 buffer
+    ``[x (N) | fail_counts (8) | spill (1)]`` of :func:`plan_group_packed`
+    (spill stays 0: a strategy plans one flat segment).  K1 gives mask,
+    capacity and fail counts; binpack then pack-fills on its key (K5);
+    weighted and learned score the nodes (K6) and water-fill them (K3)
+    with the tie key (clip(total) << 20) | index.  ``sin`` may be None for
+    binpack, which reads no strategy column."""
+    n = nodes.valid.shape[0]
+    dev = nodes.valid.device
+    buf = _plan_buffer(n, dev, out)
+    x, fail = buf[:n], buf[n:n + N_FILTERS]
+    cap = torch.empty(n, dtype=torch.int32, device=dev)
+    _feasibility_into(nodes, group, None, cap, fail)
+    kk = torch.clamp(group.k, max=K_CLAMP).reshape(1)
+    if strategy == STRAT_BINPACK:
+        _packfill(res_cap=nodes.res_cap, failures=nodes.failures, cap=cap,
+                  k=kk, out=x)
+    else:
+        seg = torch.zeros(n, dtype=torch.int32, device=dev)
+        _waterfill(e=strategy_score(nodes, sin, strategy),
+                   total=nodes.total_tasks, cap=cap, k_seg=kk, seg=seg,
+                   L=1, out=x)
+    return buf
+
+
+def plan_strategy(nodes: NodeInputs, group: GroupInputs,
+                  sin: Optional[StrategyInputs], strategy: int):
+    """(x i32[N], fail_counts i32[8], spill bool scalar) of
+    :func:`plan_strategy_packed`: the reference ``plan_strategy``'s
+    triple."""
+    return unpack_plan(plan_strategy_packed(nodes, group, sin, strategy),
+                       nodes.valid.shape[0])
+
+
+# ------------------------------------------------------- fused many-service
+#
+# One chunk of a fused run plans its group slots in order, each step seeing
+# the cluster state the earlier steps left (reference ``plan_fused``, a
+# lax.scan).  Here the scan is a host loop that only ENQUEUES work: per
+# slot, K4's prologue derives the group's resource columns from the device
+# carry, the host picks the plan's launch sequence from the slot's
+# strategy id (known on the host from the run's builder), and K4's carry
+# update adds the placements back.  Nothing in the loop reads the device,
+# so a chunk is one stream of launches and one D2H of its result rows.
+
+class FusedShared(NamedTuple):
+    """Run-wide node state, densified once per fused run."""
+
+    valid: torch.Tensor       # bool[N] padding mask
+    ready: torch.Tensor       # bool[N] READY && ACTIVE
+    os_hash: torch.Tensor     # i32[2, N] platform.os hash (hi, lo)
+    arch_hash: torch.Tensor   # i32[2, N] normalized arch hash (hi, lo)
+    svc0: torch.Tensor        # i32[S, N] base active tasks per service slot
+
+
+class FusedGroups(NamedTuple):
+    """Per-group inputs stacked over the group axis G.  Padding slots
+    carry k = 0: they place nothing and leave the carry as it is."""
+
+    k: torch.Tensor           # i32[G] tasks to place (0 = padding slot)
+    slot: torch.Tensor        # i32[G] service slot into svc0/svc_acc
+    maxrep: torch.Tensor      # i32[G] max replicas per node (0 = off)
+    cpu_d: torch.Tensor       # i64[G] per-task nano-cpu reservation
+    mem_d: torch.Tensor       # i64[G] per-task memory reservation
+    con_hash: torch.Tensor    # i32[G, Cc, 2, N]
+    con_op: torch.Tensor      # i32[G, Cc] 0 ==, 1 !=, 2 disabled
+    con_exp: torch.Tensor     # i32[G, Cc, 2]
+    plat: torch.Tensor        # i32[G, P, 4] (-1 row sentinel = unused)
+    failures: torch.Tensor    # i32[G, N] recent failures for the group
+    leaf: torch.Tensor        # i32[G, N] spread leaf id (0 when no prefs)
+    extra_mask: torch.Tensor  # bool[G, N] plugin/volume masks
+    # tenant-quota rows (all-False for a blocked group); None when no
+    # group of the run is quota-blocked
+    quota_ok: Optional[torch.Tensor] = None   # bool[G, N] or None
+
+
+class FusedCarry(NamedTuple):
+    """Cluster state carried from group slot to group slot, and from chunk
+    to chunk of a run, on the device (never fetched).  :func:`plan_fused`
+    updates it in place, where the reference returns a new carry."""
+
+    total: torch.Tensor       # i32[N] active tasks total
+    cpu: torch.Tensor         # i64[N] available nano-cpus
+    mem: torch.Tensor         # i64[N] available memory bytes
+    svc_acc: torch.Tensor     # i32[S, N] tasks placed per service slot
+
+
+class FusedStrategy(NamedTuple):
+    """Per-group strategy ids and weights of a mixed-strategy run, and the
+    run-wide learned-scorer parameters.  Spread-only runs pass None."""
+
+    sid: torch.Tensor         # i32[G] strategy id (0 = spread)
+    weights: torch.Tensor     # i32[G, 4] weighted terms per group
+    w1: torch.Tensor          # i32[F, H] learned-scorer layer 1
+    b1: torch.Tensor          # i32[H]
+    w2: torch.Tensor          # i32[H]
+    b2: torch.Tensor          # i32[] scalar
+
+
+def _check_fused_inputs(shared: FusedShared, groups: FusedGroups,
+                        carry: FusedCarry,
+                        strat: Optional[FusedStrategy]) -> Tuple[int, int]:
+    dev = shared.valid.device
+    n = shared.valid.shape[0]
+    g = groups.k.shape[0]
+    s = shared.svc0.shape[0]
+    cc = groups.con_op.shape[-1]
+    npl = groups.plat.shape[1]
+    b, i32, i64 = torch.bool, torch.int32, torch.int64
+    _check("valid", shared.valid, b, (n,), dev)
+    _check("ready", shared.ready, b, (n,), dev)
+    _check("os_hash", shared.os_hash, i32, (2, n), dev)
+    _check("arch_hash", shared.arch_hash, i32, (2, n), dev)
+    _check("svc0", shared.svc0, i32, (s, n), dev)
+    for name in ("k", "slot", "maxrep"):
+        _check(name, getattr(groups, name), i32, (g,), dev)
+    _check("cpu_d", groups.cpu_d, i64, (g,), dev)
+    _check("mem_d", groups.mem_d, i64, (g,), dev)
+    _check("con_hash", groups.con_hash, i32, (g, cc, 2, n), dev)
+    _check("con_op", groups.con_op, i32, (g, cc), dev)
+    _check("con_exp", groups.con_exp, i32, (g, cc, 2), dev)
+    _check("plat", groups.plat, i32, (g, npl, 4), dev)
+    _check("failures", groups.failures, i32, (g, n), dev)
+    _check("leaf", groups.leaf, i32, (g, n), dev)
+    _check("extra_mask", groups.extra_mask, b, (g, n), dev)
+    if groups.quota_ok is not None:
+        _check("quota_ok", groups.quota_ok, b, (g, n), dev)
+    _check("total", carry.total, i32, (n,), dev)
+    _check("cpu", carry.cpu, i64, (n,), dev)
+    _check("mem", carry.mem, i64, (n,), dev)
+    _check("svc_acc", carry.svc_acc, i32, (s, n), dev)
+    if strat is not None:
+        _check("sid", strat.sid, i32, (g,), dev)
+        _check("weights", strat.weights, i32, (g, 4), dev)
+    return n, s
+
+
+# ---------------------------------------------------- K4: the scan step
+
+def _fused_prologue_plain(shared: FusedShared, carry: FusedCarry, cpu_d,
+                          mem_d, slot: int):
+    res_ok = shared.valid
+    cap = torch.full_like(carry.cpu, K_CLAMP)
+    for avail, d in ((carry.cpu, cpu_d), (carry.mem, mem_d)):
+        have = d > 0
+        res_ok = res_ok & (~have | (avail >= d))
+        cap = torch.where(have, torch.minimum(cap, torch.div(
+            avail, torch.clamp(d, min=1), rounding_mode="floor")), cap)
+    res_cap = torch.clamp(cap, 0, K_CLAMP).to(torch.int32)
+    return res_ok, res_cap, shared.svc0[slot] + carry.svc_acc[slot]
+
+
+def _fused_headroom(avail: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Headroom in demand units from the carry (reference
+    ``_fused_headroom``): the int64 floor division the per-group route
+    densifies on the host."""
+    hr = torch.clamp(torch.div(avail, torch.clamp(d, min=1),
+                               rounding_mode="floor"), 0, HR_CLAMP)
+    return torch.where(d > 0, hr, torch.full_like(hr, HR_CLAMP)).to(
+        torch.int32)
+
+
+def _slot_of(groups: FusedGroups, g: int, s: int) -> int:
+    """Plain versions only (a read of the device on the card): group g's
+    service slot, clamped into [0, S) as K4 clamps it."""
+    return min(max(int(groups.slot[g]), 0), s - 1)
+
+
+def _fused_prologue(shared: FusedShared, groups: FusedGroups,
+                    carry: FusedCarry, g: int, s: int, res_ok, res_cap, svc,
+                    hr_cpu=None, hr_mem=None) -> None:
+    """K4's prologue for group slot ``g``: writes res_ok, res_cap, svc
+    and, when given, the headroom columns (inputs checked by the
+    caller)."""
+    n = shared.valid.shape[0]
+    if not _on_cuda(shared.valid):
+        ok, cap, sv = _fused_prologue_plain(
+            shared, carry, groups.cpu_d[g], groups.mem_d[g],
+            _slot_of(groups, g, s))
+        res_ok.copy_(ok)
+        res_cap.copy_(cap)
+        svc.copy_(sv)
+        if hr_cpu is not None:
+            hr_cpu.copy_(_fused_headroom(carry.cpu, groups.cpu_d[g]))
+            hr_mem.copy_(_fused_headroom(carry.mem, groups.mem_d[g]))
+        return
+    FUSED_PROLOGUE(n, s, *map(_cuda.ptr, (
+        shared.valid, carry.cpu, carry.mem, groups.cpu_d[g],
+        groups.mem_d[g], groups.slot[g], shared.svc0, carry.svc_acc, res_ok,
+        res_cap, svc, hr_cpu, hr_mem)))
+
+
+def _fused_carry_plain(groups: FusedGroups, carry: FusedCarry, g: int,
+                       s: int, x: torch.Tensor) -> None:
+    x64 = x.to(torch.int64)
+    carry.total.add_(x)
+    carry.cpu.sub_(x64 * groups.cpu_d[g])
+    carry.mem.sub_(x64 * groups.mem_d[g])
+    carry.svc_acc[_slot_of(groups, g, s)].add_(x)
+
+
+def _fused_carry(groups: FusedGroups, carry: FusedCarry, g: int, s: int,
+                 x: torch.Tensor) -> None:
+    """K4's carry update after group slot ``g`` placed ``x``."""
+    n = x.shape[0]
+    if not _on_cuda(x):
+        _fused_carry_plain(groups, carry, g, s, x)
+        return
+    FUSED_CARRY(n, s, *map(_cuda.ptr, (
+        x, groups.cpu_d[g], groups.mem_d[g], groups.slot[g], carry.total,
+        carry.cpu, carry.mem, carry.svc_acc)))
+
+
+def plan_fused_packed(shared: FusedShared, groups: FusedGroups,
+                      carry: FusedCarry, L: int,
+                      strat: Optional[FusedStrategy], sids: Sequence[int],
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plan a chunk of group slots in order; returns the int32 rows
+    ``[G, x (N) | fail_counts (8) | spill (1)]`` (``out``, zeroed, when
+    given) and updates ``carry`` in place.
+
+    ``sids`` is the host's copy of each slot's strategy id, which picks the
+    slot's launch sequence without reading the device: K4 prologue, K1,
+    then K2 + 2 x K3 (spread, over the run-wide ``L`` leaves), K5
+    (binpack) or K6 + K3 (weighted, learned), then K4's carry update.
+    It equals ``strat.sid`` (all spread when ``strat`` is None).  Ids are
+    clipped to [0, 3] as the reference's switch clips them; padding slots
+    (k = 0) plan like any other and place nothing."""
+    n, s = _check_fused_inputs(shared, groups, carry, strat)
+    g_count = groups.k.shape[0]
+    dev = shared.valid.device
+    sids = [min(max(int(v), STRAT_SPREAD), STRAT_LEARNED) for v in sids]
+    if len(sids) != g_count:
+        raise ValueError(f"{len(sids)} strategy ids for {g_count} slots")
+    if strat is None and any(sids):
+        raise ValueError("non-spread group slots need a FusedStrategy")
+    if out is None:
+        out = torch.zeros((g_count, n + N_FILTERS + 1), dtype=torch.int32,
+                          device=dev)
+    _check("out", out, torch.int32, (g_count, n + N_FILTERS + 1), dev)
+    i32 = torch.int32
+    res_ok = torch.empty(n, dtype=torch.bool, device=dev)
+    res_cap = torch.empty(n, dtype=i32, device=dev)
+    svc = torch.empty(n, dtype=i32, device=dev)
+    scored = any(v in (STRAT_WEIGHTED, STRAT_LEARNED) for v in sids)
+    hr_cpu = torch.empty(n, dtype=i32, device=dev) if scored else None
+    hr_mem = torch.empty(n, dtype=i32, device=dev) if scored else None
+    hr_gen = torch.full((n,), HR_CLAMP, dtype=i32, device=dev) \
+        if scored else None
+    no_ports = torch.zeros(n, dtype=torch.bool, device=dev)
+    not_limited = torch.zeros((), dtype=torch.bool, device=dev)
+    for g, sid in enumerate(sids):
+        with_hr = sid in (STRAT_WEIGHTED, STRAT_LEARNED)
+        _fused_prologue(shared, groups, carry, g, s, res_ok, res_cap, svc,
+                        hr_cpu if with_hr else None,
+                        hr_mem if with_hr else None)
+        nodes = NodeInputs(
+            valid=shared.valid, ready=shared.ready, res_ok=res_ok,
+            res_cap=res_cap, svc_tasks=svc, total_tasks=carry.total,
+            failures=groups.failures[g], leaf=groups.leaf[g],
+            os_hash=shared.os_hash, arch_hash=shared.arch_hash,
+            port_conflict=no_ports, extra_mask=groups.extra_mask[g],
+            quota_ok=(groups.quota_ok[g] if groups.quota_ok is not None
+                      else None))
+        grp = GroupInputs(
+            k=groups.k[g], con_hash=groups.con_hash[g],
+            con_op=groups.con_op[g], con_exp=groups.con_exp[g],
+            plat=groups.plat[g], maxrep=groups.maxrep[g],
+            port_limited=not_limited)
+        row = out[g]
+        if sid == STRAT_SPREAD:
+            plan_group_packed(nodes, grp, L, out=row)
+        else:
+            sin = StrategyInputs(
+                hr_cpu=hr_cpu, hr_mem=hr_mem, hr_gen=hr_gen,
+                weights=strat.weights[g], w1=strat.w1, b1=strat.b1,
+                w2=strat.w2, b2=strat.b2) if with_hr else None
+            plan_strategy_packed(nodes, grp, sin, sid, out=row)
+        _fused_carry(groups, carry, g, s, row[:n])
+    return out
+
+
+def plan_fused(shared: FusedShared, groups: FusedGroups, carry: FusedCarry,
+               L: int, strat: Optional[FusedStrategy], sids: Sequence[int]):
+    """The reference ``plan_fused``'s outputs: (x i32[G, N], fail_counts
+    i32[G, 8], spill bool[G], carry) -- the carry updated in place.
+    Placements equal planning each group alone, in order, after applying
+    the groups before it."""
+    buf = plan_fused_packed(shared, groups, carry, L, strat, sids)
+    return (*unpack_fused(buf, shared.valid.shape[0]), carry)
+
+
+def unpack_fused(buf, n: int):
+    """Split fused result rows (torch tensor or numpy array, [G, N + 9])
+    into (x [G, N], fail_counts [G, 8], spill bool[G])."""
+    return buf[:, :n], buf[:, n:n + N_FILTERS], buf[:, n + N_FILTERS] != 0
 
 
 # ------------------------------------------------------------ D2H seam

@@ -7,17 +7,24 @@ consumes (``begin_tick``/``end_tick``, ``schedule_group``,
 device and return True, or return False/None so the scheduler runs its host
 path.
 
-This is the per-group route.  The fused many-service route, the streaming
-resident state, the non-spread strategy kernels, gang admission and device
-preemption are not part of this planner: the scheduler probes for each of
-them with ``hasattr`` and keeps the work on its host path.  Non-spread
-strategy groups go to their host oracle and count ``groups_strategy_host``.
+Two routes reach the card.  The per-group route plans one group per
+dispatch: a spread group through K1 -> K2 -> K3, a binpack, weighted or
+learned group through ``plan_strategy`` (K1, then K5 or K6 -> K3).  The
+fused route (``probe_fused_run`` .. ``abort_fused_run``) plans a run of
+consecutive fusable groups in chunks (``ops/fusedbatch.py``): per chunk one
+stream of launches over its group slots, K4 carrying the cluster state from
+slot to slot on the device, and one D2H of the chunk's result rows.  The
+streaming resident state, the breaker and small-group router, gang
+admission and device preemption are not part of this planner: the
+scheduler probes for each of them with ``hasattr`` and keeps the work on
+its host path.
 
 Groups go to the host path for the features the device path does not
 model: CSI volume mounts, non-discrete generic resources, spread trees
 deeper than 4 levels, and static buckets that overflow (``groups_fallback``).
 Nothing on the device path is caught: a kernel build, launch or fetch error
-propagates and fails the tick.
+propagates and fails the tick.  Only a fused run that cannot be built (no
+node, a bucket overflow) is routing: its groups take the per-group route.
 
 Densification builds SoA arrays from the scheduler's NodeSet mirror.  The
 group-independent node columns are built once per tick (begin_tick), kept
@@ -46,16 +53,17 @@ from ..scheduler import constraint as constraint_mod
 from ..scheduler import strategy as strategy_mod
 from ..scheduler.nodeinfo import NodeInfo
 from ..utils.metrics import registry as _metrics
-from . import densify
-from .convert import to_device
+from . import densify, fusedbatch
+from .convert import named_to_device, to_device
 from .densify import (
     CC_BUCKETS as _CC_BUCKETS, P_BUCKETS as _P_BUCKETS,
     bucket as _bucket, l_bucket as _l_bucket, n_bucket as _n_bucket,
 )
 from .kernel import (
-    K_CLAMP, WATERFILL_MAX_SEGMENTS, GroupInputs, NodeInputs,
-    feasibility_packed, fetch_plan, finish_fetch, plan_group_packed,
-    start_fetch, unpack_feasibility,
+    K_CLAMP, WATERFILL_MAX_SEGMENTS, FusedGroups, FusedStrategy, GroupInputs,
+    NodeInputs, StrategyInputs, feasibility_packed, fetch_plan, finish_fetch,
+    plan_fused_packed, plan_group_packed, plan_strategy_packed, start_fetch,
+    unpack_feasibility, unpack_fused,
 )
 
 _PLAN_TIMER = _metrics.timer("swarm_planner_plan_latency")
@@ -106,10 +114,10 @@ class _InFlightPlan:
     needs to finish the group once the result lands."""
 
     __slots__ = ("sched", "t", "task_group", "decisions", "built",
-                 "plan_t0", "pending", "bucket")
+                 "plan_t0", "pending", "bucket", "route")
 
     def __init__(self, sched, t, task_group, decisions, built, plan_t0,
-                 pending, bucket):
+                 pending, bucket, route="group"):
         self.sched = sched
         self.t = t
         self.task_group = task_group
@@ -118,6 +126,7 @@ class _InFlightPlan:
         self.plan_t0 = plan_t0
         self.pending = pending
         self.bucket = bucket
+        self.route = route      # "group" (spread) or "strategy"
 
 
 class TorchPlanner:
@@ -141,6 +150,9 @@ class TorchPlanner:
         # most ONE plan may be in flight: group i+1's input columns depend
         # on group i's apply
         self._inflight: deque = deque()
+        # fused many-service route; False sends every group down the
+        # per-group route (the same placements, one round-trip per group)
+        self.fused_enabled = True
 
         # device-plane saturation probe (obs/planes.py): dispatch-queue
         # depth read lazily at window-roll time; weakref so the probe never
@@ -157,9 +169,9 @@ class TorchPlanner:
     # swarm_planner_groups{route=...}; every increment goes through _count
     # so the stats dict and the metrics registry never disagree
     _ROUTE = {"groups_planned": "device",
+              "groups_fused": "fused",
               "groups_fallback": "fallback",
-              "groups_spill_to_host": "spill",
-              "groups_strategy_host": "strategy_host"}
+              "groups_spill_to_host": "spill"}
 
     def _count(self, key: str, delta: int = 1) -> None:
         self.stats[key] = self.stats.get(key, 0) + delta
@@ -333,11 +345,13 @@ class TorchPlanner:
     def dispatch_group(self, sched, task_group: Dict[str, Task],
                        decisions) -> Optional[_InFlightPlan]:
         """Pipeline stage 1: route, densify, and enqueue one group's plan
-        on the device: K1 -> K2 -> K3 on the current stream, then one
-        non-blocking copy of the result buffer to pinned host memory and
-        an event.  Nothing waits on the device here.  Returns an in-flight
-        handle to finish with ``fetch_group``, or None when the group is
-        not device-planned (the caller runs the host path)."""
+        on the device -- K1 -> K2 -> K3 for a spread group, K1 -> K5
+        (binpack) or K1 -> K6 -> K3 (weighted, learned) for a strategy
+        group, on the current stream -- then one non-blocking copy of the
+        result buffer to pinned host memory and an event.  Nothing waits
+        on the device here.  Returns an in-flight handle to finish with
+        ``fetch_group``, or None when the group is not device-planned (the
+        caller runs the host path)."""
         t = next(iter(task_group.values()))
         if not self._supported(t):
             self._fallback()
@@ -347,12 +361,7 @@ class TorchPlanner:
             # unknown strategy name: the host path serves it
             self._fallback()
             return None
-        if sinfo.sid != strategy_mod.STRAT_SPREAD:
-            # no strategy kernel in this planner: the group rides its host
-            # oracle (bit-equal placements by the strategy seam's contract)
-            self._count("groups_strategy_host")
-            self._cache = None   # host path mutates NodeInfos
-            return None
+        flat = sinfo.sid != strategy_mod.STRAT_SPREAD
 
         plan_t0 = time.perf_counter()
         k = len(task_group)
@@ -364,7 +373,9 @@ class TorchPlanner:
                 "dispatch_group with a plan already in flight: fetch it "
                 "first (its apply feeds this group's input columns)")
         with tracer.span("plan.build_inputs", "plan", tasks=k):
-            built = self._build_device_inputs(sched, t, k)
+            built = self._build_device_inputs(sched, t, k, flat=flat)
+            sin_np = self._build_strategy_inputs(built, t, sinfo) \
+                if flat and built is not None and built[1] else None
         if built is None:
             self._fallback()
             return None
@@ -373,26 +384,88 @@ class TorchPlanner:
         nodes_np, group_np, L, hier_np = built[7], built[8], built[9], \
             built[10]
         bucket = _bucket_label(nodes_np, group_np, L, hier_np)
+        route = "strategy" if flat else "group"
+        if flat:
+            bucket += f"_st{sinfo.sid}"
         with tracer.span("plan.dispatch", "plan", tasks=k):
             t0 = time.perf_counter()
             nodes_in, group_in, hier = self._to_device(nodes_np, group_np,
                                                        hier_np)
-            pending = start_fetch(plan_group_packed(nodes_in, group_in, L,
-                                                    hier))
-            _devtel.note_kernel(bucket, "group",
+            if flat:
+                _devtel.note_h2d("strategy_inputs",
+                                 _devtel.tree_nbytes(sin_np))
+                sin = named_to_device(StrategyInputs, sin_np, self.device)
+                buf = plan_strategy_packed(nodes_in, group_in, sin,
+                                           sinfo.sid)
+            else:
+                buf = plan_group_packed(nodes_in, group_in, L, hier)
+            pending = start_fetch(buf)
+            _devtel.note_kernel(bucket, route,
                                 dispatch_s=time.perf_counter() - t0,
                                 task_rows=k,
-                                node_rows=nodes_np.valid.shape[0])
+                                node_rows=nodes_np.valid.shape[0],
+                                strategy_id=sinfo.sid if flat else -1)
+        if flat:
+            strategy_mod.count_group(sinfo.name, "device")
         handle = _InFlightPlan(sched, t, task_group, decisions, built,
-                               plan_t0, pending, bucket)
+                               plan_t0, pending, bucket, route)
         self._inflight.append(handle)
         return handle
 
-    def _build_device_inputs(self, sched, t, k):
+    def _build_strategy_inputs(self, built, t, sinfo):
+        """The strategy columns of one group, as numpy ``StrategyInputs``
+        (reference ``_build_strategy_inputs``): per-resource headroom in
+        demand units (the exact int64 floor divisions that the host
+        oracle's ``build_host_columns`` applies per row), the per-service
+        weight vector, and the learned scorer's shipped weights.  Members
+        the strategy does not read are zeros."""
+        (infos, n, nb, valid, cpu, mem, total, _nodes_in, _group_in,
+         _L, _hier, cpu_d, mem_d, gen_wanted, _port_limited) = built
+        HR = strategy_mod.HR_CLAMP
+        if cpu_d > 0:
+            hr_cpu = np.clip(cpu // cpu_d, 0, HR).astype(np.int32)
+        else:
+            hr_cpu = np.full(nb, HR, np.int32)
+        if mem_d > 0:
+            hr_mem = np.clip(mem // mem_d, 0, HR).astype(np.int32)
+        else:
+            hr_mem = np.full(nb, HR, np.int32)
+        hr_gen = np.full(nb, HR, np.int32)
+        if gen_wanted:
+            for i, info in enumerate(infos):
+                gen_min = HR
+                for g in gen_wanted:
+                    avail = 0
+                    for r in info.available_resources.generic:
+                        if r.kind == g.kind:
+                            avail += (1 if r.res_type
+                                      == GenericResourceKind.NAMED
+                                      else r.value)
+                    gen_min = min(gen_min,
+                                  int(min(max(avail // g.value, 0), HR)))
+                hr_gen[i] = gen_min
+        if sinfo.uses_weights:
+            weights = strategy_mod.weights_of(t)
+        else:
+            weights = np.zeros(4, np.int32)
+        if sinfo.uses_learned:
+            w1, b1, w2, b2 = strategy_mod.learned_params()
+        else:
+            f = len(strategy_mod.MLP_FEATURES)
+            w1 = np.zeros((f, 1), np.int32)
+            b1 = np.zeros(1, np.int32)
+            w2 = np.zeros(1, np.int32)
+            b2 = np.zeros((), np.int32)
+        return StrategyInputs(hr_cpu=hr_cpu, hr_mem=hr_mem, hr_gen=hr_gen,
+                              weights=weights, w1=w1, b1=b1, w2=w2,
+                              b2=np.asarray(b2, np.int32))
+
+    def _build_device_inputs(self, sched, t, k, flat=False):
         """Densify the cluster + one task-group spec into numpy kernel
         inputs.  Shared by group planning and preassigned validation.
         Returns None when a static bucket overflows (caller falls back to
-        the host path)."""
+        the host path).  ``flat``: skip the spread-preference tree (a
+        non-spread strategy owns the scoring stage: one flat segment)."""
         cols = self._densify(sched, t)
         infos, n, nb, valid, ready, cpu, mem, total = cols
         if n == 0:
@@ -500,8 +573,9 @@ class TorchPlanner:
         leaf = np.zeros(nb, np.int32)
         L = 1
         hier = ()
-        prefs = [p for p in (placement.preferences if placement else [])
-                 if p.spread]
+        prefs = [] if flat else \
+            [p for p in (placement.preferences if placement else [])
+             if p.spread]
         if len(prefs) == 1:
             leaf, n_values = densify.flat_leaf(
                 infos, nb, prefs[0].spread.spread_descriptor)
@@ -705,7 +779,7 @@ class TorchPlanner:
         # the d2h wait IS the device plane's busy window
         d2h_dt = time.perf_counter() - d2h_t0
         _planes.plane(_planes.DEVICE).note_busy(d2h_dt)
-        _devtel.note_kernel(handle.bucket, "group", d2h_s=d2h_dt)
+        _devtel.note_kernel(handle.bucket, handle.route, d2h_s=d2h_dt)
         self._note_inflight(time.perf_counter() - plan_t0)
         if spill:
             # a spread branch saturated: the host oracle's convergence
@@ -762,3 +836,153 @@ class TorchPlanner:
         self._count("groups_planned")
         self._count("tasks_planned", placed)
         return True
+
+    # ------------------------------------------------------------ fused route
+
+    def probe_fused_run(self, sched, glist, start: int) -> list:
+        """Maximal run of consecutive fusable groups from ``glist[start:]``,
+        as parsed GroupSpecs.  Empty when fusion is off or the first group
+        is not fusable: the scheduler then takes the per-group route for
+        exactly the groups a per-group tick would route the same way."""
+        if not self.fused_enabled:
+            return []
+        specs = []
+        for group in glist[start:]:
+            spec = fusedbatch.probe_group(self, sched, group)
+            if spec is None:
+                break
+            specs.append(spec)
+        return specs
+
+    def dispatch_fused_run(self, sched, specs):
+        """Densify one fused run (>= 2 groups), move its node state to the
+        device and enqueue its first chunks.  Returns the FusedRun, or None
+        when the run cannot be built (no node, a bucket overflow): the
+        caller then takes its groups one by one, and no mirror state was
+        touched.  A device error propagates and fails the tick."""
+        run = fusedbatch.build_run(self, sched, specs)
+        if run is None:
+            self._count("fused_overflows")
+            return None
+        self._prepare_fused(run)
+        self._dispatch_fused_chunks(run)
+        return run
+
+    def _prepare_fused(self, run) -> None:
+        """Move the run's node state (FusedShared, FusedCarry) to the
+        device, where it stays for every chunk of the run.  The carry is
+        the builder's own copy of the mirror columns, so updating it in
+        place touches no mirror."""
+        _devtel.note_h2d("cold_build", _devtel.tree_nbytes(
+            (tuple(run.shared), tuple(run.carry))))
+        run.shared = named_to_device(type(run.shared), run.shared,
+                                     self.device)
+        run.carry = named_to_device(type(run.carry), run.carry, self.device)
+
+    def _dispatch_fused_chunks(self, run) -> None:
+        """Enqueue chunks until two are in flight (or the run is fully
+        dispatched): the device plans chunk i+1 while the host applies and
+        commits chunk i.  Each chunk writes its own result rows and copies
+        them into its own pinned buffer, so a later chunk's launches never
+        touch what an earlier chunk's copy reads; the carry they share is
+        ordered by the stream."""
+        while (not run.aborted and run.next_dispatch < len(run.chunks)
+               and run.next_dispatch - run.next_fetch < 2):
+            c = run.chunks[run.next_dispatch]
+            _devtel.note_h2d("fused_inputs",
+                             _devtel.tree_nbytes((c.groups, c.strat)))
+            c.t0 = time.perf_counter()
+            with tracer.span("plan.dispatch", "plan", tasks=c.tasks,
+                             fused_groups=c.count):
+                groups = named_to_device(FusedGroups, c.groups, self.device)
+                strat = None if c.strat is None else named_to_device(
+                    FusedStrategy, c.strat, self.device)
+                c.pending = start_fetch(plan_fused_packed(
+                    run.shared, groups, run.carry, run.L, strat,
+                    sids=c.sids))
+            _devtel.note_kernel(run.bucket_label(c), "fused",
+                                dispatch_s=time.perf_counter() - c.t0,
+                                groups=c.count, task_rows=c.tasks)
+            c.groups = None   # release the numpy staging buffers
+            c.strat = None
+            run.next_dispatch += 1
+            self._count("fused_chunks")
+
+    def fetch_fused_chunk(self, run):
+        """Wait for the next chunk's D2H and keep two chunks in flight.
+        Returns (x [G, N], fail_counts [G, 8], spill [G], start, count) as
+        numpy, or None when the run is exhausted or aborted."""
+        if run.aborted or run.next_fetch >= run.next_dispatch:
+            return None
+        c = run.chunks[run.next_fetch]
+        d2h_t0 = time.perf_counter()
+        with tracer.span("plan.d2h", "plan"):
+            rows = finish_fetch(c.pending)
+            _devtel.note_d2h("fetch", int(rows.nbytes))
+        c.pending = None
+        run.next_fetch += 1
+        end = time.perf_counter()
+        _planes.plane(_planes.DEVICE).note_busy(end - d2h_t0)
+        _devtel.note_kernel(run.bucket_label(c), "fused", d2h_s=end - d2h_t0)
+        # chunk windows overlap (two in flight): charge plan_seconds only
+        # the wall time this chunk added beyond the previous fetch
+        self._observe_plan(end - max(c.t0, run.last_fetch_end))
+        run.last_fetch_end = end
+        self._note_inflight(end - c.t0)
+        self._dispatch_fused_chunks(run)   # keep the pipeline primed
+        xs, fcs, spills = unpack_fused(rows, run.nb)
+        return xs, fcs, spills, c.start, c.count
+
+    def apply_fused_group(self, run, gi: int, x_row, fail_row,
+                          decisions) -> int:
+        """Apply one fused group's placements to the scheduler mirrors and
+        decision draft: the same simple-path apply as ``fetch_group``
+        (fusable groups have no generic resources, host ports or
+        shutdown-marked stragglers).  Returns the number of tasks placed;
+        the group dict keeps any unplaceable leftovers and
+        ``last_explanation`` is set for the caller's no-suitable-node
+        pass."""
+        spec = run.specs[gi]
+        sched, t, task_group = run.sched, spec.t, spec.group
+        infos, n, nb, valid, ready, cpu, mem, total = run.cols
+        self.last_explanation = self._explain(fail_row)
+        x = np.asarray(x_row)
+        slots = np.repeat(np.arange(x.shape[0]), x).tolist()
+        items = list(task_group.items())
+        placed = min(len(items), len(slots))
+        with tracer.span("plan.apply", "plan", tasks=placed):
+            self._apply_assignments(sched, t, items[:placed],
+                                    slots[:placed], infos, decisions,
+                                    spec.cpu_d, spec.mem_d, x, cpu, mem,
+                                    total)
+        if placed == len(task_group):
+            task_group.clear()
+        else:
+            for task_id, _ in items[:placed]:
+                del task_group[task_id]
+        self._count("groups_fused")
+        if spec.sid:
+            strategy_mod.count_group(spec.sname, "device")
+        self._count("tasks_planned", placed)
+        return placed
+
+    def note_fused_spill(self, run) -> None:
+        """A fused group's spread branches saturated: the group goes to
+        the host oracle for exact reference parity (as on the per-group
+        route), which invalidates the column cache and aborts the rest of
+        the run -- later groups were planned against this group's device
+        placement, which no longer happens."""
+        self._count("groups_spill_to_host")
+        self._cache = None
+        self.abort_fused_run(run)
+
+    def abort_fused_run(self, run) -> None:
+        """Release a fused run (at its end or on an abort): staging
+        buffers, pending copies and the device state."""
+        run.aborted = True
+        for c in run.chunks:
+            c.pending = None
+            c.groups = None
+            c.strat = None
+        run.carry = None
+        run.shared = None

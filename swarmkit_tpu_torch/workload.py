@@ -8,6 +8,12 @@ global service's tasks do.  ``one_tick`` runs the scheduler's
 production sequence on it once: mirror setup, preassigned validation, one
 tick.  The headline workload (10,000 nodes x 100,000 tasks, 20%
 preassigned, spread over ``node.labels.rack``) is ``headline_cluster``.
+
+``many_service_cluster`` is the many-service tick of a manager that runs
+ten services: bench.py's config 7 (10,000 nodes, 10 replicated services of
+50,000 tasks, 0.1 CPU + 64 MiB each, all pending in one tick), with the
+services split over the four placement strategies (``MANY_SERVICE_MIX``):
+four spread over the rack label, two binpack, two weighted, two learned.
 """
 
 from __future__ import annotations
@@ -26,6 +32,17 @@ from .utils import new_id
 HEADLINE_NODES = 10_000
 HEADLINE_TASKS = 100_000
 HEADLINE_GLOBAL_SHARE = 0.2
+
+MANY_SERVICE_NODES = 10_000
+MANY_SERVICE_TASKS = 500_000
+#: (strategy, spread over the rack label, strategy weights) per service
+MANY_SERVICE_MIX = (
+    ("spread", True, None), ("spread", True, None),
+    ("spread", True, None), ("spread", True, None),
+    ("binpack", False, None), ("binpack", False, None),
+    ("weighted", False, {"spread": 2, "cpu": 3}), ("weighted", False, None),
+    ("learned", False, None), ("learned", False, None),
+)
 
 
 def rack_spread():
@@ -116,3 +133,61 @@ def one_tick(store, planner):
     n_dec = sched.tick()
     n_dec += n_pre - len(sched.pending_preassigned_tasks)
     return sched, n_dec, time.perf_counter() - t0
+
+
+def many_service_cluster(n_nodes=MANY_SERVICE_NODES,
+                         n_tasks=MANY_SERVICE_TASKS, mix=MANY_SERVICE_MIX):
+    """(store, services, nodes, tasks): ``n_nodes`` nodes as
+    ``build_cluster`` makes them and ``n_tasks`` PENDING tasks split
+    evenly over one replicated service per entry of ``mix``, each task
+    reserving 0.1 CPU and 64 MiB."""
+    store = MemoryStore()
+    nodes = [Node(
+        id=new_id(),
+        spec=NodeSpec(annotations=Annotations(
+            name=f"node-{i:05d}", labels={"rack": f"r{i % 20}"})),
+        status=NodeStatus(state=NodeState.READY),
+        description=NodeDescription(
+            hostname=f"node-{i:05d}",
+            platform=Platform(os="linux", architecture="amd64"),
+            resources=Resources(nano_cpus=64 * 10**9,
+                                memory_bytes=256 << 30)))
+        for i in range(n_nodes)]
+    services, tasks = [], []
+    per = n_tasks // len(mix)
+    for si, (strategy, spread, weights) in enumerate(mix):
+        count = per if si < len(mix) - 1 else n_tasks - per * si
+        spec = TaskSpec(
+            placement=Placement(
+                preferences=rack_spread() if spread else [],
+                strategy=strategy, strategy_weights=dict(weights or {})),
+            resources=ResourceRequirements(reservations=Resources(
+                nano_cpus=10**8, memory_bytes=64 << 20)))
+        svc = Service(
+            id=new_id(),
+            spec=ServiceSpec(annotations=Annotations(name=f"bench-{si}"),
+                             mode=ServiceMode.REPLICATED,
+                             replicated=ReplicatedService(replicas=count),
+                             task=spec),
+            spec_version=Version(index=1))
+        services.append(svc)
+        for s in range(1, count + 1):
+            tasks.append(Task(id=new_id(), service_id=svc.id, slot=s,
+                              desired_state=TaskState.RUNNING, spec=spec,
+                              spec_version=Version(index=1),
+                              status=TaskStatus(state=TaskState.PENDING)))
+
+    def create_nodes(tx):
+        for n in nodes:
+            tx.create(n)
+        for svc in services:
+            tx.create(svc)
+
+    store.update(create_nodes)
+
+    def create_tasks(tx):
+        for t in tasks:
+            tx.create(t)
+
+    store.update(create_tasks)
+    return store, services, nodes, tasks

@@ -12,9 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import plan_inputs
+from chip_smoke import fused_inputs, plan_inputs
 from swarmkit_tpu_torch.ops import kernel as K
-from swarmkit_tpu_torch.ops.convert import to_device
+from swarmkit_tpu_torch.ops.convert import fused_to_device, to_device
 
 pytestmark = pytest.mark.gpu
 
@@ -104,15 +104,206 @@ def test_plan_group_on_card_matches_cpu(case):
     _eq(got, K.plan_group_packed(cn, cg, L, ch))
 
 
+def _launched(fn):
+    before = {k.name: k.launches for k in K.KERNELS}
+    fn()
+    torch.cuda.synchronize()
+    return {k.name: k.launches - before[k.name] for k in K.KERNELS
+            if k.launches != before[k.name]}
+
+
 def test_kernels_count_launches():
     dev = _card()
     nodes, group, L, hier = _inputs("small_rack", dev)
-    before = [k.launches for k in K.KERNELS]
-    K.plan_group_packed(nodes, group, L, hier)
-    torch.cuda.synchronize()
-    after = [k.launches for k in K.KERNELS]
     # K1 once, K2 once (one spread level), K3 twice (stage A + stage B)
-    assert [a - b for a, b in zip(after, before)] == [1, 1, 2]
+    assert _launched(lambda: K.plan_group_packed(nodes, group, L, hier)) \
+        == {"feasibility": 1, "seg_sum": 1, "waterfill": 2}
+
+
+# ------------------------------------------------------------- K4, K5, K6
+
+FUSED_SHAPES = {
+    "nb1024": dict(nb=1024, n_valid=1000),
+    "nb16384": dict(nb=16384, n_valid=10000),
+    "nb16384_quota": dict(nb=16384, n_valid=10000, quota=True),
+}
+
+
+def _fused(case, device):
+    shared, groups, carry, strat, L = fused_inputs(
+        11, **{k: v for k, v in FUSED_SHAPES[case].items()})
+    return (*fused_to_device(shared, groups, carry, strat, device=device), L)
+
+
+def _strategy_nodes(shared, groups, carry, g):
+    """The NodeInputs/GroupInputs a fused slot's plan reads, from the
+    plain prologue."""
+    s = shared.svc0.shape[0]
+    n = shared.valid.shape[0]
+    dev = shared.valid.device
+    ok, cap, svc = K._fused_prologue_plain(
+        shared, carry, groups.cpu_d[g], groups.mem_d[g],
+        K._slot_of(groups, g, s))
+    nodes = K.NodeInputs(
+        valid=shared.valid, ready=shared.ready, res_ok=ok, res_cap=cap,
+        svc_tasks=svc, total_tasks=carry.total, failures=groups.failures[g],
+        leaf=groups.leaf[g], os_hash=shared.os_hash,
+        arch_hash=shared.arch_hash,
+        port_conflict=torch.zeros(n, dtype=torch.bool, device=dev),
+        extra_mask=groups.extra_mask[g])
+    grp = K.GroupInputs(
+        k=groups.k[g], con_hash=groups.con_hash[g], con_op=groups.con_op[g],
+        con_exp=groups.con_exp[g], plat=groups.plat[g],
+        maxrep=groups.maxrep[g],
+        port_limited=torch.zeros((), dtype=torch.bool, device=dev))
+    sin = K.StrategyInputs(
+        hr_cpu=K._fused_headroom(carry.cpu, groups.cpu_d[g]),
+        hr_mem=K._fused_headroom(carry.mem, groups.mem_d[g]),
+        hr_gen=torch.full((n,), K.HR_CLAMP, dtype=torch.int32, device=dev),
+        weights=torch.tensor([2, 3, 1, 1], dtype=torch.int32, device=dev),
+        w1=None, b1=None, w2=None, b2=None)
+    return nodes, grp, sin
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_SHAPES))
+def test_fused_prologue_kernel_matches_plain(case):
+    dev = _card()
+    shared, groups, carry, strat, L = _fused(case, dev)
+    n = shared.valid.shape[0]
+    s = shared.svc0.shape[0]
+    for g in range(groups.k.shape[0]):
+        outs = [torch.empty(n, dtype=torch.bool, device=dev)] + [
+            torch.empty(n, dtype=torch.int32, device=dev) for _ in range(4)]
+        K._fused_prologue(shared, groups, carry, g, s, *outs)
+        torch.cuda.synchronize()
+        ok, cap, svc = K._fused_prologue_plain(
+            shared, carry, groups.cpu_d[g], groups.mem_d[g],
+            K._slot_of(groups, g, s))
+        for got, want in zip(outs, (
+                ok, cap, svc, K._fused_headroom(carry.cpu, groups.cpu_d[g]),
+                K._fused_headroom(carry.mem, groups.mem_d[g]))):
+            _eq(got, want)
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_SHAPES))
+def test_fused_carry_kernel_matches_plain(case):
+    dev = _card()
+    shared, groups, carry, strat, L = _fused(case, dev)
+    n = shared.valid.shape[0]
+    s = shared.svc0.shape[0]
+    x = torch.randint(0, 7, (n,), generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev, dtype=torch.int32)
+    a = K.FusedCarry(*(t.clone() for t in carry))
+    b = K.FusedCarry(*(t.clone() for t in carry))
+    for g in range(groups.k.shape[0]):
+        K._fused_carry(groups, a, g, s, x)
+        K._fused_carry_plain(groups, b, g, s, x)
+    torch.cuda.synchronize()
+    for got, want in zip(a, b):
+        _eq(got, want)
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_SHAPES))
+def test_packfill_kernel_matches_plain(case):
+    dev = _card()
+    shared, groups, carry, strat, L = _fused(case, dev)
+    nodes, grp, _ = _strategy_nodes(shared, groups, carry, 1)
+    _, cap, _ = K._feasibility_plain(nodes, grp)
+    n = cap.shape[0]
+    seg = torch.zeros(n, dtype=torch.int32, device=dev)
+    key = K._binpack_key(nodes.res_cap, nodes.failures)
+    total = int(cap.sum())
+    for k in (0, 1, 777, int(groups.k[1]), total, total + 5):
+        kk = torch.tensor([k], dtype=torch.int32, device=dev)
+        out = torch.empty(n, dtype=torch.int32, device=dev)
+        got = K._packfill(res_cap=nodes.res_cap, failures=nodes.failures,
+                          cap=cap, k=kk, out=out)
+        torch.cuda.synchronize()
+        _eq(got, K._packfill_plain(key, cap, kk, seg, 1))
+    # the general form (any key, any segments) is the plain version only
+    with pytest.raises(ValueError):
+        K.seg_packfill(key, cap, kk, seg, 1)
+
+
+@pytest.mark.parametrize("mode", ["spread", "weighted", "learned"])
+@pytest.mark.parametrize("case", sorted(FUSED_SHAPES))
+def test_strategy_score_kernel_matches_plain(case, mode):
+    dev = _card()
+    shared, groups, carry, strat, L = _fused(case, dev)
+    nodes, _, sin = _strategy_nodes(shared, groups, carry, 2)
+    sin = sin._replace(w1=strat.w1, b1=strat.b1, w2=strat.w2, b2=strat.b2)
+    sid = {"spread": 0, "weighted": 2, "learned": 3}[mode]
+    got = K.strategy_score(nodes, sin, sid)
+    torch.cuda.synchronize()
+    _eq(got, K._strategy_score_plain(nodes, sin, sid))
+
+
+@pytest.mark.parametrize("strategy", [1, 2, 3])
+@pytest.mark.parametrize("case", sorted(FUSED_SHAPES))
+def test_plan_strategy_on_card_matches_cpu(case, strategy):
+    dev = _card()
+    bufs = []
+    for device in (dev, "cpu"):
+        shared, groups, carry, strat, L = _fused(case, device)
+        nodes, grp, sin = _strategy_nodes(shared, groups, carry, strategy)
+        sin = sin._replace(w1=strat.w1, b1=strat.b1, w2=strat.w2,
+                           b2=strat.b2)
+        bufs.append(K.plan_strategy_packed(nodes, grp, sin, strategy))
+    torch.cuda.synchronize()
+    _eq(bufs[0], bufs[1])
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_SHAPES))
+def test_fused_chunk_on_card_matches_cpu(case):
+    dev = _card()
+    outs = []
+    for device in (dev, "cpu"):
+        shared, groups, carry, strat, L = _fused(case, device)
+        buf = K.plan_fused_packed(shared, groups, carry, L, strat,
+                                  strat.sid.cpu().tolist())
+        outs.append((buf, carry))
+    torch.cuda.synchronize()
+    _eq(outs[0][0], outs[1][0])
+    for a, b in zip(outs[0][1], outs[1][1]):
+        _eq(a, b)
+
+
+def test_fused_chunk_counts_launches():
+    dev = _card()
+    shared, groups, carry, strat, L = _fused("nb1024", dev)
+    # slots: spread, binpack, weighted, learned
+    assert _launched(lambda: K.plan_fused_packed(
+        shared, groups, carry, L, strat, [0, 1, 2, 3])) == {
+        "fused_prologue": 4, "fused_carry": 4, "feasibility": 4,
+        "seg_sum": 1, "waterfill": 4, "packfill": 1, "strategy_score": 2}
+
+
+def test_many_service_tick_on_card_matches_host_path():
+    _card()
+    from collections import Counter
+
+    from swarmkit_tpu_torch.models import Task
+    from swarmkit_tpu_torch.ops import TorchPlanner
+    from swarmkit_tpu_torch.scheduler import Scheduler
+    from swarmkit_tpu_torch.workload import many_service_cluster
+
+    def counts(planner):
+        store, services, nodes, _ = many_service_cluster(300, 3000)
+        sched = Scheduler(store, batch_planner=planner)
+        store.view(sched._setup_tasks_list)
+        sched.tick()
+        name = {s.id: s.spec.annotations.name for s in services}
+        host = {n.id: n.description.hostname for n in nodes}
+        return Counter((name[t.service_id], host[t.node_id])
+                       for t in store.view(lambda tx: tx.find(Task))
+                       if t.node_id)
+
+    planner = TorchPlanner()
+    got = counts(planner)
+    assert got == counts(None)
+    assert sum(got.values()) == 3000
+    assert planner.stats["groups_fused"] == 10
+    assert planner.stats["tasks_planned"] == 3000
 
 
 def test_planner_tick_on_card_matches_host_path():

@@ -229,9 +229,8 @@ CASES = {
         preassign=["big", "big", "big", "small", "small", "down"]),
     "no_suitable_node": dict(nodes=[dict(name="tiny", cpus=1)], tasks=1,
                              task_cpus=64),
-    # no strategy kernel in the port yet: the scheduler's host path places
-    # these (the learned scorer reads the port's own copy of its weights)
-    # and must agree with the reference's device strategy kernels
+    # the per-group strategy route: K1, then K5 (binpack) or K6 + K3
+    # (weighted, learned) against the reference's strategy kernels
     **{f"strategy_{name}": dict(
         nodes=[dict(name=f"n{i}", cpus=4 + (i % 5) * 4,
                     labels={"rack": f"r{i % 3}"}) for i in range(10)],
@@ -254,7 +253,9 @@ def test_placements_match_reference_planner(case):
     stats = sched.batch_planner.stats
     if spec.get("strategy", "spread") != "spread":
         assert all(placed)
-        assert stats["groups_strategy_host"] == 1, stats
+        # the strategy kernels planned the group on the device
+        assert stats["groups_planned"] == 1, stats
+        assert stats.get("groups_strategy_host", 0) == 0, stats
     elif not spec.get("preassign"):
         # the device path must at least have attempted the group; a spill
         # to the host is a legitimate outcome, then both sides ran the host
@@ -283,21 +284,39 @@ def test_no_suitable_node_explanation():
     assert errs == ["no suitable node (insufficient resources on 1 node)"]
 
 
-def test_non_spread_strategy_goes_to_host_oracle():
-    from swarmkit_tpu_torch.scheduler import strategy as strategy_mod
+@pytest.mark.parametrize("strategy", ["binpack", "weighted", "learned"])
+def test_non_spread_strategy_goes_to_device(strategy):
+    """A binpack, weighted or learned group takes the per-group strategy
+    route on the device (its spread preference ignored, as the reference
+    ignores it) and places exactly as ``TPUPlanner``, by creation index."""
+    spec = dict(
+        nodes=[dict(name=f"n{i}", cpus=2 + 3 * (i % 4),
+                    labels={"rack": f"r{i % 2}"}) for i in range(12)],
+        tasks=25, task_cpus=1, strategy=strategy,
+        strategy_weights={"spread": 2, "cpu": 3},
+        spread=["node.labels.rack"])
+    ref_placed, ref_errs, ref_sched = run(REF, spec, ref_planner())
+    placed, errs, sched = run(PORT, spec, port_planner())
+    assert placed == ref_placed
+    assert errs == ref_errs
+    assert ref_sched.batch_planner.stats["groups_planned"] == 1
+    stats = sched.batch_planner.stats
+    assert stats["groups_planned"] == 1, stats
+    assert stats.get("groups_strategy_host", 0) == 0, stats
+    assert stats["tasks_planned"] == sum(p is not None for p in placed)
+
+    # the dispatch itself: a handle on the strategy route, fetched and
+    # applied like a spread plan
     from swarmkit_tpu_torch.ops import TorchPlanner
-    spec = dict(nodes=_nodes(["n0", "n1", "n2"]), tasks=6)
-    store, svc, nodes, tasks = build(PORT, spec)
-    M, _, S, Sched, _ = _mods(PORT)
+    store, _, _, tasks = build(PORT, spec)
+    Sched = _mods(PORT)[3]
     planner = TorchPlanner(device="cpu")
     sched = Sched.Scheduler(store, batch_planner=planner)
     store.view(sched._setup_tasks_list)
-    t = tasks[0]
-    binpack = strategy_mod.resolve("binpack")
-    orig = strategy_mod.strategy_of
-    strategy_mod.strategy_of = lambda task: binpack.name
-    try:
-        assert planner.dispatch_group(sched, {t.id: t}, {}) is None
-    finally:
-        strategy_mod.strategy_of = orig
-    assert planner.stats["groups_strategy_host"] == 1
+    group = {t.id: t for t in tasks[:4]}
+    planner.begin_tick(sched)
+    handle = planner.dispatch_group(sched, group, {})
+    assert handle is not None and handle.route == "strategy"
+    assert planner.fetch_group(handle) is True
+    planner.end_tick()
+    assert not group          # all four placed
