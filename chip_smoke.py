@@ -30,17 +30,37 @@ Phases, each of which exits non-zero on failure:
 8. traced many-service tick: its traced twin;
 9. many-service host oracle: at 1,000 nodes x 10,000 tasks, per-service
    per-node counts of the card's fused tick equal the host path's (the
-   spread tree walk and ``scheduler/strategy.py``'s oracles).
+   spread tree walk and ``scheduler/strategy.py``'s oracles);
+10. kernels K7 and K8 at node bucket 16384: the dirty-row scatter at 16,
+    256 and 4096 update slots (with pad slots) and the gang fit at G = 1
+    (with a quota column) and G = 8 (totals at k - 1, k, k + 1 and above
+    2^24), each bit-equal to its plain version on the card; K7 also timed
+    against ``index_copy_`` over the five columns;
+11. steady-state churn: bench.py's config 10 (8,192 nodes, 12,000 base
+    tasks, 12 seeded windows of Poisson arrivals and exits, plus a 13th in
+    which three services arrive at once) through the store watch feed,
+    once with the streaming resident state and once with full rebuilds:
+    equal placement digests, at least 13 incremental refreshes and no
+    fallback after the cold tick, K7 launched, the fused run seeded from
+    the resident columns, and the resident CUDA columns equal to the host
+    mirror after the last tick;
+12. gang fleet: bench.py's config 12 gangs (400 nodes, 72 gangs, 416
+    members): every gang admitted whole in one tick with 80 verdicts from
+    K8 (64 per group, 16 fused rows), placements equal to the host path's
+    by creation index, and an added infeasible gang deferred whole.
 
 The counts of kernel launches are set to 0 just before each main path and
-read just after it; the kernels' JSON line reports the many-service path's,
-on which every kernel runs.  The last lines are that JSON line, the card's
-name and power limit, and ``{"ok": true, "device": {...}}``.  The full
-record also goes to ``chiprun_out/chip_smoke.json``.
+read just after it; the kernels' JSON line reports K1-K6 from the
+many-service path, K7 from the churn path and K8 from the gang path.  The
+last lines are that JSON line, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.  The full record also goes to
+``chiprun_out/chip_smoke.json``.
 """
 
+import hashlib
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -294,6 +314,65 @@ def fused_inputs(seed, nb=16384, n_valid=10000, strategies=(0, 1, 2, 3),
     return shared, groups, carry, strat, L
 
 
+def scatter_inputs(seed, nb=16384, d=200, db=256):
+    """Seeded numpy (five resident columns [nb], a packed scatter buffer
+    of ``db`` slots: ``d`` unique rows, then pad slots at index nb)."""
+    import numpy as np
+    from swarmkit_tpu_torch.ops.kernel import pack_scatter
+    rng = np.random.RandomState(seed)
+    cols = (rng.rand(nb) < 0.95, rng.rand(nb) < 0.9,
+            rng.randint(-2**40, 2**40, nb).astype(np.int64),
+            rng.randint(-2**40, 2**40, nb).astype(np.int64),
+            rng.randint(0, 2000, nb).astype(np.int32))
+    idx = np.full(db, nb, np.int32)
+    idx[:d] = rng.choice(nb, d, replace=False)
+    upd = (rng.rand(db) < 0.5, rng.rand(db) < 0.5,
+           rng.randint(-2**50, 2**50, db).astype(np.int64),
+           rng.randint(-2**50, 2**50, db).astype(np.int64),
+           rng.randint(0, 2**31 - 1, db).astype(np.int32))
+    return cols, pack_scatter(idx, *upd)
+
+
+GANG_VARIANTS = (dict(), dict(maxrep=5), dict(port_limited=True),
+                 dict(plat_wildcard=False))
+
+
+def gang_rows(seed, g_count, nb=16384, n_valid=10000, quota=False):
+    """Seeded numpy (NodeInputs, GroupInputs) of ``g_count`` gangs at the
+    headline shapes (4 constraint slots, 4 platform rows), the filter
+    variants in turn.  Gang g asks for its capacity total minus one, the
+    total, or the total plus one (g % 3); of several gangs the last (no
+    variant) holds nodes of K_CLAMP capacity, a total above 2^24, and asks
+    K_CLAMP."""
+    import numpy as np
+    from swarmkit_tpu_torch.ops import kernel as K
+    from swarmkit_tpu_torch.ops.convert import gang_to_device
+    rows = []
+    for g in range(g_count):
+        near = g_count > 1 and g == g_count - 1
+        nodes, group, _, _ = plan_inputs(
+            seed + g, nb=nb, n_valid=n_valid, n_leaves=20, k=K.K_CLAMP,
+            near_2p24=near, quota=quota,
+            **({} if near else GANG_VARIANTS[g % len(GANG_VARIANTS)]))
+        if not near:
+            # per-node capacities stay below k here, so k moves only the
+            # verdict, not the capacities
+            total = int(K.unpack_gang(K.gang_fit_packed(
+                *gang_to_device([(nodes, group)], "cpu")), 1)[2][0])
+            group = group._replace(k=np.int32(max(total + g % 3 - 1, 0)))
+        rows.append((nodes, group))
+    return rows
+
+
+def gang_bytes(rows):
+    """The bytes K8 must move: per gang, the node columns its filters
+    read (K1's count without K1's capacity and mask writes and fail
+    counts), plus each gang's 48-byte result row."""
+    n = rows[0][0].valid.shape[0]
+    return sum(feasibility_bytes(nodes, group) - 5 * n - 32 + 48
+               for nodes, group in rows)
+
+
 def phase_build(cuda):
     t0 = time.perf_counter()
     res = cuda.build()
@@ -435,11 +514,29 @@ def phase_kernels(torch, K, to_device):
                                                          hier))
     plan_dev = device_ms(torch, lambda: K.plan_group_packed(nodes, group, L,
                                                             hier), ("",))
+
+    def plan_plain():
+        """plan_group's plain composition on the card: K1, K2 and both K3
+        stages as plain PyTorch, the placement x."""
+        _, cap_p, _ = K._feasibility_plain(nodes, group)
+        load_p, bcap_p, raw_p, kk_p = K._seg_sum_plain(
+            nodes.svc_tasks, nodes.valid, cap_p, nodes.leaf, L, group.k)
+        k_br = K._waterfill_plain(
+            load_p, bcap_p, torch.arange(L, dtype=torch.int32, device=dev),
+            kk_p, torch.zeros(L, dtype=torch.int32, device=dev), 1)
+        K._level_spill(k_br, raw_p)
+        return K._waterfill_plain(K.spread_score(nodes), cap_p, tie, k_br,
+                                  nodes.leaf, L)
+
+    check(torch.equal(plan_plain().cpu(), on_cpu[:n]),
+          "plan_group's plain composition on the card differs")
+    plan_plain_ms = time_ms(torch, plan_plain, reps=10, warmup=2)
     print(f"kernels: plan_group (K1 + K2 + 2 x K3) {plan_ms:.4f} ms per call "
           "(CUDA events), device "
           + ("not measured" if plan_dev is None
              else f"{plan_dev:.4f} ms per call (torch.profiler, every "
-             "device op)"), flush=True)
+             "device op)")
+          + f"; plain composition {plan_plain_ms:.4f} ms", flush=True)
     for r in rows:
         check(r["err"] == 0, f"{r['kernel'].name}: kernel differs from its "
               f"plain version (max abs err {r['err']})")
@@ -449,7 +546,7 @@ def phase_kernels(torch, K, to_device):
               + ("not measured (the profiler saw no device time)"
                  if dev_ms is None else f"{dev_ms:.4f} ms per call "
                  "(torch.profiler)"), flush=True)
-    return rows, dict(ms=plan_ms, device_ms=plan_dev)
+    return rows, dict(ms=plan_ms, device_ms=plan_dev, plain_ms=plan_plain_ms)
 
 
 def phase_kernels_fused(torch, K, fused_to_device):
@@ -645,6 +742,331 @@ def phase_kernels_fused(torch, K, fused_to_device):
                       waterfill_one_segment_device_ms=flat_dev)
 
 
+def phase_kernels_resident(torch, K, gang_to_device):
+    """K7 and K8 against their plain versions at node bucket 16384."""
+    dev = torch.device("cuda")
+    rows = []
+
+    # ---- K7: the dirty-row scatter at each staging bucket
+    per_bucket = {}
+    for d, db in ((13, 16), (200, 256), (3000, 4096)):
+        cols_np, packed_np = scatter_inputs(31 + db, d=d, db=db)
+        cols = [torch.from_numpy(c).to(dev) for c in cols_np]
+        packed = torch.from_numpy(packed_np).to(dev)
+        got = [c.clone() for c in cols]
+        K.scatter_rows(got, packed)
+        want = [c.clone() for c in cols]
+        K._scatter_rows_plain(want, packed, db)
+        err = max_abs_err(torch, got, want)
+        check(all(not torch.equal(g, c) for g, c in zip(got, cols)),
+              f"scatter at d={d} wrote no row")
+        idx, *upd = K.scatter_views(packed, db)
+        keep = idx < cols[0].shape[0]
+        rows_t = idx[keep].to(torch.int64)
+        upd = [u[keep] for u in upd]
+        scratch = [c.clone() for c in cols]
+
+        def library(scratch=scratch, rows_t=rows_t, upd=upd):
+            for c, u in zip(scratch, upd):
+                c.index_copy_(0, rows_t, u)
+
+        per_bucket[db] = dict(
+            kernel=K.SCATTER, err=err,
+            # the in-range slots read whole (26 B) and written (22 B); a
+            # pad slot's index read (4 B)
+            bytes=26 * d + 4 * (db - d) + 22 * d, ops=6 * db,
+            device_ms=device_ms(torch, lambda: K.scatter_rows(
+                scratch, packed), ("scatter_rows_kernel",)),
+            ms=time_ms(torch, lambda: K.scatter_rows(scratch, packed)),
+            plain_ms=time_ms(torch, lambda: K._scatter_rows_plain(
+                scratch, packed, db)),
+            library_ms=time_ms(torch, library), d=d, db=db)
+    rows.append(per_bucket[256])
+
+    # ---- K8: the gang fit, one gang (with a quota column) and eight
+    per_g = {}
+    for g_count, quota in ((1, True), (8, False)):
+        gang_np = gang_rows(500 + g_count, g_count, quota=quota)
+        nodes, groups = gang_to_device(gang_np, dev)
+        got = K.unpack_gang(K.gang_fit_packed(nodes, groups), g_count)
+        want = K._gang_fit_plain(nodes, groups)
+        err = max_abs_err(torch, got, want)
+        fits = want[0].tolist()
+        if g_count > 1:
+            check(fits == [g % 3 != 2 for g in range(g_count - 1)] + [True]
+                  and int(want[2][-1]) > 1 << 24,
+                  f"the gang inputs must sit at the k boundary: {fits}")
+        per_g[g_count] = dict(
+            kernel=K.GANG_FIT, err=err, bytes=gang_bytes(gang_np),
+            ops=sum(nodes.valid.shape[1] * (9 + 3 * int(
+                ((grp.con_op == 0) | (grp.con_op == 1)).sum()) + 6 * int(
+                (grp.plat[:, 0] != -1).sum())) for _, grp in gang_np),
+            device_ms=device_ms(torch, lambda: K.gang_fit_packed(
+                nodes, groups), ("gang_fit_kernel",)),
+            ms=time_ms(torch, lambda: K.gang_fit_packed(nodes, groups)),
+            plain_ms=time_ms(torch, lambda: K._gang_fit_plain(nodes, groups),
+                             reps=10, warmup=2),
+            library_ms=None, fits=fits, g=g_count)
+    rows.append(per_g[1])
+    for r in list(per_bucket.values()) + list(per_g.values()):
+        check(r["err"] == 0, f"{r['kernel'].name}: kernel differs from its "
+              f"plain version (max abs err {r['err']})")
+        shape = (f"d={r['d']} of {r['db']} slots" if "db" in r
+                 else f"G={r['g']}, fits {r['fits']}")
+        dev_ms = r["device_ms"]
+        print(f"kernels: {r['kernel'].name} ({shape}) == plain; "
+              f"{r['ms']:.4f} ms per wrapper call (CUDA events), device "
+              + ("not measured" if dev_ms is None else f"{dev_ms:.4f} ms "
+                 "(torch.profiler)")
+              + f", plain {r['plain_ms']:.4f} ms"
+              + ("" if r["library_ms"] is None
+                 else f", index_copy_ x5 {r['library_ms']:.4f} ms")
+              + f", {r['bytes']} bytes, bound "
+              f"{bound(r['bytes'], r['ops'])[0]:.7f} ms",
+              flush=True)
+    extra = {f"scatter_db{db}": {k: v for k, v in r.items() if k != "kernel"}
+             for db, r in per_bucket.items()}
+    extra.update({f"gang_fit_g{g}": {k: v for k, v in r.items()
+                                     if k != "kernel"}
+                  for g, r in per_g.items()})
+    return rows, extra
+
+
+#: a 13th churn window in which three services arrive at once: their
+#: groups fuse, and the run seeds from the resident device columns
+CHURN_BURST = ({"cb": 40, "cd": 40, "cf": 40}, 18)
+
+
+def phase_churn(torch, K, cuda, workload, TorchPlanner, card):
+    """bench.py's config 10 through the store watch feed, with the
+    streaming resident state and with full rebuilds: the same placements;
+    the streaming side refreshes incrementally through K7 and seeds a
+    fused run from the resident columns."""
+    import numpy as np
+    out = {}
+    for posture, streaming in (("streaming", True), ("full", False)):
+        t0 = time.perf_counter()
+        wl = workload.steady_state_churn()
+        wl.script.append(CHURN_BURST)
+        build_s = time.perf_counter() - t0
+        planner = TorchPlanner()
+        planner.streaming_enabled = streaming
+        sched = wl.attach(planner)
+        sched.tick()                   # cold tick, outside the windows
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts(K.KERNELS)
+        ticks, decisions, feed_s = [], 0, 0.0
+        for arrivals, exits in wl.script:
+            t = time.perf_counter()
+            wl.feed(arrivals, exits)
+            t1 = time.perf_counter()
+            decisions += sched.tick()
+            torch.cuda.synchronize()
+            ticks.append(time.perf_counter() - t1)
+            feed_s += t1 - t
+        launches = cuda.launch_counts(K.KERNELS)
+        arrived = sum(sum(a.values()) for a, _ in wl.script)
+        check(decisions == arrived, f"churn ({posture}): {decisions} "
+              f"decisions for {arrived} arrivals")
+        snap = planner.streaming_snapshot()
+        stats = dict(planner.stats)
+        if streaming:
+            check(snap["incremental_ticks"] >= len(wl.script),
+                  f"incremental ticks {snap['incremental_ticks']}")
+            check(snap["fallbacks"] == 0 and snap["resyncs"] == 0
+                  and snap["full_ticks"] == 1,
+                  f"the streaming side rebuilt after the cold tick: {snap}")
+            check(launches["scatter_rows"] > 0,
+                  "the dirty-row scatter never launched on the churn path")
+            check(stats.get("streaming_device_carries", 0) >= 1,
+                  "no fused run seeded from the resident columns")
+            st = planner._streaming
+            st.refresh(sched)
+            torch.cuda.synchronize()
+            for name, d, h in zip(("valid", "ready", "cpu", "mem", "total"),
+                                  st.dev, st._host_cols()):
+                check(d.is_cuda and np.array_equal(d.cpu().numpy(), h),
+                      f"resident CUDA column {name} differs from the host "
+                      "mirror")
+        else:
+            check(not snap["enabled"] and launches["scatter_rows"] == 0,
+                  "the full-rebuild side used the resident state")
+            check(stats.get("streaming_device_carries", 0) == 0,
+                  "the full-rebuild side seeded from resident columns")
+        digest = hashlib.sha256(repr(wl.placements()).encode()).hexdigest()
+        wl.close()
+        seconds = sum(ticks)
+        out[posture] = dict(
+            decisions=decisions, seconds=seconds,
+            decisions_per_s=decisions / seconds,
+            tick_ms_median=statistics.median(ticks) * 1e3,
+            tick_ms_max=max(ticks) * 1e3, feed_s=feed_s,
+            cluster_build_s=build_s,
+            launches=launches, digest=digest, snapshot=snap,
+            streaming_device_carries=stats.get(
+                "streaming_device_carries", 0),
+            groups_fused=stats.get("groups_fused", 0))
+        print(f"churn ({posture}): {decisions} decisions in {len(ticks)} "
+              f"ticks, {seconds:.3f} s ({decisions / seconds:.0f} "
+              f"decisions/s), tick median {out[posture]['tick_ms_median']:.1f}"
+              f" ms, max {out[posture]['tick_ms_max']:.1f} ms (store writes "
+              f"and watch feed {feed_s:.3f} s outside them) on {card}; "
+              f"launches {launches}; streaming {snap}; device carries "
+              f"{out[posture]['streaming_device_carries']}", flush=True)
+    check(out["streaming"]["digest"] == out["full"]["digest"],
+          "churn placements differ between the streaming and full-rebuild "
+          "postures")
+    print(f"churn: placement digests equal ({out['full']['digest'][:16]})",
+          flush=True)
+    return out
+
+
+def phase_traced_churn(torch, workload, TorchPlanner, tracer, card):
+    """The churn's windows again with the streaming resident state, under
+    the span tracer and torch.profiler: where a streaming tick's time
+    goes, and the device's busy share of the windows."""
+    wl = workload.steady_state_churn()
+    wl.script.append(CHURN_BURST)
+    sched = wl.attach(TorchPlanner())
+    sched.tick()
+    torch.cuda.synchronize()
+
+    def windows():
+        for arrivals, exits in wl.script:
+            wl.window(arrivals, exits)
+
+    out = traced(torch, tracer, windows, card, "traced churn windows")
+    wl.close()
+    return out
+
+
+def gang_fit_on_fleet(torch, K, workload, Scheduler, TorchPlanner,
+                      gang_to_device):
+    """K8 against its plain version on the gang fleet's own inputs, as the
+    planner builds them: one single-service gang (G=1), one cross-service
+    pair (G=2) and the infeasible 17-CPU gang (G=1).  Fit, fail counts and
+    totals must be equal, and the verdicts those the fleet expects."""
+    store, services, _, tasks = workload.gang_fleet()
+    planner = TorchPlanner()
+    sched = Scheduler(store, batch_planner=planner)
+    store.view(sched._setup_tasks_list)
+    first = {}
+    for t in tasks:
+        first.setdefault(t.service_id, t)
+    size = {s.id: s.spec.replicated.replicas for s in services}
+    _, too_big = workload.gang_service("too-big", 17, 8, 8)
+    cases = (("single-service gang", [first["gang8-00"]], [True]),
+             ("cross-service pair", [first["xgang-0a"], first["xgang-0b"]],
+              [True, True]),
+             ("infeasible gang", [too_big[0]], [False]))
+    err, nb = 0, None
+    for label, members, expect in cases:
+        rows = []
+        for t in members:
+            built = planner._build_device_inputs(
+                sched, t, size.get(t.service_id, len(too_big)))
+            check(built is not None and built[1] > 0,
+                  f"K8 on the fleet ({label}): no inputs")
+            rows.append((built[7], built[8]))
+            nb = built[2]
+        nodes, groups = gang_to_device(rows, torch.device("cuda"))
+        got = K.unpack_gang(K.gang_fit_packed(nodes, groups), len(rows))
+        want = K._gang_fit_plain(nodes, groups)
+        e = max_abs_err(torch, got, want)
+        check(e == 0 and all(torch.equal(a.cpu(), b.cpu())
+                             for a, b in zip(got, want)),
+              f"K8 on the fleet ({label}): kernel {got} != plain {want}")
+        check(want[0].tolist() == expect,
+              f"K8 on the fleet ({label}): verdicts {want[0].tolist()}, "
+              f"expected {expect}")
+        print(f"gang fleet: K8 == plain on the fleet's inputs ({label}, "
+              f"G={len(rows)}, nb={nb}): fit {want[0].tolist()}, totals "
+              f"{want[2].tolist()}, fail counts {want[1].tolist()}",
+              flush=True)
+        err = max(err, e)
+    return dict(err=err, nb=nb)
+
+
+def phase_gang(torch, K, cuda, workload, Task, Scheduler, TorchPlanner,
+               gang_to_device, card):
+    """bench.py's config 12 gang fleet: every gang admitted whole on K8's
+    verdicts, placements equal to the host path's by creation index, and
+    an infeasible gang deferred whole by K8's verdict (no rollback) on the
+    card.  K8 is held against its plain version on the fleet's inputs."""
+    from swarmkit_tpu_torch.state.events import Event
+    out = {"k8_on_fleet": gang_fit_on_fleet(
+        torch, K, workload, Scheduler, TorchPlanner, gang_to_device)}
+    for label, planner in (("card", TorchPlanner()), ("host", None)):
+        store, _, nodes, tasks = workload.gang_fleet()
+        sched = Scheduler(store, batch_planner=planner)
+        _, sub = store.view_and_watch(lambda tx: sched._setup_tasks_list(tx))
+        cuda.reset_launch_counts(K.KERNELS)
+        t0 = time.perf_counter()
+        n_dec = sched.tick()
+        torch.cuda.synchronize()
+        tick_s = time.perf_counter() - t0
+        launches = cuda.launch_counts(K.KERNELS)
+        gstats = dict(sched.gang.stats)
+        host = {n.id: n.description.hostname for n in nodes}
+        now_tasks = {t.id: t for t in store.view(lambda tx: tx.find(Task))}
+        placements = [host.get(now_tasks[t.id].node_id) for t in tasks]
+        check(gstats["gangs_admitted"] == 72 and gstats["gangs_deferred"] == 0
+              and all(placements), f"gang fleet ({label}): {gstats}")
+        pstats = dict(planner.stats) if planner is not None else {}
+        if planner is not None:
+            verdicts = pstats.get("gang_fit_device", 0) \
+                + pstats.get("gang_fit_fused", 0)
+            check(verdicts == 80 and pstats.get("gang_fit_fused") == 16,
+                  f"gang verdicts from K8: {pstats}")
+            check(pstats.get("gang_fit_host", 0) == 0, "a host verdict")
+            check(launches["gang_fit"] == 64 + 8,
+                  f"gang_fit launches {launches['gang_fit']}")
+        # an infeasible gang: 8 members of 17 CPUs on 16-CPU nodes
+        svc, extra = workload.gang_service("too-big", 17, 8, 8)
+        store.update(lambda tx: [tx.create(svc)]
+                     + [tx.create(t) for t in extra] and None)
+        while (ev := sub.poll()) is not None:
+            if isinstance(ev, Event):
+                sched._handle_event(ev)
+        sched.tick()
+        store.queue.unsubscribe(sub)
+        left = [store.view(lambda tx, i=t.id: tx.get(Task, i))
+                for t in extra]
+        check(sched.gang.stats["gangs_deferred"] == 1
+              and all(not t.node_id and "all-or-nothing placement "
+                      "infeasible" in t.status.err for t in left),
+              f"the infeasible gang ({label}) was not deferred whole: "
+              f"{[(t.node_id, t.status.err) for t in left]}")
+        rollbacks = sched.gang.stats["rollbacks"]
+        if planner is not None:
+            check(planner.stats["gang_fit_device"]
+                  == pstats["gang_fit_device"] + 1,
+                  "the infeasible gang's verdict did not come from K8")
+            # K8's False deferred it before any scratch placement
+            check(rollbacks == 0, f"card path rolled back {rollbacks} "
+                  "gangs: K8 did not defer the infeasible gang")
+        else:
+            check(rollbacks == 1, f"host path rolled back {rollbacks} "
+                  "gangs, expected the infeasible one")
+        out[label] = dict(decisions=n_dec, tick_s=tick_s,
+                          decisions_per_s=n_dec / tick_s,
+                          gang_stats=gstats, launches=launches,
+                          planner_stats={k: v for k, v in pstats.items()
+                                         if k != "plan_seconds"},
+                          placements=placements)
+        print(f"gang fleet ({label}): {n_dec} decisions in {tick_s:.3f} s "
+              f"on {card}; {gstats}; planner {out[label]['planner_stats']}; "
+              f"gang_fit launches {launches['gang_fit']}; infeasible gang "
+              "deferred whole", flush=True)
+    check(out["card"]["placements"] == out["host"]["placements"],
+          "gang placements differ from the host path's")
+    print("gang fleet: card placements == host path's (72 gangs, 416 "
+          "members, by creation index)", flush=True)
+    for label in ("card", "host"):
+        del out[label]["placements"]
+    return out
+
+
 def rack_of(node):
     return node.spec.annotations.labels.get("rack")
 
@@ -709,17 +1131,27 @@ def phase_traced_tick(torch, build, Scheduler, TorchPlanner, tracer, card,
     and torch.profiler on: where the tick's wall time goes, and the
     device's busy share.  The untraced tick of its path gives the
     end-to-end numbers."""
-    from torch.profiler import ProfilerActivity, profile
     store = build()[0]
     sched = Scheduler(store, batch_planner=TorchPlanner())
     store.view(sched._setup_tasks_list)
+
+    def tick():
+        sched._process_preassigned_tasks()
+        sched.tick()
+
+    return traced(torch, tracer, tick, card, label)
+
+
+def traced(torch, tracer, fn, card, label):
+    """Run ``fn`` under the span tracer and torch.profiler: span sums,
+    device rows and the device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
     tracer.reset()
     tracer.enable()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sched._process_preassigned_tasks()
-        sched.tick()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     tracer.disable()
@@ -738,7 +1170,7 @@ def phase_traced_tick(torch, build, Scheduler, TorchPlanner, tracer, card,
     ops = ", ".join(f"{name} {ms:.3f} ms"
                     for name, ms in by_op.most_common(8))
     print(f"{label}: {wall:.3f} s wall; device busy "
-          + (f"{device_s * 1e3:.3f} ms ({busy:.4%} of the tick)"
+          + (f"{device_s * 1e3:.3f} ms ({busy:.4%} of the wall time)"
              if busy is not None else "not measured")
           + f" on {card}; spans: {top}; device rows: {ops}", flush=True)
     return dict(wall_s=wall, device_busy_s=device_s or None,
@@ -819,6 +1251,8 @@ def phase_many_service(torch, K, cuda, workload, Task, Scheduler,
                 "fused_overflows"):
         check(stats.get(key, 0) == 0, f"{key} = {stats.get(key)}")
     for k in K.KERNELS:
+        if k in (K.SCATTER, K.GANG_FIT):
+            continue   # the churn and gang paths' kernels
         check(launches[k.name] > 0, f"{k.name} never launched on the "
               "many-service path")
     counts = service_counts(store, Task, services, nodes)
@@ -888,7 +1322,8 @@ def main():
         from swarmkit_tpu_torch.obs import tracer
         from swarmkit_tpu_torch.ops import TorchPlanner, cuda
         from swarmkit_tpu_torch.ops import kernel as K
-        from swarmkit_tpu_torch.ops.convert import fused_to_device, to_device
+        from swarmkit_tpu_torch.ops.convert import (
+            fused_to_device, gang_to_device, to_device)
         from swarmkit_tpu_torch.scheduler import Scheduler
     except ImportError as exc:
         fail(f"the swarmkit_tpu_torch package is not importable: {exc}")
@@ -916,14 +1351,29 @@ def main():
         card, label="traced many-service tick")
     oracle["many_service_1k"] = phase_many_service_oracle(
         workload, Task, Scheduler, TorchPlanner)
+    resident_rows, resident_kernels = phase_kernels_resident(torch, K,
+                                                             gang_to_device)
+    rows += resident_rows
+    churn = phase_churn(torch, K, cuda, workload, TorchPlanner, card)
+    churn["traced"] = phase_traced_churn(torch, workload, TorchPlanner,
+                                         tracer, card)
+    gang = phase_gang(torch, K, cuda, workload, Task, Scheduler,
+                      TorchPlanner, gang_to_device, card)
 
+    # each kernel's launches from the main path that runs it
+    path_launches = dict(many["launches"])
+    path_launches["scatter_rows"] = \
+        churn["streaming"]["launches"]["scatter_rows"]
+    path_launches["gang_fit"] = gang["card"]["launches"]["gang_fit"]
     kernels = []
     for r in rows:
         k = r["kernel"]
         bound_ms, bound_by = bound(r["bytes"], r["ops"])
+        if k is K.GANG_FIT:
+            r["err"] = max(r["err"], gang["k8_on_fleet"]["err"])
         kernels.append({
             "name": k.name, "route": "cuda", "source": k.source,
-            "replaces": k.replaces, "launches": many["launches"][k.name],
+            "replaces": k.replaces, "launches": path_launches[k.name],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": r["library_ms"]})
@@ -933,7 +1383,8 @@ def main():
               "plan_group": plan, "fused_chunk": chunk,
               "main_path": main_path, "traced_tick": traced,
               "many_service": many, "traced_many_service": many_traced,
-              "host_oracle": oracle,
+              "host_oracle": oracle, "resident_kernels": resident_kernels,
+              "churn": churn, "gang": gang,
               "seconds": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

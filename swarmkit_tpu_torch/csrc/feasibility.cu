@@ -5,7 +5,8 @@
 // jitted entry feasibility_jit, :763).  One thread per node evaluates the
 // eight filter masks in pipeline order (ready, resources, plugins,
 // constraints, platforms, host ports, max replicas, tenant quota), the
-// node's capacity for this group, and which filter rejected it first.
+// node's capacity for this group, and which filter rejected it first; the
+// per-node body lives in feasibility.cuh, which K8 (gangfit.cu) shares.
 //
 // Bound on the H100: bytes.  Each node is read once and written once (4
 // bytes of capacity, 1 of mask); the arithmetic is a few integer compares.
@@ -20,26 +21,14 @@
 // shared memory, and across blocks with one integer atomicAdd per counter
 // and block -- integer atomics give the same sum in any order.
 
-#include "common.cuh"
+#include "feasibility.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads) feasibility_kernel(
-    int n, int cc, int np,
-    const uint8_t* __restrict__ valid, const uint8_t* __restrict__ ready,
-    const uint8_t* __restrict__ res_ok, const int32_t* __restrict__ res_cap,
-    const int32_t* __restrict__ svc_tasks,
-    const uint8_t* __restrict__ extra_mask,
-    const int32_t* __restrict__ con_hash,  // [cc, 2, n]
-    const int32_t* __restrict__ con_op,    // [cc]
-    const int32_t* __restrict__ con_exp,   // [cc, 2]
-    const int32_t* __restrict__ plat,      // [np, 4]
-    const int32_t* __restrict__ os_hash,   // [2, n]
-    const int32_t* __restrict__ arch_hash, // [2, n]
-    const uint8_t* __restrict__ port_conflict,
-    const uint8_t* __restrict__ quota_ok,  // nullable: all true
+    int n, int cc, int np, sk::FeasColumns cols,
     const int32_t* __restrict__ k_ptr, const int32_t* __restrict__ maxrep_ptr,
     const uint8_t* __restrict__ port_limited_ptr,
     uint8_t* __restrict__ mask_out,        // nullable
@@ -54,56 +43,16 @@ __global__ void __launch_bounds__(kThreads) feasibility_kernel(
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   unsigned fails = 0;  // bit j: filter j is the first to reject this node
   if (i < n) {
-    bool con_ok = true;
-    for (int c = 0; c < cc; ++c) {
-      const int op = con_op[c];
-      if (op != 0 && op != 1) continue;  // unused slot: always passes
-      const bool eq = con_hash[(2 * c) * n + i] == con_exp[2 * c] &&
-                      con_hash[(2 * c + 1) * n + i] == con_exp[2 * c + 1];
-      con_ok = con_ok && (op == 0 ? eq : !eq);
-    }
-    bool matched = false, any_used = false;
-    for (int p = 0; p < np && !matched; ++p) {
-      const int r0 = plat[4 * p], r1 = plat[4 * p + 1];
-      const int r2 = plat[4 * p + 2], r3 = plat[4 * p + 3];
-      if (r0 == -1) continue;  // unused row
-      any_used = true;
-      const bool os_ok = (r0 == 0 && r1 == 0) ||
-                         (os_hash[i] == r0 && os_hash[n + i] == r1);
-      matched = os_ok && ((r2 == 0 && r3 == 0) ||
-                          (arch_hash[i] == r2 && arch_hash[n + i] == r3));
-    }
-    const int svc = maxrep > 0 ? svc_tasks[i] : 0;
-    const bool f[8] = {
-        ready[i] != 0,
-        res_ok[i] != 0,
-        extra_mask[i] != 0,
-        con_ok,
-        matched || !any_used,
-        !(port_limited && port_conflict[i] != 0),
-        maxrep == 0 || svc < maxrep,
-        quota_ok == nullptr || quota_ok[i] != 0,
-    };
-    bool m = valid[i] != 0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (m && !f[j]) fails |= 1u << j;
-      m = m && f[j];
-    }
-    int cap = min(res_cap[i], min(k, sk::K_CLAMP));
-    if (maxrep > 0) cap = min(cap, max(maxrep - svc, 0));
-    if (port_limited) cap = min(cap, 1);
-    cap_out[i] = m ? max(cap, 0) : 0;
+    bool m;
+    int cap;
+    fails = sk::feasible_node(cols, i, n, cc, np, k, maxrep, port_limited,
+                              &m, &cap);
+    cap_out[i] = cap;
     if (mask_out != nullptr) mask_out[i] = m ? 1 : 0;
   }
 
   // every lane of every warp reaches the ballots (no early return above)
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const unsigned ballot = __ballot_sync(0xffffffffu, (fails >> j) & 1u);
-    if ((threadIdx.x & 31) == 0 && ballot != 0)
-      atomicAdd(&block_fail[j], __popc(ballot));
-  }
+  sk::ballot_fails(fails, block_fail);
   __syncthreads();
   if (threadIdx.x < 8 && block_fail[threadIdx.x] != 0)
     atomicAdd(&fail_out[threadIdx.x], block_fail[threadIdx.x]);
@@ -121,15 +70,15 @@ extern "C" int sk_feasibility(
     void* mask_out, void* cap_out, void* fail_out, void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + kThreads - 1) / kThreads;
-  feasibility_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      n, cc, np, (const uint8_t*)valid, (const uint8_t*)ready,
-      (const uint8_t*)res_ok, (const int32_t*)res_cap,
-      (const int32_t*)svc_tasks, (const uint8_t*)extra_mask,
-      (const int32_t*)con_hash, (const int32_t*)con_op,
-      (const int32_t*)con_exp, (const int32_t*)plat,
+  const sk::FeasColumns cols{
+      (const uint8_t*)valid, (const uint8_t*)ready, (const uint8_t*)res_ok,
+      (const int32_t*)res_cap, (const int32_t*)svc_tasks,
+      (const uint8_t*)extra_mask, (const int32_t*)con_hash,
+      (const int32_t*)con_op, (const int32_t*)con_exp, (const int32_t*)plat,
       (const int32_t*)os_hash, (const int32_t*)arch_hash,
-      (const uint8_t*)port_conflict, (const uint8_t*)quota_ok,
-      (const int32_t*)k, (const int32_t*)maxrep,
+      (const uint8_t*)port_conflict, (const uint8_t*)quota_ok};
+  feasibility_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      n, cc, np, cols, (const int32_t*)k, (const int32_t*)maxrep,
       (const uint8_t*)port_limited, (uint8_t*)mask_out, (int32_t*)cap_out,
       (int32_t*)fail_out);
   return (int)cudaGetLastError();

@@ -64,6 +64,9 @@ D2H_REASONS = (
     "preempt",         # victim picks
     "probe",           # launch-overhead measurement
 )
+D2D_REASONS = (
+    "resident_carry",  # fused carry cloned from the resident columns
+)
 _OTHER = "other"
 
 #: fixed memory tiers (watermark gauges)
@@ -110,7 +113,7 @@ class DeviceTelemetry:
         self._metric_series: set = set()
         # direction -> reason -> {"bytes", "count"}
         self._transfers: Dict[str, Dict[str, Dict[str, int]]] = {
-            "h2d": {}, "d2h": {}}
+            "h2d": {}, "d2h": {}, "d2d": {}}
         self.bytes_avoided = 0
         # bucket -> {"shape_hash","compiles","compile_ns","hits","misses"}
         self._cache: Dict[str, Dict[str, int]] = {}
@@ -195,6 +198,10 @@ class DeviceTelemetry:
     def note_d2h(self, reason: str, nbytes: int) -> None:
         """Device-to-host fetch of ``nbytes``."""
         self._note_transfer("d2h", D2H_REASONS, reason, nbytes)
+
+    def note_d2d(self, reason: str, nbytes: int) -> None:
+        """Device-to-device copy of ``nbytes`` (no host link crossed)."""
+        self._note_transfer("d2d", D2D_REASONS, reason, nbytes)
 
     def note_bytes_avoided(self, nbytes: int) -> None:
         """Bytes a resident/donated fast path did NOT move (the
@@ -435,6 +442,10 @@ def note_h2d(reason: str, nbytes: int) -> None:
 
 def note_d2h(reason: str, nbytes: int) -> None:
     _state.note_d2h(reason, nbytes)
+
+
+def note_d2d(reason: str, nbytes: int) -> None:
+    _state.note_d2d(reason, nbytes)
 
 
 def note_bytes_avoided(nbytes: int) -> None:

@@ -13,7 +13,7 @@ implementations the same inputs.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -81,6 +81,32 @@ def to_device(nodes, group, hier=(), device="cpu"):
     dev = torch.device(device)
     return (nodes_to_device(nodes, dev), group_to_device(group, dev),
             hier_to_device(hier, dev))
+
+
+def gang_to_device(rows: Sequence[Tuple], device) -> Tuple:
+    """Per-gang (NodeInputs, GroupInputs) pairs of numpy arrays (either
+    package's) stacked on a leading gang axis G, as this package's
+    (NodeInputs, GroupInputs) of tensors on ``device`` -- the inputs of
+    :func:`kernel.gang_fit_fused`.  ``quota_ok`` must be present in every
+    gang or in none."""
+    if not rows:
+        raise ValueError("no gang to stack")
+    quota = [getattr(nodes, "quota_ok", None) is not None
+             for nodes, _ in rows]
+    if any(quota) and not all(quota):
+        raise ValueError("quota_ok must be stacked for every gang or None "
+                         "for all")
+
+    def stack(name, i):
+        return np.stack([np.asarray(getattr(r[i], name)) for r in rows])
+
+    nodes = NodeInputs(**{name: (None if name == "quota_ok" and not quota[0]
+                                 else stack(name, 0))
+                          for name in NodeInputs._fields})
+    groups = GroupInputs(**{name: stack(name, 1)
+                            for name in GroupInputs._fields})
+    dev = torch.device(device)
+    return nodes_to_device(nodes, dev), group_to_device(groups, dev)
 
 
 def fused_to_device(shared, groups, carry, strat=None, device="cpu"):

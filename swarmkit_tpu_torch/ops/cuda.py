@@ -32,8 +32,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("feasibility.cu", "segsum.cu", "waterfill.cu", "packfill.cu",
-           "score.cu", "fused.cu")
-HEADERS = ("common.cuh",)
+           "score.cu", "fused.cu", "scatter.cu", "gangfit.cu")
+HEADERS = ("common.cuh", "feasibility.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -51,6 +51,8 @@ SIGNATURES = {
     "sk_strategy_score": ([_I] * 4 + [_P] * 14, _I),
     "sk_fused_prologue": ([_I, _I] + [_P] * 14, _I),
     "sk_fused_carry": ([_I, _I] + [_P] * 9, _I),
+    "sk_scatter_rows": ([_I, _I] + [_P] * 7, _I),
+    "sk_gang_fit": ([_I] * 4 + [_P] * 19, _I),
     "sk_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -244,6 +244,11 @@ def build_run(planner, sched, specs: List[GroupSpec]
     infos, n, nb, valid, ready, cpu, mem, total = cols
     if n == 0:
         return None
+    # resident fast paths (ops/streaming.py): per-service base counts,
+    # platform hashes, failure rows and flat leaves come from the planner's
+    # row-maintained resident caches when these ARE the resident columns
+    # (identity-guarded); the loops below remain the tracker-less path
+    st = planner._resident_for(cols)
 
     # ---- shared buckets across the run
     cc = max(bucket(len(sp.constraints), CC_BUCKETS) for sp in specs)
@@ -258,29 +263,40 @@ def build_run(planner, sched, specs: List[GroupSpec]
     sb = pow2_bucket(len(slot_map))
 
     svc0 = np.zeros((sb, nb), np.int32)
-    for i, info in enumerate(infos):
-        by_svc = info.active_tasks_count_by_service
-        if not by_svc:
-            continue
-        for sid, c in by_svc.items():
-            s = slot_map.get(sid)
-            if s is not None and c:
-                svc0[s, i] = c
+    if st is not None:
+        for sid, s in slot_map.items():
+            svc0[s] = st.svc_tasks_col(sched, sid)
+    else:
+        for i, info in enumerate(infos):
+            by_svc = info.active_tasks_count_by_service
+            if not by_svc:
+                continue
+            for sid, c in by_svc.items():
+                s = slot_map.get(sid)
+                if s is not None and c:
+                    svc0[s, i] = c
 
     if any(sp.platforms for sp in specs):
-        os_hash, arch_hash = node_platform_hashes(infos, nb)
+        if st is not None:
+            os_hash, arch_hash = st.platform_hashes()
+        else:
+            os_hash, arch_hash = node_platform_hashes(infos, nb)
     else:
         os_hash = np.zeros((2, nb), np.int32)
         arch_hash = np.zeros((2, nb), np.int32)
 
     # ---- spread leaves (flat; multi-level trees never fuse) + shared L
     ts = planner.fail_ts()   # tick-frozen: parity with the per-group path
-    fail_idx = [i for i, info in enumerate(infos) if info.recent_failures]
+    fail_idx = list(st.fail_rows) if st is not None else \
+        [i for i, info in enumerate(infos) if info.recent_failures]
     leaves: List[Optional[np.ndarray]] = []
     L = 1
     for sp in specs:
         if sp.pref_descriptor is not None:
-            leaf, n_values = flat_leaf(infos, nb, sp.pref_descriptor)
+            if st is not None:
+                leaf, n_values = st.flat_leaf(sched, sp.pref_descriptor)
+            else:
+                leaf, n_values = flat_leaf(infos, nb, sp.pref_descriptor)
             leaves.append(leaf)
             L = max(L, l_bucket(n_values))
         else:
@@ -350,9 +366,13 @@ def build_run(planner, sched, specs: List[GroupSpec]
             mem_d[j] = sp.mem_d
             tasks += sp.k
             if sp.constraints:
-                fill_constraints(planner._node_value, infos, n,
-                                 sp.constraints, con_hash[j], con_op[j],
-                                 con_exp[j])
+                if st is not None:
+                    st.fill_constraints(sched, sp.constraints, con_hash[j],
+                                        con_op[j], con_exp[j])
+                else:
+                    fill_constraints(planner._node_value, infos, n,
+                                     sp.constraints, con_hash[j], con_op[j],
+                                     con_exp[j])
             if sp.platforms:
                 fill_platforms(sp.platforms, plat[j])
             for i in fail_idx:

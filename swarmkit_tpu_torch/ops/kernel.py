@@ -16,7 +16,12 @@ kernels (``csrc/``) carry them on Hopper:
 * ``packfill`` (K5, ``csrc/packfill.cu``): the binpack key, threshold
   search and pack fill of one group over all nodes;
 * ``strategy_score`` (K6, ``csrc/score.cu``): the weighted and learned
-  (fixed-point MLP) scores, in exact int32.
+  (fixed-point MLP) scores, in exact int32;
+* ``scatter_rows`` (K7, ``csrc/scatter.cu``): the streaming scheduler's
+  dirty-row scatter into its five resident node columns, in place;
+* ``gang_fit`` / ``gang_fit_fused`` (K8, ``csrc/gangfit.cu``): the gang
+  all-or-nothing precheck, K1's per-node body summed per gang, for one
+  gang or a stack of them.
 
 Every wrapper below takes the kernel for tensors on a CUDA device and its
 plain PyTorch version, in this module, for tensors on the CPU; on any other
@@ -90,8 +95,14 @@ PACKFILL = _cuda.CudaKernel(
 SCORE = _cuda.CudaKernel(
     "strategy_score", "sk_strategy_score", "swarmkit_tpu_torch/csrc/score.cu",
     "swarmkit_tpu/ops/kernel.py:484")
+SCATTER = _cuda.CudaKernel(
+    "scatter_rows", "sk_scatter_rows", "swarmkit_tpu_torch/csrc/scatter.cu",
+    "swarmkit_tpu/ops/streaming.py:97")
+GANG_FIT = _cuda.CudaKernel(
+    "gang_fit", "sk_gang_fit", "swarmkit_tpu_torch/csrc/gangfit.cu",
+    "swarmkit_tpu/ops/kernel.py:786")
 KERNELS = (FEASIBILITY, SEG_SUM, WATERFILL, FUSED_PROLOGUE, FUSED_CARRY,
-           PACKFILL, SCORE)
+           PACKFILL, SCORE, SCATTER, GANG_FIT)
 
 # K6 stages the learned scorer's hidden layer in shared memory
 SCORE_MAX_HIDDEN = 64
@@ -1042,6 +1053,200 @@ def unpack_fused(buf, n: int):
     """Split fused result rows (torch tensor or numpy array, [G, N + 9])
     into (x [G, N], fail_counts [G, 8], spill bool[G])."""
     return buf[:, :n], buf[:, n:n + N_FILTERS], buf[:, n + N_FILTERS] != 0
+
+
+# ------------------------------------------------ K7: dirty-row scatter
+#
+# The streaming scheduler keeps five node columns resident on the device
+# (valid, ready, cpu, mem, total) and refreshes only the rows its delta
+# tracker marked dirty.  A refresh packs its update slots into one byte
+# buffer -- one H2D copy, one launch -- laid out cpu i64 | mem i64 | idx i32
+# | total i32 | valid u8 | ready u8, each ``db`` long.  Pad slots carry
+# idx = nb and are dropped (the reference's ``mode="drop"``).
+
+#: bytes per update slot of a packed scatter buffer
+SCATTER_SLOT_BYTES = 26
+
+
+def scatter_views(buf, db: int):
+    """(idx i32, valid bool, ready bool, cpu i64, mem i64, total i32)
+    views of a packed scatter buffer of ``db`` slots (a torch uint8 tensor
+    or a numpy uint8 array; ``db`` even)."""
+    if buf.shape[0] != SCATTER_SLOT_BYTES * db or db % 2:
+        raise ValueError(f"scatter buffer of {buf.shape[0]} bytes for "
+                         f"{db} slots")
+    if isinstance(buf, np.ndarray):
+        i64, i32, b = np.int64, np.int32, np.bool_
+    else:
+        i64, i32, b = torch.int64, torch.int32, torch.bool
+    cpu = buf[:8 * db].view(i64)
+    mem = buf[8 * db:16 * db].view(i64)
+    idx = buf[16 * db:20 * db].view(i32)
+    total = buf[20 * db:24 * db].view(i32)
+    valid = buf[24 * db:25 * db].view(b)
+    ready = buf[25 * db:].view(b)
+    return idx, valid, ready, cpu, mem, total
+
+
+def pack_scatter(idx, u_valid, u_ready, u_cpu, u_mem, u_total,
+                 out: Optional[np.ndarray] = None) -> np.ndarray:
+    """Pack ``db`` update slots (numpy arrays or sequences, one value per
+    slot) into a scatter buffer (``out`` when given)."""
+    db = len(idx)
+    if out is None:
+        out = np.zeros(SCATTER_SLOT_BYTES * db, np.uint8)
+    for view, vals in zip(scatter_views(out, db),
+                          (idx, u_valid, u_ready, u_cpu, u_mem, u_total)):
+        view[:] = vals
+    return out
+
+
+def _scatter_rows_plain(cols, packed: torch.Tensor, db: int) -> None:
+    """Plain version of K7: five ``index_copy_`` writes of the in-range
+    slots."""
+    idx, *updates = scatter_views(packed, db)
+    nb = cols[0].shape[0]
+    keep = (idx >= 0) & (idx < nb)
+    rows = idx[keep].to(torch.int64)
+    for col, upd in zip(cols, updates):
+        col.index_copy_(0, rows, upd[keep])
+
+
+def scatter_rows(cols: Sequence[torch.Tensor],
+                 packed: torch.Tensor) -> None:
+    """Write the packed update slots into the resident columns ``cols`` =
+    (valid bool[nb], ready bool[nb], cpu i64[nb], mem i64[nb], total
+    i32[nb]) in place (reference ``_scatter_rows_jit``, whose buffers are
+    donated).  ``packed`` is a uint8 scatter buffer on the columns'
+    device; rows must be unique."""
+    valid, ready, cpu, mem, total = cols
+    nb = valid.shape[0]
+    dev = valid.device
+    db = packed.shape[0] // SCATTER_SLOT_BYTES
+    _check("valid", valid, torch.bool, (nb,), dev)
+    _check("ready", ready, torch.bool, (nb,), dev)
+    _check("cpu", cpu, torch.int64, (nb,), dev)
+    _check("mem", mem, torch.int64, (nb,), dev)
+    _check("total", total, torch.int32, (nb,), dev)
+    _check("packed", packed, torch.uint8, (SCATTER_SLOT_BYTES * db,), dev)
+    if not _on_cuda(valid):
+        _scatter_rows_plain(cols, packed, db)
+        return
+    SCATTER(nb, db, *map(_cuda.ptr, (packed, valid, ready, cpu, mem,
+                                     total)))
+
+
+# ------------------------------------------------------- K8: gang fit
+#
+# One verdict per gang: can the cluster absorb all k members at once?
+# K1's capacity column summed, compared with min(k, K_CLAMP).  The inputs
+# are the per-gang NodeInputs / GroupInputs stacked on a leading gang axis
+# G; every gang is judged against the same base state.  Results land in one
+# byte buffer ``[total i64 (G) | fail i32 (G, 8) | done u32 (G) | fit i32
+# (G)]`` so one D2H returns them all (``done`` is the kernel's own
+# bookkeeping).
+
+def _gang_layout(g: int) -> Tuple[int, int, int, int]:
+    """Byte offsets of (fail, done, fit, end) in a gang-fit buffer."""
+    return 8 * g, 40 * g, 44 * g, 48 * g
+
+
+def unpack_gang(buf, g: int):
+    """Split a gang-fit buffer (torch uint8 tensor or numpy array) into
+    (fit bool[G], fail_counts i32[G, 8], total i64[G])."""
+    o_fail, _, o_fit, end = _gang_layout(g)
+    if isinstance(buf, np.ndarray):
+        i64, i32 = np.int64, np.int32
+    else:
+        i64, i32 = torch.int64, torch.int32
+    total = buf[:o_fail].view(i64)
+    fail = buf[o_fail:o_fail + 32 * g].view(i32).reshape(g, N_FILTERS)
+    fit = buf[o_fit:end].view(i32) != 0
+    return fit, fail, total
+
+
+def _check_gang_inputs(nodes: NodeInputs,
+                       groups: GroupInputs) -> Tuple[int, int, int, int]:
+    dev = nodes.valid.device
+    if nodes.valid.dim() != 2:
+        raise ValueError("gang inputs need a leading gang axis")
+    g, n = nodes.valid.shape
+    cc = groups.con_op.shape[-1]
+    npl = groups.plat.shape[1]
+    b, i32 = torch.bool, torch.int32
+    for name in ("valid", "ready", "res_ok", "port_conflict", "extra_mask"):
+        _check(name, getattr(nodes, name), b, (g, n), dev)
+    for name in ("res_cap", "svc_tasks"):
+        _check(name, getattr(nodes, name), i32, (g, n), dev)
+    _check("os_hash", nodes.os_hash, i32, (g, 2, n), dev)
+    _check("arch_hash", nodes.arch_hash, i32, (g, 2, n), dev)
+    if nodes.quota_ok is not None:
+        _check("quota_ok", nodes.quota_ok, b, (g, n), dev)
+    _check("con_hash", groups.con_hash, i32, (g, cc, 2, n), dev)
+    _check("con_op", groups.con_op, i32, (g, cc), dev)
+    _check("con_exp", groups.con_exp, i32, (g, cc, 2), dev)
+    _check("plat", groups.plat, i32, (g, npl, 4), dev)
+    _check("k", groups.k, i32, (g,), dev)
+    _check("maxrep", groups.maxrep, i32, (g,), dev)
+    _check("port_limited", groups.port_limited, b, (g,), dev)
+    return g, n, cc, npl
+
+
+def _gang_fit_plain(nodes: NodeInputs, groups: GroupInputs):
+    """Plain version of K8: per gang, K1's plain version and an int64
+    sum of the capacity.  (fit bool[G], fail i32[G, 8], total i64[G])."""
+    fits, fails, totals = [], [], []
+    for g in range(nodes.valid.shape[0]):
+        _, cap, fail = _feasibility_plain(
+            NodeInputs(*[None if v is None else v[g] for v in nodes]),
+            GroupInputs(*[v[g] for v in groups]))
+        total = cap.sum(dtype=torch.int64)
+        fits.append(total >= torch.clamp(groups.k[g], max=K_CLAMP))
+        fails.append(fail)
+        totals.append(total)
+    return torch.stack(fits), torch.stack(fails), torch.stack(totals)
+
+
+def gang_fit_packed(nodes: NodeInputs, groups: GroupInputs) -> torch.Tensor:
+    """K8 over stacked gang inputs into one byte buffer on the inputs'
+    device (see :func:`unpack_gang`)."""
+    g, n, cc, npl = _check_gang_inputs(nodes, groups)
+    dev = nodes.valid.device
+    buf = torch.zeros(_gang_layout(g)[3], dtype=torch.uint8, device=dev)
+    if not _on_cuda(nodes.valid):
+        _, fail, total = unpack_gang(buf, g)
+        p_fit, p_fail, p_total = _gang_fit_plain(nodes, groups)
+        total.copy_(p_total)
+        fail.copy_(p_fail)
+        buf[_gang_layout(g)[2]:].view(torch.int32).copy_(p_fit)
+        return buf
+    GANG_FIT(n, g, cc, npl, *map(_cuda.ptr, (
+        nodes.valid, nodes.ready, nodes.res_ok, nodes.res_cap,
+        nodes.svc_tasks, nodes.extra_mask, groups.con_hash, groups.con_op,
+        groups.con_exp, groups.plat, nodes.os_hash, nodes.arch_hash,
+        nodes.port_conflict, nodes.quota_ok, groups.k, groups.maxrep,
+        groups.port_limited, buf)))
+    return buf
+
+
+def gang_fit_fused(nodes: NodeInputs, groups: GroupInputs):
+    """The reference ``gang_fit_fused_jit``: every field of ``nodes`` and
+    ``groups`` carries a leading gang axis G (``quota_ok`` stacked for all
+    gangs or None for all); returns (fit bool[G], fail_counts i32[G, 8]),
+    each gang judged against its own slice of the same base state."""
+    fit, fail, _ = unpack_gang(gang_fit_packed(nodes, groups),
+                               nodes.valid.shape[0])
+    return fit, fail
+
+
+def gang_fit(nodes: NodeInputs, group: GroupInputs):
+    """The reference ``gang_fit``: (fit bool scalar, fail_counts i32[8])
+    -- ``fit`` is True iff the summed per-node capacity covers min(k,
+    K_CLAMP).  K8 with one gang."""
+    fit, fail = gang_fit_fused(
+        NodeInputs(*[None if v is None else v.unsqueeze(0) for v in nodes]),
+        GroupInputs(*[v.unsqueeze(0) for v in group]))
+    return fit[0], fail[0]
 
 
 # ------------------------------------------------------------ D2H seam

@@ -13,11 +13,12 @@ learned group through ``plan_strategy`` (K1, then K5 or K6 -> K3).  The
 fused route (``probe_fused_run`` .. ``abort_fused_run``) plans a run of
 consecutive fusable groups in chunks (``ops/fusedbatch.py``): per chunk one
 stream of launches over its group slots, K4 carrying the cluster state from
-slot to slot on the device, and one D2H of the chunk's result rows.  The
-streaming resident state, the breaker and small-group router, gang
-admission and device preemption are not part of this planner: the
-scheduler probes for each of them with ``hasattr`` and keeps the work on
-its host path.
+slot to slot on the device, and one D2H of the chunk's result rows.  Gang
+admission asks ``gang_feasible`` / ``gang_feasible_many`` for its
+all-or-nothing precheck, which K8 decides on the card.  The breaker and
+small-group router and device preemption are not part of this planner:
+the scheduler probes for each of them with ``hasattr`` and keeps the work
+on its host path.
 
 Groups go to the host path for the features the device path does not
 model: CSI volume mounts, non-discrete generic resources, spread trees
@@ -30,6 +31,11 @@ Densification builds SoA arrays from the scheduler's NodeSet mirror.  The
 group-independent node columns are built once per tick (begin_tick), kept
 in sync by the apply phase's batched per-node updates, and invalidated
 whenever a host-path fallback (which mutates NodeInfos directly) occurs.
+With the streaming plane on (``streaming_enabled``, the default) those
+columns stay resident across ticks (``ops/streaming.py``): each refresh
+recomputes only the rows the scheduler's delta tracker marked dirty and
+scatters them into the resident device columns with K7, and a fused run
+seeds its node state from those device columns when they are fresh.
 """
 
 from __future__ import annotations
@@ -54,16 +60,17 @@ from ..scheduler import strategy as strategy_mod
 from ..scheduler.nodeinfo import NodeInfo
 from ..utils.metrics import registry as _metrics
 from . import densify, fusedbatch
-from .convert import named_to_device, to_device
+from .convert import gang_to_device, named_to_device, tensor, to_device
 from .densify import (
     CC_BUCKETS as _CC_BUCKETS, P_BUCKETS as _P_BUCKETS,
     bucket as _bucket, l_bucket as _l_bucket, n_bucket as _n_bucket,
 )
 from .kernel import (
-    K_CLAMP, WATERFILL_MAX_SEGMENTS, FusedGroups, FusedStrategy, GroupInputs,
-    NodeInputs, StrategyInputs, feasibility_packed, fetch_plan, finish_fetch,
+    K_CLAMP, WATERFILL_MAX_SEGMENTS, FusedCarry, FusedGroups, FusedShared,
+    FusedStrategy, GroupInputs, NodeInputs, StrategyInputs,
+    feasibility_packed, fetch_plan, finish_fetch, gang_fit_packed,
     plan_fused_packed, plan_group_packed, plan_strategy_packed, start_fetch,
-    unpack_feasibility, unpack_fused,
+    unpack_feasibility, unpack_fused, unpack_gang,
 )
 
 _PLAN_TIMER = _metrics.timer("swarm_planner_plan_latency")
@@ -153,6 +160,12 @@ class TorchPlanner:
         # fused many-service route; False sends every group down the
         # per-group route (the same placements, one round-trip per group)
         self.fused_enabled = True
+        # streaming scheduler (ops/streaming.py): the node columns above
+        # -- and their device copies -- stay RESIDENT across ticks and
+        # refresh from the scheduler's dirty-set tracker in O(churn).
+        # False reverts to a full rebuild per tick (the same placements)
+        self.streaming_enabled = True
+        self._streaming = None
 
         # device-plane saturation probe (obs/planes.py): dispatch-queue
         # depth read lazily at window-roll time; weakref so the probe never
@@ -205,7 +218,42 @@ class TorchPlanner:
         self._in_tick = True
         # one failure-window timestamp for the whole tick
         self._tick_ts = now()
-        self._cache = self._build_columns(sched)
+        st = self._streaming_for(sched)
+        if st is not None:
+            self._cache = st.refresh(sched)
+        else:
+            self._cache = self._build_columns(sched)
+
+    def _streaming_for(self, sched):
+        """The resident-state plane when it may serve this scheduler:
+        streaming on AND the scheduler carries the dirty-set delta feed
+        (scheduler/deltatrack.py).  Built at first use."""
+        if not self.streaming_enabled \
+                or getattr(sched, "delta", None) is None:
+            return None
+        if self._streaming is None:
+            from .streaming import ResidentState
+            self._streaming = ResidentState(self._node_value, self.device)
+        return self._streaming
+
+    def _resident_for(self, cols):
+        """The resident state iff ``cols`` came from it (identity on the
+        infos list) -- the guard every streaming fast path sits behind, so
+        a planner fed foreign columns never reads stale resident
+        caches."""
+        st = self._streaming
+        if st is not None and cols and cols[0] is st.infos:
+            return st
+        return None
+
+    def streaming_snapshot(self):
+        """The ``streaming_*`` fields: refresh modes, rows, syncs."""
+        st = self._streaming
+        if st is None or not self.streaming_enabled:
+            return {"enabled": False, "dirty_frac": None, "resyncs": 0,
+                    "fallbacks": 0, "incremental_ticks": 0,
+                    "full_ticks": 0, "rows": 0, "device_syncs": 0}
+        return st.snapshot()
 
     def end_tick(self) -> None:
         self._in_tick = False
@@ -288,10 +336,13 @@ class TorchPlanner:
 
     def _densify(self, sched, t: Task):
         """The per-tick node columns (built on begin_tick, rebuilt after an
-        invalidation)."""
+        invalidation; with the streaming plane, refreshed row-wise from
+        the marks the host-path mutations left)."""
         if self._cache is not None:
             return self._cache
-        cols = self._build_columns(sched)
+        st = self._streaming_for(sched)
+        cols = st.refresh(sched) if st is not None \
+            else self._build_columns(sched)
         if self._in_tick:
             self._cache = cols
         return cols
@@ -471,18 +522,29 @@ class TorchPlanner:
         if n == 0:
             return (infos, 0, nb, valid, cpu, mem, total, None, None, 1,
                     (), 0, 0, [], False)
+        # resident fast paths (ops/streaming.py): per-service counts,
+        # failure rows, platform hashes, constraint hash columns and flat
+        # spread leaves come from row-maintained caches, byte-identical to
+        # the loops below (same per-row formulas); the loops remain the
+        # tracker-less / streaming-off path
+        st = self._resident_for(cols)
 
         # ---- per-service arrays
         ts = self.fail_ts()
         sid = t.service_id
         failures = np.zeros(nb, np.int32)
-        svc_tasks = np.zeros(nb, np.int32)
-        for i, info in enumerate(infos):
-            c = info.active_tasks_count_by_service.get(sid, 0)
-            if c:
-                svc_tasks[i] = c
-            if info.recent_failures:
-                failures[i] = info.count_recent_failures(ts, t)
+        if st is not None:
+            svc_tasks = st.svc_tasks_col(sched, sid)
+            if st.fail_rows:
+                st.fill_failures(failures, ts, t)
+        else:
+            svc_tasks = np.zeros(nb, np.int32)
+            for i, info in enumerate(infos):
+                c = info.active_tasks_count_by_service.get(sid, 0)
+                if c:
+                    svc_tasks[i] = c
+                if info.recent_failures:
+                    failures[i] = info.count_recent_failures(ts, t)
 
         # ---- constraints
         placement = t.spec.placement
@@ -499,8 +561,13 @@ class TorchPlanner:
         con_op = np.full(cc, 2, np.int32)     # 2 = disabled
         con_exp = np.zeros((cc, 2), np.int32)
         if constraints:
-            densify.fill_constraints(self._node_value, infos, n, constraints,
-                                     con_hash, con_op, con_exp)
+            if st is not None:
+                st.fill_constraints(sched, constraints, con_hash, con_op,
+                                    con_exp)
+            else:
+                densify.fill_constraints(self._node_value, infos, n,
+                                         constraints, con_hash, con_op,
+                                         con_exp)
 
         # ---- platforms
         platforms = placement.platforms if placement else []
@@ -510,7 +577,10 @@ class TorchPlanner:
         plat = np.full((pb, 4), -1, np.int32)
         densify.fill_platforms(platforms, plat)
         if platforms:
-            os_hash, arch_hash = densify.node_platform_hashes(infos, nb)
+            if st is not None:
+                os_hash, arch_hash = st.platform_hashes()
+            else:
+                os_hash, arch_hash = densify.node_platform_hashes(infos, nb)
         else:
             os_hash = np.zeros((2, nb), np.int32)
             arch_hash = np.zeros((2, nb), np.int32)
@@ -577,8 +647,11 @@ class TorchPlanner:
             [p for p in (placement.preferences if placement else [])
              if p.spread]
         if len(prefs) == 1:
-            leaf, n_values = densify.flat_leaf(
-                infos, nb, prefs[0].spread.spread_descriptor)
+            descriptor = prefs[0].spread.spread_descriptor
+            if st is not None:
+                leaf, n_values = st.flat_leaf(sched, descriptor)
+            else:
+                leaf, n_values = densify.flat_leaf(infos, nb, descriptor)
             L = _l_bucket(n_values)
         elif prefs:
             from ..scheduler.nodeset import _pref_value
@@ -837,6 +910,85 @@ class TorchPlanner:
         self._count("tasks_planned", placed)
         return True
 
+    # ------------------------------------------------- gang feasibility
+
+    def gang_feasible(self, sched, t: Task, k: int) -> Optional[bool]:
+        """Group-level all-members-feasible verdict for a gang member
+        group (reference ``gang_feasible``): True/False from K8, None when
+        no verdict is available (a static bucket overflow), and the caller
+        then decides by a placement attempt and rollback.  A build, launch
+        or fetch error propagates: there is no host-oracle fallback."""
+        built = self._build_device_inputs(sched, t, k)
+        if built is None:
+            return None
+        nodes_np, group_np = built[7], built[8]
+        if built[1] == 0:
+            return False
+        bucket = _bucket_label(nodes_np, group_np, built[9], built[10])
+        return self._gang_fit_one(nodes_np, group_np, bucket + "_gf")
+
+    def _gang_fit_one(self, nodes_np, group_np, bucket: str) -> bool:
+        """One gang's verdict from K8 (counted ``gang_fit_device``)."""
+        return self._gang_fit_rows([(nodes_np, group_np)], bucket)[0]
+
+    def _gang_fit_rows(self, rows, bucket: str) -> List[bool]:
+        """K8 over the stacked (NodeInputs, GroupInputs) of ``rows``: one
+        H2D of the stack, one launch, one D2H of every gang's verdict.
+        One row counts ``gang_fit_device``, a stack ``gang_fit_fused``."""
+        g = len(rows)
+        _devtel.note_h2d("gang_inputs", _devtel.tree_nbytes(rows))
+        t0 = time.perf_counter()
+        span, args = ("plan.gang_fit", {"k": int(rows[0][1].k)}) if g == 1 \
+            else ("plan.gang_fit_fused", {"gangs": g})
+        with tracer.span(span, "plan", **args):
+            nodes, groups = gang_to_device(rows, self.device)
+            arr = finish_fetch(start_fetch(gang_fit_packed(nodes, groups)))
+            _devtel.note_d2h("fetch", int(arr.nbytes))
+            fits, _fail, _total = unpack_gang(arr, g)
+        if g == 1:
+            _devtel.note_kernel(bucket, "gang",
+                                dispatch_s=time.perf_counter() - t0,
+                                task_rows=int(rows[0][1].k),
+                                node_rows=rows[0][0].valid.shape[0])
+            self._count("gang_fit_device")
+        else:
+            _devtel.note_kernel(bucket, "gang_fused",
+                                dispatch_s=time.perf_counter() - t0,
+                                groups=g)
+            self._count("gang_fit_fused", g)
+        return [bool(f) for f in fits]
+
+    def gang_feasible_many(self, sched, wants) -> list:
+        """Fused gang route: verdicts for ``wants`` = [(t, k), ...].
+        Groups of one input-shape bucket (the same label, quota-mask
+        presence included) stack on a leading gang axis and are judged in
+        ONE K8 launch (bucket suffix ``_gfF``); a bucket with one group
+        takes the per-group route (``_gf``).  Returns [Optional[bool]]
+        aligned with ``wants``."""
+        results: list = [None] * len(wants)
+        by_bucket: Dict[str, list] = {}
+        for i, (t, k) in enumerate(wants):
+            built = self._build_device_inputs(sched, t, k)
+            if built is None:
+                continue
+            if built[1] == 0:
+                results[i] = False
+                continue
+            nodes_np, group_np = built[7], built[8]
+            label = _bucket_label(nodes_np, group_np, built[9], built[10])
+            by_bucket.setdefault(label, []).append((i, nodes_np, group_np))
+        for label, rows in by_bucket.items():
+            if len(rows) < 2:
+                for i, nodes_np, group_np in rows:
+                    results[i] = self._gang_fit_one(nodes_np, group_np,
+                                                    label + "_gf")
+                continue
+            fits = self._gang_fit_rows([(n, g) for _, n, g in rows],
+                                       label + "_gfF")
+            for (i, _n, _g), fit in zip(rows, fits):
+                results[i] = fit
+        return results
+
     # ------------------------------------------------------------ fused route
 
     def probe_fused_run(self, sched, glist, start: int) -> list:
@@ -871,13 +1023,50 @@ class TorchPlanner:
     def _prepare_fused(self, run) -> None:
         """Move the run's node state (FusedShared, FusedCarry) to the
         device, where it stays for every chunk of the run.  The carry is
-        the builder's own copy of the mirror columns, so updating it in
-        place touches no mirror."""
-        _devtel.note_h2d("cold_build", _devtel.tree_nbytes(
-            (tuple(run.shared), tuple(run.carry))))
-        run.shared = named_to_device(type(run.shared), run.shared,
-                                     self.device)
-        run.carry = named_to_device(type(run.carry), run.carry, self.device)
+        updated in place by every chunk, so it must be the run's own: the
+        builder's copy of the mirror columns, uploaded.
+
+        With the streaming plane fresh (no mirror mutation since the
+        resident device sync), valid, ready, total, cpu and mem are
+        already on the device and equal the host mirror bit for bit (K7
+        applies the same rows), so placements cannot change.  The run then
+        uploads only its hashes and service columns: valid and ready are
+        only read and alias the resident tensors, while the carry's total,
+        cpu and mem are device-to-device clones -- seeded with the
+        resident tensors themselves, the run would write its placements
+        into the resident columns, which would then stop mirroring the
+        host."""
+        shared, carry = run.shared, run.carry
+        # identity guard, like every other streaming fast path: the run's
+        # shared.valid IS the resident host column iff build_run densified
+        # from the resident state
+        st = self._streaming
+        if st is not None and (not self.streaming_enabled
+                               or shared.valid is not st.valid):
+            st = None
+        dev = st.device_carry() if st is not None else None
+        if dev is None:
+            _devtel.note_h2d("cold_build", _devtel.tree_nbytes(
+                (tuple(shared), tuple(carry))))
+            run.shared = named_to_device(FusedShared, shared, self.device)
+            run.carry = named_to_device(FusedCarry, carry, self.device)
+            return
+        d_valid, d_ready, d_cpu, d_mem, d_total = dev
+        self._count("streaming_device_carries")
+        _devtel.note_bytes_avoided(_devtel.tree_nbytes(
+            (shared.valid, shared.ready, carry.total, carry.cpu, carry.mem)))
+        rest = (shared.os_hash, shared.arch_hash, shared.svc0, carry.svc_acc)
+        _devtel.note_h2d("cold_build", _devtel.tree_nbytes(rest))
+        os_hash, arch_hash, svc0, svc_acc = (tensor(a, self.device)
+                                             for a in rest)
+        total, cpu, mem = d_total.clone(), d_cpu.clone(), d_mem.clone()
+        _devtel.note_d2d("resident_carry",
+                         total.nbytes + cpu.nbytes + mem.nbytes)
+        run.shared = FusedShared(valid=d_valid, ready=d_ready,
+                                 os_hash=os_hash, arch_hash=arch_hash,
+                                 svc0=svc0)
+        run.carry = FusedCarry(total=total, cpu=cpu, mem=mem,
+                               svc_acc=svc_acc)
 
     def _dispatch_fused_chunks(self, run) -> None:
         """Enqueue chunks until two are in flight (or the run is fully

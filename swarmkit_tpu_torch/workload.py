@@ -14,20 +14,33 @@ ten services: bench.py's config 7 (10,000 nodes, 10 replicated services of
 50,000 tasks, 0.1 CPU + 64 MiB each, all pending in one tick), with the
 services split over the four placement strategies (``MANY_SERVICE_MIX``):
 four spread over the rack label, two binpack, two weighted, two learned.
+
+``steady_state_churn`` is bench.py's config 10, the streaming scheduler's
+production shape: 8,192 nodes in steady state (12,000 base tasks RUNNING
+over six services ``ca``..``cf``) while seeded windows bring Poisson(40)
+arrivals to one service (rotating over ``cb``..``cf``) and Poisson(18)
+exits; each window ends in one tick driven through the store watch feed.
+
+``gang_fleet`` is bench.py's config 12 gang fleet: 400 nodes of 16 CPUs,
+24 gangs of 8 members at 4 CPUs, 40 gangs of 4 at 2 CPUs, and 8
+cross-service gangs of two services x 4 members at 2 CPUs, all pending.
 """
 
 from __future__ import annotations
 
+import random
 import time
 
 from .models import (
-    Annotations, Node, NodeDescription, NodeSpec, NodeState, NodeStatus,
-    Placement, PlacementPreference, Platform, ReplicatedService, Resources,
-    ResourceRequirements, Service, ServiceMode, ServiceSpec, SpreadOver, Task,
-    TaskSpec, TaskState, TaskStatus, Version,
+    Annotations, GangConfig, Node, NodeDescription, NodeSpec, NodeState,
+    NodeStatus, Placement, PlacementPreference, Platform, ReplicatedService,
+    Resources, ResourceRequirements, Service, ServiceMode, ServiceSpec,
+    SpreadOver, Task, TaskSpec, TaskState, TaskStatus, Version,
 )
+from .models.types import now
 from .state import MemoryStore
 from .utils import new_id
+from .utils.sampling import poisson
 
 HEADLINE_NODES = 10_000
 HEADLINE_TASKS = 100_000
@@ -190,4 +203,270 @@ def many_service_cluster(n_nodes=MANY_SERVICE_NODES,
             tx.create(t)
 
     store.update(create_tasks)
+    return store, services, nodes, tasks
+
+
+# ------------------------------------------------------ steady-state churn
+
+CHURN_NODES = 8192
+CHURN_BASE_TASKS = 12_000
+CHURN_WINDOWS = 12
+CHURN_SEED = 1
+CHURN_SERVICES = ("ca", "cb", "cc", "cd", "ce", "cf")
+#: arrivals rotate over the production-shaped services; "ca" is base load
+CHURN_ARRIVE = ("cb", "cc", "cd", "ce", "cf")
+CHURN_LAM_ARRIVE = 40.0
+CHURN_LAM_EXIT = 18.0
+
+
+def churn_specs():
+    """The six services' task specs: constraints, platform requirements
+    and a rack spread preference -- the per-group columns the resident
+    state keeps."""
+    res = ResourceRequirements(
+        reservations=Resources(nano_cpus=10**8, memory_bytes=64 << 20))
+    amd64 = [Platform(os="linux", architecture="amd64")]
+    rack = [PlacementPreference(spread=SpreadOver(
+        spread_descriptor="node.labels.rack"))]
+    return {
+        "ca": TaskSpec(resources=res),
+        "cb": TaskSpec(resources=res, placement=Placement(
+            constraints=["node.labels.tier==web"], platforms=amd64)),
+        "cc": TaskSpec(resources=res, placement=Placement(preferences=rack)),
+        "cd": TaskSpec(resources=res, placement=Placement(
+            constraints=["node.labels.rack!=r03"], platforms=amd64)),
+        "ce": TaskSpec(resources=res, placement=Placement(
+            constraints=["node.hostname!=c99999"], platforms=amd64,
+            preferences=rack)),
+        "cf": TaskSpec(resources=res, placement=Placement(
+            constraints=["node.labels.rack!=r07"], platforms=amd64)),
+    }
+
+
+def churn_script(windows, seed=CHURN_SEED):
+    """[(arrivals {service: count}, exits)] per window: each window's
+    arrivals hit ONE service, rotating; seeded, so every run replays the
+    same churn."""
+    rng = random.Random(seed)
+    script = []
+    for w in range(windows):
+        sid = CHURN_ARRIVE[w % len(CHURN_ARRIVE)]
+        arrivals = {sid: max(1, poisson(rng, CHURN_LAM_ARRIVE))}
+        script.append((arrivals, poisson(rng, CHURN_LAM_EXIT)))
+    return script
+
+
+class SteadyStateChurn:
+    """One run of the churn workload: the store (built here), a scheduler
+    over it fed by the store's watch stream, and the window driver.  Ids
+    are fixed, so two runs compare task by task."""
+
+    def __init__(self, n_nodes=CHURN_NODES, n_base=CHURN_BASE_TASKS,
+                 windows=CHURN_WINDOWS, seed=CHURN_SEED):
+        self.n_base = n_base
+        self.specs = churn_specs()
+        self.script = churn_script(windows, seed)
+        self.seqs = {sid: 0 for sid in CHURN_SERVICES}
+        self.exited = 0
+        self.sched = None
+        self._sub = None
+        self.store = store = MemoryStore()
+        nodes = [Node(
+            id=f"c{i:05d}",
+            spec=NodeSpec(annotations=Annotations(
+                name=f"c{i:05d}",
+                labels={"tier": "web" if i % 2 else "db",
+                        "rack": f"r{i % 16:02d}"})),
+            status=NodeStatus(state=NodeState.READY),
+            description=NodeDescription(
+                hostname=f"c{i:05d}",
+                platform=Platform(os="linux", architecture="amd64"),
+                resources=Resources(nano_cpus=8 * 10**9,
+                                    memory_bytes=32 << 30)))
+            for i in range(n_nodes)]
+        store.update(lambda tx: [tx.create(n) for n in nodes])
+
+        def mk_services(tx):
+            for sid in CHURN_SERVICES:
+                tx.create(Service(
+                    id=sid,
+                    spec=ServiceSpec(
+                        annotations=Annotations(name=sid),
+                        mode=ServiceMode.REPLICATED,
+                        replicated=ReplicatedService(replicas=0),
+                        task=self.specs[sid]),
+                    spec_version=Version(index=1)))
+        store.update(mk_services)
+
+        def mk_base(tx):
+            for k in range(n_base):
+                sid = CHURN_SERVICES[k % len(CHURN_SERVICES)]
+                tx.create(Task(
+                    id=f"{sid}-base{k:06d}", service_id=sid, slot=k + 1,
+                    desired_state=TaskState.RUNNING, spec=self.specs[sid],
+                    spec_version=Version(index=1),
+                    node_id=nodes[k % n_nodes].id,
+                    status=TaskStatus(state=TaskState.RUNNING)))
+        store.update(mk_base)
+
+    def attach(self, planner):
+        """A scheduler over the store with ``planner``, its mirror set up
+        from a watch subscription (the streaming delta source)."""
+        from .scheduler import Scheduler
+        self.sched = Scheduler(self.store, batch_planner=planner,
+                               pipeline_depth=1)
+        _, self._sub = self.store.view_and_watch(
+            lambda tx: self.sched._setup_tasks_list(tx), accepts_blocks=True)
+        return self.sched
+
+    def pump(self) -> None:
+        """Feed the scheduler every watch event since the last pump."""
+        from .state.events import Event, EventSnapshotRestore
+        while True:
+            ev = self._sub.poll()
+            if ev is None:
+                return
+            if isinstance(ev, EventSnapshotRestore):
+                self.sched._resync()
+            elif isinstance(ev, Event):
+                self.sched._handle_event(ev)
+
+    def add(self, sid: str, n: int) -> None:
+        """``n`` PENDING arrivals of service ``sid``."""
+        spec = self.specs[sid]
+        base = self.seqs[sid]
+
+        def cb(tx):
+            ts = now()
+            for k in range(n):
+                tx.create(Task(
+                    id=f"{sid}-a{base + k:06d}", service_id=sid,
+                    slot=self.n_base + base + k + 1,
+                    desired_state=TaskState.RUNNING, spec=spec,
+                    spec_version=Version(index=1),
+                    status=TaskStatus(state=TaskState.PENDING,
+                                      timestamp=ts)))
+        self.store.update(cb)
+        self.seqs[sid] = base + n
+
+    def exit_some(self, k: int) -> None:
+        """The ``k`` oldest base tasks not yet exited complete."""
+        start = self.exited
+        victims = [f"{CHURN_SERVICES[j % len(CHURN_SERVICES)]}-base{j:06d}"
+                   for j in range(start, min(start + k, self.n_base))]
+        self.exited = start + len(victims)
+
+        def cb(tx):
+            ts = now()
+            for tid in victims:
+                cur = tx.get(Task, tid)
+                if cur is None:
+                    continue
+                cur = cur.copy()
+                cur.status = TaskStatus(state=TaskState.COMPLETE,
+                                        timestamp=ts, message="churn exit")
+                tx.update(cur)
+        self.store.update(cb)
+
+    def feed(self, arrivals, exits) -> None:
+        """A window's arrivals and exits, written to the store and fed to
+        the scheduler through the watch stream."""
+        for sid, n in arrivals.items():
+            if n:
+                self.add(sid, n)
+        if exits:
+            self.exit_some(exits)
+        self.pump()
+
+    def window(self, arrivals, exits) -> int:
+        """One window: :meth:`feed`, then one tick.  Returns the tick's
+        decisions."""
+        self.feed(arrivals, exits)
+        return self.sched.tick()
+
+    def placements(self):
+        """Sorted (task id, node id) of every task in the store."""
+        return sorted((t.id, t.node_id)
+                      for t in self.store.view(lambda tx: tx.find(Task)))
+
+    def close(self) -> None:
+        self.pump()
+        self.store.queue.unsubscribe(self._sub)
+
+
+def steady_state_churn(n_nodes=CHURN_NODES, n_base=CHURN_BASE_TASKS,
+                       windows=CHURN_WINDOWS, seed=CHURN_SEED):
+    """A fresh :class:`SteadyStateChurn` (store built, script drawn)."""
+    return SteadyStateChurn(n_nodes, n_base, windows, seed)
+
+
+# -------------------------------------------------------------- gang fleet
+
+GANG_NODES = 400
+GANG_NODE_CPUS = 16
+#: (name prefix, gangs, members, CPUs per member) of the one-service gangs
+GANG_SHAPES = (("gang8", 24, 8, 4), ("gang4", 40, 4, 2))
+GANG_CROSS = 8            # cross-service gangs: 2 services x 4 members
+
+
+def gang_service(name, cpus, count, min_size, gang_id=""):
+    """(service, tasks): ``count`` PENDING tasks of one replicated service
+    reserving ``cpus`` CPUs (and cpus/4 GiB) each, in gang ``gang_id``
+    (the service itself when empty) of ``min_size`` members.  The service
+    id is ``name`` and task ids derive from it, so two builds compare task
+    by task (the host path breaks ties by id)."""
+    spec = TaskSpec(
+        resources=ResourceRequirements(reservations=Resources(
+            nano_cpus=cpus * 10**9, memory_bytes=(cpus << 30) // 4)),
+        placement=Placement(gang=GangConfig(min_size=min_size)),
+        gang_id=gang_id)
+    svc = Service(
+        id=name,
+        spec=ServiceSpec(annotations=Annotations(name=name),
+                         mode=ServiceMode.REPLICATED,
+                         replicated=ReplicatedService(replicas=count),
+                         task=spec),
+        spec_version=Version(index=1))
+    tasks = [Task(id=f"{name}-t{s:02d}", service_id=svc.id, slot=s + 1,
+                  desired_state=TaskState.RUNNING, spec=spec,
+                  spec_version=Version(index=1),
+                  status=TaskStatus(state=TaskState.PENDING))
+             for s in range(count)]
+    return svc, tasks
+
+
+def gang_fleet(n_nodes=GANG_NODES):
+    """(store, services, nodes, tasks) of the gang fleet, ``tasks`` in
+    creation order: 72 gangs, 416 members, all pending.  Ids are fixed."""
+    store = MemoryStore()
+    nodes = [Node(
+        id=f"g{i:04d}",
+        spec=NodeSpec(annotations=Annotations(name=f"g{i:04d}")),
+        status=NodeStatus(state=NodeState.READY,
+                          addr=f"10.{i // 250}.0.{i % 250 + 1}"),
+        description=NodeDescription(
+            hostname=f"g{i:04d}",
+            resources=Resources(nano_cpus=GANG_NODE_CPUS * 10**9,
+                                memory_bytes=64 << 30)))
+        for i in range(n_nodes)]
+    services, tasks = [], []
+    for prefix, n_gangs, size, cpus in GANG_SHAPES:
+        for g in range(n_gangs):
+            svc, ts = gang_service(f"{prefix}-{g:02d}", cpus, size, size)
+            services.append(svc)
+            tasks += ts
+    for g in range(GANG_CROSS):
+        for half in "ab":
+            svc, ts = gang_service(f"xgang-{g}{half}", 2, 4, 8,
+                                   gang_id=f"xg{g}")
+            services.append(svc)
+            tasks += ts
+
+    def mk(tx):
+        for n in nodes:
+            tx.create(n)
+        for svc in services:
+            tx.create(svc)
+    store.update(mk)
+    store.update(lambda tx: [tx.create(t) for t in tasks] and None)
     return store, services, nodes, tasks

@@ -12,9 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import fused_inputs, plan_inputs
+from chip_smoke import fused_inputs, gang_rows, plan_inputs, scatter_inputs
 from swarmkit_tpu_torch.ops import kernel as K
-from swarmkit_tpu_torch.ops.convert import fused_to_device, to_device
+from swarmkit_tpu_torch.ops.convert import (
+    fused_to_device, gang_to_device, to_device)
 
 pytestmark = pytest.mark.gpu
 
@@ -326,3 +327,134 @@ def test_planner_tick_on_card_matches_host_path():
     planner = TorchPlanner()
     assert counts(planner) == counts(None)
     assert planner.stats["tasks_planned"] == 3000
+
+
+# ----------------------------------------------------------------- K7, K8
+
+SCATTER_SHAPES = {"d13_of_16": (1024, 13, 16), "d16_of_16": (16384, 16, 16),
+                  "d200_of_256": (16384, 200, 256),
+                  "d3000_of_4096": (16384, 3000, 4096)}
+
+
+@pytest.mark.parametrize("case", sorted(SCATTER_SHAPES))
+def test_scatter_rows_kernel_matches_plain(case):
+    dev = _card()
+    nb, d, db = SCATTER_SHAPES[case]
+    cols_np, packed_np = scatter_inputs(3, nb=nb, d=d, db=db)
+    got = [torch.from_numpy(c).to(dev) for c in cols_np]
+    K.scatter_rows(got, torch.from_numpy(packed_np).to(dev))
+    torch.cuda.synchronize()
+    want = [torch.from_numpy(c.copy()) for c in cols_np]
+    K.scatter_rows(want, torch.from_numpy(packed_np))
+    for g, w in zip(got, want):
+        _eq(g, w)
+
+
+GANG_SHAPES = {"g1_quota": dict(g_count=1, quota=True),
+               "g1": dict(g_count=1), "g3_small": dict(g_count=3, nb=1024,
+                                                       n_valid=1000),
+               "g8": dict(g_count=8)}
+
+
+@pytest.mark.parametrize("case", sorted(GANG_SHAPES))
+def test_gang_fit_kernel_matches_plain(case):
+    dev = _card()
+    rows = gang_rows(41, **GANG_SHAPES[case])
+    g = len(rows)
+    got = K.unpack_gang(K.gang_fit_packed(*gang_to_device(rows, dev)), g)
+    torch.cuda.synchronize()
+    want = K.unpack_gang(K.gang_fit_packed(*gang_to_device(rows, "cpu")), g)
+    for a, b in zip(got, want):
+        _eq(a, b)
+
+
+def test_resident_kernels_count_launches():
+    dev = _card()
+    cols_np, packed_np = scatter_inputs(5, nb=1024, d=10, db=16)
+    cols = [torch.from_numpy(c).to(dev) for c in cols_np]
+    packed = torch.from_numpy(packed_np).to(dev)
+    assert _launched(lambda: K.scatter_rows(cols, packed)) \
+        == {"scatter_rows": 1}
+    nodes, groups = gang_to_device(gang_rows(6, 3, nb=1024, n_valid=1000),
+                                   dev)
+    assert _launched(lambda: K.gang_fit_packed(nodes, groups)) \
+        == {"gang_fit": 1}
+
+
+def test_resident_state_refreshes_on_card():
+    """Back-to-back refreshes reuse one pinned staging buffer per bucket;
+    each must wait for the previous copy out of it, so the CUDA columns
+    equal the host mirror after every refresh."""
+    _card()
+    from swarmkit_tpu_torch.ops.planner import TorchPlanner
+    from swarmkit_tpu_torch.ops.streaming import ResidentState
+    from swarmkit_tpu_torch.workload import steady_state_churn
+    wl = steady_state_churn(1024, 600, 1)
+    sched = wl.attach(None)
+    st = ResidentState(TorchPlanner(device="cpu")._node_value, "cuda")
+    st.refresh(sched)
+    rng = np.random.RandomState(9)
+    for step in range(30):
+        for nid in rng.choice(sorted(sched.node_set.nodes), 40,
+                              replace=False):
+            info = sched.node_set.nodes[nid]
+            info.available_resources.nano_cpus -= int(rng.randint(1, 99))
+            info.active_tasks_count += 1
+            sched.delta.mark(nid)
+        st.refresh(sched)
+        assert st.device_carry() is not None
+        torch.cuda.synchronize()
+        for d, h in zip(st.dev, st._host_cols()):
+            np.testing.assert_array_equal(d.cpu().numpy(), h,
+                                          err_msg=str(step))
+    wl.close()
+
+
+def test_churn_on_card_matches_cpu():
+    _card()
+    import hashlib
+
+    from swarmkit_tpu_torch.ops import TorchPlanner
+    from swarmkit_tpu_torch.workload import steady_state_churn
+
+    def run(device, streaming):
+        wl = steady_state_churn(1024, 1500, 6)
+        wl.script.append(({"cb": 20, "cd": 20, "cf": 20}, 9))
+        planner = TorchPlanner(device=device)
+        planner.streaming_enabled = streaming
+        wl.attach(planner).tick()
+        for arrivals, exits in wl.script:
+            wl.window(arrivals, exits)
+        wl.close()
+        digest = hashlib.sha256(repr(wl.placements()).encode()).digest()
+        return digest, planner
+
+    card, planner = run("cuda", True)
+    assert card == run("cpu", True)[0] == run("cuda", False)[0]
+    assert planner.stats["streaming_device_carries"] >= 1
+    assert planner.streaming_snapshot()["incremental_ticks"] >= 7
+
+
+def test_gang_fleet_on_card_matches_host_path():
+    _card()
+    from swarmkit_tpu_torch.models import Task
+    from swarmkit_tpu_torch.ops import TorchPlanner
+    from swarmkit_tpu_torch.scheduler import Scheduler
+    from swarmkit_tpu_torch.workload import gang_fleet
+
+    def run(planner):
+        store, _, _, tasks = gang_fleet()
+        sched = Scheduler(store, batch_planner=planner)
+        store.view(sched._setup_tasks_list)
+        sched.tick()
+        placed = {t.id: t.node_id for t in store.view(
+            lambda tx: tx.find(Task))}
+        return [placed[t.id] for t in tasks], sched
+
+    planner = TorchPlanner()
+    card, sched = run(planner)
+    assert card == run(None)[0]
+    assert all(card)
+    assert sched.gang.stats["gangs_admitted"] == 72
+    assert planner.stats["gang_fit_device"] + \
+        planner.stats["gang_fit_fused"] == 80

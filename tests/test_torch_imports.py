@@ -4,6 +4,8 @@ planner's entry point defaults to the card."""
 
 import ast
 import pathlib
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -38,6 +40,8 @@ def test_port_files_exist():
     for must in ("swarmkit_tpu_torch/ops/kernel.py",
                  "swarmkit_tpu_torch/ops/planner.py",
                  "swarmkit_tpu_torch/ops/convert.py",
+                 "swarmkit_tpu_torch/ops/streaming.py",
+                 "swarmkit_tpu_torch/utils/sampling.py",
                  "swarmkit_tpu_torch/scheduler/scheduler.py",
                  "chip_smoke.py"):
         assert must in names
@@ -49,6 +53,21 @@ def test_no_jax_or_reference_import(path):
     bad = [m for m in _imported(path)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == [], f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("module", [
+    "swarmkit_tpu_torch.ops.streaming", "swarmkit_tpu_torch.ops.planner",
+    "swarmkit_tpu_torch.workload", "swarmkit_tpu_torch.utils.sampling"])
+def test_import_loads_no_jax(module):
+    """Importing a port module (and everything it imports) in a fresh
+    interpreter loads neither jax nor the reference package."""
+    code = (f"import sys, {module}\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 def test_planner_defaults_to_cuda():
