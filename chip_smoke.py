@@ -47,12 +47,29 @@ Phases, each of which exits non-zero on failure:
 12. gang fleet: bench.py's config 12 gangs (400 nodes, 72 gangs, 416
     members): every gang admitted whole in one tick with 80 verdicts from
     K8 (64 per group, 16 fused rows), placements equal to the host path's
-    by creation index, and an added infeasible gang deferred whole.
+    by creation index, and an added infeasible gang deferred whole;
+13. kernel K9 at node bucket 16384 for V = 4, 16 and 64 with 512 picks:
+    the victim selection on a full run, a budget stop and an infeasible
+    stop, each bit-equal to its plain version on the card (negative free
+    pools, a generic column); wrapper, device (both launches) and H2D
+    times;
+14. config 8: bench.py's priority bands (512 nodes, 1,800 priority-0
+    tasks running, 584 higher-priority arrivals in one tick) through
+    ``TorchPlanner()``: every arrival assigned with preemptions, K9
+    launched once per preempting group, each call's picks equal to
+    ``select_victims_host``, and the live tasks per (service, node) and the
+    victims equal to the host path's;
+15. priority storm at the headline width (10,000 nodes, 150,000 running
+    tasks, 512 priority-2 arrivals): every arrival placed through K9, each
+    call's picks equal to the plain version on the card and on the CPU,
+    its traced twin, and at 1,000 nodes each call's picks equal to the
+    host oracle's.
 
 The counts of kernel launches are set to 0 just before each main path and
 read just after it; the kernels' JSON line reports K1-K6 from the
-many-service path, K7 from the churn path and K8 from the gang path.  The
-last lines are that JSON line, the card's name and power limit, and
+many-service path, K7 from the churn path, K8 from the gang path and K9
+from the storm.  The last lines are that JSON line, the card's name and
+power limit, and
 ``{"ok": true, "device": {...}}``.  The full record also goes to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -124,6 +141,12 @@ def device_us(evt):
 def device_ms(torch, fn, symbols, reps=20):
     """Device time per call of the kernels whose names contain one of
     ``symbols``, from torch.profiler; None when the profiler saw none."""
+    return device_ms_each(torch, fn, (symbols,), reps)[0]
+
+
+def device_ms_each(torch, fn, groups, reps=20):
+    """Device time per call for each group of kernel-name ``symbols`` in
+    ``groups``, from one torch.profiler session; None where it saw none."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -132,9 +155,13 @@ def device_ms(torch, fn, symbols, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(device_us(e) for e in prof.key_averages()
-                if any(sym in e.key for sym in symbols))
-    return total / reps / 1e3 if total > 0 else None
+    events = prof.key_averages()
+    out = []
+    for symbols in groups:
+        total = sum(device_us(e) for e in events
+                    if any(sym in e.key for sym in symbols))
+        out.append(total / reps / 1e3 if total > 0 else None)
+    return out
 
 
 def max_abs_err(torch, got, want):
@@ -371,6 +398,69 @@ def gang_bytes(rows):
     n = rows[0][0].valid.shape[0]
     return sum(feasibility_bytes(nodes, group) - 5 * n - 32 + 48
                for nodes, group in rows)
+
+
+VICTIM_CASES = ("full", "budget_stop", "infeasible_stop")
+
+
+def victim_inputs(seed, v, case="full", n=10000, picks=512):
+    """A seeded ``CandidateSet`` of ``n`` nodes and ``v`` victim slots and
+    the call's (cpu_d, mem_d, gen_d, n_picks, budget), as numpy.  Free
+    pools run from -4 to 3 CPUs (so nearly every pick evicts), victims
+    carry cpu, memory and one generic kind, slots are sorted by priority
+    with dead ones among them.  ``budget_stop`` gives a budget that runs
+    out mid-run; ``infeasible_stop`` leaves 8 eligible nodes, whose victims
+    run out before the picks do."""
+    import numpy as np
+    from swarmkit_tpu_torch.scheduler.preempt import CandidateSet
+    rng = np.random.RandomState(seed)
+    cpu, gib = 10**9, 1 << 30
+    ok = rng.rand(n) < 0.95
+    if case == "infeasible_stop":
+        ok &= np.arange(n) % (n // 8) == 0
+    vvalid = rng.rand(v, n) < 0.8
+    cand = CandidateSet(
+        infos=None, ok=ok,
+        free_cpu=rng.randint(-4, 4, n).astype(np.int64) * cpu,
+        free_mem=rng.randint(-2, 16, n).astype(np.int64) * gib,
+        vvalid=vvalid,
+        vprio=np.sort(rng.randint(0, 10, (v, n)), axis=0).astype(np.int32),
+        vcpu=rng.randint(0, 5, (v, n)).astype(np.int64) * cpu,
+        vmem=rng.randint(0, 9, (v, n)).astype(np.int64) * gib,
+        victims=None, vb=v, n_candidates=int(vvalid.sum()),
+        free_gen=rng.randint(0, 3, n).astype(np.int64),
+        vgen=rng.randint(0, 2, (v, n)).astype(np.int64))
+    budget = 400 if case == "budget_stop" else 1 << 20
+    return cand, (4 * cpu, 8 * gib, 1, picks, budget)
+
+
+def victim_need(cand, args, picked, nb, pb):
+    """(bytes, operations) that K9's function must spend on these inputs,
+    given the run's ``picked`` [(node, m)].  Bytes: ``ok`` of each of the
+    ``nb`` padded nodes; the three free pools of each node whose ``ok``
+    holds; of those nodes' victim slots, each one before the first prefix
+    that fits (all V where none fits) or before the longest prefix a pick
+    took there: its ``vvalid`` byte and, where valid, its 28 bytes of cpu,
+    memory, generic units and priority; and the 8 PB bytes of picks
+    written.  Operations: five sums and a compare per valid slot read, and
+    one compare per eligible node per pick made."""
+    import numpy as np
+    ok, vvalid = np.asarray(cand.ok), np.asarray(cand.vvalid)
+    v, n = vvalid.shape
+    fits = np.ones((v + 1, n), bool)
+    for free, col, d in ((cand.free_cpu, cand.vcpu, args[0]),
+                         (cand.free_mem, cand.vmem, args[1]),
+                         (cand.free_gen, cand.vgen, args[2])):
+        cum = np.cumsum(np.where(vvalid, col, 0), axis=0)
+        fits &= free + np.concatenate([np.zeros((1, n), np.int64), cum]) >= d
+    reach = np.where(fits.any(axis=0), fits.argmax(axis=0), v)
+    for j, m in picked:
+        reach[j] = max(reach[j], m)
+    read = (np.arange(v)[:, None] < reach) & ok
+    n_live = int((read & vvalid).sum())
+    n_ok = int(ok.sum())
+    nbytes = nb + 24 * n_ok + int(read.sum()) + 28 * n_live + 8 * pb
+    return nbytes, 6 * n_live + len(picked) * n_ok
 
 
 def phase_build(cuda):
@@ -1067,6 +1157,300 @@ def phase_gang(torch, K, cuda, workload, Task, Scheduler, TorchPlanner,
     return out
 
 
+def phase_kernels_victims(torch, P, victims_to_device):
+    """K9 against its plain version on the card at node bucket 16384 for
+    V = 4, 16 and 64, 512 picks: a full run, a budget stop and an
+    infeasible stop each, bit-equal.  Times at each V on the full run."""
+    from swarmkit_tpu_torch.ops.densify import n_bucket
+    dev = torch.device("cuda")
+    per_v, err = {}, 0
+    for v in (4, 16, 64):
+        for case in VICTIM_CASES:
+            cand, args = victim_inputs(900 + v, v, case)
+            n_picks = args[3]
+            pb = P.pick_bucket(n_picks)
+            nb = n_bucket(cand.ok.shape[0])
+            stages = {}
+            inp = victims_to_device(cand, nb, dev, stages)
+            got = P.select_victims(inp, *args, pb)
+            want = P._select_victims_plain(inp, *args, pb)
+            e = max_abs_err(torch, (got,), (want,))
+            check(e == 0 and torch.equal(got, want),
+                  f"K9 (V={v}, {case}): kernel differs from its plain version")
+            err = max(err, e)
+            picks = int((want[:pb] >= 0).sum())
+            rich = P.select_victims(inp, *args[:4], 1 << 20, pb)
+            more = int((rich[:pb] >= 0).sum())
+            if case == "full":
+                check(picks == n_picks, f"K9 (V={v}): {picks} of {n_picks} "
+                      "picks on the full run")
+            elif case == "budget_stop":
+                check(picks < more, f"K9 (V={v}): the budget never stopped "
+                      f"the run ({picks} picks, {more} without it)")
+            else:
+                check(picks == more < n_picks, f"K9 (V={v}): no infeasible "
+                      f"stop ({picks} / {more} of {n_picks} picks)")
+            print(f"kernels: select_victims (V={v}, {case}, nb={nb}) == plain "
+                  f"on the card: {picks} picks of {n_picks}", flush=True)
+            if case != "full":
+                continue
+            (stage,) = stages.values()
+            prefix_dev, pick_dev = device_ms_each(
+                torch, lambda: P.select_victims(inp, *args, pb),
+                (("victim_prefix_kernel",), ("victim_pick_kernel",)))
+            t0 = time.perf_counter()
+            for _ in range(5):
+                victims_to_device(cand, nb, dev, stages)
+            torch.cuda.synchronize()
+            prep_ms = (time.perf_counter() - t0) / 5 * 1e3
+            need = victim_need(cand, args, picks_of(*want.view(2, -1)), nb,
+                               pb)
+            per_v[v] = dict(
+                kernel=P.VICTIMS, err=0, picks=picks, nb=nb, pb=pb,
+                bytes=need[0], ops=need[1],
+                ms=time_ms(torch, lambda: P.select_victims(
+                    inp, *args, pb), reps=20, warmup=3),
+                prefix_device_ms=prefix_dev, pick_device_ms=pick_dev,
+                plain_ms=time_ms(torch, lambda: P._select_victims_plain(
+                    inp, *args, pb), reps=2, warmup=1),
+                h2d_ms=time_ms(torch, lambda: stage.dev.copy_(
+                    stage.host, non_blocking=True), reps=20, warmup=2),
+                h2d_bytes=int(stage.host.numel()),
+                pack_and_upload_ms=prep_ms, library_ms=None)
+            r = per_v[v]
+            r["device_ms"] = None if None in (r["prefix_device_ms"],
+                                              r["pick_device_ms"]) \
+                else r["prefix_device_ms"] + r["pick_device_ms"]
+            dev_txt = ("not measured" if r["device_ms"] is None else
+                       f"{r['prefix_device_ms']:.4f} ms prefix + "
+                       f"{r['pick_device_ms']:.4f} ms picks (torch.profiler)")
+            print(f"kernels: select_victims (V={v}, {picks} picks) "
+                  f"{r['ms']:.4f} ms per wrapper call (CUDA events), device "
+                  f"{dev_txt}, plain {r['plain_ms']:.2f} ms, H2D "
+                  f"{r['h2d_ms']:.4f} ms for {r['h2d_bytes']} bytes (pack + "
+                  f"upload {prep_ms:.3f} ms), {r['bytes']} bytes, bound "
+                  f"{bound(r['bytes'], r['ops'])[0]:.7f} ms", flush=True)
+    row = dict(per_v[16])
+    row["err"] = err
+    return [row], {f"select_victims_v{v}": {k: x for k, x in r.items()
+                                            if k != "kernel"}
+                   for v, r in per_v.items()}
+
+
+def spy_on_victims(planner):
+    """Wrap ``planner.select_victims`` so each call's (candidates,
+    arguments, picks, seconds) is kept; returns that list."""
+    calls = []
+    orig = planner.select_victims
+
+    def spy(cand, *args):
+        t0 = time.perf_counter()
+        picks = orig(cand, *args)
+        calls.append((cand, args, picks, time.perf_counter() - t0))
+        return picks
+    planner.select_victims = spy
+    return calls
+
+
+class PreemptSteps:
+    """Wall seconds of the preemption pass's host steps while in use:
+    the candidate build (``build_candidates``) and the commits
+    (``Scheduler._commit_preemption``), wrapped where the scheduler looks
+    them up and restored on exit."""
+
+    def __init__(self, Scheduler):
+        from swarmkit_tpu_torch.scheduler import preempt as hp
+        self.targets = ((hp, "build_candidates", "build_candidates_s"),
+                        (Scheduler, "_commit_preemption", "commit_s"))
+        self.seconds = {key: 0.0 for _, _, key in self.targets}
+
+    def __enter__(self):
+        self.saved = []
+        for owner, name, key in self.targets:
+            orig = getattr(owner, name)
+            self.saved.append((owner, name, orig))
+
+            def timed(*args, _orig=orig, _key=key, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _orig(*args, **kw)
+                finally:
+                    self.seconds[_key] += time.perf_counter() - t0
+            setattr(owner, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in self.saved:
+            setattr(owner, name, orig)
+
+
+def preempt_outcome(store, Task, nodes):
+    """(live tasks per (service, node hostname), sorted victim ids)."""
+    from swarmkit_tpu_torch.models import TaskState
+    host = {n.id: n.description.hostname for n in nodes}
+    tasks = store.view(lambda tx: tx.find(Task))
+    live = Counter((t.service_id, host[t.node_id]) for t in tasks
+                   if t.node_id and t.desired_state <= TaskState.COMPLETE)
+    victims = sorted(t.id for t in tasks
+                     if "swarm.preempted.at" in t.annotations.labels)
+    return live, victims
+
+
+def phase_priority_jobs(torch, K, P, cuda, workload, Task, Scheduler,
+                        TorchPlanner, card):
+    """bench.py's config 8 through ``TorchPlanner()``: every arrival
+    placed with preemptions, K9 launched once per preempting group, each
+    call's picks equal to the host oracle's, and the live tasks per
+    (service, node) and the victims equal to the host path's."""
+    from swarmkit_tpu_torch.models import TaskState
+    from swarmkit_tpu_torch.scheduler import preempt as hp
+    from swarmkit_tpu_torch.utils.metrics import registry
+    out, outcome = {}, {}
+    for label, planner in (("card", TorchPlanner()), ("host", None)):
+        store, _, nodes, tasks = workload.priority_jobs()
+        calls = spy_on_victims(planner) if planner is not None else []
+        pre0 = registry.get_counter('swarm_preemptions{reason="priority"}')
+        cuda.reset_launch_counts(K.KERNELS + P.KERNELS)
+        with PreemptSteps(Scheduler) as steps:
+            sched, n_dec, tick_s = workload.preempt_tick(
+                store, planner, workload.PRIORITY_JOBS_BUDGET)
+            torch.cuda.synchronize()
+        launches = cuda.launch_counts(K.KERNELS + P.KERNELS)
+        preemptions = int(registry.get_counter(
+            'swarm_preemptions{reason="priority"}') - pre0)
+        after = {t.id: t for t in store.view(lambda tx: tx.find(Task))}
+        arrivals = [t for t in tasks if t.service_id != "band-lo"]
+        check(all(after[t.id].node_id and after[t.id].status.state
+                  == TaskState.ASSIGNED for t in arrivals),
+              f"config 8 ({label}): not every arrival was assigned")
+        check(preemptions > 0, f"config 8 ({label}): no preemption")
+        if planner is not None:
+            check(launches["select_victims"] == len(calls) > 0,
+                  f"config 8: {launches['select_victims']} K9 launches for "
+                  f"{len(calls)} select_victims calls")
+            for cand, args, picks, _ in calls:
+                check(picks == hp.select_victims_host(cand, *args),
+                      f"config 8: K9's picks differ from the host oracle's "
+                      f"(V={cand.vb}, args {args})")
+        outcome[label] = preempt_outcome(store, Task, nodes)
+        out[label] = dict(decisions=n_dec, tick_s=tick_s,
+                          decisions_per_s=n_dec / tick_s,
+                          preemptions=preemptions, launches=launches,
+                          select_victims_calls=len(calls),
+                          select_victims_s=sum(c[3] for c in calls),
+                          picks=[len(c[2]) for c in calls],
+                          v_buckets=[c[0].vb for c in calls], **steps.seconds)
+        print(f"config 8 ({label}): {n_dec} decisions in {tick_s:.3f} s "
+              f"({n_dec / tick_s:.0f} decisions/s) on {card}; preemption "
+              f"pass: candidates {steps.seconds['build_candidates_s']:.3f} s,"
+              f" selection {out[label]['select_victims_s']:.3f} s, commits "
+              f"{steps.seconds['commit_s']:.3f} s; "
+              f"{preemptions} preemptions, {len(arrivals)} arrivals assigned; "
+              f"select_victims calls {len(calls)} (picks "
+              f"{out[label]['picks']}, V {out[label]['v_buckets']}); "
+              f"launches {launches}", flush=True)
+    check(outcome["card"][0] == outcome["host"][0],
+          "config 8: live tasks per (service, node) differ from the host "
+          "path's")
+    check(outcome["card"][1] == outcome["host"][1],
+          "config 8: the victims differ from the host path's")
+    print(f"config 8: card == host path (live tasks per service and node; "
+          f"{len(outcome['card'][1])} victims); every call's picks == "
+          "select_victims_host", flush=True)
+    return out
+
+
+def picks_of(nodes, ms):
+    return [(int(j), int(m)) for j, m in zip(nodes.tolist(), ms.tolist())
+            if j >= 0]
+
+
+def phase_storm(torch, K, P, cuda, workload, Task, Scheduler, TorchPlanner,
+                victims_to_device, tracer, card):
+    """The priority storm at the headline width through ``TorchPlanner()``:
+    every arrival placed, each call's picks equal to the plain version on
+    the card and on the CPU; its traced twin; and at 1,000 nodes, each
+    call's picks equal to the host oracle's."""
+    from swarmkit_tpu_torch.models import TaskState
+    from swarmkit_tpu_torch.ops.densify import n_bucket
+    from swarmkit_tpu_torch.scheduler import preempt as hp
+    t0 = time.perf_counter()
+    store, _, _, _ = workload.priority_storm()
+    build_s = time.perf_counter() - t0
+    planner = TorchPlanner()
+    calls = spy_on_victims(planner)
+    cuda.reset_launch_counts(K.KERNELS + P.KERNELS)
+    with PreemptSteps(Scheduler) as steps:
+        sched, n_dec, tick_s = workload.preempt_tick(store, planner,
+                                                     workload.STORM_BUDGET)
+        torch.cuda.synchronize()
+    launches = cuda.launch_counts(K.KERNELS + P.KERNELS)
+
+    def placed(store):
+        return sum(1 for t in store.view(lambda tx: tx.find(Task))
+                   if t.service_id == "band-storm" and t.node_id
+                   and t.status.state == TaskState.ASSIGNED)
+
+    n_placed = placed(store)
+    check(n_placed == workload.STORM_ARRIVALS,
+          f"storm: {n_placed} of {workload.STORM_ARRIVALS} arrivals placed")
+    check(launches["select_victims"] == len(calls) >= 1,
+          f"storm: {launches['select_victims']} K9 launches for "
+          f"{len(calls)} calls")
+    plain_s = {}
+    for cand, args, picks, _ in calls:
+        nb, pb = n_bucket(cand.ok.shape[0]), P.pick_bucket(args[3])
+        for where in ("cuda", "cpu"):
+            inp = victims_to_device(cand, nb, where)
+            t = time.perf_counter()
+            want = picks_of(*P._select_victims_plain(inp, *args,
+                                                     pb).view(2, -1))
+            plain_s[where] = time.perf_counter() - t
+            check(picks == want, f"storm: K9's picks differ from the plain "
+                  f"version on {where} (V={cand.vb}, nb={nb})")
+    select_s = sum(c[3] for c in calls)
+    print(f"storm: {n_dec} decisions in {tick_s:.3f} s ({n_dec / tick_s:.0f}"
+          f" decisions/s; cluster build {build_s:.1f} s) on {card}; "
+          f"preemption pass: candidates "
+          f"{steps.seconds['build_candidates_s']:.3f} s, selection "
+          f"{select_s:.4f} s, commits {steps.seconds['commit_s']:.3f} s; "
+          f"{n_placed} arrivals placed; select_victims calls {len(calls)} "
+          f"(picks {[len(c[2]) for c in calls]}, V "
+          f"{[c[0].vb for c in calls]}) == plain on the card and on the CPU "
+          f"(plain {plain_s.get('cuda', 0):.2f} s / "
+          f"{plain_s.get('cpu', 0):.2f} s); launches {launches}", flush=True)
+    out = dict(decisions=n_dec, tick_s=tick_s, decisions_per_s=n_dec / tick_s,
+               cluster_build_s=build_s, placed=n_placed, launches=launches,
+               select_victims_calls=len(calls), select_victims_s=select_s,
+               picks=[len(c[2]) for c in calls],
+               plain_s=plain_s, **steps.seconds)
+
+    # the traced twin
+    store, _, _, _ = workload.priority_storm()
+    sched = Scheduler(store, batch_planner=TorchPlanner(),
+                      preempt_budget=workload.STORM_BUDGET)
+    store.view(sched._setup_tasks_list)
+    out["traced"] = traced(torch, tracer, sched.tick, card,
+                           "traced storm tick")
+    check(placed(store) == workload.STORM_ARRIVALS,
+          "traced storm: not every arrival placed")
+
+    # the host oracle, at 1,000 nodes
+    store, _, _, _ = workload.priority_storm(n_nodes=1000)
+    planner = TorchPlanner()
+    small = spy_on_victims(planner)
+    workload.preempt_tick(store, planner, workload.STORM_BUDGET)
+    check(placed(store) == workload.STORM_ARRIVALS and small,
+          "storm at 1,000 nodes: not every arrival placed")
+    for cand, args, picks, _ in small:
+        check(picks == hp.select_victims_host(cand, *args),
+              "storm at 1,000 nodes: K9's picks differ from the host oracle's")
+    print(f"host oracle: storm_1k K9 picks == select_victims_host "
+          f"({sum(len(c[2]) for c in small)} picks)", flush=True)
+    out["oracle_1k_picks"] = sum(len(c[2]) for c in small)
+    return out
+
+
 def rack_of(node):
     return node.spec.annotations.labels.get("rack")
 
@@ -1322,8 +1706,9 @@ def main():
         from swarmkit_tpu_torch.obs import tracer
         from swarmkit_tpu_torch.ops import TorchPlanner, cuda
         from swarmkit_tpu_torch.ops import kernel as K
+        from swarmkit_tpu_torch.ops import preempt as P
         from swarmkit_tpu_torch.ops.convert import (
-            fused_to_device, gang_to_device, to_device)
+            fused_to_device, gang_to_device, to_device, victims_to_device)
         from swarmkit_tpu_torch.scheduler import Scheduler
     except ImportError as exc:
         fail(f"the swarmkit_tpu_torch package is not importable: {exc}")
@@ -1359,12 +1744,20 @@ def main():
                                          tracer, card)
     gang = phase_gang(torch, K, cuda, workload, Task, Scheduler,
                       TorchPlanner, gang_to_device, card)
+    victim_rows, victim_kernels = phase_kernels_victims(torch, P,
+                                                        victims_to_device)
+    rows += victim_rows
+    jobs = phase_priority_jobs(torch, K, P, cuda, workload, Task, Scheduler,
+                               TorchPlanner, card)
+    storm = phase_storm(torch, K, P, cuda, workload, Task, Scheduler,
+                        TorchPlanner, victims_to_device, tracer, card)
 
     # each kernel's launches from the main path that runs it
     path_launches = dict(many["launches"])
     path_launches["scatter_rows"] = \
         churn["streaming"]["launches"]["scatter_rows"]
     path_launches["gang_fit"] = gang["card"]["launches"]["gang_fit"]
+    path_launches["select_victims"] = storm["launches"]["select_victims"]
     kernels = []
     for r in rows:
         k = r["kernel"]
@@ -1385,6 +1778,8 @@ def main():
               "many_service": many, "traced_many_service": many_traced,
               "host_oracle": oracle, "resident_kernels": resident_kernels,
               "churn": churn, "gang": gang,
+              "victim_kernels": victim_kernels, "priority_jobs": jobs,
+              "storm": storm,
               "seconds": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

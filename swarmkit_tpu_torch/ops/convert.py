@@ -4,24 +4,27 @@ In this system the "weights" are the densified cluster columns: the numpy
 ``NodeInputs`` / ``GroupInputs`` / ``hier`` that a planner's
 ``_build_device_inputs`` builds from the scheduler's mirror, the
 ``StrategyInputs`` of a strategy group, and the ``FusedShared`` /
-``FusedGroups`` / ``FusedCarry`` / ``FusedStrategy`` of a fused run.  The
-functions here turn any of them -- this package's own, or ones built by
-another implementation with the same field names and layouts -- into this
-package's tensors on a given device, which is how the tests feed two
-implementations the same inputs.
+``FusedGroups`` / ``FusedCarry`` / ``FusedStrategy`` of a fused run, and
+the ``CandidateSet`` of a preempting group.  The functions here turn any
+of them -- this package's own, or ones built by another implementation
+with the same field names and layouts -- into this package's tensors on a
+given device, which is how the tests feed two implementations the same
+inputs.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..obs import devicetelemetry as _devtel
 from .kernel import (
     FusedCarry, FusedGroups, FusedShared, FusedStrategy, GroupInputs,
-    NodeInputs,
+    NodeInputs, UploadStage,
 )
+from .preempt import VictimInputs
 
 # the int64 columns of the fused run: resource amounts and demands
 INT64_FIELDS = frozenset({"cpu", "mem", "cpu_d", "mem_d"})
@@ -121,3 +124,55 @@ def fused_to_device(shared, groups, carry, strat=None, device="cpu"):
             named_to_device(FusedGroups, groups, device), carry_t,
             None if strat is None
             else named_to_device(FusedStrategy, strat, device))
+
+
+# victim candidates, packed: the int64 columns, then vprio (int32), then the
+# two masks (bytes), so every part starts at a multiple of its item size.
+# (field, item size, carries the victim axis)
+VICTIM_FIELDS = (("free_cpu", 8, False), ("free_mem", 8, False),
+                 ("free_gen", 8, False), ("vcpu", 8, True),
+                 ("vmem", 8, True), ("vgen", 8, True), ("vprio", 4, True),
+                 ("ok", 1, False), ("vvalid", 1, True))
+_VICTIM_DTYPES = {8: (np.int64, torch.int64), 4: (np.int32, torch.int32),
+                  1: (np.bool_, torch.bool)}
+
+
+def victim_layout(nb: int, v: int):
+    """([(field, byte offset, byte count, item size, shape)], total bytes)
+    of the packed victim inputs: 25 nb + 29 v nb bytes in all."""
+    out, off = [], 0
+    for name, size, wide in VICTIM_FIELDS:
+        shape = (v, nb) if wide else (nb,)
+        count = size * int(np.prod(shape))
+        out.append((name, off, count, size, shape))
+        off += count
+    return out, off
+
+
+def victims_to_device(cand, nb: int, device, stages: Optional[Dict] = None):
+    """A ``CandidateSet``'s arrays (either package's), padded to ``nb``
+    nodes, as this package's ``ops.preempt.VictimInputs`` on ``device``:
+    packed into one staging buffer and moved with ONE copy.  ``stages``
+    keeps the buffers per shape across calls (None makes fresh ones); the
+    tensors returned are views of the stage's device half, so they hold
+    the data of the latest call on that shape."""
+    dev = torch.device(device)
+    v, n = np.asarray(cand.vvalid).shape
+    layout, nbytes = victim_layout(nb, v)
+    key = (dev, nb, v)
+    stage = None if stages is None else stages.get(key)
+    if stage is None:
+        stage = UploadStage(nbytes, dev)
+        if stages is not None:
+            stages[key] = stage
+    host = stage.host_view()
+    for name, off, count, size, shape in layout:
+        view = host[off:off + count].view(_VICTIM_DTYPES[size][0])
+        view = view.reshape(shape)
+        view[..., :n] = getattr(cand, name)
+        view[..., n:] = 0
+    _devtel.note_h2d("preempt_inputs", nbytes)
+    buf = stage.upload()
+    return VictimInputs(**{
+        name: buf[off:off + count].view(_VICTIM_DTYPES[size][1]).view(shape)
+        for name, off, count, size, shape in layout})

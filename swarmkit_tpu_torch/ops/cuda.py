@@ -32,7 +32,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("feasibility.cu", "segsum.cu", "waterfill.cu", "packfill.cu",
-           "score.cu", "fused.cu", "scatter.cu", "gangfit.cu")
+           "score.cu", "fused.cu", "scatter.cu", "gangfit.cu", "victims.cu")
 HEADERS = ("common.cuh", "feasibility.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -40,6 +40,7 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signatures: symbol -> (argtypes, restype); the stream is the last
 # pointer of each launching entry
 SIGNATURES = {
@@ -53,6 +54,7 @@ SIGNATURES = {
     "sk_fused_carry": ([_I, _I] + [_P] * 9, _I),
     "sk_scatter_rows": ([_I, _I] + [_P] * 7, _I),
     "sk_gang_fit": ([_I] * 4 + [_P] * 19, _I),
+    "sk_select_victims": ([_I] * 5 + [_L] * 3 + [_P] * 12, _I),
     "sk_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -1249,7 +1249,44 @@ def gang_fit(nodes: NodeInputs, group: GroupInputs):
     return fit[0], fail[0]
 
 
-# ------------------------------------------------------------ D2H seam
+# ------------------------------------------------------- H2D / D2H seams
+
+class UploadStage:
+    """A packed staging buffer moved to the device with ONE copy: a host
+    half (pinned for a CUDA device) that a caller fills, a device half
+    that a non-blocking copy on the current stream fills from it (on the
+    CPU, the host half itself), and the event recorded after that copy.
+    :meth:`host_view` waits on the event before it hands the host half out
+    for a refill: an async H2D still reads the pinned buffer after the
+    call that queued it returns."""
+
+    __slots__ = ("host", "dev", "event")
+
+    def __init__(self, nbytes: int, device: torch.device):
+        on_cuda = device.type == "cuda"
+        self.host = torch.zeros(nbytes, dtype=torch.uint8,
+                                pin_memory=on_cuda)
+        self.dev = torch.empty(nbytes, dtype=torch.uint8, device=device) \
+            if on_cuda else self.host
+        self.event = None
+
+    def host_view(self) -> np.ndarray:
+        """The host half as a numpy array, once no copy reads it."""
+        if self.event is not None:
+            self.event.synchronize()
+            self.event = None
+        return self.host.numpy()
+
+    def upload(self) -> torch.Tensor:
+        """The packed buffer on the device: one non-blocking copy on the
+        current stream, then the event the next refill waits on."""
+        if self.dev is self.host:
+            return self.host
+        self.dev.copy_(self.host, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record()
+        return self.dev
+
 
 class PendingFetch:
     """One result buffer on its way to the host: a pinned host copy made

@@ -15,10 +15,9 @@ consecutive fusable groups in chunks (``ops/fusedbatch.py``): per chunk one
 stream of launches over its group slots, K4 carrying the cluster state from
 slot to slot on the device, and one D2H of the chunk's result rows.  Gang
 admission asks ``gang_feasible`` / ``gang_feasible_many`` for its
-all-or-nothing precheck, which K8 decides on the card.  The breaker and
-small-group router and device preemption are not part of this planner:
-the scheduler probes for each of them with ``hasattr`` and keeps the work
-on its host path.
+all-or-nothing precheck, which K8 decides on the card, and the preemption
+pass asks ``select_victims`` for its victim picks, which K9 makes on the
+card.  The breaker and small-group router are not part of this planner.
 
 Groups go to the host path for the features the device path does not
 model: CSI volume mounts, non-discrete generic resources, spread trees
@@ -72,6 +71,7 @@ from .kernel import (
     plan_fused_packed, plan_group_packed, plan_strategy_packed, start_fetch,
     unpack_feasibility, unpack_fused, unpack_gang,
 )
+from .preempt import plan_victims
 
 _PLAN_TIMER = _metrics.timer("swarm_planner_plan_latency")
 
@@ -166,6 +166,8 @@ class TorchPlanner:
         # False reverts to a full rebuild per tick (the same placements)
         self.streaming_enabled = True
         self._streaming = None
+        # packed staging buffers of the victim selection, per shape
+        self._victim_stages: Dict = {}
 
         # device-plane saturation probe (obs/planes.py): dispatch-queue
         # depth read lazily at window-roll time; weakref so the probe never
@@ -909,6 +911,26 @@ class TorchPlanner:
         self._count("groups_planned")
         self._count("tasks_planned", placed)
         return True
+
+    # ------------------------------------------------- victim selection
+
+    def select_victims(self, cand, cpu_d: int, mem_d: int, gen_d: int,
+                       n_picks: int, budget: int):
+        """The preemption pass's victim picks for one pending group
+        (reference ``select_victims``): [(node index, prefix length)],
+        the integers ``select_victims_host`` gives, from K9 on the card.
+        There is no breaker and no host fallback: a build, launch or fetch
+        error propagates and fails the tick."""
+        t0 = time.perf_counter()
+        with tracer.span("plan.preempt", "plan", picks=n_picks):
+            picks, bucket = plan_victims(cand, cpu_d, mem_d, gen_d, n_picks,
+                                         budget, self.device,
+                                         self._victim_stages)
+        _devtel.note_kernel(bucket, "preempt",
+                            dispatch_s=time.perf_counter() - t0,
+                            task_rows=n_picks,
+                            node_rows=int(cand.ok.shape[0]))
+        return picks
 
     # ------------------------------------------------- gang feasibility
 

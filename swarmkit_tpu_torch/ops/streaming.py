@@ -61,7 +61,9 @@ from ..obs.trace import tracer
 from ..utils.metrics import registry as _metrics
 from .densify import SENTINEL, con_column_key, n_bucket, split_hash
 from .hashing import str_hash
-from .kernel import SCATTER_SLOT_BYTES, scatter_rows, scatter_views
+from .kernel import (
+    SCATTER_SLOT_BYTES, UploadStage, scatter_rows, scatter_views,
+)
 
 _REFRESH_TIMER = _metrics.timer("swarm_streaming_refresh_latency")
 
@@ -98,32 +100,21 @@ class _ConColumn:
         self.none_count = 0
 
 
-class _ScatterStage:
-    """The packed staging buffer of one scatter bucket: a host half
-    (pinned for a CUDA device) that a refresh fills, a device half K7
-    reads, and the event recorded after the last copy out of the host
-    half.  The next refresh waits on that event before refilling: an async
-    H2D copy still reads the pinned buffer after the call returns."""
+class _ScatterStage(UploadStage):
+    """The packed staging buffer of one scatter bucket, which K7 reads on
+    the device."""
 
-    __slots__ = ("db", "host", "dev", "event")
+    __slots__ = ("db",)
 
     def __init__(self, db: int, device: torch.device):
+        super().__init__(SCATTER_SLOT_BYTES * db, device)
         self.db = db
-        nbytes = SCATTER_SLOT_BYTES * db
-        on_cuda = device.type == "cuda"
-        self.host = torch.zeros(nbytes, dtype=torch.uint8,
-                                pin_memory=on_cuda)
-        self.dev = torch.empty(nbytes, dtype=torch.uint8, device=device) \
-            if on_cuda else self.host
-        self.event = None
 
     def fill(self, rows: List[int], nb: int, cols) -> None:
         """Pack ``rows`` of the host columns (valid, ready, cpu, mem,
         total); the slots past them are pads (index ``nb``)."""
-        if self.event is not None:
-            self.event.synchronize()
         idx, u_valid, u_ready, u_cpu, u_mem, u_total = scatter_views(
-            self.host.numpy(), self.db)
+            self.host_view(), self.db)
         d = len(rows)
         r = np.asarray(rows, np.int64)
         idx[:d] = r
@@ -132,16 +123,6 @@ class _ScatterStage:
                              cols):
             view[:d] = col[r]
             view[d:] = 0
-
-    def upload(self) -> torch.Tensor:
-        """The packed buffer on the device: one non-blocking copy on the
-        current stream, then the event the next fill waits on."""
-        if self.dev is self.host:
-            return self.host
-        self.dev.copy_(self.host, non_blocking=True)
-        self.event = torch.cuda.Event()
-        self.event.record()
-        return self.dev
 
 
 class ResidentState:

@@ -24,6 +24,17 @@ exits; each window ends in one tick driven through the store watch feed.
 ``gang_fleet`` is bench.py's config 12 gang fleet: 400 nodes of 16 CPUs,
 24 gangs of 8 members at 4 CPUs, 40 gangs of 4 at 2 CPUs, and 8
 cross-service gangs of two services x 4 members at 2 CPUs, all pending.
+
+``priority_jobs`` is bench.py's config 8, priority preemption's production
+shape: 512 nodes of 8 CPUs / 32 GiB run 1,800 priority-0 tasks (2 CPUs /
+1 GiB); a priority-2 band of 400 tasks, a priority-1 band of 120 and a
+priority-1 replicated job of 64 completions arrive in one tick, and the
+tick's preemption pass must evict low-band tasks to place them.
+``priority_storm`` is a priority storm at the headline cluster's width:
+10,000 nodes of 16 CPUs / 64 GiB, each running 15 single-CPU tasks of
+2 GiB in a per-node mix of priority 0 and 1 drawn from a seed, and a
+priority-2 service of 512 tasks of 4 CPUs / 8 GiB arriving at once.
+``preempt_tick`` runs one tick of either with its victim budget.
 """
 
 from __future__ import annotations
@@ -33,9 +44,9 @@ import time
 
 from .models import (
     Annotations, GangConfig, Node, NodeDescription, NodeSpec, NodeState,
-    NodeStatus, Placement, PlacementPreference, Platform, ReplicatedService,
-    Resources, ResourceRequirements, Service, ServiceMode, ServiceSpec,
-    SpreadOver, Task, TaskSpec, TaskState, TaskStatus, Version,
+    NodeStatus, Placement, PlacementPreference, Platform, ReplicatedJob,
+    ReplicatedService, Resources, ResourceRequirements, Service, ServiceMode,
+    ServiceSpec, SpreadOver, Task, TaskSpec, TaskState, TaskStatus, Version,
 )
 from .models.types import now
 from .state import MemoryStore
@@ -470,3 +481,146 @@ def gang_fleet(n_nodes=GANG_NODES):
     store.update(mk)
     store.update(lambda tx: [tx.create(t) for t in tasks] and None)
     return store, services, nodes, tasks
+
+
+PRIORITY_JOBS_NODES = 512
+PRIORITY_JOBS_BUDGET = 512
+#: (band, priority, tasks) of config 8: the resident band first
+PRIORITY_BANDS = (("lo", 0, 1800), ("hi", 2, 400), ("mid", 1, 120))
+PRIORITY_JOB = ("job", 1, 64)       # a replicated job of 64 completions
+STORM_NODES = 10_000
+STORM_RESIDENTS = 15                # single-CPU tasks of 2 GiB per node
+STORM_ARRIVALS = 512                # priority 2, 4 CPUs / 8 GiB each
+STORM_BUDGET = 2048
+
+
+def _reservation(cpus, mem):
+    return ResourceRequirements(reservations=Resources(
+        nano_cpus=cpus * 10**9, memory_bytes=mem))
+
+
+def _priority_nodes(prefix, n_nodes, cpus, mem):
+    return [Node(
+        id=f"{prefix}{i:05d}",
+        spec=NodeSpec(annotations=Annotations(name=f"{prefix}{i:05d}")),
+        status=NodeStatus(state=NodeState.READY),
+        description=NodeDescription(
+            hostname=f"{prefix}{i:05d}",
+            resources=Resources(nano_cpus=cpus * 10**9, memory_bytes=mem)))
+        for i in range(n_nodes)]
+
+
+def _band_service(name, spec, replicas, job=False):
+    if job:
+        return Service(
+            id=f"band-{name}",
+            spec=ServiceSpec(annotations=Annotations(name=f"band-{name}"),
+                             mode=ServiceMode.REPLICATED_JOB,
+                             replicated_job=ReplicatedJob(
+                                 total_completions=replicas),
+                             task=spec),
+            spec_version=Version(index=1))
+    return Service(
+        id=f"band-{name}",
+        spec=ServiceSpec(annotations=Annotations(name=f"band-{name}"),
+                         mode=ServiceMode.REPLICATED,
+                         replicated=ReplicatedService(replicas=replicas),
+                         task=spec),
+        spec_version=Version(index=1))
+
+
+def _create_all(nodes, services, tasks):
+    store = MemoryStore()
+
+    def mk(tx):
+        for n in nodes:
+            tx.create(n)
+        for svc in services:
+            tx.create(svc)
+    store.update(mk)
+    store.update(lambda tx: [tx.create(t) for t in tasks] and None)
+    return store
+
+
+def priority_jobs(n_nodes=PRIORITY_JOBS_NODES):
+    """(store, services, nodes, tasks) of config 8: the bands' counts are
+    fixed and ``n_nodes`` scales only the cluster, as bench.py's
+    ``BENCH_CFG8_NODES`` does (below 450 nodes the resident band overfills
+    the nodes and their free pools go negative).  Resident tasks are
+    RUNNING round-robin over the nodes; ids are fixed, so two builds
+    compare victim by victim."""
+    nodes = _priority_nodes("p", n_nodes, 8, 32 << 30)
+    res = _reservation(2, 1 << 30)
+    services, tasks = [], []
+    for name, prio, count in PRIORITY_BANDS:
+        spec = TaskSpec(resources=res, priority=prio)
+        services.append(_band_service(name, spec, count))
+        for s in range(count):
+            t = Task(id=f"{name}-{s:04d}", service_id=f"band-{name}",
+                     slot=s + 1, desired_state=TaskState.RUNNING, spec=spec,
+                     spec_version=Version(index=1),
+                     status=TaskStatus(state=TaskState.PENDING))
+            if prio == 0:       # the resident band: already RUNNING
+                t.node_id = nodes[s % n_nodes].id
+                t.status = TaskStatus(state=TaskState.RUNNING)
+            tasks.append(t)
+    name, prio, count = PRIORITY_JOB
+    spec = TaskSpec(resources=res, priority=prio)
+    services.append(_band_service(name, spec, count, job=True))
+    for s in range(count):
+        tasks.append(Task(
+            id=f"{name}-{s:04d}", service_id=f"band-{name}", slot=s,
+            desired_state=TaskState.COMPLETE, spec=spec,
+            spec_version=Version(index=1), job_iteration=Version(index=0),
+            status=TaskStatus(state=TaskState.PENDING)))
+    return _create_all(nodes, services, tasks), services, nodes, tasks
+
+
+def priority_storm(n_nodes=STORM_NODES, seed=1):
+    """(store, services, nodes, tasks) of the priority storm.  Node i runs
+    ``STORM_RESIDENTS`` tasks, of which a seeded uniform 0..15 are priority
+    0 and the rest priority 1, so the cheapest victim prefix (three
+    victims free the 3 CPUs an arrival lacks) costs 3 to 6 from node to
+    node; then ``STORM_ARRIVALS`` priority-2 tasks arrive, none of which
+    fits anywhere without preemption."""
+    rng = random.Random(seed)
+    nodes = _priority_nodes("s", n_nodes, 16, 64 << 30)
+    specs = {prio: TaskSpec(resources=_reservation(1, 2 << 30),
+                            priority=prio) for prio in (0, 1)}
+    resident = {0: [], 1: []}
+    for i, node in enumerate(nodes):
+        n_lo = rng.randint(0, STORM_RESIDENTS)
+        for r in range(STORM_RESIDENTS):
+            prio = 0 if r < n_lo else 1
+            resident[prio].append(Task(
+                id=f"r{prio}-{i:05d}-{r:02d}",
+                service_id=f"band-r{prio}", desired_state=TaskState.RUNNING,
+                spec=specs[prio], spec_version=Version(index=1),
+                node_id=node.id, status=TaskStatus(state=TaskState.RUNNING)))
+    services, tasks = [], []
+    for prio, ts in resident.items():
+        services.append(_band_service(f"r{prio}", specs[prio], len(ts)))
+        for s, t in enumerate(ts):
+            t.slot = s + 1
+        tasks += ts
+    spec = TaskSpec(resources=_reservation(4, 8 << 30), priority=2)
+    services.append(_band_service("storm", spec, STORM_ARRIVALS))
+    tasks += [Task(id=f"storm-{s:04d}", service_id="band-storm", slot=s + 1,
+                   desired_state=TaskState.RUNNING, spec=spec,
+                   spec_version=Version(index=1),
+                   status=TaskStatus(state=TaskState.PENDING))
+              for s in range(STORM_ARRIVALS)]
+    return _create_all(nodes, services, tasks), services, nodes, tasks
+
+
+def preempt_tick(store, planner, budget):
+    """Build a scheduler over ``store`` with ``planner`` (None: the host
+    path) and a victim budget of ``budget``, and run one tick.  Returns
+    (scheduler, decisions, seconds)."""
+    from .scheduler import Scheduler
+
+    sched = Scheduler(store, batch_planner=planner, preempt_budget=budget)
+    store.view(sched._setup_tasks_list)
+    t0 = time.perf_counter()
+    n_dec = sched.tick()
+    return sched, n_dec, time.perf_counter() - t0

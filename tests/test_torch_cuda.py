@@ -12,10 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import fused_inputs, gang_rows, plan_inputs, scatter_inputs
+from chip_smoke import (
+    VICTIM_CASES, fused_inputs, gang_rows, plan_inputs, scatter_inputs,
+    victim_inputs)
 from swarmkit_tpu_torch.ops import kernel as K
+from swarmkit_tpu_torch.ops import preempt as P
 from swarmkit_tpu_torch.ops.convert import (
-    fused_to_device, gang_to_device, to_device)
+    fused_to_device, gang_to_device, to_device, victims_to_device)
+from swarmkit_tpu_torch.ops.densify import n_bucket
 
 pytestmark = pytest.mark.gpu
 
@@ -106,10 +110,11 @@ def test_plan_group_on_card_matches_cpu(case):
 
 
 def _launched(fn):
-    before = {k.name: k.launches for k in K.KERNELS}
+    kernels = K.KERNELS + P.KERNELS
+    before = {k.name: k.launches for k in kernels}
     fn()
     torch.cuda.synchronize()
-    return {k.name: k.launches - before[k.name] for k in K.KERNELS
+    return {k.name: k.launches - before[k.name] for k in kernels
             if k.launches != before[k.name]}
 
 
@@ -458,3 +463,55 @@ def test_gang_fleet_on_card_matches_host_path():
     assert sched.gang.stats["gangs_admitted"] == 72
     assert planner.stats["gang_fit_device"] + \
         planner.stats["gang_fit_fused"] == 80
+
+
+# ----------------------------------------------------------------- K9
+
+VICTIM_SHAPES = {f"v{v}_{case}": (v, case, 3000)
+                 for v in (4, 16, 64) for case in VICTIM_CASES}
+VICTIM_SHAPES["v16_full_headline"] = (16, "full", 10000)
+
+
+@pytest.mark.parametrize("case", sorted(VICTIM_SHAPES))
+def test_select_victims_kernel_matches_plain(case):
+    dev = _card()
+    v, kind, n = VICTIM_SHAPES[case]
+    cand, args = victim_inputs(70 + v, v, kind, n=n)
+    pb = P.pick_bucket(args[3])
+    nb = n_bucket(n)
+    got = P.select_victims(victims_to_device(cand, nb, dev), *args, pb)
+    torch.cuda.synchronize()
+    want = P.select_victims(victims_to_device(cand, nb, "cpu"), *args, pb)
+    _eq(got, want)
+    picks = int((want[:pb] >= 0).sum())
+    assert (picks == args[3]) == (kind == "full"), (picks, args[3])
+
+
+def test_select_victims_counts_launches():
+    dev = _card()
+    cand, args = victim_inputs(3, 4, "full", n=500, picks=8)
+    inp = victims_to_device(cand, 1024, dev)
+    assert _launched(lambda: P.select_victims(inp, *args, 8)) \
+        == {"select_victims": 1}
+
+
+def test_planner_preemption_tick_on_card_matches_host_path():
+    """Config 8 at 64 nodes (negative free pools, V = 64, a budget stop)
+    on the card: the same store rows as the plain versions on the CPU and
+    as the host path, with K9's picks."""
+    _card()
+    from swarmkit_tpu_torch.models import Task
+    from swarmkit_tpu_torch.ops import TorchPlanner
+    from swarmkit_tpu_torch.workload import preempt_tick, priority_jobs
+
+    def run(planner):
+        store, _, _, _ = priority_jobs(64)
+        preempt_tick(store, planner, 512)
+        return sorted((t.id, t.node_id, int(t.status.state),
+                       int(t.desired_state))
+                      for t in store.view(lambda tx: tx.find(Task)))
+
+    before = P.VICTIMS.launches
+    card = run(TorchPlanner())
+    assert P.VICTIMS.launches > before
+    assert card == run(TorchPlanner(device="cpu")) == run(None)

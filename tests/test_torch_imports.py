@@ -41,6 +41,7 @@ def test_port_files_exist():
                  "swarmkit_tpu_torch/ops/planner.py",
                  "swarmkit_tpu_torch/ops/convert.py",
                  "swarmkit_tpu_torch/ops/streaming.py",
+                 "swarmkit_tpu_torch/ops/preempt.py",
                  "swarmkit_tpu_torch/utils/sampling.py",
                  "swarmkit_tpu_torch/scheduler/scheduler.py",
                  "chip_smoke.py"):
@@ -57,6 +58,7 @@ def test_no_jax_or_reference_import(path):
 
 @pytest.mark.parametrize("module", [
     "swarmkit_tpu_torch.ops.streaming", "swarmkit_tpu_torch.ops.planner",
+    "swarmkit_tpu_torch.ops.preempt",
     "swarmkit_tpu_torch.workload", "swarmkit_tpu_torch.utils.sampling"])
 def test_import_loads_no_jax(module):
     """Importing a port module (and everything it imports) in a fresh
