@@ -38,12 +38,16 @@ Phases, each of which exits non-zero on failure:
     against ``index_copy_`` over the five columns;
 11. steady-state churn: bench.py's config 10 (8,192 nodes, 12,000 base
     tasks, 12 seeded windows of Poisson arrivals and exits, plus a 13th in
-    which three services arrive at once) through the store watch feed,
-    once with the streaming resident state and once with full rebuilds:
-    equal placement digests, at least 13 incremental refreshes and no
-    fallback after the cold tick, K7 launched, the fused run seeded from
-    the resident columns, and the resident CUDA columns equal to the host
-    mirror after the last tick;
+    which three services arrive at once) through the store watch feed, in
+    four postures: the streaming resident state, full rebuilds, the
+    resident state and the plans split over four shards of the card, and
+    layout changes (four shards, no mesh from window 4, two shards from
+    window 8, each a counted resync): equal placement digests after every
+    window, at least 13 incremental refreshes and no fallback after the
+    cold tick, K7 launched (per shard on a mesh, on every window with
+    dirty rows), K10 launched on the mesh, the fused run seeded from the
+    resident columns, and the resident CUDA columns (or shards) equal to
+    the host mirror after the last tick;
 12. gang fleet: bench.py's config 12 gangs (400 nodes, 72 gangs, 416
     members): every gang admitted whole in one tick with 80 verdicts from
     K8 (64 per group, 16 fused rows), placements equal to the host path's
@@ -63,12 +67,25 @@ Phases, each of which exits non-zero on failure:
     tasks, 512 priority-2 arrivals): every arrival placed through K9, each
     call's picks equal to the plain version on the card and on the CPU,
     its traced twin, and at 1,000 nodes each call's picks equal to the
-    host oracle's.
+    host oracle's;
+16. the node-axis split's kernels at node bucket 16384 on four shards of
+    the card: K10 over 20 segments (equal loads across the shard borders,
+    capacity sums past 2^24, a segment that cannot be filled) and over
+    one, K11 at and below the whole capacity, each bit-equal to its plain
+    version on the same tensors; K2's cross-shard fold at the headline's
+    leaf level;
+17. the headline tick through ``TorchPlanner(mesh=make_mesh(["cuda:0"] *
+    4))``: every task placed, every plan's x, fail counts and spill equal
+    to the unsharded tick's (phase 4), K10 launched;
+18. config 7 through the same mesh: every group fused in 3 chunks,
+    binpack through K11, each chunk's rows and the per-(service, node)
+    counts equal to the unsharded tick's (phase 7).
 
 The counts of kernel launches are set to 0 just before each main path and
 read just after it; the kernels' JSON line reports K1-K6 from the
-many-service path, K7 from the churn path, K8 from the gang path and K9
-from the storm.  The last lines are that JSON line, the card's name and
+many-service path, K7 from the churn path, K8 from the gang path, K9
+from the storm, and K10, K11 and K2's fold from the mesh many-service
+path.  The last lines are that JSON line, the card's name and
 power limit, and
 ``{"ok": true, "device": {...}}``.  The full record also goes to
 ``chiprun_out/chip_smoke.json``.
@@ -86,6 +103,8 @@ from collections import Counter
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 SCALAR_OPS_PER_S = 67e12       # H100 SXM 32-bit rate outside tensor cores
 REPS = 50
+#: shards of the mesh phases, all on the one card
+MESH_SHARDS = 4
 
 
 def fail(msg):
@@ -358,6 +377,125 @@ def scatter_inputs(seed, nb=16384, d=200, db=256):
            rng.randint(-2**50, 2**50, db).astype(np.int64),
            rng.randint(0, 2**31 - 1, db).astype(np.int32))
     return cols, pack_scatter(idx, *upd)
+
+
+SHARD_FILL_CASES = {
+    # K10 over L = 20 segments (one infeasible, one whose capacity sums
+    # pass 2^24) and over one segment; K11 over one segment, with k near
+    # K_CLAMP (sums past 2^24) and above the whole capacity
+    "waterfill_L20": dict(L=20),
+    "waterfill_L20_scored": dict(L=20, scored=True),
+    "waterfill_L1": dict(L=1),
+    "packfill": dict(L=1, pack=True),
+    "packfill_short": dict(L=1, pack=True, big=False),
+}
+
+
+def shard_fill_inputs(seed, nb=16384, n_valid=16000, L=20, scored=False,
+                      pack=False, big=True):
+    """Seeded numpy columns (length nb) and k (int32 [L]) of one
+    node-level fill over a node-axis split.  Rows next to every quarter
+    border (and every eighth) carry equal levels, totals and binpack
+    scores, so the global tie key decides between rows of different
+    shards; five rows of K_CLAMP capacity (``big``) push the capacity
+    sums past 2^24; with L > 1, segment 2 asks for more than its rows
+    hold (its level stays at 2^30), and without ``big`` so does the one
+    segment (every row takes its capacity)."""
+    import numpy as np
+    from swarmkit_tpu_torch.ops.kernel import K_CLAMP
+    rng = np.random.RandomState(seed)
+    idx = np.arange(nb)
+    valid = idx < n_valid
+    svc = rng.randint(0, 6, nb).astype(np.int32)
+    failures = rng.choice([0] * 10 + [1, 5, 70], nb).astype(np.int32)
+    total = rng.randint(0, 1500, nb).astype(np.int32)
+    res_cap = rng.randint(0, 959, nb).astype(np.int32)
+    cap = rng.randint(0, 6, nb).astype(np.int32)
+    e = rng.randint(0, 3000, nb).astype(np.int32)
+    leaf = (idx % L).astype(np.int32)
+    for frac in range(1, 8):
+        b = nb * frac // 8
+        near = slice(b - 96, b + 96)
+        svc[near], failures[near], total[near] = 2, 0, 700
+        res_cap[near], e[near], cap[near] = 480, 1000, 3
+    rows = np.nonzero(leaf == (1 % L))[0][3:8]
+    if big:
+        cap[rows] = K_CLAMP
+        svc[rows] = 0
+    cap[~valid] = 0
+    k_seg = rng.randint(100, 4000, L).astype(np.int32)
+    if L > 1:
+        k_seg[1] = K_CLAMP
+        k_seg[2] = K_CLAMP          # infeasible: its rows hold far less
+        cap[(leaf == 2) & (cap > 5)] = 5
+    else:
+        k_seg[0] = K_CLAMP - 1 if big else K_CLAMP
+    return dict(svc=svc, failures=failures, total=total, res_cap=res_cap,
+                cap=cap, e=e if scored else None, leaf=leaf, k=k_seg,
+                pack=pack)
+
+
+def fill_parts(arrs, d, device):
+    """Split :func:`shard_fill_inputs`' columns into ``d`` FillShards on
+    ``device`` (fresh zeroed outputs)."""
+    import numpy as np
+    import torch
+    from swarmkit_tpu_torch.ops.kernel import FillShard
+    nb = arrs["cap"].shape[0]
+    ln = nb // d
+
+    def t(a, s):
+        return torch.from_numpy(np.ascontiguousarray(
+            a[s * ln:(s + 1) * ln])).to(device)
+
+    parts = []
+    for s in range(d):
+        k = torch.from_numpy(arrs["k"]).to(device)
+        common = dict(cap=t(arrs["cap"], s), k=k, offset=s * ln,
+                      out=torch.zeros(ln, dtype=torch.int32, device=device),
+                      failures=t(arrs["failures"], s))
+        if arrs["pack"]:
+            parts.append(FillShard(res_cap=t(arrs["res_cap"], s), **common))
+        elif arrs["e"] is not None:
+            parts.append(FillShard(e=t(arrs["e"], s),
+                                   total=t(arrs["total"], s),
+                                   seg=t(arrs["leaf"], s), **common))
+        else:
+            parts.append(FillShard(svc_tasks=t(arrs["svc"], s),
+                                   total=t(arrs["total"], s),
+                                   seg=t(arrs["leaf"], s), **common))
+    return parts
+
+
+def headline_fill_parts(d, device, seed=2024, nb=16384, n_valid=10000,
+                        n_leaves=20):
+    """K10's inputs as the mesh headline path hands them over: the
+    leaf-level fill of one headline group (:func:`plan_inputs`, 80,000
+    tasks over ``n_leaves`` racks, L = l_bucket(20) = 256 segments) split
+    into ``d`` shards on ``device``, with the capacities of K1's plain
+    version and the branch allocation of stage A's plain versions, and
+    fresh zeroed outputs.  Returns (parts, L)."""
+    import torch
+    from swarmkit_tpu_torch.ops import kernel as K
+    from swarmkit_tpu_torch.parallel import sharded as S
+    nodes, group, L, hier = plan_inputs(seed, nb=nb, n_valid=n_valid,
+                                        n_leaves=n_leaves, near_2p24=False)
+    shards = S.shard_group(nodes, group, hier, S.make_mesh([device] * d))
+    caps = [K._feasibility_plain(nd, gd)[1] for nd, gd, _ in shards]
+    total = K.sum_shards([
+        K._seg_partial_plain(nd.svc_tasks, nd.valid, cap, nd.leaf, L)
+        for (nd, _g, _h), cap in zip(shards, caps)])
+    load, bcap, _raw, kk = K._seg_clamp(total[0], total[1], shards[0][1].k)
+    i32 = torch.int32
+    k_branch = K._waterfill_plain(
+        load, bcap, torch.arange(L, dtype=i32, device=load.device), kk,
+        torch.zeros(L, dtype=i32, device=load.device), 1)
+    ln = shards[0][0].valid.shape[0]
+    return [K.FillShard(svc_tasks=nd.svc_tasks, failures=nd.failures,
+                        total=nd.total_tasks, cap=cap, k=k_branch,
+                        seg=nd.leaf, offset=s * ln,
+                        out=torch.zeros(ln, dtype=i32, device=cap.device))
+            for s, ((nd, _g, _h), cap) in enumerate(zip(shards, caps))], L
 
 
 GANG_VARIANTS = (dict(), dict(maxrep=5), dict(port_limited=True),
@@ -927,26 +1065,42 @@ def phase_kernels_resident(torch, K, gang_to_device):
 CHURN_BURST = ({"cb": 40, "cd": 40, "cf": 40}, 18)
 
 
-def phase_churn(torch, K, cuda, workload, TorchPlanner, card):
+#: the churn's postures: (name, streaming, mesh shards at the cold tick,
+#: {window index: shards from that window on, 0 = no mesh})
+CHURN_POSTURES = (("streaming", True, 0, {}), ("full", False, 0, {}),
+                  ("mesh", True, MESH_SHARDS, {}),
+                  ("layout", True, MESH_SHARDS, {4: 0, 8: 2}))
+
+
+def phase_churn(torch, K, cuda, workload, TorchPlanner, make_mesh, card):
     """bench.py's config 10 through the store watch feed, with the
-    streaming resident state and with full rebuilds: the same placements;
-    the streaming side refreshes incrementally through K7 and seeds a
-    fused run from the resident columns."""
+    streaming resident state, with full rebuilds, with the resident state
+    and the plans split over four shards of the card, and with layout
+    changes (four shards, no mesh, two shards): the same placements after
+    every window; the streaming sides refresh incrementally through K7
+    (per shard on a mesh) and seed a fused run from the resident
+    columns."""
     import numpy as np
     out = {}
-    for posture, streaming in (("streaming", True), ("full", False)):
+    for posture, streaming, shards, layout in CHURN_POSTURES:
         t0 = time.perf_counter()
         wl = workload.steady_state_churn()
         wl.script.append(CHURN_BURST)
         build_s = time.perf_counter() - t0
-        planner = TorchPlanner()
+        planner = TorchPlanner(mesh=make_mesh(["cuda:0"] * shards)
+                               if shards else None)
         planner.streaming_enabled = streaming
         sched = wl.attach(planner)
         sched.tick()                   # cold tick, outside the windows
         torch.cuda.synchronize()
         cuda.reset_launch_counts(K.KERNELS)
-        ticks, decisions, feed_s = [], 0, 0.0
-        for arrivals, exits in wl.script:
+        ticks, decisions, feed_s, digests = [], 0, 0.0, []
+        quiet_shard_windows = []
+        for w, (arrivals, exits) in enumerate(wl.script):
+            if w in layout:
+                planner.set_mesh(make_mesh(["cuda:0"] * layout[w])
+                                 if layout[w] else None)
+            before = planner.streaming_snapshot()
             t = time.perf_counter()
             wl.feed(arrivals, exits)
             t1 = time.perf_counter()
@@ -954,6 +1108,15 @@ def phase_churn(torch, K, cuda, workload, TorchPlanner, card):
             torch.cuda.synchronize()
             ticks.append(time.perf_counter() - t1)
             feed_s += t1 - t
+            after = planner.streaming_snapshot()
+            # a layout change re-uploads the split columns (a counted
+            # resync); every other window with dirty rows scatters them
+            if after.get("mesh_devices") and w not in layout \
+                    and after["rows"] > before["rows"] \
+                    and after["shard_syncs"] <= before["shard_syncs"]:
+                quiet_shard_windows.append(w)
+            digests.append(hashlib.sha256(
+                repr(wl.placements()).encode()).hexdigest())
         launches = cuda.launch_counts(K.KERNELS)
         arrived = sum(sum(a.values()) for a, _ in wl.script)
         check(decisions == arrived, f"churn ({posture}): {decisions} "
@@ -963,9 +1126,10 @@ def phase_churn(torch, K, cuda, workload, TorchPlanner, card):
         if streaming:
             check(snap["incremental_ticks"] >= len(wl.script),
                   f"incremental ticks {snap['incremental_ticks']}")
-            check(snap["fallbacks"] == 0 and snap["resyncs"] == 0
-                  and snap["full_ticks"] == 1,
-                  f"the streaming side rebuilt after the cold tick: {snap}")
+            check(snap["fallbacks"] == 0 and snap["full_ticks"] == 1
+                  and snap["resyncs"] == 2 * bool(layout),
+                  f"churn ({posture}): unexpected rebuilds or resyncs "
+                  f"after the cold tick: {snap}")
             check(launches["scatter_rows"] > 0,
                   "the dirty-row scatter never launched on the churn path")
             check(stats.get("streaming_device_carries", 0) >= 1,
@@ -975,15 +1139,25 @@ def phase_churn(torch, K, cuda, workload, TorchPlanner, card):
             torch.cuda.synchronize()
             for name, d, h in zip(("valid", "ready", "cpu", "mem", "total"),
                                   st.dev, st._host_cols()):
-                check(d.is_cuda and np.array_equal(d.cpu().numpy(), h),
-                      f"resident CUDA column {name} differs from the host "
-                      "mirror")
+                parts = d if isinstance(d, tuple) else (d,)
+                check(all(p.is_cuda for p in parts) and np.array_equal(
+                    torch.cat([p.cpu() for p in parts]).numpy(), h),
+                    f"churn ({posture}): resident CUDA column {name} "
+                    "differs from the host mirror")
         else:
             check(not snap["enabled"] and launches["scatter_rows"] == 0,
                   "the full-rebuild side used the resident state")
             check(stats.get("streaming_device_carries", 0) == 0,
                   "the full-rebuild side seeded from resident columns")
-        digest = hashlib.sha256(repr(wl.placements()).encode()).hexdigest()
+        if shards:
+            final = layout[max(layout)] if layout else shards
+            check(snap["mesh_devices"] == final,
+                  f"churn ({posture}): mesh_devices {snap['mesh_devices']}"
+                  f" != {final}")
+            check(not quiet_shard_windows, f"churn ({posture}): windows "
+                  f"{quiet_shard_windows} had dirty rows and no shard sync")
+            check(launches["shard_waterfill"] > 0,
+                  f"churn ({posture}): K10 never launched")
         wl.close()
         seconds = sum(ticks)
         out[posture] = dict(
@@ -992,7 +1166,8 @@ def phase_churn(torch, K, cuda, workload, TorchPlanner, card):
             tick_ms_median=statistics.median(ticks) * 1e3,
             tick_ms_max=max(ticks) * 1e3, feed_s=feed_s,
             cluster_build_s=build_s,
-            launches=launches, digest=digest, snapshot=snap,
+            launches=launches, digest=digests[-1], window_digests=digests,
+            snapshot=snap,
             streaming_device_carries=stats.get(
                 "streaming_device_carries", 0),
             groups_fused=stats.get("groups_fused", 0))
@@ -1003,11 +1178,14 @@ def phase_churn(torch, K, cuda, workload, TorchPlanner, card):
               f"and watch feed {feed_s:.3f} s outside them) on {card}; "
               f"launches {launches}; streaming {snap}; device carries "
               f"{out[posture]['streaming_device_carries']}", flush=True)
-    check(out["streaming"]["digest"] == out["full"]["digest"],
-          "churn placements differ between the streaming and full-rebuild "
-          "postures")
-    print(f"churn: placement digests equal ({out['full']['digest'][:16]})",
-          flush=True)
+    for posture in out:
+        check(out[posture]["window_digests"]
+              == out["streaming"]["window_digests"],
+              f"churn placements differ between the streaming and {posture} "
+              "postures")
+    print(f"churn: placement digests equal after each of the "
+          f"{len(out['full']['window_digests'])} windows in all "
+          f"{len(out)} postures ({out['full']['digest'][:16]})", flush=True)
     return out
 
 
@@ -1155,6 +1333,278 @@ def phase_gang(torch, K, cuda, workload, Task, Scheduler, TorchPlanner,
     for label in ("card", "host"):
         del out[label]["placements"]
     return out
+
+
+# ------------------------------------------------- the node-axis split
+
+
+class PlanRecorder:
+    """Records every plan the planner module fetches -- (x, fail_counts,
+    spill) of a per-group plan, the (x, fail_counts, spill) rows of a fused
+    chunk -- so two ticks can be held against each other plan by plan."""
+
+    def __init__(self):
+        self.plans = []
+        self._saved = None
+
+    def __enter__(self):
+        import numpy as np
+        from swarmkit_tpu_torch.ops import planner as planner_mod
+        fetch, unpack = planner_mod.fetch_plan, planner_mod.unpack_fused
+
+        def fetch_plan(pending, n):
+            x, fail, spill = fetch(pending, n)
+            self.plans.append(("group", np.array(x), np.array(fail),
+                               np.array(bool(spill))))
+            return x, fail, spill
+
+        def unpack_fused(rows, n):
+            xs, fails, spills = unpack(rows, n)
+            self.plans.append(("fused", np.array(xs), np.array(fails),
+                               np.array(spills)))
+            return xs, fails, spills
+
+        self._saved = (planner_mod, fetch, unpack)
+        planner_mod.fetch_plan = fetch_plan
+        planner_mod.unpack_fused = unpack_fused
+        return self
+
+    def __exit__(self, *exc):
+        planner_mod, fetch, unpack = self._saved
+        planner_mod.fetch_plan = fetch
+        planner_mod.unpack_fused = unpack
+        return False
+
+
+def same_plans(a, b):
+    """True when two recorded ticks fetched equal plans in equal order."""
+    import numpy as np
+    return len(a) == len(b) and all(
+        pa[0] == pb[0] and all(np.array_equal(u, v)
+                               for u, v in zip(pa[1:], pb[1:]))
+        for pa, pb in zip(a, b))
+
+
+def phase_kernels_mesh(torch, K):
+    """K10, K11 and K2's cross-shard fold on four shards of the card
+    against their plain versions on the same tensors, node bucket 16384.
+    K10 is timed at the headline path's leaf fill (L = 256), K11 at the
+    binpack case, the fold on one shard's exchange at L = 256."""
+    dev = torch.device("cuda")
+    d = MESH_SHARDS
+    rows, per_case = [], {}
+    errs = {K.SHARD_WATERFILL.name: 0, K.SHARD_PACKFILL.name: 0}
+    timed = {}
+    cases = [(case, kw, fill_parts(shard_fill_inputs(31, **kw), d, dev))
+             for case, kw in SHARD_FILL_CASES.items()]
+    parts, L = headline_fill_parts(d, dev)
+    cases.append(("waterfill_headline", dict(L=L), parts))
+    for case, kw, parts in cases:
+        if kw.get("pack"):
+            kern = K.SHARD_PACKFILL
+
+            def run(parts=parts):
+                K._shard_packfill(parts)
+
+            def plain(parts=parts):
+                return K._shard_packfill_plain(parts)
+        else:
+            kern = K.SHARD_WATERFILL
+            L = kw["L"]
+
+            def run(parts=parts, L=L):
+                K._shard_waterfill(parts, L)
+
+            def plain(parts=parts, L=L):
+                return K._shard_waterfill_plain(parts, L)
+        before = kern.launches
+        run()
+        torch.cuda.synchronize()
+        launches = kern.launches - before
+        got = torch.cat([p.out for p in parts])
+        err = max_abs_err(torch, (got,), (torch.cat(plain()),))
+        errs[kern.name] = max(errs[kern.name], err)
+        check(err == 0, f"{kern.name} ({case}): differs from its plain "
+              f"version on the card (max abs err {err})")
+        per_case[case] = dict(launches_per_call=launches,
+                              placed=int(got.to(torch.int64).sum()))
+        if case in ("waterfill_headline", "packfill"):
+            timed[kern.name] = (run, plain, kw)
+        print(f"mesh kernels: {kern.name} ({case}, {d} shards x "
+              f"{parts[0].cap.shape[0]} rows, L = {kw['L']}) == plain, "
+              f"{launches} launches per call, placed "
+              f"{per_case[case]['placed']}", flush=True)
+
+    nb = 16384
+    for kern, symbol in ((K.SHARD_WATERFILL, "shard_waterfill_kernel"),
+                         (K.SHARD_PACKFILL, "shard_packfill_kernel")):
+        run, plain, kw = timed[kern.name]
+        L = kw["L"]
+        if kern is K.SHARD_WATERFILL:
+            # svc, failures, cap, total, seg in, x out; k per shard
+            nbytes, ops = nb * 24 + d * L * 4, K.WATERFILL_STEPS * nb * 4
+        else:
+            # res_cap, failures, cap in, x out; k per shard
+            nbytes, ops = 16 * nb + 4 * d, K.PACKFILL_STEPS * nb * 4
+        rows.append(dict(
+            kernel=kern, err=errs[kern.name], bytes=nbytes, ops=ops,
+            device_ms=device_ms(torch, run, (symbol,), reps=10),
+            ms=time_ms(torch, run, reps=20, warmup=3),
+            plain_ms=time_ms(torch, plain, reps=3, warmup=1),
+            library_ms=None,
+            launches_per_call=(K.WATERFILL_STEPS if kern is
+                               K.SHARD_WATERFILL else K.PACKFILL_STEPS)))
+
+    # ---- K2 over the split: per-shard partials, then the fold on every
+    # shard (the leaf level of a headline group, L = 256, with capacity
+    # totals past 2^24); the fold timed alone on one shard's exchange
+    nodes_np, group_np, L, hier_np = plan_inputs(
+        seed=2024, nb=nb, n_valid=10000, n_leaves=20, k=K.K_CLAMP - 1)
+    from swarmkit_tpu_torch.parallel import sharded as S
+    shards = S.shard_group(nodes_np, group_np, hier_np,
+                           S.make_mesh(["cuda:0"] * d))
+    caps = [K._feasibility_plain(nd, gd)[1] for nd, gd, _ in shards]
+    parts = [(nd.svc_tasks, nd.valid, cap, nd.leaf, gd.k)
+             for (nd, gd, _), cap in zip(shards, caps)]
+
+    acc = [K._seg_partial_plain(*p[:4], L) for p in parts]
+    exchange, k = torch.stack(acc), parts[0][4]
+
+    def fold():
+        return K.seg_fold(exchange, k)
+
+    def fold_plain():
+        total = K.sum_shards(list(exchange))
+        return K._seg_clamp(total[0], total[1], k)
+
+    want = fold_plain()
+    err = max(max_abs_err(torch, g, want)
+              for g in K.branch_sums_sharded(parts, L) + [fold()])
+    check(err == 0, f"seg_fold differs from its plain version ({err})")
+    check(int(want[2].max()) >= 1 << 24, "the fold's inputs must carry "
+          "capacity totals above 2^24")
+    rows.append(dict(
+        kernel=K.SEG_FOLD, err=err,
+        bytes=d * 2 * L * 8 + L * 16 + 8, ops=d * 2 * L,
+        device_ms=device_ms(torch, fold, ("seg_clamp_kernel",), reps=50),
+        ms=time_ms(torch, fold, reps=20, warmup=3),
+        plain_ms=time_ms(torch, fold_plain, reps=20, warmup=3),
+        library_ms=None, launches_per_call=1))
+    for r in rows:
+        print(f"mesh kernels: {r['kernel'].name} {r['ms']:.4f} ms per "
+              f"wrapper call (CUDA events), device "
+              + ("not measured" if r["device_ms"] is None
+                 else f"{r['device_ms']:.4f} ms (torch.profiler)")
+              + f", plain {r['plain_ms']:.4f} ms, bound "
+              f"{bound(r['bytes'], r['ops'])[0]:.7f} ms, "
+              f"{r['launches_per_call']} launches per call", flush=True)
+    return rows, per_case
+
+
+def mesh_planner(TorchPlanner, make_mesh, shards=MESH_SHARDS):
+    return TorchPlanner(mesh=make_mesh(["cuda:0"] * shards))
+
+
+def phase_mesh_headline(torch, K, cuda, workload, Task, Scheduler,
+                        TorchPlanner, make_mesh, card, want_plans,
+                        want_racks):
+    """The headline tick through ``TorchPlanner(mesh=...)``, four shards on
+    the card: every task placed, every plan equal to the unsharded
+    planner's on the same tick."""
+    t0 = time.perf_counter()
+    store, _, nodes, _ = workload.headline_cluster()
+    build_s = time.perf_counter() - t0
+    planner = mesh_planner(TorchPlanner, make_mesh)
+    sched = Scheduler(store, batch_planner=planner)
+    store.view(sched._setup_tasks_list)
+    n_pre = len(sched.pending_preassigned_tasks)
+    cuda.reset_launch_counts(K.KERNELS)
+    with PlanRecorder() as rec:
+        t0 = time.perf_counter()
+        sched._process_preassigned_tasks()
+        n_dec = sched.tick()
+        torch.cuda.synchronize()
+        tick_s = time.perf_counter() - t0
+    n_dec += n_pre - len(sched.pending_preassigned_tasks)
+    launches = cuda.launch_counts(K.KERNELS)
+    stats = dict(planner.stats)
+    check(n_dec == workload.HEADLINE_TASKS,
+          f"mesh headline: decisions {n_dec} != {workload.HEADLINE_TASKS}")
+    for key in ("groups_spill_to_host", "groups_fallback"):
+        check(stats.get(key, 0) == 0, f"mesh headline: {key} = "
+              f"{stats.get(key)}")
+    for k in (K.FEASIBILITY, K.SEG_SUM, K.SEG_FOLD, K.WATERFILL,
+              K.SHARD_WATERFILL):
+        check(launches[k.name] > 0, f"{k.name} never launched on the mesh "
+              "headline path")
+    check(same_plans(rec.plans, want_plans),
+          f"mesh headline: {len(rec.plans)} plans differ from the "
+          f"unsharded tick's {len(want_plans)}")
+    by_id = {n.id: n for n in nodes}
+    racks = Counter(rack_of(by_id[t.node_id]) for t in store.view(
+        lambda tx: tx.find(Task)) if t.node_id)
+    check(sorted(racks.values()) == want_racks,
+          "mesh headline: rack counts differ from the unsharded tick's")
+    rate = n_dec / tick_s
+    print(f"mesh headline ({MESH_SHARDS} shards on one card): {n_dec} "
+          f"decisions in {tick_s:.3f} s ({rate:.0f} decisions/s; cluster "
+          f"build {build_s:.1f} s) on {card}; {len(rec.plans)} plans == "
+          f"unsharded; shard_waterfill launches "
+          f"{launches['shard_waterfill']}; launches {launches}", flush=True)
+    return dict(decisions=n_dec, tick_s=tick_s, decisions_per_s=rate,
+                cluster_build_s=build_s, launches=launches,
+                plans=len(rec.plans), plan_seconds=stats["plan_seconds"])
+
+
+def phase_mesh_many_service(torch, K, cuda, workload, Task, Scheduler,
+                            TorchPlanner, make_mesh, card, want_plans,
+                            want_counts):
+    """Config 7 through ``TorchPlanner(mesh=...)``: the fused route split
+    over four shards (binpack through K11), every chunk's rows and the
+    per-(service, node) counts equal to the unsharded tick's."""
+    t0 = time.perf_counter()
+    store, services, nodes, _ = workload.many_service_cluster()
+    build_s = time.perf_counter() - t0
+    planner = mesh_planner(TorchPlanner, make_mesh)
+    sched = Scheduler(store, batch_planner=planner)
+    store.view(sched._setup_tasks_list)
+    cuda.reset_launch_counts(K.KERNELS)
+    with PlanRecorder() as rec:
+        t0 = time.perf_counter()
+        n_dec = sched.tick()
+        torch.cuda.synchronize()
+        tick_s = time.perf_counter() - t0
+    launches = cuda.launch_counts(K.KERNELS)
+    stats = dict(planner.stats)
+    n_tasks = workload.MANY_SERVICE_TASKS
+    check(n_dec == n_tasks, f"mesh many-service: decisions {n_dec}")
+    check(stats.get("groups_fused") == len(workload.MANY_SERVICE_MIX)
+          and stats.get("fused_chunks") == 3,
+          f"mesh many-service: not every group fused: {stats}")
+    for key in ("groups_fallback", "groups_planned", "groups_spill_to_host",
+                "fused_overflows", "fused_mesh_indivisible"):
+        check(stats.get(key, 0) == 0, f"mesh many-service: {key} = "
+              f"{stats.get(key)}")
+    for k in (K.FEASIBILITY, K.SEG_SUM, K.SEG_FOLD, K.WATERFILL,
+              K.SHARD_WATERFILL, K.SHARD_PACKFILL, K.SCORE,
+              K.FUSED_PROLOGUE, K.FUSED_CARRY):
+        check(launches[k.name] > 0, f"{k.name} never launched on the mesh "
+              "many-service path")
+    check(launches[K.PACKFILL.name] == 0,
+          "the unsharded pack fill ran on the mesh path")
+    check(same_plans(rec.plans, want_plans),
+          "mesh many-service: chunk rows differ from the unsharded tick's")
+    counts = service_counts(store, Task, services, nodes)
+    check(counts == want_counts, "mesh many-service: per-(service, node) "
+          "counts differ from the unsharded tick's")
+    rate = n_dec / tick_s
+    print(f"mesh many-service ({MESH_SHARDS} shards on one card): {n_dec} "
+          f"decisions in {tick_s:.3f} s ({rate:.0f} decisions/s; cluster "
+          f"build {build_s:.1f} s) on {card}; {len(rec.plans)} chunks == "
+          f"unsharded; launches {launches}", flush=True)
+    return dict(decisions=n_dec, tick_s=tick_s, decisions_per_s=rate,
+                cluster_build_s=build_s, launches=launches,
+                plan_seconds=stats["plan_seconds"])
 
 
 def phase_kernels_victims(torch, P, victims_to_device):
@@ -1467,12 +1917,13 @@ def phase_main_path(torch, K, cuda, workload, Task, Scheduler,
     store.view(sched._setup_tasks_list)
     n_pre = len(sched.pending_preassigned_tasks)
     cuda.reset_launch_counts(K.KERNELS)
-    t0 = time.perf_counter()
-    sched._process_preassigned_tasks()
-    k1_preassigned = K.FEASIBILITY.launches
-    n_dec = sched.tick()
-    torch.cuda.synchronize()
-    tick_s = time.perf_counter() - t0
+    with PlanRecorder() as rec:
+        t0 = time.perf_counter()
+        sched._process_preassigned_tasks()
+        k1_preassigned = K.FEASIBILITY.launches
+        n_dec = sched.tick()
+        torch.cuda.synchronize()
+        tick_s = time.perf_counter() - t0
     n_dec += n_pre - len(sched.pending_preassigned_tasks)
     launches = cuda.launch_counts(K.KERNELS)
     stats = dict(planner.stats)
@@ -1506,7 +1957,7 @@ def phase_main_path(torch, K, cuda, workload, Task, Scheduler,
                 preassigned_feasibility_launches=k1_preassigned,
                 cluster_build_s=build_s, launches=launches,
                 plan_seconds=stats["plan_seconds"],
-                rack_counts=sorted(racks.values()))
+                rack_counts=sorted(racks.values())), rec.plans
 
 
 def phase_traced_tick(torch, build, Scheduler, TorchPlanner, tracer, card,
@@ -1616,10 +2067,11 @@ def phase_many_service(torch, K, cuda, workload, Task, Scheduler,
     sched = Scheduler(store, batch_planner=planner)
     store.view(sched._setup_tasks_list)
     cuda.reset_launch_counts(K.KERNELS)
-    t0 = time.perf_counter()
-    n_dec = sched.tick()
-    torch.cuda.synchronize()
-    tick_s = time.perf_counter() - t0
+    with PlanRecorder() as rec:
+        t0 = time.perf_counter()
+        n_dec = sched.tick()
+        torch.cuda.synchronize()
+        tick_s = time.perf_counter() - t0
     launches = cuda.launch_counts(K.KERNELS)
     stats = dict(planner.stats)
     n_groups = len(workload.MANY_SERVICE_MIX)
@@ -1635,8 +2087,9 @@ def phase_many_service(torch, K, cuda, workload, Task, Scheduler,
                 "fused_overflows"):
         check(stats.get(key, 0) == 0, f"{key} = {stats.get(key)}")
     for k in K.KERNELS:
-        if k in (K.SCATTER, K.GANG_FIT):
-            continue   # the churn and gang paths' kernels
+        if k in (K.SCATTER, K.GANG_FIT, K.SEG_FOLD, K.SHARD_WATERFILL,
+                 K.SHARD_PACKFILL):
+            continue   # the churn, gang and mesh paths' kernels
         check(launches[k.name] > 0, f"{k.name} never launched on the "
               "many-service path")
     counts = service_counts(store, Task, services, nodes)
@@ -1664,7 +2117,7 @@ def phase_many_service(torch, K, cuda, workload, Task, Scheduler,
                 cluster_build_s=build_s, launches=launches,
                 plan_seconds=stats["plan_seconds"],
                 groups_fused=stats["groups_fused"],
-                fused_chunks=stats["fused_chunks"])
+                fused_chunks=stats["fused_chunks"]), rec.plans, counts
 
 
 def phase_many_service_oracle(workload, Task, Scheduler, TorchPlanner):
@@ -1709,6 +2162,7 @@ def main():
         from swarmkit_tpu_torch.ops import preempt as P
         from swarmkit_tpu_torch.ops.convert import (
             fused_to_device, gang_to_device, to_device, victims_to_device)
+        from swarmkit_tpu_torch.parallel import make_mesh
         from swarmkit_tpu_torch.scheduler import Scheduler
     except ImportError as exc:
         fail(f"the swarmkit_tpu_torch package is not importable: {exc}")
@@ -1724,13 +2178,13 @@ def main():
     rows, plan = phase_kernels(torch, K, to_device)
     fused_rows, chunk = phase_kernels_fused(torch, K, fused_to_device)
     rows += fused_rows
-    main_path = phase_main_path(torch, K, cuda, workload, Task, Scheduler,
-                                TorchPlanner, card)
+    main_path, headline_plans = phase_main_path(
+        torch, K, cuda, workload, Task, Scheduler, TorchPlanner, card)
     traced = phase_traced_tick(torch, workload.headline_cluster, Scheduler,
                                TorchPlanner, tracer, card)
     oracle = phase_host_oracle(workload, Task, Platform, TorchPlanner)
-    many = phase_many_service(torch, K, cuda, workload, Task, Scheduler,
-                              TorchPlanner, card)
+    many, many_plans, many_counts = phase_many_service(
+        torch, K, cuda, workload, Task, Scheduler, TorchPlanner, card)
     many_traced = phase_traced_tick(
         torch, workload.many_service_cluster, Scheduler, TorchPlanner, tracer,
         card, label="traced many-service tick")
@@ -1739,7 +2193,8 @@ def main():
     resident_rows, resident_kernels = phase_kernels_resident(torch, K,
                                                              gang_to_device)
     rows += resident_rows
-    churn = phase_churn(torch, K, cuda, workload, TorchPlanner, card)
+    churn = phase_churn(torch, K, cuda, workload, TorchPlanner, make_mesh,
+                        card)
     churn["traced"] = phase_traced_churn(torch, workload, TorchPlanner,
                                          tracer, card)
     gang = phase_gang(torch, K, cuda, workload, Task, Scheduler,
@@ -1751,6 +2206,15 @@ def main():
                                TorchPlanner, card)
     storm = phase_storm(torch, K, P, cuda, workload, Task, Scheduler,
                         TorchPlanner, victims_to_device, tracer, card)
+    mesh_rows, mesh_cases = phase_kernels_mesh(torch, K)
+    rows += mesh_rows
+    mesh = {"kernel_cases": mesh_cases}
+    mesh["headline"] = phase_mesh_headline(
+        torch, K, cuda, workload, Task, Scheduler, TorchPlanner, make_mesh,
+        card, headline_plans, main_path["rack_counts"])
+    mesh["many_service"] = phase_mesh_many_service(
+        torch, K, cuda, workload, Task, Scheduler, TorchPlanner, make_mesh,
+        card, many_plans, many_counts)
 
     # each kernel's launches from the main path that runs it
     path_launches = dict(many["launches"])
@@ -1758,6 +2222,8 @@ def main():
         churn["streaming"]["launches"]["scatter_rows"]
     path_launches["gang_fit"] = gang["card"]["launches"]["gang_fit"]
     path_launches["select_victims"] = storm["launches"]["select_victims"]
+    for k in (K.SEG_FOLD, K.SHARD_WATERFILL, K.SHARD_PACKFILL):
+        path_launches[k.name] = mesh["many_service"]["launches"][k.name]
     kernels = []
     for r in rows:
         k = r["kernel"]
@@ -1779,7 +2245,7 @@ def main():
               "host_oracle": oracle, "resident_kernels": resident_kernels,
               "churn": churn, "gang": gang,
               "victim_kernels": victim_kernels, "priority_jobs": jobs,
-              "storm": storm,
+              "storm": storm, "mesh": mesh,
               "seconds": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

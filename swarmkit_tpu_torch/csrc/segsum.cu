@@ -53,22 +53,46 @@ __global__ void __launch_bounds__(kThreads) seg_sum_kernel(
   }
 }
 
+// The clamps, on the sum of `rows` [2, L] rows of acc taken in row order
+// (one row unsharded, D on a node-axis split); raw_out, when given,
+// receives the summed capacity.
 __global__ void __launch_bounds__(kThreads) seg_clamp_kernel(
-    int L, const unsigned long long* __restrict__ acc,
+    int L, int rows, const unsigned long long* __restrict__ acc,
     const int32_t* __restrict__ k_ptr, int32_t* __restrict__ load,
-    int32_t* __restrict__ bcap, int32_t* __restrict__ kk_out) {
+    int32_t* __restrict__ bcap, long long* __restrict__ raw_out,
+    int32_t* __restrict__ kk_out) {
   const long long kk = min(*k_ptr, sk::K_CLAMP);
   for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < L;
        s += gridDim.x * blockDim.x) {
-    load[s] = (int)min((long long)acc[s], sk::LOAD_CLAMP);
-    bcap[s] = (int)min((long long)acc[L + s], kk);
+    long long ld = 0, cp = 0;
+    for (int d = 0; d < rows; ++d) {
+      ld += (long long)acc[(size_t)d * 2 * L + s];
+      cp += (long long)acc[(size_t)d * 2 * L + L + s];
+    }
+    load[s] = (int)min(ld, sk::LOAD_CLAMP);
+    bcap[s] = (int)min(cp, kk);
+    if (raw_out != nullptr) raw_out[s] = cp;
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) *kk_out = (int)kk;
+}
+
+int launch_clamp(int L, int rows, const void* acc, const void* k,
+                 void* load, void* bcap, void* raw_out, void* kk_out,
+                 cudaStream_t st) {
+  int blocks = (L + kThreads - 1) / kThreads;
+  if (blocks > 1024) blocks = 1024;
+  seg_clamp_kernel<<<blocks, kThreads, 0, st>>>(
+      L, rows, (const unsigned long long*)acc, (const int32_t*)k,
+      (int32_t*)load, (int32_t*)bcap, (long long*)raw_out,
+      (int32_t*)kk_out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // acc must hold zeros on entry; raw branch capacities stay in acc[L:2L].
+// With load == null only the (unclamped) sums are written: one shard's
+// partials on a node-axis split.
 extern "C" int sk_seg_sum(int n, int L, const void* svc_tasks,
                           const void* valid, const void* cap, const void* seg,
                           const void* k, void* acc, void* load, void* bcap,
@@ -86,10 +110,17 @@ extern "C" int sk_seg_sum(int n, int L, const void* svc_tasks,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  int blocks = (L + kThreads - 1) / kThreads;
-  if (blocks > 1024) blocks = 1024;
-  seg_clamp_kernel<<<blocks, kThreads, 0, st>>>(
-      L, (const unsigned long long*)acc, (const int32_t*)k, (int32_t*)load,
-      (int32_t*)bcap, (int32_t*)kk_out);
-  return (int)cudaGetLastError();
+  if (load == nullptr) return 0;
+  return launch_clamp(L, 1, acc, k, load, bcap, nullptr, kk_out, st);
+}
+
+// The cross-shard fold of K2: `rows` = the [D, 2, L] partials of every
+// shard, summed in shard order, then clamped; raw_cap receives the summed
+// capacity (int64 [L]).
+extern "C" int sk_seg_fold(int D, int L, const void* rows, const void* k,
+                           void* load, void* bcap, void* raw_cap,
+                           void* kk_out, void* stream) {
+  if (L <= 0 || D <= 0) return 0;
+  return launch_clamp(L, D, rows, k, load, bcap, raw_cap, kk_out,
+                      (cudaStream_t)stream);
 }

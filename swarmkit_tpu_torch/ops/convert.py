@@ -14,7 +14,7 @@ inputs.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -22,7 +22,7 @@ import torch
 from ..obs import devicetelemetry as _devtel
 from .kernel import (
     FusedCarry, FusedGroups, FusedShared, FusedStrategy, GroupInputs,
-    NodeInputs, UploadStage,
+    NodeInputs, StrategyInputs, UploadStage,
 )
 from .preempt import VictimInputs
 
@@ -124,6 +124,92 @@ def fused_to_device(shared, groups, carry, strat=None, device="cpu"):
             named_to_device(FusedGroups, groups, device), carry_t,
             None if strat is None
             else named_to_device(FusedStrategy, strat, device))
+
+
+# ------------------------------------------------------ node-axis split
+
+#: the fields of each input type that carry the node axis (their LAST
+#: axis), as the reference's PartitionSpecs split them
+#: (swarmkit_tpu/parallel/sharded.py:76-81, :123-125, :167-192); every
+#: other field is replicated on each shard
+SPLIT_FIELDS = {
+    NodeInputs: frozenset(NodeInputs._fields),
+    GroupInputs: frozenset({"con_hash"}),
+    StrategyInputs: frozenset({"hr_cpu", "hr_mem", "hr_gen"}),
+    FusedShared: frozenset(FusedShared._fields),
+    FusedGroups: frozenset({"con_hash", "failures", "leaf", "extra_mask",
+                            "quota_ok"}),
+    FusedCarry: frozenset(FusedCarry._fields),
+    FusedStrategy: frozenset(),
+}
+
+
+def pad_nodes(a, d: int) -> np.ndarray:
+    """A node-axis array padded with zeros (False) on its last axis to a
+    multiple of ``d``: padded rows are invalid nodes (valid = False, so
+    zero capacity), as the reference pads (``sharded.py:315-334``)."""
+    arr = np.asarray(a)
+    pad = -arr.shape[-1] % d
+    if not pad:
+        return arr
+    return np.pad(arr, [(0, 0)] * (arr.ndim - 1) + [(0, pad)])
+
+
+def shard_to_device(obj, cls, devices: Sequence) -> List:
+    """Any NamedTuple of numpy arrays with ``cls``'s field names (either
+    package's) split on the node axis over ``devices``: one ``cls`` of
+    tensors per shard, on that shard's device.  ``SPLIT_FIELDS[cls]`` are
+    padded to a multiple of the shard count and cut into equal contiguous
+    slices (copies, never views of the caller's arrays); the other fields
+    are copied whole to every shard.  Absent or
+    None members stay None; ``INT64_FIELDS`` are int64."""
+    d = len(devices)
+    split = SPLIT_FIELDS[cls]
+    arrays = {}
+    for name in cls._fields:
+        v = getattr(obj, name, None)
+        if v is not None and name in split:
+            v = pad_nodes(v, d)
+        arrays[name] = v
+    out = []
+    for i, dev in enumerate(devices):
+        dev = torch.device(dev)
+        fields = {}
+        for name, v in arrays.items():
+            if v is None:
+                fields[name] = None
+                continue
+            if name in split:
+                ln = v.shape[-1] // d
+                # a copy: on the CPU a tensor made from a numpy view
+                # shares its memory, and the fused carry is updated in
+                # place
+                v = np.array(v[..., i * ln:(i + 1) * ln])
+            fields[name] = tensor(v, dev, wide=name in INT64_FIELDS)
+        out.append(cls(**fields))
+    return out
+
+
+def shard_hier(hier, devices: Sequence) -> List[Tuple]:
+    """A spread tree's ``((seg_nodes, parent), ...), leaf_parent`` per
+    shard: the node-level segment columns split, the branch-level parent
+    maps replicated (``sharded.py:112-115``); ``()`` stays ``()``."""
+    if not hier:
+        return [() for _ in devices]
+    d = len(devices)
+    upper, leaf_parent = hier
+    segs = [pad_nodes(seg, d) for seg, _ in upper]
+    out = []
+    for i, dev in enumerate(devices):
+        dev = torch.device(dev)
+        levels = []
+        for seg, (_, parent) in zip(segs, upper):
+            ln = seg.shape[-1] // d
+            levels.append((tensor(seg[i * ln:(i + 1) * ln], dev),
+                           tensor(parent, dev)))
+        out.append((tuple(levels), None if leaf_parent is None
+                    else tensor(leaf_parent, dev)))
+    return out
 
 
 # victim candidates, packed: the int64 columns, then vprio (int32), then the

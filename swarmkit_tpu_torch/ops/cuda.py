@@ -32,8 +32,9 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("feasibility.cu", "segsum.cu", "waterfill.cu", "packfill.cu",
-           "score.cu", "fused.cu", "scatter.cu", "gangfit.cu", "victims.cu")
-HEADERS = ("common.cuh", "feasibility.cuh")
+           "score.cu", "fused.cu", "scatter.cu", "gangfit.cu", "victims.cu",
+           "shardfill.cu", "shardpack.cu")
+HEADERS = ("common.cuh", "feasibility.cuh", "shard.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -46,6 +47,7 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "sk_feasibility": ([_I, _I, _I] + [_P] * 21, _I),
     "sk_seg_sum": ([_I, _I] + [_P] * 10, _I),
+    "sk_seg_fold": ([_I, _I] + [_P] * 7, _I),
     "sk_waterfill": ([_I, _I, _P, _P, _P, _I] + [_P] * 9, _I),
     "sk_waterfill_smem_bytes": ([_I], ctypes.c_longlong),
     "sk_packfill": ([_I, _P, _P, _I] + [_P] * 4, _I),
@@ -55,6 +57,8 @@ SIGNATURES = {
     "sk_scatter_rows": ([_I, _I] + [_P] * 7, _I),
     "sk_gang_fit": ([_I] * 4 + [_P] * 19, _I),
     "sk_select_victims": ([_I] * 5 + [_L] * 3 + [_P] * 12, _I),
+    "sk_shard_waterfill": ([_I] * 5 + [_P, _P, _I, _P], _I),
+    "sk_shard_packfill": ([_I] * 4 + [_P, _P, _I, _P], _I),
     "sk_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -187,13 +191,19 @@ class CudaKernel:
         self.launches = 0
 
     def __call__(self, *args) -> None:
+        self.launch(1, *args)
+
+    def launch(self, count: int, *args) -> None:
+        """Call the entry, which launches the kernel ``count`` times (the
+        step kernels of the node-axis split run several steps per call),
+        and count those launches."""
         lib = library()
         code = getattr(lib, self.symbol)(*args, stream_handle())
         if code != 0:
             msg = lib.sk_error_string(code).decode(errors="replace")
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
                                f"error {code} ({msg})")
-        self.launches += 1
+        self.launches += count
 
 
 def launch_counts(kernels) -> Dict[str, int]:

@@ -21,7 +21,12 @@ kernels (``csrc/``) carry them on Hopper:
   dirty-row scatter into its five resident node columns, in place;
 * ``gang_fit`` / ``gang_fit_fused`` (K8, ``csrc/gangfit.cu``): the gang
   all-or-nothing precheck, K1's per-node body summed per gang, for one
-  gang or a stack of them.
+  gang or a stack of them;
+* ``shard_waterfill`` (K10, ``csrc/shardfill.cu``) and ``shard_packfill``
+  (K11, ``csrc/shardpack.cu``): the node-level water-fill and pack fill
+  over a node-axis split, one search step per launch, the shards' partial
+  sums crossing through an exchange buffer (see "node-axis split" below);
+  ``seg_fold`` is K2's cross-shard fold of the stage-A branch sums.
 
 Every wrapper below takes the kernel for tensors on a CUDA device and its
 plain PyTorch version, in this module, for tensors on the CPU; on any other
@@ -46,7 +51,9 @@ planner moves each result to the host with a single copy
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
+
+import ctypes
 
 import numpy as np
 import torch
@@ -101,8 +108,20 @@ SCATTER = _cuda.CudaKernel(
 GANG_FIT = _cuda.CudaKernel(
     "gang_fit", "sk_gang_fit", "swarmkit_tpu_torch/csrc/gangfit.cu",
     "swarmkit_tpu/ops/kernel.py:786")
+SEG_FOLD = _cuda.CudaKernel(
+    "seg_fold", "sk_seg_fold", "swarmkit_tpu_torch/csrc/segsum.cu",
+    "swarmkit_tpu/parallel/sharded.py:95")
+SHARD_WATERFILL = _cuda.CudaKernel(
+    "shard_waterfill", "sk_shard_waterfill",
+    "swarmkit_tpu_torch/csrc/shardfill.cu",
+    "swarmkit_tpu/parallel/sharded.py:95")
+SHARD_PACKFILL = _cuda.CudaKernel(
+    "shard_packfill", "sk_shard_packfill",
+    "swarmkit_tpu_torch/csrc/shardpack.cu",
+    "swarmkit_tpu/parallel/sharded.py:137")
 KERNELS = (FEASIBILITY, SEG_SUM, WATERFILL, FUSED_PROLOGUE, FUSED_CARRY,
-           PACKFILL, SCORE, SCATTER, GANG_FIT)
+           PACKFILL, SCORE, SCATTER, GANG_FIT, SEG_FOLD, SHARD_WATERFILL,
+           SHARD_PACKFILL)
 
 # K6 stages the learned scorer's hidden layer in shared memory
 SCORE_MAX_HIDDEN = 64
@@ -310,19 +329,8 @@ feasibility = feasibility_and_capacity
 # ---------------------------------------------------------- K2: branch sums
 
 def _seg_sum_plain(svc_tasks, valid, cap, seg, L: int, k):
-    dev = svc_tasks.device
-    i64 = torch.int64
-    seg_l = seg.to(i64)
-    svc = torch.where(valid, torch.clamp(svc_tasks, 0, SVC_CLAMP),
-                      torch.zeros_like(svc_tasks))
-    load_raw = torch.zeros(L, dtype=i64, device=dev).index_add_(
-        0, seg_l, svc.to(i64))
-    raw_cap = torch.zeros(L, dtype=i64, device=dev).index_add_(
-        0, seg_l, cap.to(i64))
-    kk = torch.clamp(k, max=K_CLAMP).reshape(1).to(torch.int32)
-    load = torch.clamp(load_raw, max=LOAD_CLAMP).to(torch.int32)
-    bcap = torch.minimum(raw_cap, kk.to(i64)).to(torch.int32)
-    return load, bcap, raw_cap, kk
+    load_raw, raw_cap = _seg_partial_plain(svc_tasks, valid, cap, seg, L)
+    return _seg_clamp(load_raw, raw_cap, k)
 
 
 def branch_sums(svc_tasks: torch.Tensor, valid: torch.Tensor,
@@ -1249,6 +1257,575 @@ def gang_fit(nodes: NodeInputs, group: GroupInputs):
     return fit[0], fail[0]
 
 
+# ------------------------------------------------------- node-axis split
+#
+# The counterpart of the reference's shard_map programs
+# (swarmkit_tpu/parallel/sharded.py): D shards, shard d owning rows
+# [d * n, (d + 1) * n) of every node column in tensors of its own, on its
+# own device (one card may hold several shards).  Each shard runs the
+# elementwise kernels (K1, K4, K6) on its rows alone.  What crosses shards
+# is what the reference psums, and nothing else: the 8 fail counts (summed
+# at the fetch, see :func:`merge_shard_rows`), stage A's branch sums (K2's
+# per-shard partials, folded by ``seg_fold``), each step of the node-level
+# searches and the base fill (K10, K11: one [L] int64 row per shard per
+# step) and the pack fill's count.  Every fold sums the D rows in shard
+# order, in int64: exact, deterministic, and the same on every shard.
+# Clamps apply to the folded sums, never per shard.  Stage A's water-fills
+# run on [L_d] vectors that every shard holds alike, so every shard
+# computes them (K3 as is) and ends with the same allocation and spill.
+#
+# Every shard of a mesh lies on one card (``parallel.NodeMesh`` refuses a
+# mesh over several), and the shards share one exchange buffer per fill.
+# A mesh over several cards, whose rows would cross by peer copy or NCCL,
+# is queued in ROADMAP.md.
+
+#: K10's launches per fill: 34 level steps, the base fill, 34 tie steps,
+#: the placement
+WATERFILL_STEPS = LEVEL_ITERS + TIE_ITERS + 2
+#: K11's launches per fill: 34 threshold steps, the sum below it, the fill
+PACKFILL_STEPS = TIE_ITERS + 2
+#: shards one step launch carries (``csrc/shard.cuh`` MAX_LAUNCH_SHARDS)
+MAX_LAUNCH_SHARDS = 16
+# pointer slots per shard of the launch table (``csrc/shard.cuh``)
+_SHARD_SLOTS = ("e", "svc_tasks", "failures", "res_cap", "cap", "tie",
+                "total", "seg", "k", "out", "state", "xbuf")
+
+
+class FillShard(NamedTuple):
+    """One shard's inputs to a node-level fill (K10 or K11), on its own
+    device.  ``offset`` is the global index of its first row."""
+
+    cap: torch.Tensor                        # i32[n] per-node capacity
+    k: torch.Tensor                          # i32[L] units per segment
+    out: Optional[torch.Tensor] = None       # i32[n] placement (written)
+    e: Optional[torch.Tensor] = None         # i32[n] level (K10), or the
+    svc_tasks: Optional[torch.Tensor] = None  # spread score of svc_tasks
+    failures: Optional[torch.Tensor] = None  # and failures (K10, K11 key)
+    res_cap: Optional[torch.Tensor] = None   # i32[n] binpack key (K11)
+    tie: Optional[torch.Tensor] = None       # i32[n] tie key, or from
+    total: Optional[torch.Tensor] = None     # (clip(total) << 20) | idx
+    seg: Optional[torch.Tensor] = None       # i32[n] segment, None: 0
+    offset: int = 0
+
+
+def sum_shards(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The exchange's fold: the shards' partials summed in shard order, in
+    int64, on the first shard's device.  The default ``reduce`` of the
+    plain versions."""
+    out = parts[0].to(torch.int64).clone()
+    for p in parts[1:]:
+        out += p.to(device=out.device, dtype=torch.int64)
+    return out
+
+
+def _split_route(devices: Sequence[torch.device], reduce) -> bool:
+    """True when a split's shards lie on the card (launch the kernels),
+    False on the CPU (the plain versions, summing through ``reduce``).
+    Every shard must lie on one device type, and CUDA shards on one card;
+    a custom ``reduce`` is the plain versions' alone."""
+    on_cuda = devices[0].type == "cuda"
+    if any((dev.type == "cuda") != on_cuda for dev in devices):
+        raise ValueError("a split's shards mix CPU and CUDA tensors")
+    if on_cuda:
+        if any(dev != devices[0] for dev in devices):
+            raise ValueError("a split's shards lie on several cards")
+        if reduce is not None:
+            raise ValueError("a custom reduce runs only on CPU shards")
+    return on_cuda
+
+
+def _check_shards(parts: Sequence[FillShard], L: int, need,
+                  reduce) -> bool:
+    """Check a fill's per-shard inputs; True when they lie on the card
+    (launch), False on the CPU (plain version)."""
+    if not parts:
+        raise ValueError("a node-level fill needs at least one shard")
+    on_cuda = _split_route([p.cap.device for p in parts], reduce)
+    i32 = torch.int32
+    for p in parts:
+        n, dev = p.cap.shape[0], p.cap.device
+        _check("cap", p.cap, i32, (n,), dev)
+        _check("k", p.k, i32, (L,), dev)
+        _check("out", p.out, i32, (n,), dev)
+        for name in need:
+            _check(name, getattr(p, name), i32, (n,), dev)
+        for name in ("tie", "total", "seg"):
+            t = getattr(p, name)
+            if t is not None:
+                _check(name, t, i32, (n,), dev)
+    if on_cuda and len(parts) > MAX_LAUNCH_SHARDS:
+        raise ValueError(f"more than {MAX_LAUNCH_SHARDS} shards on one card")
+    return on_cuda
+
+
+def _fill_keys(p: FillShard, i32=torch.int32) -> torch.Tensor:
+    if p.tie is not None:
+        return p.tie
+    idx = torch.arange(p.cap.shape[0], dtype=i32, device=p.cap.device) \
+        + p.offset
+    if p.total is None:
+        return idx
+    return (torch.clamp(p.total, 0, TOTAL_CLAMP) << IDX_BITS) | idx
+
+
+def _shard_waterfill_plain(parts: Sequence[FillShard], L: int,
+                           reduce=None) -> List[torch.Tensor]:
+    """Plain version of K10: the reference's ``seg_waterfill`` with every
+    [L] partial sum taken over the shards through ``reduce`` (its psum).
+    The search bounds are replicated values, computed once here.  Returns
+    each shard's placement."""
+    reduce = reduce or sum_shards
+    i32, i64 = torch.int32, torch.int64
+    es = [p.e if p.e is not None else _spread_score(p.svc_tasks, p.failures)
+          for p in parts]
+    ties = [_fill_keys(p) for p in parts]
+    segs = [(p.seg if p.seg is not None else
+             torch.zeros(p.cap.shape[0], dtype=i32, device=p.cap.device)
+             ).to(i64) for p in parts]
+    k64 = parts[0].k.to(i64)
+    dev = k64.device
+
+    def psum(values):
+        return reduce([torch.zeros(L, dtype=i64, device=v.device).index_add_(
+            0, seg, v.to(i64)) for v, seg in zip(values, segs)]).to(dev)
+
+    def fill_at(lam):
+        return [torch.minimum(torch.clamp(lam.to(e.device)[seg] - e, min=0),
+                              p.cap) for p, e, seg in zip(parts, es, segs)]
+
+    lo = torch.zeros(L, dtype=i32, device=dev)
+    hi = torch.full((L,), SEARCH_HI, dtype=i32, device=dev)
+    for _ in range(LEVEL_ITERS):
+        mid = lo + ((hi - lo) >> 1)
+        ge = psum(fill_at(mid)) >= k64
+        lo, hi = torch.where(ge, lo, mid + 1), torch.where(ge, mid, hi)
+    x_base = fill_at(hi - 1)
+    r = torch.clamp(k64 - psum(x_base), min=0)
+    marginal = [(e <= (hi - 1).to(e.device)[seg]) & (xb < p.cap)
+                for p, e, seg, xb in zip(parts, es, segs, x_base)]
+    tlo = torch.full((L,), -1, dtype=i32, device=dev)
+    thi = torch.full((L,), SEARCH_HI, dtype=i32, device=dev)
+    for _ in range(TIE_ITERS):
+        mid = tlo + ((thi - tlo) >> 1)
+        ge = psum([m & (t <= mid.to(t.device)[seg])
+                   for m, t, seg in zip(marginal, ties, segs)]) >= r
+        tlo, thi = torch.where(ge, tlo, mid + 1), torch.where(ge, mid, thi)
+    return [(xb + (m & (t <= thi.to(t.device)[seg])
+                   & (r.to(t.device)[seg] > 0)).to(i32)).to(i32)
+            for xb, m, t, seg in zip(x_base, marginal, ties, segs)]
+
+
+def _run_steps(kernel, steps: int, parts, L: int, state_len: int,
+               extra: tuple) -> None:
+    """Launch a step kernel's ``steps`` steps over every shard of the card
+    in one call: a pointer table of each shard's tensors (its own search
+    state among them), its (n, offset, row) triple, and one [2, D, L]
+    int64 exchange buffer that the steps fill by parity.  The tensors and
+    ctypes arrays live until the steps are enqueued."""
+    D = len(parts)
+    dev = parts[0].cap.device
+    xbuf = torch.empty((2, D, L), dtype=torch.int64, device=dev)
+    states = torch.empty((D, state_len), dtype=torch.int32, device=dev)
+    ptrs, ints = [], []
+    for d, p in enumerate(parts):
+        vals = {"state": states[d], "xbuf": xbuf}
+        for name in _SHARD_SLOTS:
+            ptrs.append(_cuda.ptr(vals.get(name, getattr(p, name, None))))
+        ints += [p.cap.shape[0], p.offset, d]
+    ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    ints = (ctypes.c_int * len(ints))(*ints)
+    with torch.cuda.device(dev):
+        kernel.launch(steps, D, D, *extra, 0, steps, ctypes.addressof(ptrs),
+                      ctypes.addressof(ints), MAX_FAILURES)
+
+
+def _shard_waterfill(parts: Sequence[FillShard], L: int,
+                     reduce=None) -> None:
+    """K10: the node-level water-fill of ``L`` segments over every shard
+    of a node-axis split, written into each shard's ``out``.  K3's options
+    per shard: the level ``e`` or the spread score of (``svc_tasks``,
+    ``failures``); the tie key ``tie`` or (clip(``total``) << 20) | (index
+    + offset), or the global index.  ``k`` is the same [L] on every
+    shard.  ``reduce``: the plain version's psum (CPU shards only)."""
+    if L > WATERFILL_MAX_SEGMENTS:
+        raise ValueError(f"shard waterfill: {L} segments exceed "
+                         f"{WATERFILL_MAX_SEGMENTS}")
+    need = () if all(p.e is not None for p in parts) \
+        else ("svc_tasks", "failures")
+    for p in parts:
+        if p.e is not None:
+            _check("e", p.e, torch.int32, (p.cap.shape[0],), p.cap.device)
+    if not _check_shards(parts, L, need, reduce):
+        for p, x in zip(parts, _shard_waterfill_plain(parts, L, reduce)):
+            p.out.copy_(x)
+        return
+    _run_steps(SHARD_WATERFILL, WATERFILL_STEPS, parts, L, 5 * L, (L,))
+
+
+def _shard_packfill_plain(parts: Sequence[FillShard],
+                          reduce=None) -> List[torch.Tensor]:
+    """Plain version of K11: the reference's ``seg_packfill`` over one
+    segment with the binpack key of (``res_cap``, ``failures``) on the
+    global index, every capacity sum taken over the shards through
+    ``reduce``.  Returns each shard's placement."""
+    reduce = reduce or sum_shards
+    i32, i64 = torch.int32, torch.int64
+    keys = []
+    for p in parts:
+        idx = torch.arange(p.cap.shape[0], dtype=i32,
+                           device=p.cap.device) + p.offset
+        score = torch.where(p.failures >= MAX_FAILURES,
+                            BP_CLAMP + 1 + torch.clamp(p.failures, 0,
+                                                       FAILURE_CLAMP),
+                            torch.clamp(p.res_cap, 0, BP_CLAMP))
+        keys.append(((score << IDX_BITS) | idx).to(i32))
+    k64 = parts[0].k.to(i64)
+    dev = k64.device
+
+    def psum(values):
+        return reduce([v.to(i64).sum().reshape(1) for v in values]).to(dev)
+
+    lo = torch.full((1,), -1, dtype=i32, device=dev)
+    hi = torch.full((1,), SEARCH_HI, dtype=i32, device=dev)
+    for _ in range(TIE_ITERS):
+        mid = lo + ((hi - lo) >> 1)
+        ge = psum([torch.where(key <= mid, p.cap, 0)
+                   for p, key in zip(parts, keys)]) >= k64
+        lo, hi = torch.where(ge, lo, mid + 1), torch.where(ge, mid, hi)
+    xs = [torch.where(key < hi, p.cap, 0) for p, key in zip(parts, keys)]
+    r = torch.clamp(k64 - psum(xs), min=0)
+    return [(x + torch.where((key == hi) & (r > 0),
+                             torch.minimum(p.cap.to(i64), r), 0).to(i32)
+             ).to(i32) for p, key, x in zip(parts, keys, xs)]
+
+
+def _shard_packfill(parts: Sequence[FillShard], reduce=None) -> None:
+    """K11: the binpack fill of one group (one segment) over every shard
+    of a node-axis split, written into each shard's ``out``.
+    ``reduce``: the plain version's psum (CPU shards only)."""
+    if not _check_shards(parts, 1, ("res_cap", "failures"), reduce):
+        for p, x in zip(parts, _shard_packfill_plain(parts, reduce)):
+            p.out.copy_(x)
+        return
+    _run_steps(SHARD_PACKFILL, PACKFILL_STEPS, parts, 1, 3, ())
+
+
+# ------------------------------------------- K2 over a node-axis split
+
+def _seg_partial_plain(svc_tasks, valid, cap, seg, L: int) -> torch.Tensor:
+    """One shard's unclamped branch sums: int64 [2, L] (load, capacity)."""
+    i64 = torch.int64
+    seg_l = seg.to(i64)
+    svc = torch.where(valid, torch.clamp(svc_tasks, 0, SVC_CLAMP),
+                      torch.zeros_like(svc_tasks))
+    out = torch.zeros((2, L), dtype=i64, device=svc_tasks.device)
+    out[0].index_add_(0, seg_l, svc.to(i64))
+    out[1].index_add_(0, seg_l, cap.to(i64))
+    return out
+
+
+def _seg_clamp(load_raw, raw_cap, k):
+    """The reference's clamps on summed branch arrays (``kernel.py:305-312``):
+    (load i32[L], bcap i32[L], raw_cap i64[L], kk i32[1])."""
+    kk = torch.clamp(k, max=K_CLAMP).reshape(1).to(torch.int32)
+    load = torch.clamp(load_raw, max=LOAD_CLAMP).to(torch.int32)
+    bcap = torch.minimum(raw_cap, kk.to(torch.int64)).to(torch.int32)
+    return load, bcap, raw_cap, kk
+
+
+def seg_fold(rows: torch.Tensor, k: torch.Tensor):
+    """K2's fold for one shard: the [D, 2, L] int64 exchange of the
+    shards' unclamped (load, capacity) partials summed in shard order,
+    then clamped as the reference clamps its psummed branch arrays.
+    Returns (load i32[L], bcap i32[L], raw_cap i64[L], kk i32[1]) on the
+    exchange's device; its plain version on the CPU."""
+    D, two, L = rows.shape
+    dev = rows.device
+    _check("rows", rows, torch.int64, (D, 2, L), dev)
+    _check("k", k, torch.int32, (), dev)
+    if not _on_cuda(rows):
+        total = sum_shards(list(rows))
+        return _seg_clamp(total[0], total[1], k)
+    load = torch.empty(L, dtype=torch.int32, device=dev)
+    bcap = torch.empty(L, dtype=torch.int32, device=dev)
+    raw = torch.empty(L, dtype=torch.int64, device=dev)
+    kk = torch.empty(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        SEG_FOLD(D, L, *map(_cuda.ptr, (rows, k, load, bcap, raw, kk)))
+    return load, bcap, raw, kk
+
+
+def branch_sums_sharded(parts: Sequence[Tuple], L: int,
+                        reduce=None) -> List[Tuple]:
+    """Stage-A branch arrays over a node-axis split: ``parts`` holds each
+    shard's (svc_tasks, valid, cap, seg, k) on its device.  K2 writes each
+    shard's unclamped partials into its row of a [D, 2, L] exchange;
+    :func:`seg_fold` sums the rows in shard order and clamps, on every
+    shard.  Returns each shard's (load, bcap, raw_cap, kk), equal on every
+    shard.  On CPU shards the partials are summed through ``reduce``
+    (the reference's psum; default :func:`sum_shards`)."""
+    D = len(parts)
+    i32 = torch.int32
+    for svc_tasks, valid, cap, seg, k in parts:
+        n, dev = svc_tasks.shape[0], svc_tasks.device
+        _check("svc_tasks", svc_tasks, i32, (n,), dev)
+        _check("valid", valid, torch.bool, (n,), dev)
+        _check("cap", cap, i32, (n,), dev)
+        _check("seg", seg, i32, (n,), dev)
+        _check("k", k, i32, (), dev)
+    devices = [p[0].device for p in parts]
+    if not _split_route(devices, reduce):
+        rows = [_seg_partial_plain(svc, valid, cap, seg, L)
+                for svc, valid, cap, seg, _ in parts]
+        total = (reduce or sum_shards)(rows)
+        return [tuple(t.to(dev) for t in _seg_clamp(total[0], total[1], k))
+                for dev, (*_, k) in zip(devices, parts)]
+    rows = torch.zeros((D, 2, L), dtype=torch.int64, device=devices[0])
+    with torch.cuda.device(devices[0]):
+        for d, (svc, valid, cap, seg, k) in enumerate(parts):
+            SEG_SUM(svc.shape[0], L, *map(_cuda.ptr, (
+                svc, valid, cap, seg, k, rows[d], None, None, None)))
+    return [seg_fold(rows, k) for *_, k in parts]
+
+
+# ---------------------------------------------- sharded plan compositions
+
+def _shard_rows(bufs: Sequence[torch.Tensor], n: int):
+    """(x, fail, spill) views of each shard's plan row."""
+    return [(b[:n], b[n:n + N_FILTERS], b[n + N_FILTERS:]) for b in bufs]
+
+
+def _local_n(first: torch.Tensor, shards) -> int:
+    n = first.shape[0]
+    for nodes in shards:
+        if nodes.valid.shape[0] != n:
+            raise ValueError("shards of a node-axis split must hold equal "
+                             "row counts")
+    return n
+
+
+def plan_group_sharded_packed(shards: Sequence[Tuple], L: int,
+                              outs: Optional[Sequence[torch.Tensor]] = None,
+                              reduce=None) -> List[torch.Tensor]:
+    """:func:`plan_group_packed` over a node-axis split (reference
+    ``plan_group_sharded``): ``shards`` holds each shard's (NodeInputs,
+    GroupInputs, hier) on its device, rows split and group scalars
+    replicated; ``hier``'s segment columns are split and its parent maps
+    replicated.  Returns each shard's int32 row ``[x (n) | fail_counts (8)
+    | spill (1)]`` (``outs``, zeroed, when given): its own placements and
+    fail counts, and the spill every shard computes alike.
+
+    Per shard: K1, then per stage-A level K2's partials, ``seg_fold`` and
+    K3 over the replicated branch vectors; then K10 over every shard.  On
+    CPU shards every value that crosses shards, except the fail counts
+    that :func:`merge_shard_rows` sums at the fetch, goes through
+    ``reduce`` (the reference's psum; default :func:`sum_shards`)."""
+    n = _local_n(shards[0][0].valid, [s[0] for s in shards])
+    bufs = [_plan_buffer(n, nodes.valid.device,
+                         None if outs is None else outs[d])
+            for d, (nodes, _g, _h) in enumerate(shards)]
+    rows = _shard_rows(bufs, n)
+    caps = []
+    for (nodes, group, _h), (_x, fail, _s) in zip(shards, rows):
+        cap = torch.empty(n, dtype=torch.int32, device=nodes.valid.device)
+        _feasibility_into(nodes, group, None, cap, fail)
+        caps.append(cap)
+
+    uppers = [h[0] if h else () for _n, _g, h in shards]
+    leaf_parents = [h[1] if h else None for _n, _g, h in shards]
+    k_parent = [None] * len(shards)
+    parent_count = 1
+
+    def stage_a(segs, L_d):
+        return branch_sums_sharded(
+            [(nodes.svc_tasks, nodes.valid, cap, seg, group.k)
+             for (nodes, group, _h), cap, seg in zip(shards, caps, segs)],
+            L_d, reduce)
+
+    for level in range(len(uppers[0])):
+        parents = [u[level][1] for u in uppers]
+        L_d = parents[0].shape[0]
+        sums = stage_a([u[level][0] for u in uppers], L_d)
+        new = []
+        for (load, bcap, raw, kk), parent, kp, (_x, _f, spill) in zip(
+                sums, parents, k_parent, rows):
+            new.append(_waterfill(
+                e=load, cap=bcap, k_seg=kk if kp is None else kp,
+                seg=parent, L=parent_count,
+                out=torch.empty(L_d, dtype=torch.int32, device=load.device),
+                raw_cap=raw if L_d > 1 else None,
+                spill=spill if L_d > 1 else None))
+        k_parent = new
+        parent_count = L_d
+
+    sums = stage_a([nodes.leaf for nodes, _g, _h in shards], L)
+    k_branch = []
+    for (load, bcap, raw, kk), lp, kp, (_x, _f, spill) in zip(
+            sums, leaf_parents, k_parent, rows):
+        if L == 1 and not uppers[0]:
+            k_branch.append(bcap)
+            continue
+        seg = lp if lp is not None \
+            else torch.zeros(L, dtype=torch.int32, device=load.device)
+        k_branch.append(_waterfill(
+            e=load, cap=bcap, k_seg=kk if kp is None else kp, seg=seg,
+            L=parent_count,
+            out=torch.empty(L, dtype=torch.int32, device=load.device),
+            raw_cap=raw if L > 1 else None, spill=spill if L > 1 else None))
+
+    _shard_waterfill([
+        FillShard(svc_tasks=nodes.svc_tasks, failures=nodes.failures,
+                  total=nodes.total_tasks, cap=cap, k=kb, seg=nodes.leaf,
+                  out=x, offset=d * n)
+        for d, ((nodes, _g, _h), cap, kb, (x, _f, _s)) in enumerate(
+            zip(shards, caps, k_branch, rows))], L, reduce)
+    return bufs
+
+
+def plan_strategy_sharded_packed(shards: Sequence[Tuple],
+                                 sins: Optional[Sequence], strategy: int,
+                                 outs: Optional[Sequence[torch.Tensor]] = None,
+                                 reduce=None) -> List[torch.Tensor]:
+    """:func:`plan_strategy_packed` over a node-axis split (reference
+    ``plan_strategy_sharded``): ``shards`` holds each shard's (NodeInputs,
+    GroupInputs), ``sins`` each shard's StrategyInputs (headroom split,
+    weights and MLP replicated; None for binpack).  Per shard K1 (and K6
+    for weighted and learned); then K11 (binpack) or K10 over every
+    shard, on global indices.  ``reduce`` as in
+    :func:`plan_group_sharded_packed`."""
+    n = _local_n(shards[0][0].valid, [s[0] for s in shards])
+    bufs = [_plan_buffer(n, nodes.valid.device,
+                         None if outs is None else outs[d])
+            for d, (nodes, _g) in enumerate(shards)]
+    parts = []
+    for d, ((nodes, group), (x, fail, _s)) in enumerate(
+            zip(shards, _shard_rows(bufs, n))):
+        cap = torch.empty(n, dtype=torch.int32, device=nodes.valid.device)
+        _feasibility_into(nodes, group, None, cap, fail)
+        kk = torch.clamp(group.k, max=K_CLAMP).reshape(1)
+        if strategy == STRAT_BINPACK:
+            parts.append(FillShard(res_cap=nodes.res_cap,
+                                   failures=nodes.failures, cap=cap, k=kk,
+                                   out=x, offset=d * n))
+        else:
+            parts.append(FillShard(
+                e=strategy_score(nodes, sins[d], strategy),
+                total=nodes.total_tasks, cap=cap, k=kk, out=x,
+                offset=d * n))
+    if strategy == STRAT_BINPACK:
+        _shard_packfill(parts, reduce)
+    else:
+        _shard_waterfill(parts, 1, reduce)
+    return bufs
+
+
+def plan_fused_sharded_packed(shareds: Sequence[FusedShared],
+                              groupss: Sequence[FusedGroups],
+                              carries: Sequence[FusedCarry], L: int,
+                              strats: Optional[Sequence[FusedStrategy]],
+                              sids: Sequence[int],
+                              outs: Optional[Sequence[torch.Tensor]] = None,
+                              reduce=None) -> List[torch.Tensor]:
+    """:func:`plan_fused_packed` over a node-axis split (reference
+    ``plan_fused_sharded``): per shard its FusedShared, FusedGroups and
+    FusedCarry (node columns split, group and service scalars replicated)
+    and FusedStrategy (replicated, or None for a spread-only run).  The
+    carry stays split and is updated in place, shard by shard.  Returns
+    each shard's rows ``[G, x (n) | fail_counts (8) | spill (1)]``.  Per
+    slot: K4's prologue on every shard, the slot's sharded plan, K4's
+    carry update on every shard.  ``reduce`` as in
+    :func:`plan_group_sharded_packed`."""
+    D = len(shareds)
+    n = _local_n(shareds[0].valid, shareds)
+    checked = [_check_fused_inputs(sh, gr, ca,
+                                   None if strats is None else strats[d])
+               for d, (sh, gr, ca) in enumerate(zip(shareds, groupss,
+                                                    carries))]
+    s = checked[0][1]
+    g_count = groupss[0].k.shape[0]
+    sids = [min(max(int(v), STRAT_SPREAD), STRAT_LEARNED) for v in sids]
+    if len(sids) != g_count:
+        raise ValueError(f"{len(sids)} strategy ids for {g_count} slots")
+    if strats is None and any(sids):
+        raise ValueError("non-spread group slots need a FusedStrategy")
+    i32 = torch.int32
+    bufs = []
+    for d, sh in enumerate(shareds):
+        dev = sh.valid.device
+        if outs is None:
+            bufs.append(torch.zeros((g_count, n + N_FILTERS + 1), dtype=i32,
+                                    device=dev))
+        else:
+            _check("out", outs[d], i32, (g_count, n + N_FILTERS + 1), dev)
+            bufs.append(outs[d])
+    scored = any(v in (STRAT_WEIGHTED, STRAT_LEARNED) for v in sids)
+    scratch = []
+    for sh in shareds:
+        dev = sh.valid.device
+        scratch.append(dict(
+            res_ok=torch.empty(n, dtype=torch.bool, device=dev),
+            res_cap=torch.empty(n, dtype=i32, device=dev),
+            svc=torch.empty(n, dtype=i32, device=dev),
+            hr_cpu=torch.empty(n, dtype=i32, device=dev) if scored else None,
+            hr_mem=torch.empty(n, dtype=i32, device=dev) if scored else None,
+            hr_gen=(torch.full((n,), HR_CLAMP, dtype=i32, device=dev)
+                    if scored else None),
+            no_ports=torch.zeros(n, dtype=torch.bool, device=dev),
+            not_limited=torch.zeros((), dtype=torch.bool, device=dev)))
+    for g, sid in enumerate(sids):
+        with_hr = sid in (STRAT_WEIGHTED, STRAT_LEARNED)
+        plans, sins = [], []
+        for d in range(D):
+            sh, gr, ca, sc = shareds[d], groupss[d], carries[d], scratch[d]
+            _fused_prologue(sh, gr, ca, g, s, sc["res_ok"], sc["res_cap"],
+                            sc["svc"], sc["hr_cpu"] if with_hr else None,
+                            sc["hr_mem"] if with_hr else None)
+            nodes = NodeInputs(
+                valid=sh.valid, ready=sh.ready, res_ok=sc["res_ok"],
+                res_cap=sc["res_cap"], svc_tasks=sc["svc"],
+                total_tasks=ca.total, failures=gr.failures[g],
+                leaf=gr.leaf[g], os_hash=sh.os_hash, arch_hash=sh.arch_hash,
+                port_conflict=sc["no_ports"], extra_mask=gr.extra_mask[g],
+                quota_ok=(gr.quota_ok[g] if gr.quota_ok is not None
+                          else None))
+            grp = GroupInputs(
+                k=gr.k[g], con_hash=gr.con_hash[g], con_op=gr.con_op[g],
+                con_exp=gr.con_exp[g], plat=gr.plat[g], maxrep=gr.maxrep[g],
+                port_limited=sc["not_limited"])
+            plans.append((nodes, grp, ()) if sid == STRAT_SPREAD
+                         else (nodes, grp))
+            if with_hr:
+                st = strats[d]
+                sins.append(StrategyInputs(
+                    hr_cpu=sc["hr_cpu"], hr_mem=sc["hr_mem"],
+                    hr_gen=sc["hr_gen"], weights=st.weights[g], w1=st.w1,
+                    b1=st.b1, w2=st.w2, b2=st.b2))
+        rows = [b[g] for b in bufs]
+        if sid == STRAT_SPREAD:
+            plan_group_sharded_packed(plans, L, rows, reduce)
+        else:
+            plan_strategy_sharded_packed(plans, sins or None, sid, rows,
+                                         reduce)
+        for d in range(D):
+            _fused_carry(groupss[d], carries[d], g, s, rows[d][:n])
+    return bufs
+
+
+def merge_shard_rows(arr: np.ndarray, n: int) -> np.ndarray:
+    """Per-shard plan rows ``[D, ..., n_local + 9]`` (fetched) as one
+    unsharded row ``[..., n + 9]``: the placements in shard order, cut to
+    ``n``; the fail counts summed over the shards in shard order (the
+    exchange of the 8 counts, which the reference psums); the spill of
+    shard 0 (every shard computes it alike)."""
+    d = arr.shape[0]
+    ln = arr.shape[-1] - N_FILTERS - 1
+    x = np.moveaxis(arr[..., :ln], 0, -2)
+    x = x.reshape(x.shape[:-2] + (d * ln,))[..., :n]
+    fail = arr[..., ln:ln + N_FILTERS].astype(np.int64).sum(axis=0)
+    spill = arr[0, ..., ln + N_FILTERS:]
+    return np.concatenate([x, fail.astype(np.int32), spill], axis=-1)
+
+
 # ------------------------------------------------------- H2D / D2H seams
 
 class UploadStage:
@@ -1290,13 +1867,16 @@ class UploadStage:
 
 class PendingFetch:
     """One result buffer on its way to the host: a pinned host copy made
-    with a single non-blocking copy, and the event recorded after it."""
+    with a single non-blocking copy, and the event recorded after it.  A
+    node-axis split's rows come as ``[D, ...]`` with one copy per shard,
+    and ``n`` (the unsharded row count) to merge them."""
 
-    __slots__ = ("host", "event")
+    __slots__ = ("host", "event", "n")
 
-    def __init__(self, host: torch.Tensor, event):
+    def __init__(self, host: torch.Tensor, event, n: Optional[int] = None):
         self.host = host
         self.event = event
+        self.n = n
 
 
 def start_fetch(buf: torch.Tensor) -> PendingFetch:
@@ -1312,11 +1892,34 @@ def start_fetch(buf: torch.Tensor) -> PendingFetch:
     return PendingFetch(host, event)
 
 
+def start_fetch_shards(bufs: Sequence[torch.Tensor],
+                       n: int) -> PendingFetch:
+    """Enqueue the copies of each shard's result rows into ONE pinned host
+    buffer ``[D, ...]`` (one copy per shard, on the card's current
+    stream) and record one event; nothing waits here.
+    :func:`finish_fetch` merges the rows (:func:`merge_shard_rows`) into
+    the unsharded layout of ``n`` nodes."""
+    if not _split_route([b.device for b in bufs], None):
+        return PendingFetch(torch.stack(list(bufs)), None, n)
+    host = torch.empty((len(bufs),) + tuple(bufs[0].shape),
+                       dtype=bufs[0].dtype, pin_memory=True)
+    with torch.cuda.device(bufs[0].device):
+        for d, buf in enumerate(bufs):
+            host[d].copy_(buf, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+    return PendingFetch(host, event, n)
+
+
 def finish_fetch(pending: PendingFetch) -> np.ndarray:
-    """Wait for the copy's event; the buffer as a numpy array."""
+    """Wait for the copy's event; the buffer as a numpy array, a split's
+    rows merged."""
     if pending.event is not None:
         pending.event.synchronize()
-    return pending.host.numpy()
+    arr = pending.host.numpy()
+    if pending.n is not None:
+        arr = merge_shard_rows(arr, pending.n)
+    return arr
 
 
 def fetch_plan(pending: PendingFetch, n: int):

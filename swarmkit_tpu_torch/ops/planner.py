@@ -35,6 +35,13 @@ columns stay resident across ticks (``ops/streaming.py``): each refresh
 recomputes only the rows the scheduler's delta tracker marked dirty and
 scatters them into the resident device columns with K7, and a fused run
 seeds its node state from those device columns when they are fresh.
+
+With a mesh (``TorchPlanner(mesh=make_mesh(...))``, ``parallel/sharded.py``)
+the per-group, strategy and fused routes run over the node-axis split
+(K10 and K11 carry the node-level fills across the shards), and the
+resident columns live split over the same shards.  The preassigned
+validation, the gang precheck and the victim selection stay unsharded on
+the mesh's first device, as in the reference.
 """
 
 from __future__ import annotations
@@ -140,10 +147,18 @@ class TorchPlanner:
     """The scheduler's device planner on PyTorch + CUDA.
 
     ``device=None`` means ``"cuda"`` and raises where CUDA is absent;
-    ``device="cpu"`` runs the kernels' plain PyTorch versions."""
+    ``device="cpu"`` runs the kernels' plain PyTorch versions.  ``mesh``
+    (a ``parallel.NodeMesh``) splits the plans and the resident columns
+    over its shards; ``device`` then defaults to the mesh's first
+    device, where the unsharded work runs."""
 
-    def __init__(self, device=None):
-        self.device = _resolve_device(device)
+    def __init__(self, device=None, mesh=None):
+        self.device = _resolve_device(
+            mesh.devices[0] if device is None and mesh is not None
+            else device)
+        self.mesh = None
+        self._sharded = None
+        self.set_mesh(mesh)
         self._tick_ts = None         # failure-window ts frozen per tick
         self._in_tick = False
         self.last_explanation = ""
@@ -177,6 +192,17 @@ class TorchPlanner:
         _planes.plane(_planes.DEVICE).set_probe(
             lambda: ({"depth": float(len(_ref()._inflight))}
                      if _ref() is not None else {}))
+
+    def set_mesh(self, mesh) -> None:
+        """Route the plans over ``mesh`` from the next dispatch on (None:
+        unsharded, on ``device``).  The resident columns follow at the next
+        tick's refresh: a layout change there is a counted resync."""
+        self.mesh = mesh
+        if mesh is None:
+            self._sharded = None
+        else:
+            from ..parallel.sharded import ShardedPlanFn
+            self._sharded = ShardedPlanFn(mesh)
 
     # ------------------------------------------------------------- accounting
 
@@ -235,7 +261,12 @@ class TorchPlanner:
             return None
         if self._streaming is None:
             from .streaming import ResidentState
-            self._streaming = ResidentState(self._node_value, self.device)
+            self._streaming = ResidentState(self._node_value, self.device,
+                                            mesh=self.mesh)
+        else:
+            # a mesh teardown or shard-count change between ticks resyncs
+            # the device tier (set_mesh is a no-op on identity)
+            self._streaming.set_mesh(self.mesh)
         return self._streaming
 
     def _resident_for(self, cols):
@@ -440,19 +471,31 @@ class TorchPlanner:
         route = "strategy" if flat else "group"
         if flat:
             bucket += f"_st{sinfo.sid}"
+        if self._sharded is not None:
+            bucket += f"_x{self.mesh.size}"
         with tracer.span("plan.dispatch", "plan", tasks=k):
             t0 = time.perf_counter()
-            nodes_in, group_in, hier = self._to_device(nodes_np, group_np,
-                                                       hier_np)
-            if flat:
-                _devtel.note_h2d("strategy_inputs",
-                                 _devtel.tree_nbytes(sin_np))
-                sin = named_to_device(StrategyInputs, sin_np, self.device)
-                buf = plan_strategy_packed(nodes_in, group_in, sin,
-                                           sinfo.sid)
+            if self._sharded is not None:
+                # the node-axis split: each shard's slice goes to its
+                # device, the result rows come back in one pinned buffer
+                _devtel.note_h2d("group_inputs", _devtel.tree_nbytes(
+                    (nodes_np, group_np, hier_np, sin_np)))
+                pending = self._sharded.strategy(
+                    nodes_np, group_np, sin_np, sinfo.sid) if flat \
+                    else self._sharded(nodes_np, group_np, L, hier_np)
             else:
-                buf = plan_group_packed(nodes_in, group_in, L, hier)
-            pending = start_fetch(buf)
+                nodes_in, group_in, hier = self._to_device(
+                    nodes_np, group_np, hier_np)
+                if flat:
+                    _devtel.note_h2d("strategy_inputs",
+                                     _devtel.tree_nbytes(sin_np))
+                    sin = named_to_device(StrategyInputs, sin_np,
+                                          self.device)
+                    buf = plan_strategy_packed(nodes_in, group_in, sin,
+                                               sinfo.sid)
+                else:
+                    buf = plan_group_packed(nodes_in, group_in, L, hier)
+                pending = start_fetch(buf)
             _devtel.note_kernel(bucket, route,
                                 dispatch_s=time.perf_counter() - t0,
                                 task_rows=k,
@@ -1038,6 +1081,12 @@ class TorchPlanner:
         if run is None:
             self._count("fused_overflows")
             return None
+        if self._sharded is not None and run.nb % self.mesh.size:
+            # the fused split needs the node bucket to divide over the
+            # mesh (reference sharded.py:388-390): the per-group route,
+            # which pads, takes the groups
+            self._count("fused_mesh_indivisible")
+            return None
         self._prepare_fused(run)
         self._dispatch_fused_chunks(run)
         return run
@@ -1067,6 +1116,25 @@ class TorchPlanner:
                                or shared.valid is not st.valid):
             st = None
         dev = st.device_carry() if st is not None else None
+        if self._sharded is not None:
+            # the mesh path: seeded from the resident shards when they are
+            # split over THIS mesh, else the run's columns are split and
+            # uploaded (mesh_reshard)
+            if dev is not None and st._mesh_active and st.mesh is self.mesh:
+                self._count("streaming_device_carries")
+                _devtel.note_bytes_avoided(_devtel.tree_nbytes(
+                    (shared.valid, shared.ready, carry.total, carry.cpu,
+                     carry.mem)))
+                run.shared, run.carry = self._sharded.prepare_fused(
+                    shared, carry, resident=dev)
+            else:
+                run.shared, run.carry = self._sharded.prepare_fused(shared,
+                                                                    carry)
+            return
+        if dev is not None and st._mesh_active:
+            # resident tier split but no mesh plan to consume it: the
+            # unsharded run re-uploads from the host mirror
+            dev = None
         if dev is None:
             _devtel.note_h2d("cold_build", _devtel.tree_nbytes(
                 (tuple(shared), tuple(carry))))
@@ -1105,12 +1173,18 @@ class TorchPlanner:
             c.t0 = time.perf_counter()
             with tracer.span("plan.dispatch", "plan", tasks=c.tasks,
                              fused_groups=c.count):
-                groups = named_to_device(FusedGroups, c.groups, self.device)
-                strat = None if c.strat is None else named_to_device(
-                    FusedStrategy, c.strat, self.device)
-                c.pending = start_fetch(plan_fused_packed(
-                    run.shared, groups, run.carry, run.L, strat,
-                    sids=c.sids))
+                if self._sharded is not None:
+                    c.pending = self._sharded.fused(
+                        run.shared, c.groups, run.carry, run.L, c.strat,
+                        sids=c.sids)
+                else:
+                    groups = named_to_device(FusedGroups, c.groups,
+                                             self.device)
+                    strat = None if c.strat is None else named_to_device(
+                        FusedStrategy, c.strat, self.device)
+                    c.pending = start_fetch(plan_fused_packed(
+                        run.shared, groups, run.carry, run.L, strat,
+                        sids=c.sids))
             _devtel.note_kernel(run.bucket_label(c), "fused",
                                 dispatch_s=time.perf_counter() - c.t0,
                                 groups=c.count, task_rows=c.tasks)

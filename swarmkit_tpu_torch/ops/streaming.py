@@ -26,6 +26,17 @@ Two tiers of residency:
   updated in place, a consumer that writes (the fused carry) takes a
   device-to-device clone, never the resident tensors themselves.
 
+On a planner mesh (``parallel/sharded.py``) the device tier is split on
+the node axis: each shard holds its nb/D rows of the five columns on its
+own device, an upload places each shard's slice directly
+(``put_resident``), and a refresh buckets its dirty rows by owning shard
+(``row // local_n``) into one pinned staging buffer per shard and
+scatters them with K7 per shard, local indices (``scatter_rows_sharded``):
+O(churn) bytes and no traffic between shards.  A fused run on the same
+mesh seeds its split node state from those shards.  A node bucket that
+the mesh does not divide keeps the single-device tier (counted
+``mesh_demotions``), as the reference does.
+
 Fallback matrix (every full rebuild is counted; ``streaming_enabled =
 False`` on the planner turns the whole plane off):
 
@@ -40,11 +51,15 @@ node-bucket overflow   cluster outgrew ``nb`` -> rebuild into
                        the next pow2 bucket
 tracker divergence     mirror count != resident count (a missed
                        hook) -> rebuild, never trust drifted rows
+mesh shard-count       planner mesh resized -> the resident
+change                 shards have the wrong layout; device tier
+                       re-uploads (host mirror stays valid)
+mesh teardown          planner mesh removed -> device tier
+                       demotes to single-device residency
 =====================  =======================================
 
-The reference's node-axis sharded device tier (its mesh rows) is not
-ported.  Nothing here hides a device fault: an upload, copy or launch
-error propagates and fails the tick.
+Nothing here hides a device fault: an upload, copy or launch error
+propagates and fails the tick.
 """
 
 from __future__ import annotations
@@ -130,12 +145,18 @@ class ResidentState:
 
     ``device`` is the planner's torch device: the device tier lives
     there (on the CPU, the tensors are copies of the host mirror, and K7's
-    plain version updates them)."""
+    plain version updates them).  ``mesh`` (a ``parallel.NodeMesh``)
+    splits the device tier over its shards when it divides the node
+    bucket."""
 
-    def __init__(self, node_value: Callable, device):
+    def __init__(self, node_value: Callable, device, mesh=None):
         #: planner._node_value -- constraint-key lookup per NodeInfo
         self._node_value = node_value
         self.device = torch.device(device)
+        #: planner mesh; the device tier is split over it while
+        #: ``_mesh_active``
+        self.mesh = mesh
+        self._mesh_active = False
         self.infos: Optional[List] = None
         self.row_of: Dict[str, int] = {}
         self.n = 0
@@ -156,10 +177,12 @@ class ResidentState:
                                         List[str]]] = {}
         self.epoch = _UNSET
         self._tracker = None
-        # device tier: (valid, ready, cpu, mem, total) tensors, or None
+        # device tier: (valid, ready, cpu, mem, total) tensors -- on a
+        # mesh each column a tuple of per-shard tensors -- or None
         self.dev: Optional[tuple] = None
         self._dev_version = -1
         self._stages: Dict[int, _ScatterStage] = {}
+        self._shard_stages: Dict[tuple, _ScatterStage] = {}
         # rows recomputed by a HOST-ONLY absorb (mid-tick accessors): the
         # device tier has not seen them yet -- the next device sync must
         # scatter them too, or it would stamp itself fresh while silently
@@ -168,7 +191,44 @@ class ResidentState:
         self.stats = {"colds": 0, "resyncs": 0, "fallbacks": 0,
                       "incremental": 0, "full": 0, "rows": 0,
                       "dirty_frac": 0.0, "device_syncs": 0,
-                      "svc_evictions": 0, "bytes_avoided": 0}
+                      "svc_evictions": 0, "bytes_avoided": 0,
+                      "shard_syncs": 0, "mesh_demotions": 0}
+
+    # ------------------------------------------------------------ mesh tier
+
+    def set_mesh(self, mesh) -> None:
+        """(Re)wire the planner mesh.  A layout change while device
+        tensors exist -- mesh resized ("shard-count") or removed
+        ("mesh-teardown") -- drops the device tier for a counted re-upload
+        on the next sync; the host mirror stays valid, so no host rebuild
+        happens."""
+        if mesh is self.mesh:
+            return
+        self.mesh = mesh
+        if self.dev is None and not self._mesh_active:
+            return
+        reason = "mesh-teardown" if mesh is None else "shard-count"
+        self.stats["resyncs"] += 1
+        _metrics.counter(f'swarm_streaming_resyncs{{reason="{reason}"}}')
+        self.dev = None
+        self._mesh_active = False
+        self._dev_version = -1
+
+    def _mesh_for(self):
+        """The usable mesh for the device tier: set, more than one shard,
+        and dividing the node bucket (pow2 buckets and mesh sizes make that
+        the norm); otherwise None (the single-device tier)."""
+        mesh = self.mesh
+        if mesh is None or not self.nb:
+            return None
+        d = mesh.size
+        if d <= 1 or self.nb % d:
+            return None
+        return mesh
+
+    def _mesh_devices(self) -> int:
+        return self.mesh.size if self._mesh_active and self.mesh is not None \
+            else 0
 
     # ------------------------------------------------------------- refresh
 
@@ -511,10 +571,20 @@ class ResidentState:
     def _device_upload(self, reason: str = "cold_build") -> None:
         """Fresh device copies of the five node-state columns (full
         rebuild, or a delta too wide for the scatter buckets).  Covers
-        every row, so the host-only backlog is consumed by definition."""
+        every row, so the host-only backlog is consumed by definition.  On
+        a mesh each shard receives its own slice."""
         self._pending_dev_rows = {}
-        self.dev = tuple(torch.from_numpy(a).to(self.device, copy=True)
-                         for a in self._host_cols())
+        mesh = self._mesh_for()
+        if mesh is not None:
+            from ..parallel.sharded import put_resident
+            self.dev = put_resident(self._host_cols(), mesh)
+            self._mesh_active = True
+        else:
+            if self.mesh is not None:
+                self.stats["mesh_demotions"] += 1
+            self.dev = tuple(torch.from_numpy(a).to(self.device, copy=True)
+                             for a in self._host_cols())
+            self._mesh_active = False
         nbytes = _devtel.tree_nbytes(self._host_cols())
         _devtel.note_h2d(reason, nbytes)
         _devtel.set_watermark("device_resident", nbytes)
@@ -526,6 +596,13 @@ class ResidentState:
         resident device columns with K7; wide deltas re-upload
         wholesale."""
         if self.dev is None:
+            self._device_upload()
+            return
+        mesh = self._mesh_for() if self._mesh_active else None
+        if self._mesh_active and mesh is None:
+            # the mesh became unusable under live shards (the bucket regrew
+            # to a width it does not divide): re-place
+            self.dev = None
             self._device_upload()
             return
         if self._pending_dev_rows:
@@ -540,6 +617,9 @@ class ResidentState:
         db = _d_bucket(len(rows))
         if db is None:
             self._device_upload(reason="wide_reupload")
+            return
+        if mesh is not None:
+            self._shard_sync(rows, db, mesh)
             return
         stage = self._stages.get(db)
         if stage is None:
@@ -560,11 +640,32 @@ class ResidentState:
         self.stats["device_syncs"] += 1
         self._stamp()
 
+    def _shard_sync(self, rows: List[int], db: int, mesh) -> None:
+        """The mesh form of the scatter: rows bucketed by owning shard,
+        staged per shard with local indices, K7 per shard."""
+        from ..parallel.sharded import (
+            put_scatter_updates, scatter_rows_sharded)
+        t0 = time.perf_counter()
+        packed, staged = put_scatter_updates(rows, self._host_cols(), mesh,
+                                             self._shard_stages, db)
+        scatter_rows_sharded(self.dev, packed)
+        dt = time.perf_counter() - t0
+        _devtel.note_h2d("shard_scatter", staged)
+        avoided = max(0, _devtel.tree_nbytes(self._host_cols()) - staged)
+        _devtel.note_bytes_avoided(avoided)
+        self.stats["bytes_avoided"] += avoided
+        _devtel.note_kernel(f"stream_nb{self.nb}_d{db}_x{mesh.size}",
+                            "scatter", dispatch_s=dt, node_rows=len(rows))
+        self.stats["shard_syncs"] += 1
+        self.stats["device_syncs"] += 1
+        self._stamp()
+
     def device_carry(self):
         """The resident device columns (valid, ready, cpu, mem, total) --
         only when they provably mirror the host columns (no marks since
-        the last sync); None otherwise.  K7 updates them in place, so a
-        consumer that writes must clone them first."""
+        the last sync); None otherwise.  On a mesh each column is a tuple
+        of per-shard tensors.  K7 updates them in place, so a consumer
+        that writes must clone them first."""
         if self.dev is None or self._tracker is None:
             return None
         if self._tracker.version != self._dev_version \
@@ -586,6 +687,6 @@ class ResidentState:
             "rows": self.stats["rows"],
             "device_syncs": self.stats["device_syncs"],
             "bytes_avoided": self.stats["bytes_avoided"],
-            "shard_syncs": 0,
-            "mesh_devices": 0,
+            "shard_syncs": self.stats["shard_syncs"],
+            "mesh_devices": self._mesh_devices(),
         }

@@ -13,8 +13,9 @@ import pytest
 import torch
 
 from chip_smoke import (
-    VICTIM_CASES, fused_inputs, gang_rows, plan_inputs, scatter_inputs,
-    victim_inputs)
+    SHARD_FILL_CASES, VICTIM_CASES, fill_parts, fused_inputs, gang_rows,
+    headline_fill_parts,
+    plan_inputs, scatter_inputs, shard_fill_inputs, victim_inputs)
 from swarmkit_tpu_torch.ops import kernel as K
 from swarmkit_tpu_torch.ops import preempt as P
 from swarmkit_tpu_torch.ops.convert import (
@@ -515,3 +516,168 @@ def test_planner_preemption_tick_on_card_matches_host_path():
     card = run(TorchPlanner())
     assert P.VICTIMS.launches > before
     assert card == run(TorchPlanner(device="cpu")) == run(None)
+
+
+# ------------------------------------------- the node-axis split: K10, K11
+
+def _fill(parts, L, pack):
+    if pack:
+        K._shard_packfill(parts)
+    else:
+        K._shard_waterfill(parts, L)
+    torch.cuda.synchronize()
+    return torch.cat([p.out for p in parts])
+
+
+@pytest.mark.parametrize("shards", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", sorted(SHARD_FILL_CASES))
+def test_shard_fill_kernels_match_plain(case, shards):
+    """K10 and K11 on ``shards`` shards of one card against their plain
+    versions on the same CUDA tensors, and against the one-shard fill."""
+    dev = _card()
+    kw = SHARD_FILL_CASES[case]
+    arrs = shard_fill_inputs(4, **kw)
+    parts = fill_parts(arrs, shards, dev)
+    got = _fill(parts, kw["L"], arrs["pack"])
+    plain = K._shard_packfill_plain(parts) if arrs["pack"] \
+        else K._shard_waterfill_plain(parts, kw["L"])
+    _eq(got, torch.cat(plain))
+    _eq(got, _fill(fill_parts(arrs, 1, dev), kw["L"], arrs["pack"]))
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+def test_shard_waterfill_kernel_at_headline_shape(shards):
+    """K10 at the shape the mesh headline path gives it (the leaf fill of
+    a headline group, nb 16384, L = 256, 20 live racks) against its plain
+    version on the same CUDA tensors, and against the one-shard fill."""
+    dev = _card()
+    parts, L = headline_fill_parts(shards, dev)
+    got = _fill(parts, L, False)
+    _eq(got, torch.cat(K._shard_waterfill_plain(parts, L)))
+    assert int(got.to(torch.int64).sum()) == 80000
+    one, _ = headline_fill_parts(1, dev)
+    _eq(got, _fill(one, L, False))
+
+
+def test_seg_fold_kernel_matches_plain():
+    """K2's fold on one shard's [D, 2, L] exchange (capacity totals past
+    2^24) against its plain version on the same CUDA tensors."""
+    dev = _card()
+    rng = np.random.RandomState(12)
+    rows = torch.from_numpy(rng.randint(0, 1 << 23, (4, 2, 256))
+                            .astype(np.int64)).to(dev)
+    for k in (5, K.K_CLAMP - 1):
+        kt = torch.tensor(k, dtype=torch.int32, device=dev)
+        total = K.sum_shards(list(rows))
+        for g, w in zip(K.seg_fold(rows, kt),
+                        K._seg_clamp(total[0], total[1], kt)):
+            _eq(g, w)
+
+
+def test_shard_fill_kernels_count_launches():
+    dev = _card()
+    arrs = shard_fill_inputs(5, nb=4096, n_valid=4000, L=3)
+    parts = fill_parts(arrs, 4, dev)
+    assert _launched(lambda: K._shard_waterfill(parts, 3)) \
+        == {"shard_waterfill": K.WATERFILL_STEPS}
+    arrs = shard_fill_inputs(5, nb=4096, n_valid=4000, L=1, pack=True)
+    parts = fill_parts(arrs, 4, dev)
+    assert _launched(lambda: K._shard_packfill(parts)) \
+        == {"shard_packfill": K.PACKFILL_STEPS}
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("case", ["headline", "headline_two_level",
+                                  "small_flat", "filters_all"])
+def test_plan_group_sharded_on_card_matches_cpu(case, shards):
+    """The sharded spread plan (K1, K2 partials + seg_fold, K3 stage A,
+    K10) on a ``shards``-shard mesh of one card equals the CPU mesh's and
+    the unsharded plan's placements, fail counts and spill."""
+    _card()
+    from swarmkit_tpu_torch.parallel import sharded as S
+    nodes, group, L, hier = plan_inputs(7, **SHAPES[case])
+    n = nodes.valid.shape[0]
+    card = S.make_mesh(["cuda:0"] * shards)
+    got = K.finish_fetch(S.ShardedPlanFn(card)(nodes, group, L, hier))
+    cpu = K.finish_fetch(S.ShardedPlanFn(S.make_mesh(["cpu"] * shards))(
+        nodes, group, L, hier))
+    np.testing.assert_array_equal(got, cpu)
+    cn, cg, ch = to_device(nodes, group, hier, "cpu")
+    np.testing.assert_array_equal(got, K.plan_group_packed(cn, cg, L, ch)
+                                  .numpy()[:n + K.N_FILTERS + 1])
+    launched = _launched(lambda: S.ShardedPlanFn(card)(nodes, group, L,
+                                                       hier))
+    assert launched["shard_waterfill"] == K.WATERFILL_STEPS
+    assert launched["seg_fold"] == shards * (2 if hier else 1)
+
+
+@pytest.mark.parametrize("strategy", [1, 2, 3])
+def test_plan_strategy_sharded_on_card_matches_cpu(strategy):
+    """The sharded strategy plan (K1, K6; K11 or K10) on four shards of
+    the card equals the CPU mesh's."""
+    _card()
+    from swarmkit_tpu_torch.parallel import sharded as S
+    from swarmkit_tpu_torch.scheduler import strategy as strategy_mod
+    nodes, group, _, _ = plan_inputs(3, nb=4096, n_valid=4000, n_leaves=1,
+                                     k=9000, near_2p24=False)
+    rng = np.random.RandomState(strategy)
+    w1, b1, w2, b2 = strategy_mod.learned_params()
+    sin = K.StrategyInputs(
+        hr_cpu=rng.randint(0, 1024, 4096).astype(np.int32),
+        hr_mem=rng.randint(0, 1024, 4096).astype(np.int32),
+        hr_gen=np.full(4096, 1023, np.int32),
+        weights=np.array([2, 3, 1, 1], np.int32), w1=w1, b1=b1, w2=w2,
+        b2=np.asarray(b2, np.int32))
+    on_card = S.plan_strategy_sharded(nodes, group, sin, strategy,
+                                      S.make_mesh(["cuda:0"] * 4))
+    on_cpu = S.plan_strategy_sharded(nodes, group, sin, strategy,
+                                     S.make_mesh(["cpu"] * 4))
+    for a, b in zip(on_card, on_cpu):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_plan_fused_sharded_on_card_matches_cpu():
+    """A mixed-strategy fused chunk split over four shards of the card
+    equals the CPU mesh's, carry included."""
+    _card()
+    from swarmkit_tpu_torch.parallel import sharded as S
+    shared, groups, carry, strat, L = fused_inputs(11, nb=4096,
+                                                   n_valid=4000)
+    sids = [int(v) for v in strat.sid]
+    got = S.plan_fused_sharded(shared, groups, carry, L,
+                               S.make_mesh(["cuda:0"] * 4), strat, sids)
+    want = S.plan_fused_sharded(shared, groups, carry, L,
+                                S.make_mesh(["cpu"] * 4), strat, sids)
+    for a, b in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    for a, b in zip(got[3], want[3]):
+        for u, v in zip(a, b):
+            _eq(u, v)
+
+
+def test_mesh_churn_on_card_matches_unsharded():
+    """The churn with the resident tier split over four shards of the card
+    places exactly as the unsharded planner, scattering per shard."""
+    _card()
+    import hashlib
+
+    from swarmkit_tpu_torch.ops import TorchPlanner
+    from swarmkit_tpu_torch.parallel import make_mesh
+    from swarmkit_tpu_torch.workload import steady_state_churn
+
+    def run(mesh):
+        wl = steady_state_churn(1024, 1500, 6)
+        wl.script.append(({"cb": 20, "cd": 20, "cf": 20}, 9))
+        planner = TorchPlanner(mesh=mesh)
+        wl.attach(planner).tick()
+        for arrivals, exits in wl.script:
+            wl.window(arrivals, exits)
+        wl.close()
+        digest = hashlib.sha256(repr(wl.placements()).encode()).digest()
+        return digest, planner
+
+    sharded, planner = run(make_mesh(["cuda:0"] * 4))
+    assert sharded == run(None)[0]
+    snap = planner.streaming_snapshot()
+    assert snap["mesh_devices"] == 4 and snap["shard_syncs"] >= 1, snap
+    assert planner.stats["streaming_device_carries"] >= 1

@@ -42,6 +42,8 @@ def test_port_files_exist():
                  "swarmkit_tpu_torch/ops/convert.py",
                  "swarmkit_tpu_torch/ops/streaming.py",
                  "swarmkit_tpu_torch/ops/preempt.py",
+                 "swarmkit_tpu_torch/parallel/__init__.py",
+                 "swarmkit_tpu_torch/parallel/sharded.py",
                  "swarmkit_tpu_torch/utils/sampling.py",
                  "swarmkit_tpu_torch/scheduler/scheduler.py",
                  "chip_smoke.py"):
@@ -58,7 +60,7 @@ def test_no_jax_or_reference_import(path):
 
 @pytest.mark.parametrize("module", [
     "swarmkit_tpu_torch.ops.streaming", "swarmkit_tpu_torch.ops.planner",
-    "swarmkit_tpu_torch.ops.preempt",
+    "swarmkit_tpu_torch.ops.preempt", "swarmkit_tpu_torch.parallel.sharded",
     "swarmkit_tpu_torch.workload", "swarmkit_tpu_torch.utils.sampling"])
 def test_import_loads_no_jax(module):
     """Importing a port module (and everything it imports) in a fresh
@@ -80,6 +82,23 @@ def test_planner_defaults_to_cuda():
         with pytest.raises(RuntimeError, match="CUDA"):
             TorchPlanner()
     assert TorchPlanner(device="cpu").device.type == "cpu"
+
+
+def test_mesh_planner_defaults_to_cuda():
+    """``make_mesh()`` and ``TorchPlanner(mesh=...)`` run on the card
+    unless the caller passes CPU devices."""
+    from swarmkit_tpu_torch.ops import TorchPlanner
+    from swarmkit_tpu_torch.parallel import make_mesh
+    if torch.cuda.is_available():
+        mesh = make_mesh()
+        assert all(d.type == "cuda" for d in mesh.devices)
+        assert TorchPlanner(mesh=mesh).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_mesh()
+    cpu = make_mesh(["cpu"] * 2)
+    planner = TorchPlanner(mesh=cpu)
+    assert planner.device.type == "cpu" and planner.mesh is cpu
 
 
 def test_wrappers_refuse_other_devices():
