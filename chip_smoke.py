@@ -12,8 +12,10 @@ Phases, each of which exits non-zero on failure:
    seeded inputs at the main paths' shapes (node bucket 16384; leaf bucket
    256, 4 constraint slots, 4 platform rows, branch totals around 2^24 for
    K1-K3; a cfg7 chunk of 4 group slots over 16 service slots for K4-K6);
-   outputs must be bit-equal, and so must one fused chunk on the card and
-   on the CPU.  Times come from CUDA events and torch.profiler;
+   K2 twice back to back without a sync, one launch a call; K3 (one
+   cluster launch a call) also over one spread value per node (L =
+   16,384); outputs must be bit-equal, and so must one fused chunk on the
+   card and on the CPU.  Times come from CUDA events and torch.profiler;
 4. headline path: the headline cluster (10,000 nodes, 100,000 tasks of one
    replicated service, 20% preassigned, spread over 20 racks) through
    ``Scheduler`` + ``TorchPlanner()``: every task placed on the device,
@@ -79,7 +81,15 @@ Phases, each of which exits non-zero on failure:
     to the unsharded tick's (phase 4), K10 launched;
 18. config 7 through the same mesh: every group fused in 3 chunks,
     binpack through K11, each chunk's rows and the per-(service, node)
-    counts equal to the unsharded tick's (phase 7).
+    counts equal to the unsharded tick's (phase 7); with phase 16, two
+    compositions of the split timed against the unsharded plans of the
+    same inputs (B13, a weighted group's plan; B14, a cfg7 fused chunk);
+19. a spread over a per-node label past 8,192 nodes
+    (``workload.per_host_spread``: 8,200 nodes, two services of 8,200
+    tasks, 16,384 leaf segments): the fused tick on the card places
+    exactly as the CPU plain path, both groups fused, none on the host;
+    the same tick over four shards of the card places as the unsharded
+    one.
 
 The counts of kernel launches are set to 0 just before each main path and
 read just after it; the kernels' JSON line reports K1-K6 from the
@@ -287,6 +297,68 @@ def plan_inputs(seed, nb=16384, n_valid=10000, n_leaves=20, n_top=0, cc=4,
         leaf_parent[:n_leaves] = np.arange(n_leaves) % n_top
         hier = (((top, np.zeros(l_bucket(n_top), np.int32)),), leaf_parent)
     return nodes, group, L, hier
+
+
+WATERFILL_MODES = ("stage_a", "stage_a_open", "stage_b")
+
+
+def waterfill_inputs(seed, n, L, mode="stage_b"):
+    """Seeded numpy keyword inputs of one K3 call over ``n`` elements and
+    ``L`` segments.  ``stage_b``: the level is the spread score of
+    (svc_tasks, failures) and the key (clip(total) << 20) | index, no
+    spill epilogue (a spread plan's node fill).  ``stage_a``: a given
+    level ``e``, the index key, and the spill epilogue on ``raw_cap`` (a
+    branch fill; ``stage_a_open``: the same with no element able to
+    saturate, so the epilogue finds no spill).  Element i lies in segment
+    i % L when L <= n, else in a seeded draw from [0, L) (most segments
+    empty); segments ask for up to 1.1x what they hold, some for K_CLAMP;
+    three elements of K_CLAMP capacity take their segments' totals past
+    2^24; ``raw_cap`` equals the capacity on about half of the elements,
+    so some saturate.  Returns (kwargs, k_seg)."""
+    import numpy as np
+    from swarmkit_tpu_torch.ops.kernel import K_CLAMP
+    rng = np.random.RandomState(seed)
+    seg = (np.arange(n) % L) if L <= n else rng.randint(0, L, n)
+    cap = rng.randint(0, 7, n).astype(np.int32)
+    cap[rng.choice(n, 3, replace=False)] = K_CLAMP
+    held = np.bincount(seg, weights=cap.astype(np.float64), minlength=L)
+    k_seg = np.minimum(held * rng.uniform(0, 1.1, L), K_CLAMP)
+    k_seg[rng.rand(L) < 0.05] = K_CLAMP
+    kw = dict(cap=cap, seg=seg.astype(np.int32))
+    if mode == "stage_b":
+        kw.update(svc_tasks=rng.randint(0, 8, n).astype(np.int32),
+                  failures=rng.choice([0] * 6 + [1, 5, 80], n).astype(
+                      np.int32),
+                  total=rng.randint(0, 2000, n).astype(np.int32))
+    else:
+        above = rng.choice([0, 1, 5], n, p=[0.5, 0.3, 0.2])
+        if mode == "stage_a_open":
+            above[:] = K_CLAMP
+        kw.update(e=rng.randint(0, 3000, n).astype(np.int32),
+                  raw_cap=cap.astype(np.int64) + above,
+                  spill=np.zeros(1, np.int32))
+    return kw, k_seg.astype(np.int32)
+
+
+def waterfill_call(torch, K, kw, k_seg, L, device, plain=False):
+    """K3 (or, with ``plain``, its plain version on the same tensors) on
+    :func:`waterfill_inputs`' arrays moved to ``device``; returns (x,
+    spill or None)."""
+    t = {name: torch.from_numpy(a).to(device) for name, a in kw.items()}
+    k = torch.from_numpy(k_seg).to(device)
+    n = t["cap"].shape[0]
+    out = torch.zeros(n, dtype=torch.int32, device=device)
+    if not plain:
+        K._waterfill(k_seg=k, L=L, out=out, **t)
+        return out, t.get("spill")
+    e = t["e"] if "e" in t else K._spread_score(t["svc_tasks"],
+                                                t["failures"])
+    tie = K._tie_keys(t.get("total"), n, out.device)
+    x = K._waterfill_plain(e, t["cap"], tie, k, t["seg"], L)
+    spill = None
+    if "raw_cap" in t:
+        spill = t["spill"] | K._level_spill(x, t["raw_cap"]).to(torch.int32)
+    return x, spill
 
 
 def fused_inputs(seed, nb=16384, n_valid=10000, strategies=(0, 1, 2, 3),
@@ -636,6 +708,30 @@ def feasibility_bytes(nodes, group):
     return n * per_node + 4 * 8
 
 
+def stage_b_calls(torch, K, nodes, cap, k_branch, L):
+    """Stage B of a spread plan over ``L`` leaves on the card: (the
+    unchecked K3 entry the plan calls, its plain version, the checked
+    entry), each writing or returning the node placement."""
+    n = nodes.valid.shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=cap.device)
+    kw = dict(svc_tasks=nodes.svc_tasks, failures=nodes.failures,
+              total=nodes.total_tasks, cap=cap, k_seg=k_branch,
+              seg=nodes.leaf, L=L, out=out)
+    tie = K._tie_keys(nodes.total_tasks, n, cap.device)
+
+    def run():
+        return K._waterfill_into(**kw)
+
+    def plain():
+        return K._waterfill_plain(K.spread_score(nodes), cap, tie, k_branch,
+                                  nodes.leaf, L)
+
+    def checked():
+        return K._waterfill(**kw)
+
+    return run, plain, checked
+
+
 def phase_kernels(torch, K, to_device):
     """Each kernel against its plain version at the headline shapes."""
     dev = torch.device("cuda")
@@ -663,33 +759,55 @@ def phase_kernels(torch, K, to_device):
         plain_ms=time_ms(torch, lambda: K._feasibility_plain(nodes, group)),
         library_ms=None))
 
-    # ---- K2 branch sums (the leaf level of stage A)
-    got = K.branch_sums(nodes.svc_tasks, nodes.valid, cap, nodes.leaf, L,
-                        group.k)
+    # ---- K2 branch sums (the leaf level of stage A), one launch a call:
+    # the unchecked entry the plan calls (timed as the row; its outputs
+    # are per-stream buffers that the next call overwrites), and the public
+    # one that checks its inputs and returns fresh tensors
+    def k2():
+        return K._branch_sums(nodes.svc_tasks, nodes.valid, cap, nodes.leaf,
+                              L, group.k)
+
+    def k2_public():
+        return K.branch_sums(nodes.svc_tasks, nodes.valid, cap, nodes.leaf,
+                             L, group.k)
+
+    got = k2_public()
     want = K._seg_sum_plain(nodes.svc_tasks, nodes.valid, cap, nodes.leaf,
                             L, group.k)
     err2 = max_abs_err(torch, got, want)
     check(int(want[2].max()) >= 1 << 24 and int(want[0].max())
           == K.LOAD_CLAMP, "the sample inputs must carry branch totals above "
           "2^24")
+    # two calls queued back to back, no sync between them (the fused
+    # route's chunks in flight): the accumulator each leaves zero
+    cap2 = cap.flip(0).contiguous()
+    before = K.SEG_SUM.launches
+    pair = [k2_public(), K.branch_sums(nodes.svc_tasks, nodes.valid, cap2,
+                                       nodes.leaf, L, group.k)]
+    check(K.SEG_SUM.launches - before == 2, "K2 is not one launch a call")
+    err2 = max(err2, max_abs_err(torch, pair[0], want), max_abs_err(
+        torch, pair[1], K._seg_sum_plain(nodes.svc_tasks, nodes.valid, cap2,
+                                         nodes.leaf, L, group.k)))
     load, bcap, raw_cap, kk = want
     vals = torch.stack([torch.where(nodes.valid, nodes.svc_tasks.clamp(
         0, K.SVC_CLAMP), 0), cap], 1).to(torch.int64)
     seg_l = nodes.leaf.to(torch.int64)
     acc = torch.zeros((L, 2), dtype=torch.int64, device=dev)
+    k2_public_ms = time_ms(torch, k2_public)
     rows.append(dict(
         kernel=K.SEG_SUM, err=err2, bytes=n * 13 + L * 16 + 4, ops=2 * n,
-        device_ms=device_ms(torch, lambda: K.branch_sums(
-            nodes.svc_tasks, nodes.valid, cap, nodes.leaf, L, group.k),
-            ("seg_sum_kernel", "seg_clamp_kernel")),
-        ms=time_ms(torch, lambda: K.branch_sums(
-            nodes.svc_tasks, nodes.valid, cap, nodes.leaf, L, group.k)),
+        device_ms=device_ms(torch, k2, ("seg_sum_kernel",)),
+        ms=time_ms(torch, k2),
         plain_ms=time_ms(torch, lambda: K._seg_sum_plain(
             nodes.svc_tasks, nodes.valid, cap, nodes.leaf, L, group.k)),
         library_ms=time_ms(torch, lambda: acc.index_add_(0, seg_l, vals))))
+    print(f"kernels: seg_sum public entry (input checks) {k2_public_ms:.4f}"
+          f" ms per call; index_add_ {rows[-1]['library_ms']:.4f} ms",
+          flush=True)
 
-    # ---- K3 water-fill: stage A (branches) and stage B (nodes), as the
-    # main path runs them
+    # ---- K3 water-fill, one cluster launch a call: stage A (branches)
+    # and stage B (nodes), as the main path runs them, then stage B over
+    # one spread value per node (L = 16,384)
     k_branch = K._waterfill_plain(
         load, bcap, torch.arange(L, dtype=torch.int32, device=dev), kk,
         torch.zeros(L, dtype=torch.int32, device=dev), 1)
@@ -701,33 +819,58 @@ def phase_kernels(torch, K, to_device):
     spill_plain = K._level_spill(k_branch, raw_cap)
     err3a = max_abs_err(torch, (alloc, spill[0] != 0),
                         (k_branch, spill_plain))
-    out = torch.empty(n, dtype=torch.int32, device=dev)
-
-    def stage_b():
-        return K._waterfill(svc_tasks=nodes.svc_tasks,
-                            failures=nodes.failures,
-                            total=nodes.total_tasks, cap=cap,
-                            k_seg=k_branch, seg=nodes.leaf, L=L, out=out)
-
-    e = K.spread_score(nodes)
-    tie = K._tie_keys(nodes.total_tasks, n, dev)
-
-    def stage_b_plain():
-        return K._waterfill_plain(e, cap, tie, k_branch, nodes.leaf, L)
-
+    stage_b, stage_b_plain, stage_b_checked = stage_b_calls(
+        torch, K, nodes, cap, k_branch, L)
     err3 = max(err3a, max_abs_err(torch, (stage_b(),), (stage_b_plain(),)))
     steps = K.LEVEL_ITERS + K.TIE_ITERS + 2
     stage_a_ms = time_ms(torch, lambda: K._waterfill(
         e=load, cap=bcap, k_seg=kk,
         seg=torch.zeros(L, dtype=torch.int32, device=dev), L=1,
         out=alloc, raw_cap=raw_cap, spill=spill))
+    before = K.WATERFILL.launches
+    stage_b()
+    check(K.WATERFILL.launches - before == 1, "K3 is not one launch a call")
     rows.append(dict(
         kernel=K.WATERFILL, err=err3, bytes=n * 24 + L * 4, ops=steps * n * 4,
         device_ms=device_ms(torch, stage_b, ("waterfill_kernel",)),
         ms=time_ms(torch, stage_b), plain_ms=time_ms(torch, stage_b_plain),
         library_ms=None))
+    stage_b_checked_ms = time_ms(torch, stage_b_checked)
     print(f"kernels: waterfill stage A (256 branches, 1 segment) "
-          f"{stage_a_ms:.4f} ms per call", flush=True)
+          f"{stage_a_ms:.4f} ms per call; stage B through the checked "
+          f"entry {stage_b_checked_ms:.4f} ms", flush=True)
+
+    wn, wg, wide_L, _ = plan_inputs(
+        seed=2025, nb=16384, n_valid=16384, n_leaves=16384, k=2 * 16384,
+        near_2p24=False)
+    wn, wg, _ = to_device(wn, wg, (), dev)
+    check(wide_L == 16384, f"one value per node gives L = {wide_L}")
+    _, wcap, _ = K._feasibility_plain(wn, wg)
+    wload, wbcap, _, wkk = K._seg_sum_plain(wn.svc_tasks, wn.valid, wcap,
+                                            wn.leaf, wide_L, wg.k)
+    wk_branch = K._waterfill_plain(
+        wload, wbcap, torch.arange(wide_L, dtype=torch.int32, device=dev),
+        wkk, torch.zeros(wide_L, dtype=torch.int32, device=dev), 1)
+    wide, wide_plain, _ = stage_b_calls(torch, K, wn, wcap, wk_branch,
+                                        wide_L)
+    wide_x = wide_plain()
+    err_wide = max_abs_err(torch, (wide(),), (wide_x,))
+    check(err_wide == 0, f"waterfill at L = {wide_L} differs from its plain "
+          f"version (max abs err {err_wide})")
+    check(int(wide_x.sum()) == int(wg.k), "the one-value-per-node fill "
+          f"placed {int(wide_x.sum())} of {int(wg.k)}")
+    wide_ms = time_ms(torch, wide)
+    wide_dev = device_ms(torch, wide, ("waterfill_kernel",))
+    print(f"kernels: waterfill stage B over one spread value per node "
+          f"(L = {wide_L}, nb 16384) == plain; {wide_ms:.4f} ms per wrapper "
+          "call, device "
+          + ("not measured" if wide_dev is None else f"{wide_dev:.4f} ms"),
+          flush=True)
+    extra = dict(seg_sum_public_ms=k2_public_ms,
+                 waterfill_stage_a_ms=stage_a_ms,
+                 waterfill_stage_b_checked_ms=stage_b_checked_ms,
+                 waterfill_L16384_ms=wide_ms,
+                 waterfill_L16384_device_ms=wide_dev)
 
     # ---- the composition: plan_group on the card vs the CPU plain path
     cn, cg, ch = to_device(nodes_np, group_np, hier_np, "cpu")
@@ -753,8 +896,8 @@ def phase_kernels(torch, K, to_device):
             load_p, bcap_p, torch.arange(L, dtype=torch.int32, device=dev),
             kk_p, torch.zeros(L, dtype=torch.int32, device=dev), 1)
         K._level_spill(k_br, raw_p)
-        return K._waterfill_plain(K.spread_score(nodes), cap_p, tie, k_br,
-                                  nodes.leaf, L)
+        return K._waterfill_plain(K.spread_score(nodes), cap_p, K._tie_keys(
+            nodes.total_tasks, n, dev), k_br, nodes.leaf, L)
 
     check(torch.equal(plan_plain().cpu(), on_cpu[:n]),
           "plan_group's plain composition on the card differs")
@@ -774,7 +917,8 @@ def phase_kernels(torch, K, to_device):
               + ("not measured (the profiler saw no device time)"
                  if dev_ms is None else f"{dev_ms:.4f} ms per call "
                  "(torch.profiler)"), flush=True)
-    return rows, dict(ms=plan_ms, device_ms=plan_dev, plain_ms=plan_plain_ms)
+    return rows, dict(ms=plan_ms, device_ms=plan_dev, plain_ms=plan_plain_ms,
+                      **extra)
 
 
 def phase_kernels_fused(torch, K, fused_to_device):
@@ -1501,6 +1645,92 @@ def phase_kernels_mesh(torch, K):
     return rows, per_case
 
 
+def phase_mesh_compositions(torch, K, to_device, fused_to_device):
+    """Two compositions of the split on four shards of the card at node
+    bucket 16384, each against the unsharded plan of the same inputs, with
+    its wrapper time (CUDA events) and device time (torch.profiler, every
+    device op): B13, a weighted group's plan (K1 and K6 per shard, then
+    K10 over one segment), and B14, a cfg7 fused chunk (spread, binpack,
+    weighted, learned: K4 and each slot's sharded plan).  B13's bound is
+    the sum of its kernels' byte counts."""
+    import numpy as np
+    from swarmkit_tpu_torch.parallel import sharded as S
+    from swarmkit_tpu_torch.scheduler import strategy as strategy_mod
+    d, nb = MESH_SHARDS, 16384
+    mesh = S.make_mesh(["cuda:0"] * d)
+    devs = mesh.devices
+    out = {}
+
+    nodes_np, group_np, _, _ = plan_inputs(
+        seed=2027, nb=nb, n_valid=10000, n_leaves=1, k=80000,
+        near_2p24=False)
+    rng = np.random.RandomState(2027)
+    w1, b1, w2, b2 = strategy_mod.learned_params()
+    sin_np = K.StrategyInputs(
+        hr_cpu=rng.randint(0, 1024, nb).astype(np.int32),
+        hr_mem=rng.randint(0, 1024, nb).astype(np.int32),
+        hr_gen=np.full(nb, 1023, np.int32),
+        weights=np.array([2, 3, 1, 1], np.int32), w1=w1, b1=b1, w2=w2,
+        b2=np.asarray(b2, np.int32))
+    shards = [(nd, gd) for nd, gd, _ in
+              S.shard_group(nodes_np, group_np, (), mesh)]
+    sins = S.shard_to_device(sin_np, K.StrategyInputs, devs)
+
+    def b13():
+        return K.plan_strategy_sharded_packed(shards, sins,
+                                              K.STRAT_WEIGHTED)
+
+    dev = torch.device("cuda")
+    nodes, group, _ = to_device(nodes_np, group_np, (), dev)
+    sin = K.StrategyInputs(*(torch.from_numpy(np.asarray(a)).to(dev)
+                             for a in sin_np))
+    want = K.plan_strategy_packed(nodes, group, sin, K.STRAT_WEIGHTED)
+    got = K.merge_shard_rows(torch.stack(b13()).cpu().numpy(), nb)
+    check(np.array_equal(got, want.cpu().numpy()), "B13 on four shards "
+          "differs from the unsharded weighted plan")
+    active_cc = int(((group.con_op == 0) | (group.con_op == 1)).sum())
+    plat_used = int((group.plat[:, 0] != -1).sum())
+    nbytes = (feasibility_bytes(nodes, group) + 24 * nb + 16
+              + 16 * nb + 4 * d)
+    ops = (nb * (8 + 3 * active_cc + 6 * plat_used) + 10 * nb
+           + K.WATERFILL_STEPS * nb * 4)
+    out["B13_weighted"] = dict(
+        ms=time_ms(torch, b13, reps=10, warmup=2),
+        device_ms=device_ms(torch, b13, ("",), reps=5),
+        bound_ms=bound(nbytes, ops)[0], bytes=nbytes)
+
+    inputs = fused_inputs(seed=78)
+    L = inputs[4]
+    sids = inputs[3].sid.tolist()
+    fn = S.ShardedPlanFn(mesh)
+    groupss = S.shard_to_device(inputs[1], K.FusedGroups, devs)
+    strats = S.shard_to_device(inputs[3], K.FusedStrategy, devs)
+    shareds, carries = fn.prepare_fused(inputs[0], inputs[2])
+    got = K.merge_shard_rows(np.stack([r.cpu().numpy() for r in (
+        K.plan_fused_sharded_packed(shareds, groupss, carries, L, strats,
+                                    sids))]), nb)
+    cpu_in = fused_to_device(*inputs[:4], device="cpu")
+    want = K.plan_fused_packed(*cpu_in[:3], L, cpu_in[3], sids).numpy()
+    check(np.array_equal(got, want), "B14: a fused chunk on four shards "
+          "differs from the unsharded chunk")
+
+    def b14():
+        return K.plan_fused_sharded_packed(shareds, groupss, carries, L,
+                                           strats, sids)
+
+    out["B14_chunk"] = dict(ms=time_ms(torch, b14, reps=5, warmup=1),
+                            device_ms=device_ms(torch, b14, ("",), reps=3))
+    for name, r in out.items():
+        print(f"mesh compositions: {name} ({d} shards) == unsharded; "
+              f"{r['ms']:.4f} ms per call (CUDA events), device "
+              + ("not measured" if r["device_ms"] is None
+                 else f"{r['device_ms']:.4f} ms (torch.profiler, every "
+                 "device op)")
+              + (f", bound {r['bound_ms']:.7f} ms" if "bound_ms" in r
+                 else ""), flush=True)
+    return out
+
+
 def mesh_planner(TorchPlanner, make_mesh, shards=MESH_SHARDS):
     return TorchPlanner(mesh=make_mesh(["cuda:0"] * shards))
 
@@ -1901,6 +2131,62 @@ def phase_storm(torch, K, P, cuda, workload, Task, Scheduler, TorchPlanner,
     return out
 
 
+def phase_wide_spread(torch, K, cuda, workload, Task, Scheduler,
+                      TorchPlanner, make_mesh, card):
+    """The fused tick of two per-host spreads (8,200 nodes, 16,384 leaf
+    segments) on the card: the placements of the CPU plain path, both
+    groups fused, none on the host; then the same tick over four shards of
+    the card, equal to the unsharded one."""
+
+    def tick(planner):
+        t0 = time.perf_counter()
+        store, _, _ = workload.per_host_spread()
+        build_s = time.perf_counter() - t0
+        sched = Scheduler(store, batch_planner=planner, pipeline_depth=2)
+        store.view(sched._setup_tasks_list)
+        t0 = time.perf_counter()
+        n_dec = sched.tick()
+        if planner.device.type == "cuda":
+            torch.cuda.synchronize()
+        tick_s = time.perf_counter() - t0
+        placed = sorted((t.id, t.node_id)
+                        for t in store.view(lambda tx: tx.find(Task)))
+        return placed, dict(decisions=n_dec, tick_s=tick_s,
+                            cluster_build_s=build_s,
+                            stats=dict(planner.stats))
+
+    n_tasks = sum(workload.PER_HOST_SERVICES)
+    want, cpu_run = tick(TorchPlanner(device="cpu"))
+    out = {"cpu": cpu_run}
+    for posture, planner in (("card", TorchPlanner()),
+                             ("mesh", mesh_planner(TorchPlanner, make_mesh))):
+        cuda.reset_launch_counts(K.KERNELS)
+        got, run = tick(planner)
+        run["launches"] = cuda.launch_counts(K.KERNELS)
+        stats, launches = run["stats"], run["launches"]
+        check(run["decisions"] == n_tasks, f"per-host spread ({posture}): "
+              f"decisions {run['decisions']} != {n_tasks}")
+        check(got == want, f"per-host spread ({posture}): placements differ "
+              "from the CPU plain path's")
+        check(stats.get("groups_fused") == 2, f"per-host spread "
+              f"({posture}): groups_fused {stats.get('groups_fused')}")
+        for key in ("groups_fallback", "groups_planned",
+                    "groups_spill_to_host"):
+            check(stats.get(key, 0) == 0, f"per-host spread ({posture}): "
+                  f"{key} = {stats.get(key)}")
+        fills = (K.SEG_FOLD, K.SHARD_WATERFILL) if posture == "mesh" \
+            else (K.SEG_SUM,)
+        for k in (K.FEASIBILITY, K.WATERFILL, K.FUSED_PROLOGUE) + fills:
+            check(launches[k.name] > 0, f"{k.name} never launched on the "
+                  f"per-host spread path ({posture})")
+        out[posture] = run
+        print(f"per-host spread ({posture}): {run['decisions']} decisions "
+              f"in {run['tick_s']:.3f} s on {card} (CPU plain path "
+              f"{cpu_run['tick_s']:.3f} s), placements == CPU, "
+              f"groups_fused 2, launches {launches}", flush=True)
+    return out
+
+
 def rack_of(node):
     return node.spec.annotations.labels.get("rack")
 
@@ -2209,12 +2495,16 @@ def main():
     mesh_rows, mesh_cases = phase_kernels_mesh(torch, K)
     rows += mesh_rows
     mesh = {"kernel_cases": mesh_cases}
+    mesh["compositions"] = phase_mesh_compositions(torch, K, to_device,
+                                                   fused_to_device)
     mesh["headline"] = phase_mesh_headline(
         torch, K, cuda, workload, Task, Scheduler, TorchPlanner, make_mesh,
         card, headline_plans, main_path["rack_counts"])
     mesh["many_service"] = phase_mesh_many_service(
         torch, K, cuda, workload, Task, Scheduler, TorchPlanner, make_mesh,
         card, many_plans, many_counts)
+    wide = phase_wide_spread(torch, K, cuda, workload, Task, Scheduler,
+                             TorchPlanner, make_mesh, card)
 
     # each kernel's launches from the main path that runs it
     path_launches = dict(many["launches"])
@@ -2245,7 +2535,7 @@ def main():
               "host_oracle": oracle, "resident_kernels": resident_kernels,
               "churn": churn, "gang": gang,
               "victim_kernels": victim_kernels, "priority_jobs": jobs,
-              "storm": storm, "mesh": mesh,
+              "storm": storm, "mesh": mesh, "per_host_spread": wide,
               "seconds": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

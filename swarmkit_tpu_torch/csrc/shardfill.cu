@@ -25,9 +25,11 @@
 // Bound on the H100: latency.  Each step is a dependent reduction over all
 // shards' rows; the bytes are those of K3 (16 read, 4 written per row),
 // read once per step from L2.  A simple first version: one block per
-// shard, partial sums in registers (one segment: warp shuffles) or in
-// shared int64 atomics (several segments), as K3.  A persistent
-// cross-shard kernel or a CUDA graph per fill is later work.
+// shard, partial sums in registers (one segment: warp shuffles), in
+// shared int64 atomics (up to kMaxSmemSegments segments: 128 KB), or in
+// int64 atomics straight into the shard's row of the exchange (more
+// segments).  A persistent cross-shard kernel or a CUDA graph per fill is
+// later work.
 
 #include "shard.cuh"
 
@@ -35,6 +37,7 @@ namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxSmemSegments = 16384;          // 8 bytes each: 128 KB
 constexpr int kBase = sk::LEVEL_ITERS;           // 34: the base fill
 constexpr int kTieBegin = kBase + 1;             // 35
 constexpr int kFinal = kTieBegin + sk::TIE_ITERS;  // 69
@@ -64,7 +67,7 @@ __device__ __forceinline__ int key_of(const sk::Shard& sh, int i) {
 
 __global__ void __launch_bounds__(kThreads) shard_waterfill_kernel(
     sk::ShardTable tab, int D, int L, int step, int max_failures) {
-  extern __shared__ unsigned long long sum[];  // [L]
+  extern __shared__ unsigned long long sum[];  // [L] up to kMaxSmemSegments
   __shared__ long long red[kWarps + 1];
   __shared__ sk::Shard me;
   sk::load_shard(tab, &me);
@@ -122,9 +125,14 @@ __global__ void __launch_bounds__(kThreads) shard_waterfill_kernel(
     return;
   }
 
-  // ---- this shard's partials at the new midpoint
+  // ---- this shard's partials at the new midpoint: in shared memory, or
+  // in the shard's own row of the exchange (that parity was last read by
+  // the previous launch)
+  long long* next = me.xbuf + (size_t)(step & 1) * D * L + (size_t)me.row * L;
+  unsigned long long* acc =
+      L <= kMaxSmemSegments ? sum : reinterpret_cast<unsigned long long*>(next);
   if (!one) {
-    for (int s = tid; s < L; s += nt) sum[s] = 0;
+    for (int s = tid; s < L; s += nt) acc[s] = 0;
     __syncthreads();
   }
   long long mine = 0;
@@ -146,14 +154,14 @@ __global__ void __launch_bounds__(kThreads) shard_waterfill_kernel(
     }
     if (v <= 0) continue;
     if (one) mine += v;
-    else atomicAdd(&sum[s], (unsigned long long)v);
+    else atomicAdd(&acc[s], (unsigned long long)v);
   }
-  long long* next = me.xbuf + (size_t)(step & 1) * D * L + (size_t)me.row * L;
   if (one) {
     const long long total = sk::block_sum<kWarps>(mine, red);
     if (tid == 0) next[0] = total;
     return;
   }
+  if (acc != sum) return;
   __syncthreads();
   for (int s = tid; s < L; s += nt) next[s] = (long long)sum[s];
 }
@@ -173,7 +181,8 @@ extern "C" int sk_shard_waterfill(int count, int D, int L, int step0,
       !sk::make_table(count, (const void* const*)ptrs, (const int*)ints,
                       &tab))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)L * sizeof(unsigned long long);
+  const size_t smem =
+      L <= kMaxSmemSegments ? (size_t)L * sizeof(unsigned long long) : 0;
   if (smem > 40 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         shard_waterfill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

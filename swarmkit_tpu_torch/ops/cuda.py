@@ -46,10 +46,10 @@ _L = ctypes.c_longlong
 # pointer of each launching entry
 SIGNATURES = {
     "sk_feasibility": ([_I, _I, _I] + [_P] * 21, _I),
-    "sk_seg_sum": ([_I, _I] + [_P] * 10, _I),
+    "sk_seg_sum": ([_I, _I] + [_P] * 7, _I),
     "sk_seg_fold": ([_I, _I] + [_P] * 7, _I),
-    "sk_waterfill": ([_I, _I, _P, _P, _P, _I] + [_P] * 9, _I),
-    "sk_waterfill_smem_bytes": ([_I], ctypes.c_longlong),
+    "sk_waterfill": ([_I, _I, _P, _P, _P, _I] + [_P] * 10, _I),
+    "sk_waterfill_scratch_bytes": ([_I], ctypes.c_longlong),
     "sk_packfill": ([_I, _P, _P, _I] + [_P] * 4, _I),
     "sk_strategy_score": ([_I] * 4 + [_P] * 14, _I),
     "sk_fused_prologue": ([_I, _I] + [_P] * 14, _I),
@@ -153,8 +153,11 @@ _lib_mu = threading.Lock()
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library, built on first use (the lock is taken
+    only until it is loaded)."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lib_mu:
         if _lib is None:
             lib = ctypes.CDLL(str(build().path))
@@ -172,8 +175,18 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+# the current stream's raw handle for a device index, without building a
+# torch.cuda.Stream object per launch (absent from CPU builds of torch)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_current_device = getattr(torch._C, "_cuda_getDevice", None)
+
+
 def stream_handle() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current CUDA stream of the current device, as a pointer-sized
+    int."""
+    if _raw_stream is None or _current_device is None:
+        return torch.cuda.current_stream().cuda_stream
+    return _raw_stream(_current_device())
 
 
 class CudaKernel:
@@ -189,18 +202,22 @@ class CudaKernel:
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        self._fn = None     # the C entry, resolved once the library loads
 
     def __call__(self, *args) -> None:
         self.launch(1, *args)
 
-    def launch(self, count: int, *args) -> None:
-        """Call the entry, which launches the kernel ``count`` times (the
-        step kernels of the node-axis split run several steps per call),
-        and count those launches."""
-        lib = library()
-        code = getattr(lib, self.symbol)(*args, stream_handle())
+    def launch(self, count: int, *args, stream: Optional[int] = None) -> None:
+        """Call the entry on ``stream`` (default: the current stream),
+        which launches the kernel ``count`` times (the step kernels of the
+        node-axis split run several steps per call), and count those
+        launches."""
+        fn = self._fn
+        if fn is None:
+            fn = self._fn = getattr(library(), self.symbol)
+        code = fn(*args, stream_handle() if stream is None else stream)
         if code != 0:
-            msg = lib.sk_error_string(code).decode(errors="replace")
+            msg = library().sk_error_string(code).decode(errors="replace")
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
                                f"error {code} ({msg})")
         self.launches += count

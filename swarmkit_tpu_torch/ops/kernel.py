@@ -7,9 +7,11 @@ kernels (``csrc/``) carry them on Hopper:
 * ``feasibility`` (K1, ``csrc/feasibility.cu``): the fused filter pipeline,
   per-node capacity and the eight short-circuit failure counts;
 * ``seg_sum`` (K2, ``csrc/segsum.cu``): per-branch int64 load and capacity
-  sums for stage A of the hierarchical water-fill;
+  sums for stage A of the hierarchical water-fill, clamped in the same
+  launch;
 * ``waterfill`` (K3, ``csrc/waterfill.cu``): both 34-step binary searches
-  of one capacity-bounded water-fill in a single launch;
+  of one capacity-bounded water-fill in a single launch of one
+  thread-block cluster, for any number of segments;
 * ``fused_prologue`` / ``fused_carry`` (K4, ``csrc/fused.cu``): the scan
   step of the fused plan -- a group's resource columns from the carried
   cluster state, and its placements added back into that state;
@@ -51,7 +53,8 @@ planner moves each result to the host with a single copy
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from functools import lru_cache
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import ctypes
 
@@ -76,10 +79,6 @@ IDX_BITS = 20
 TOTAL_CLAMP = (1 << 10) - 1
 SEARCH_HI = 1 << 30
 N_FILTERS = 8            # fail_counts rows, pipeline order
-
-# K3 keeps 24 bytes per segment in one block's shared memory; 8192
-# segments (192 KB) fit the 227 KB a Hopper block may use
-WATERFILL_MAX_SEGMENTS = 8192
 
 FEASIBILITY = _cuda.CudaKernel(
     "feasibility", "sk_feasibility", "swarmkit_tpu_torch/csrc/feasibility.cu",
@@ -329,8 +328,62 @@ feasibility = feasibility_and_capacity
 # ---------------------------------------------------------- K2: branch sums
 
 def _seg_sum_plain(svc_tasks, valid, cap, seg, L: int, k):
+    """Plain version of K2: (load, bcap, raw_cap, kk)."""
     load_raw, raw_cap = _seg_partial_plain(svc_tasks, valid, cap, seg, L)
     return _seg_clamp(load_raw, raw_cap, k)
+
+
+# K2's scratch per (device index, stream): the accumulator (int64 [2, >= L]
+# sums and a uint32 ticket in its last slot), which every launch leaves
+# zero, so the wrapper allocates (zeroed) only to grow it; and per L the
+# outputs of the composition's calls, which each launch overwrites, with
+# the launch's table of scratch and output addresses (dropped when the
+# accumulator grows: they name the old one).  Calls that follow
+# each other on a stream find both ready without a sync; a composition
+# reads one call's outputs (stage A's water-fill) before it makes the next
+# call.  The allocator hands a dropped buffer to no other stream before the
+# launches queued on it ran.
+_SEG_SUM_ACC: Dict[Tuple[int, int], Tuple[torch.Tensor, int, int]] = {}
+_SEG_SUM_OUT: Dict[Tuple[int, int, int], tuple] = {}
+
+
+def _seg_sum_acc(t: torch.Tensor, L: int, stream: int) -> Tuple[int, int]:
+    """(accumulator, ticket) addresses of K2's scratch for ``stream`` on
+    ``t``'s card."""
+    key = (t.get_device(), stream)
+    entry = _SEG_SUM_ACC.get(key)
+    if entry is None or entry[0].shape[0] < 2 * L + 1:
+        buf = torch.zeros(2 * max(L, 256) + 1, dtype=torch.int64,
+                          device=t.device)
+        base = buf.data_ptr()
+        entry = (buf, base, base + 8 * (buf.shape[0] - 1))
+        _SEG_SUM_ACC[key] = entry
+        for out_key in [o for o in _SEG_SUM_OUT if o[:2] == key]:
+            del _SEG_SUM_OUT[out_key]
+    return entry[1], entry[2]
+
+
+def _seg_sum_outputs(dev: torch.device, L: int):
+    """Fresh (load i32[L], bcap i32[L], raw_cap i64[L], kk i32[1])."""
+    i32 = torch.int32
+    return (torch.empty(L, dtype=i32, device=dev),
+            torch.empty(L, dtype=i32, device=dev),
+            torch.empty(L, dtype=torch.int64, device=dev),
+            torch.empty(1, dtype=i32, device=dev))
+
+
+def _seg_sum_table(acc: int, ticket: int, outs, rows):
+    """K2's launch table (``csrc/segsum.cu`` SegSumTable): accumulator,
+    ticket, load, bcap, raw_cap, kk, rows."""
+    ptrs = (None,) * 4 if outs is None else tuple(t.data_ptr() for t in outs)
+    return (ctypes.c_void_p * 7)(acc, ticket, *ptrs, _cuda.ptr(rows))
+
+
+def _launch_seg_sum(svc_tasks, valid, cap, seg, k, L: int, table,
+                    stream: int) -> None:
+    SEG_SUM.launch(1, svc_tasks.shape[0], L, svc_tasks.data_ptr(),
+                   valid.data_ptr(), cap.data_ptr(), seg.data_ptr(),
+                   _cuda.ptr(k), ctypes.addressof(table), stream=stream)
 
 
 def branch_sums(svc_tasks: torch.Tensor, valid: torch.Tensor,
@@ -353,13 +406,39 @@ def branch_sums(svc_tasks: torch.Tensor, valid: torch.Tensor,
     _check("k", k, i32, (), dev)
     if not _on_cuda(svc_tasks):
         return _seg_sum_plain(svc_tasks, valid, cap, seg, L, k)
-    acc = torch.zeros((2, L), dtype=torch.int64, device=dev)
-    load = torch.empty(L, dtype=i32, device=dev)
-    bcap = torch.empty(L, dtype=i32, device=dev)
-    kk = torch.empty(1, dtype=i32, device=dev)
-    SEG_SUM(n, L, *map(_cuda.ptr, (svc_tasks, valid, cap, seg, k, acc, load,
-                                   bcap, kk)))
-    return load, bcap, acc[1], kk
+    outs = _seg_sum_outputs(dev, L)
+    stream = _cuda.stream_handle()
+    _launch_seg_sum(svc_tasks, valid, cap, seg, k, L,
+                    _seg_sum_table(*_seg_sum_acc(svc_tasks, L, stream),
+                                   outs, None), stream)
+    return outs
+
+
+def _branch_sums(svc_tasks, valid, cap, seg, L: int, k, rows=None):
+    """K2 as a composition calls it, without input checks (it checked
+    them): the branch arrays of :func:`branch_sums` in this stream's
+    output buffers for ``L`` (valid until the next call on the stream), or
+    with ``rows`` (int64 [2, L]) one shard's unclamped partials written
+    into it (returns None)."""
+    if not svc_tasks.is_cuda:
+        part = _seg_partial_plain(svc_tasks, valid, cap, seg, L)
+        if rows is not None:
+            rows.copy_(part)
+            return None
+        return _seg_clamp(part[0], part[1], k)
+    stream = _cuda.stream_handle()
+    if rows is not None:
+        _launch_seg_sum(svc_tasks, valid, cap, seg, None, L, _seg_sum_table(
+            *_seg_sum_acc(svc_tasks, L, stream), None, rows), stream)
+        return None
+    key = (svc_tasks.get_device(), stream, L)
+    entry = _SEG_SUM_OUT.get(key)
+    if entry is None:
+        acc = _seg_sum_acc(svc_tasks, L, stream)
+        outs = _seg_sum_outputs(svc_tasks.device, L)
+        entry = _SEG_SUM_OUT[key] = (outs, _seg_sum_table(*acc, outs, None))
+    _launch_seg_sum(svc_tasks, valid, cap, seg, k, L, entry[1], stream)
+    return entry[0]
 
 
 # -------------------------------------------------------- K3: water-filling
@@ -445,13 +524,11 @@ def _waterfill(*, cap: torch.Tensor, k_seg: torch.Tensor, seg: torch.Tensor,
     (``svc_tasks``, ``failures``); the tie key is ``tie``, or
     (clip(total) << 20) | index, or the index.  With ``raw_cap`` the
     level_spill verdict of the result is ORed into ``spill`` (int32[1]).
-    Writes the placement into ``out`` (int32[n]) and returns it."""
+    Writes the placement into ``out`` (int32[n]) and returns it.  Any
+    number of segments."""
     n = cap.shape[0]
     dev = cap.device
     i32 = torch.int32
-    if L > WATERFILL_MAX_SEGMENTS:
-        raise ValueError(f"waterfill: {L} segments exceed "
-                         f"{WATERFILL_MAX_SEGMENTS}")
     _check("cap", cap, i32, (n,), dev)
     _check("seg", seg, i32, (n,), dev)
     _check("k_seg", k_seg, i32, (L,), dev)
@@ -468,18 +545,39 @@ def _waterfill(*, cap: torch.Tensor, k_seg: torch.Tensor, seg: torch.Tensor,
     if raw_cap is not None:
         _check("raw_cap", raw_cap, torch.int64, (n,), dev)
         _check("spill", spill, i32, (1,), dev)
+    return _waterfill_into(cap=cap, k_seg=k_seg, seg=seg, L=L, out=out, e=e,
+                           svc_tasks=svc_tasks, failures=failures, tie=tie,
+                           total=total, raw_cap=raw_cap, spill=spill)
+
+
+@lru_cache(maxsize=None)
+def _waterfill_scratch_bytes(L: int) -> int:
+    """Global scratch K3 needs for ``L`` segments: 0 while its
+    per-segment state fits the cluster's shared memory."""
+    return int(_cuda.library().sk_waterfill_scratch_bytes(L))
+
+
+def _waterfill_into(*, cap, k_seg, seg, L: int, out, e=None, svc_tasks=None,
+                    failures=None, tie=None, total=None, raw_cap=None,
+                    spill=None) -> torch.Tensor:
+    """:func:`_waterfill` without input checks (the composition checked
+    them)."""
     if not _on_cuda(cap):
         if e is None:
             e = _spread_score(svc_tasks, failures)
         if tie is None:
-            tie = _tie_keys(total, n, dev)
+            tie = _tie_keys(total, cap.shape[0], cap.device)
         out.copy_(_waterfill_plain(e, cap, tie, k_seg, seg, L))
         if raw_cap is not None:
-            spill |= _level_spill(out, raw_cap).to(i32)
+            spill |= _level_spill(out, raw_cap).to(torch.int32)
         return out
-    WATERFILL(n, L, _cuda.ptr(e), _cuda.ptr(svc_tasks), _cuda.ptr(failures),
-              MAX_FAILURES, *map(_cuda.ptr, (cap, tie, total, k_seg, seg, out,
-                                             raw_cap, spill)))
+    nbytes = _waterfill_scratch_bytes(L)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=cap.device) \
+        if nbytes else None
+    WATERFILL(cap.shape[0], L, _cuda.ptr(e), _cuda.ptr(svc_tasks),
+              _cuda.ptr(failures), MAX_FAILURES,
+              *map(_cuda.ptr, (cap, tie, total, k_seg, seg, out, raw_cap,
+                               spill, scratch)))
     return out
 
 
@@ -526,7 +624,9 @@ def plan_group_packed(nodes: NodeInputs, group: GroupInputs, L: int,
     spread score, tie-broken by total tasks then node index.  ``hier`` is
     ``((seg_nodes i32[N], parent i32[L_d]), ...)`` for the levels above the
     leaves, top level first, and ``leaf_parent i32[L]``; ``()`` for a flat
-    tree.  Every intermediate stays on the device."""
+    tree.  Every intermediate stays on the device.  The inputs are
+    checked once here (K1's checks and the tree's); K2 and K3 run their
+    unchecked entries."""
     n = nodes.valid.shape[0]
     dev = nodes.valid.device
     buf = _plan_buffer(n, dev, out)
@@ -535,37 +635,43 @@ def plan_group_packed(nodes: NodeInputs, group: GroupInputs, L: int,
     _feasibility_into(nodes, group, None, cap, fail)
 
     upper_levels, leaf_parent = hier if hier else ((), None)
+    i32 = torch.int32
+    for seg_nodes, parent in upper_levels:
+        _check("seg_nodes", seg_nodes, i32, (n,), dev)
+        _check("parent", parent, i32, (parent.shape[0],), dev)
+    if leaf_parent is not None:
+        _check("leaf_parent", leaf_parent, i32, (L,), dev)
     k_parent = None        # the root's allocation: kk from the first sums
     parent_count = 1
     for seg_nodes, parent in upper_levels:
         L_d = parent.shape[0]
-        load, bcap, raw_cap, kk = branch_sums(nodes.svc_tasks, nodes.valid,
-                                              cap, seg_nodes, L_d, group.k)
-        alloc = torch.empty(L_d, dtype=torch.int32, device=dev)
-        k_parent = _waterfill(
+        load, bcap, raw_cap, kk = _branch_sums(
+            nodes.svc_tasks, nodes.valid, cap, seg_nodes, L_d, group.k)
+        alloc = torch.empty(L_d, dtype=i32, device=dev)
+        k_parent = _waterfill_into(
             e=load, cap=bcap, k_seg=kk if k_parent is None else k_parent,
             seg=parent, L=parent_count, out=alloc,
             raw_cap=raw_cap if L_d > 1 else None,
             spill=spill if L_d > 1 else None)
         parent_count = L_d
 
-    load, bcap, raw_cap, kk = branch_sums(nodes.svc_tasks, nodes.valid, cap,
-                                          nodes.leaf, L, group.k)
+    load, bcap, raw_cap, kk = _branch_sums(nodes.svc_tasks, nodes.valid, cap,
+                                           nodes.leaf, L, group.k)
     if L == 1 and not upper_levels:
         k_branch = bcap          # min(kk, branch capacity)
     else:
         seg = leaf_parent if leaf_parent is not None \
-            else torch.zeros(L, dtype=torch.int32, device=dev)
-        k_branch = _waterfill(
+            else torch.zeros(L, dtype=i32, device=dev)
+        k_branch = _waterfill_into(
             e=load, cap=bcap, k_seg=kk if k_parent is None else k_parent,
             seg=seg, L=parent_count,
-            out=torch.empty(L, dtype=torch.int32, device=dev),
+            out=torch.empty(L, dtype=i32, device=dev),
             raw_cap=raw_cap if L > 1 else None,
             spill=spill if L > 1 else None)
 
-    _waterfill(svc_tasks=nodes.svc_tasks, failures=nodes.failures,
-               total=nodes.total_tasks, cap=cap, k_seg=k_branch,
-               seg=nodes.leaf, L=L, out=x)
+    _waterfill_into(svc_tasks=nodes.svc_tasks, failures=nodes.failures,
+                    total=nodes.total_tasks, cap=cap, k_seg=k_branch,
+                    seg=nodes.leaf, L=L, out=x)
     return buf
 
 
@@ -784,9 +890,9 @@ def plan_strategy_packed(nodes: NodeInputs, group: GroupInputs,
                   k=kk, out=x)
     else:
         seg = torch.zeros(n, dtype=torch.int32, device=dev)
-        _waterfill(e=strategy_score(nodes, sin, strategy),
-                   total=nodes.total_tasks, cap=cap, k_seg=kk, seg=seg,
-                   L=1, out=x)
+        _waterfill_into(e=strategy_score(nodes, sin, strategy),
+                        total=nodes.total_tasks, cap=cap, k_seg=kk, seg=seg,
+                        L=1, out=x)
     return buf
 
 
@@ -1447,9 +1553,6 @@ def _shard_waterfill(parts: Sequence[FillShard], L: int,
     ``failures``); the tie key ``tie`` or (clip(``total``) << 20) | (index
     + offset), or the global index.  ``k`` is the same [L] on every
     shard.  ``reduce``: the plain version's psum (CPU shards only)."""
-    if L > WATERFILL_MAX_SEGMENTS:
-        raise ValueError(f"shard waterfill: {L} segments exceed "
-                         f"{WATERFILL_MAX_SEGMENTS}")
     need = () if all(p.e is not None for p in parts) \
         else ("svc_tasks", "failures")
     for p in parts:
@@ -1580,11 +1683,10 @@ def branch_sums_sharded(parts: Sequence[Tuple], L: int,
         total = (reduce or sum_shards)(rows)
         return [tuple(t.to(dev) for t in _seg_clamp(total[0], total[1], k))
                 for dev, (*_, k) in zip(devices, parts)]
-    rows = torch.zeros((D, 2, L), dtype=torch.int64, device=devices[0])
+    rows = torch.empty((D, 2, L), dtype=torch.int64, device=devices[0])
     with torch.cuda.device(devices[0]):
         for d, (svc, valid, cap, seg, k) in enumerate(parts):
-            SEG_SUM(svc.shape[0], L, *map(_cuda.ptr, (
-                svc, valid, cap, seg, k, rows[d], None, None, None)))
+            _branch_sums(svc, valid, cap, seg, L, k, rows=rows[d])
     return [seg_fold(rows, k) for *_, k in parts]
 
 

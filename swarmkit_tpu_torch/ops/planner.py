@@ -72,7 +72,7 @@ from .densify import (
     bucket as _bucket, l_bucket as _l_bucket, n_bucket as _n_bucket,
 )
 from .kernel import (
-    K_CLAMP, WATERFILL_MAX_SEGMENTS, FusedCarry, FusedGroups, FusedShared,
+    K_CLAMP, FusedCarry, FusedGroups, FusedShared,
     FusedStrategy, GroupInputs, NodeInputs, StrategyInputs,
     feasibility_packed, fetch_plan, finish_fetch, gang_fit_packed,
     plan_fused_packed, plan_group_packed, plan_strategy_packed, start_fetch,
@@ -721,8 +721,6 @@ class TorchPlanner:
                 upper = []
                 for di in range(depth - 1):
                     L_d = _l_bucket(max(len(level_ids[di]), 1))
-                    if L_d > WATERFILL_MAX_SEGMENTS:
-                        return None
                     parent = np.zeros(L_d, np.int32)
                     if di > 0:
                         for path, cid in level_ids[di].items():
@@ -732,8 +730,6 @@ class TorchPlanner:
                 for path, cid in level_ids[-1].items():
                     leaf_parent[cid] = level_ids[-2][path[:depth - 1]]
                 hier = (tuple(upper), leaf_parent)
-        if L > WATERFILL_MAX_SEGMENTS:
-            return None   # more branches than K3's shared memory holds
 
         nodes_in = NodeInputs(
             valid=valid, ready=ready, res_ok=res_ok, res_cap=res_cap,

@@ -35,6 +35,14 @@ tick's preemption pass must evict low-band tasks to place them.
 2 GiB in a per-node mix of priority 0 and 1 drawn from a seed, and a
 priority-2 service of 512 tasks of 4 CPUs / 8 GiB arriving at once.
 ``preempt_tick`` runs one tick of either with its victim budget.
+
+``per_host_spread`` is a spread over a per-node label on a cluster past
+8,192 nodes, the ordinary way to ask for one task a host: 8,200 nodes of
+16 CPUs / 64 GiB, each with its own ``host`` label, and two replicated
+services of 8,200 tasks (0.1 CPU + 64 MiB) spread over
+``node.labels.host``, all pending in one tick.  Its value count rounds up
+to 16,384 leaf segments.  Ids are fixed (``n00000``, ``svc0-t00000``), so
+two builds place task by task alike.
 """
 
 from __future__ import annotations
@@ -215,6 +223,51 @@ def many_service_cluster(n_nodes=MANY_SERVICE_NODES,
 
     store.update(create_tasks)
     return store, services, nodes, tasks
+
+
+# ------------------------------------------------------ per-host spread
+
+PER_HOST_NODES = 8200
+PER_HOST_SERVICES = (8200, 8200)
+
+
+def per_host_spread(n_nodes=PER_HOST_NODES, services=PER_HOST_SERVICES):
+    """(store, services, nodes): ``n_nodes`` READY nodes (16 CPUs, 64
+    GiB), each with its own ``host`` label, and one replicated service per
+    entry of ``services`` (its task count; 0.1 CPU and 64 MiB a task)
+    spread over ``node.labels.host``, every task PENDING."""
+    nodes = [Node(
+        id=f"n{i:05d}",
+        spec=NodeSpec(annotations=Annotations(
+            name=f"node-{i:05d}", labels={"host": f"h{i}"})),
+        status=NodeStatus(state=NodeState.READY),
+        description=NodeDescription(
+            hostname=f"node-{i:05d}",
+            platform=Platform(os="linux", architecture="amd64"),
+            resources=Resources(nano_cpus=16 * 10**9,
+                                memory_bytes=64 << 30)))
+        for i in range(n_nodes)]
+    spec = TaskSpec(
+        placement=Placement(preferences=[PlacementPreference(
+            spread=SpreadOver(spread_descriptor="node.labels.host"))]),
+        resources=ResourceRequirements(reservations=Resources(
+            nano_cpus=10**8, memory_bytes=64 << 20)))
+    svcs, tasks = [], []
+    for si, count in enumerate(services):
+        svc = Service(
+            id=f"svc{si}",
+            spec=ServiceSpec(annotations=Annotations(name=f"svc{si}"),
+                             mode=ServiceMode.REPLICATED,
+                             replicated=ReplicatedService(replicas=count),
+                             task=spec),
+            spec_version=Version(index=1))
+        svcs.append(svc)
+        tasks += [Task(id=f"{svc.id}-t{k:05d}", service_id=svc.id,
+                       slot=k + 1, desired_state=TaskState.RUNNING,
+                       spec=spec, spec_version=Version(index=1),
+                       status=TaskStatus(state=TaskState.PENDING))
+                  for k in range(count)]
+    return _create_all(nodes, svcs, tasks), svcs, nodes
 
 
 # ------------------------------------------------------ steady-state churn

@@ -13,9 +13,10 @@ import pytest
 import torch
 
 from chip_smoke import (
-    SHARD_FILL_CASES, VICTIM_CASES, fill_parts, fused_inputs, gang_rows,
-    headline_fill_parts,
-    plan_inputs, scatter_inputs, shard_fill_inputs, victim_inputs)
+    SHARD_FILL_CASES, VICTIM_CASES, WATERFILL_MODES, fill_parts,
+    fused_inputs, gang_rows, headline_fill_parts, plan_inputs,
+    scatter_inputs, shard_fill_inputs, victim_inputs, waterfill_call,
+    waterfill_inputs)
 from swarmkit_tpu_torch.ops import kernel as K
 from swarmkit_tpu_torch.ops import preempt as P
 from swarmkit_tpu_torch.ops.convert import (
@@ -125,6 +126,119 @@ def test_kernels_count_launches():
     # K1 once, K2 once (one spread level), K3 twice (stage A + stage B)
     assert _launched(lambda: K.plan_group_packed(nodes, group, L, hier)) \
         == {"feasibility": 1, "seg_sum": 1, "waterfill": 2}
+
+
+# ---------------------------------------- K3 as one cluster launch, K2
+
+@pytest.mark.parametrize("mode", WATERFILL_MODES)
+@pytest.mark.parametrize("n", [1024, 16384, 131072])
+@pytest.mark.parametrize("L", [1, 20, 256, 8192, 16384, 65536])
+def test_waterfill_cluster_kernel_matches_plain(L, n, mode):
+    """K3 against its plain version on the same tensors, over L segments
+    and n elements: elements held in registers and re-read from L2; the
+    exchange route (segments shared between blocks or local to one) and
+    the owner route (more than 256 shared segments, or L past 16,384 with
+    its state in global memory); the spill epilogue on (saturating or not)
+    and off."""
+    dev = _card()
+    kw, k_seg = waterfill_inputs(n + L, n, L, mode)
+    got, spill = waterfill_call(torch, K, kw, k_seg, L, dev)
+    torch.cuda.synchronize()
+    want, want_spill = waterfill_call(torch, K, kw, k_seg, L, dev,
+                                      plain=True)
+    _eq(got, want)
+    if spill is not None:
+        _eq(spill, want_spill)
+
+
+@pytest.mark.parametrize("L", [256, 65536])
+def test_waterfill_cluster_kernel_twice_without_a_sync(L):
+    """Two K3 calls on other inputs queued back to back, one launch each,
+    then one sync: both equal their plain versions."""
+    dev = _card()
+    cases = [waterfill_inputs(seed, 16384, L, mode)
+             for seed, mode in ((1, "stage_a"), (2, "stage_b"))]
+    got = []
+    launched = _launched(lambda: got.extend(
+        waterfill_call(torch, K, kw, k_seg, L, dev) for kw, k_seg in cases))
+    assert launched == {"waterfill": 2}
+    for (x, spill), (kw, k_seg) in zip(got, cases):
+        want, want_spill = waterfill_call(torch, K, kw, k_seg, L, dev,
+                                          plain=True)
+        _eq(x, want)
+        if spill is not None:
+            _eq(spill, want_spill)
+
+
+def _seg_sum_inputs(seed, n, L, dev):
+    """Seeded K2 inputs: n nodes over L segments, a tenth invalid, and
+    eight nodes of K_CLAMP capacity in segment 0 (a total past 2^24)."""
+    rng = np.random.RandomState(seed)
+    seg = rng.randint(0, L, n).astype(np.int32)
+    seg[:8] = 0
+    cap = rng.randint(0, 9, n).astype(np.int32)
+    cap[:8] = K.K_CLAMP
+    svc = rng.randint(-2, 9, n).astype(np.int32)
+    svc[8:12] = K.SVC_CLAMP + 5
+    valid = rng.rand(n) < 0.9
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    return (t(svc), t(valid), t(cap), t(seg),
+            torch.tensor(K.K_CLAMP - 1, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("L", [1, 256, 2048, 2049, 16384])
+def test_seg_sum_kernel_at_segment_counts(L):
+    """K2 in one launch a call, through shared-memory partials (L <= 2048)
+    and global ones: equal to its plain version, also for two calls
+    queued back to back without a sync, and in its partial mode (one
+    shard's unclamped row, overwritten)."""
+    dev = _card()
+    ins = [_seg_sum_inputs(seed, 16384, L, dev) for seed in (3, 4)]
+    got = []
+    launched = _launched(lambda: got.extend(
+        K.branch_sums(*a[:4], L, a[4]) for a in ins))
+    assert launched == {"seg_sum": 2}
+    for g, a in zip(got, ins):
+        for u, v in zip(g, K._seg_sum_plain(*a[:4], L, a[4])):
+            _eq(u, v)
+    rows = torch.full((2, 2, L), -1, dtype=torch.int64, device=dev)
+    for d, a in enumerate(ins):
+        K._branch_sums(*a[:4], L, a[4], rows=rows[d])
+    torch.cuda.synchronize()
+    for d, a in enumerate(ins):
+        _eq(rows[d], K._seg_partial_plain(*a[:4], L))
+
+
+def test_plan_group_twice_without_a_sync():
+    """Two plans queued back to back on the card, no sync between them:
+    the second's K2 call reuses the stream's output buffers after the
+    first plan's stage A read them; both equal the CPU plain path."""
+    dev = _card()
+    cases = ("headline", "headline_two_level")
+    inputs = [_inputs(case, dev) for case in cases]
+    torch.cuda.synchronize()
+    got = [K.plan_group_packed(*ins) for ins in inputs]
+    torch.cuda.synchronize()
+    for buf, case in zip(got, cases):
+        cn, cg, L, ch = _inputs(case, "cpu")
+        _eq(buf, K.plan_group_packed(cn, cg, L, ch))
+
+
+@pytest.mark.parametrize("L", [16384, 32768])
+@pytest.mark.parametrize("shards", [1, 4])
+def test_shard_waterfill_kernel_at_wide_segment_counts(shards, L):
+    """K10 over 16,384 segments (its partials in shared memory) and 32,768
+    (straight into the exchange) against its plain version and the
+    one-shard fill."""
+    dev = _card()
+    arrs = shard_fill_inputs(9, nb=16384, n_valid=16000, L=L)
+    parts = fill_parts(arrs, shards, dev)
+    got = _fill(parts, L, False)
+    _eq(got, torch.cat(K._shard_waterfill_plain(parts, L)))
+    _eq(got, _fill(fill_parts(arrs, 1, dev), L, False))
 
 
 # ------------------------------------------------------------- K4, K5, K6
