@@ -54,36 +54,39 @@ Phases, each of which exits non-zero on failure:
     members): every gang admitted whole in one tick with 80 verdicts from
     K8 (64 per group, 16 fused rows), placements equal to the host path's
     by creation index, and an added infeasible gang deferred whole;
-13. kernel K9 at node bucket 16384 for V = 4, 16 and 64 with 512 picks:
-    the victim selection on a full run, a budget stop and an infeasible
-    stop, each bit-equal to its plain version on the card (negative free
-    pools, a generic column); wrapper, device (both launches) and H2D
-    times;
-14. config 8: bench.py's priority bands (512 nodes, 1,800 priority-0
+13. config 8: bench.py's priority bands (512 nodes, 1,800 priority-0
     tasks running, 584 higher-priority arrivals in one tick) through
     ``TorchPlanner()``: every arrival assigned with preemptions, K9
     launched once per preempting group, each call's picks equal to
     ``select_victims_host``, and the live tasks per (service, node) and the
     victims equal to the host path's;
+14. kernel K9 at node bucket 16384 for V = 4, 16 and 64 with 512 picks:
+    the victim selection on a full run, a budget stop and an infeasible
+    stop, each bit-equal to its plain version on the card (negative free
+    pools, a generic column); wrapper, device (both launches) and H2D
+    times; and on the inputs of config 8's calls (node bucket 1024,
+    V = 4), bit-equal and timed;
 15. priority storm at the headline width (10,000 nodes, 150,000 running
     tasks, 512 priority-2 arrivals): every arrival placed through K9, each
     call's picks equal to the plain version on the card and on the CPU,
     its traced twin, and at 1,000 nodes each call's picks equal to the
     host oracle's;
 16. the node-axis split's kernels at node bucket 16384 on four shards of
-    the card: K10 over 20 segments (equal loads across the shard borders,
-    capacity sums past 2^24, a segment that cannot be filled) and over
-    one, K11 at and below the whole capacity, each bit-equal to its plain
-    version on the same tensors; K2's cross-shard fold at the headline's
-    leaf level;
+    the card: K10 (one launch a fill) over 20 segments (equal loads across
+    the shard borders, capacity sums past 2^24, a segment that cannot be
+    filled), over one, over the headline's leaf fill (L = 256, timed) and
+    over one segment a row (L = 16,384, timed), K11 at and below the
+    whole capacity, each bit-equal to its plain version on the same
+    tensors; K2's cross-shard fold at the headline's leaf level;
 17. the headline tick through ``TorchPlanner(mesh=make_mesh(["cuda:0"] *
     4))``: every task placed, every plan's x, fail counts and spill equal
     to the unsharded tick's (phase 4), K10 launched;
 18. config 7 through the same mesh: every group fused in 3 chunks,
     binpack through K11, each chunk's rows and the per-(service, node)
-    counts equal to the unsharded tick's (phase 7); with phase 16, two
-    compositions of the split timed against the unsharded plans of the
-    same inputs (B13, a weighted group's plan; B14, a cfg7 fused chunk);
+    counts equal to the unsharded tick's (phase 7), and its traced twin;
+    with phase 16, two compositions of the split timed against the
+    unsharded plans of the same inputs (B13, a weighted group's plan;
+    B14, a cfg7 fused chunk);
 19. a spread over a per-node label past 8,192 nodes
     (``workload.per_host_spread``: 8,200 nodes, two services of 8,200
     tasks, 16,384 leaf segments): the fused tick on the card places
@@ -190,6 +193,10 @@ def device_ms_each(torch, fn, groups, reps=20):
         total = sum(device_us(e) for e in events
                     if any(sym in e.key for sym in symbols))
         out.append(total / reps / 1e3 if total > 0 else None)
+        if total <= 0:
+            seen = sorted((e.key[:80] for e in events if device_us(e) > 0))
+            print(f"device_ms: no device row matches {symbols}; rows seen: "
+                  f"{seen[:6]}", file=sys.stderr, flush=True)
     return out
 
 
@@ -507,6 +514,43 @@ def shard_fill_inputs(seed, nb=16384, n_valid=16000, L=20, scored=False,
                 pack=pack)
 
 
+def edge_fill_inputs(seed, n, L, scored=False):
+    """:func:`shard_fill_inputs`' columns for the water-fill cases a split
+    turns on, ``n`` rows (a multiple of 16): with L >= 3, segment 0's rows
+    lie in the first sixteenth of the axis (inside shard 0 at any D <= 16)
+    and segment 1's are every fifth row across all of it; rows on every
+    sixteenth's border carry equal levels and totals, so the global tie
+    key decides between shards; with L > 3 one segment asks for more than
+    its rows hold.  Capacity sums stay below 2^24."""
+    import numpy as np
+    from swarmkit_tpu_torch.ops.kernel import K_CLAMP
+    rng = np.random.RandomState(seed)
+    idx = np.arange(n)
+    leaf = rng.randint(0, L, n).astype(np.int32)
+    if L >= 3:
+        leaf[leaf <= 1] = 2
+        first = idx < n // 16
+        leaf[first & (idx % 3 == 0)] = 0
+        leaf[idx % 5 == 1] = 1
+    svc = rng.randint(0, 6, n).astype(np.int32)
+    failures = rng.choice([0] * 10 + [1, 5, 70], n).astype(np.int32)
+    total = rng.randint(0, 1500, n).astype(np.int32)
+    cap = rng.randint(0, 7, n).astype(np.int32)
+    e = rng.randint(0, 3000, n).astype(np.int32)
+    for frac in range(1, 16):
+        near = slice(n * frac // 16 - 8, n * frac // 16 + 8)
+        svc[near], failures[near], total[near] = 2, 0, 700
+        e[near], cap[near] = 1000, 3
+    held = np.bincount(leaf, weights=cap, minlength=L).astype(np.int64)
+    k = np.minimum(rng.randint(0, 4000, L), K_CLAMP).astype(np.int32)
+    k[:2] = np.minimum(held[:2] * 3 // 4, K_CLAMP)
+    if L > 3:
+        k[3] = held[3] + 5          # more than its rows hold
+    return dict(svc=svc, failures=failures, total=total,
+                res_cap=np.zeros(n, np.int32), cap=cap,
+                e=e if scored else None, leaf=leaf, k=k, pack=False)
+
+
 def fill_parts(arrs, d, device):
     """Split :func:`shard_fill_inputs`' columns into ``d`` FillShards on
     ``device`` (fresh zeroed outputs)."""
@@ -642,6 +686,81 @@ def victim_inputs(seed, v, case="full", n=10000, picks=512):
         vgen=rng.randint(0, 2, (v, n)).astype(np.int64))
     budget = 400 if case == "budget_stop" else 1 << 20
     return cand, (4 * cpu, 8 * gib, 1, picks, budget)
+
+
+VICTIM_EDGE_CASES = ("equal_keys", "repick", "budget_stop_v64",
+                     "infeasible_stop_v64", "negative_free")
+
+
+def victim_edge_inputs(case, n=600, picks=16):
+    """A ``CandidateSet`` of ``n`` nodes for one of the cases a pick order
+    turns on, and the call's (cpu_d, mem_d, gen_d, n_picks, budget):
+
+    * ``equal_keys`` (V = 4): every node alike, two 1-CPU victims for a
+      2-CPU pick, so the node index decides each pick, and each chosen
+      node is infeasible after its pick;
+    * ``repick`` (V = 16): node 3 frees 3 CPUs for a 1-CPU pick, then
+      rides its surplus twice at no cost; node 5's cheap victims are then
+      taken one pick at a time (its prefix length grows past used slots);
+    * ``budget_stop_v64`` (V = 64): two victims a pick against a budget
+      of five, the third pick stops the run;
+    * ``infeasible_stop_v64`` (V = 64): three eligible nodes with four
+      live victims each among dead slots, two picks each, then an
+      infeasible stop;
+    * ``negative_free`` (V = 16): cpu, memory and generic free pools
+      below zero everywhere."""
+    import numpy as np
+    from swarmkit_tpu_torch.scheduler.preempt import CandidateSet
+    rng = np.random.RandomState(sum(map(ord, case)))
+    cpu, gib = 10**9, 1 << 30
+    v = {"equal_keys": 4, "repick": 16, "negative_free": 16}.get(case, 64)
+    ok = np.ones(n, bool)
+    free_cpu = np.zeros(n, np.int64)
+    free_mem = np.full(n, 64 * gib, np.int64)
+    free_gen = np.zeros(n, np.int64)
+    vvalid = np.ones((v, n), bool)
+    vprio = np.zeros((v, n), np.int32)
+    vcpu = np.full((v, n), cpu, np.int64)
+    vmem = np.zeros((v, n), np.int64)
+    vgen = np.zeros((v, n), np.int64)
+    demand = (2 * cpu, 0, 0)
+    budget = 1 << 20
+    if case == "equal_keys":
+        vvalid[2:] = False
+    elif case == "repick":
+        demand = (cpu, 0, 0)
+        vprio[:] = 5
+        vprio[:, 5] = 0
+        vvalid[1:, 3] = False
+        vcpu[0, 3] = 3 * cpu
+        vprio[0, 3] = 0
+    elif case == "budget_stop_v64":
+        budget = 5
+        vprio[:] = rng.randint(0, 3, (v, n))
+    elif case == "infeasible_stop_v64":
+        ok[:] = False
+        ok[[17, 300 % n, n - 1]] = True
+        vvalid[:] = False
+        vvalid[[5, 20, 40, 63]] = True
+        vcpu[:] = 2 * cpu
+        demand = (4 * cpu, 0, 0)
+    elif case == "negative_free":
+        free_cpu = rng.randint(-3, 0, n).astype(np.int64) * cpu
+        free_mem = rng.randint(-4, 0, n).astype(np.int64) * gib
+        free_gen = rng.randint(-2, 0, n).astype(np.int64)
+        vvalid = rng.rand(v, n) < 0.7
+        vprio = np.sort(rng.randint(0, 8, (v, n)), axis=0).astype(np.int32)
+        vcpu = rng.randint(0, 3, (v, n)).astype(np.int64) * cpu
+        vmem = rng.randint(0, 3, (v, n)).astype(np.int64) * gib
+        vgen = rng.randint(0, 2, (v, n)).astype(np.int64)
+        demand = (cpu, gib, 1)
+    else:
+        raise ValueError(f"unknown case {case}")
+    cand = CandidateSet(
+        infos=None, ok=ok, free_cpu=free_cpu, free_mem=free_mem,
+        vvalid=vvalid, vprio=vprio, vcpu=vcpu, vmem=vmem, victims=None,
+        vb=v, n_candidates=int(vvalid.sum()), free_gen=free_gen, vgen=vgen)
+    return cand, demand + (picks, budget)
 
 
 def victim_need(cand, args, picked, nb, pb):
@@ -1532,8 +1651,9 @@ def same_plans(a, b):
 def phase_kernels_mesh(torch, K):
     """K10, K11 and K2's cross-shard fold on four shards of the card
     against their plain versions on the same tensors, node bucket 16384.
-    K10 is timed at the headline path's leaf fill (L = 256), K11 at the
-    binpack case, the fold on one shard's exchange at L = 256."""
+    K10 is timed at the headline path's leaf fill (L = 256, its kernels
+    row) and at one segment a row (L = 16,384), K11 at the binpack case,
+    the fold on one shard's exchange at L = 256."""
     dev = torch.device("cuda")
     d = MESH_SHARDS
     rows, per_case = [], {}
@@ -1543,6 +1663,10 @@ def phase_kernels_mesh(torch, K):
              for case, kw in SHARD_FILL_CASES.items()]
     parts, L = headline_fill_parts(d, dev)
     cases.append(("waterfill_headline", dict(L=L), parts))
+    # one segment a row: the shape of the per-host spread's leaf fill
+    wide = dict(L=16384)
+    cases.append(("waterfill_L16384", wide,
+                  fill_parts(shard_fill_inputs(31, **wide), d, dev)))
     for case, kw, parts in cases:
         if kw.get("pack"):
             kern = K.SHARD_PACKFILL
@@ -1572,32 +1696,44 @@ def phase_kernels_mesh(torch, K):
               f"version on the card (max abs err {err})")
         per_case[case] = dict(launches_per_call=launches,
                               placed=int(got.to(torch.int64).sum()))
-        if case in ("waterfill_headline", "packfill"):
-            timed[kern.name] = (run, plain, kw)
+        if case in ("waterfill_headline", "packfill", "waterfill_L16384"):
+            timed[case] = (kern, run, plain, kw)
         print(f"mesh kernels: {kern.name} ({case}, {d} shards x "
               f"{parts[0].cap.shape[0]} rows, L = {kw['L']}) == plain, "
               f"{launches} launches per call, placed "
               f"{per_case[case]['placed']}", flush=True)
 
     nb = 16384
-    for kern, symbol in ((K.SHARD_WATERFILL, "shard_waterfill_kernel"),
-                         (K.SHARD_PACKFILL, "shard_packfill_kernel")):
-        run, plain, kw = timed[kern.name]
+    for case in ("waterfill_headline", "packfill", "waterfill_L16384"):
+        kern, run, plain, kw = timed[case]
         L = kw["L"]
         if kern is K.SHARD_WATERFILL:
-            # svc, failures, cap, total, seg in, x out; k per shard
+            # svc, failures, cap, total, seg in, x out; k per shard; one
+            # launch a fill
             nbytes, ops = nb * 24 + d * L * 4, K.WATERFILL_STEPS * nb * 4
+            symbol, steps = "ShardElems", 1
         else:
             # res_cap, failures, cap in, x out; k per shard
             nbytes, ops = 16 * nb + 4 * d, K.PACKFILL_STEPS * nb * 4
-        rows.append(dict(
-            kernel=kern, err=errs[kern.name], bytes=nbytes, ops=ops,
+            symbol, steps = "shard_packfill_kernel", K.PACKFILL_STEPS
+        row = dict(
+            kernel=kern, err=errs[kern.name], bytes=nbytes, ops=ops, L=L,
             device_ms=device_ms(torch, run, (symbol,), reps=10),
             ms=time_ms(torch, run, reps=20, warmup=3),
             plain_ms=time_ms(torch, plain, reps=3, warmup=1),
-            library_ms=None,
-            launches_per_call=(K.WATERFILL_STEPS if kern is
-                               K.SHARD_WATERFILL else K.PACKFILL_STEPS)))
+            library_ms=None, launches_per_call=steps)
+        if case == "waterfill_L16384":
+            per_case[case].update(
+                {k: v for k, v in row.items() if k != "kernel"})
+            r = row
+            print(f"mesh kernels: shard_waterfill at L = {L}: "
+                  f"{r['ms']:.4f} ms per wrapper call (CUDA events), "
+                  f"device " + ("not measured" if r["device_ms"] is None
+                                else f"{r['device_ms']:.4f} ms")
+                  + f", plain {r['plain_ms']:.4f} ms, bound "
+                  f"{bound(nbytes, ops)[0]:.7f} ms", flush=True)
+        else:
+            rows.append(row)
 
     # ---- K2 over the split: per-shard partials, then the fold on every
     # shard (the leaf level of a headline group, L = 256, with capacity
@@ -1694,9 +1830,26 @@ def phase_mesh_compositions(torch, K, to_device, fused_to_device):
               + 16 * nb + 4 * d)
     ops = (nb * (8 + 3 * active_cc + 6 * plat_used) + 10 * nb
            + K.WATERFILL_STEPS * nb * 4)
+
+    def b13_plain():
+        """B13's plain composition on the card: per shard K1's and K6's
+        plain versions, then K10's over every shard."""
+        parts = []
+        for s_, ((nd, gd), sd) in enumerate(zip(shards, sins)):
+            cap = K._feasibility_plain(nd, gd)[1]
+            parts.append(K.FillShard(
+                e=K._strategy_score_plain(nd, sd, K.STRAT_WEIGHTED),
+                total=nd.total_tasks, cap=cap,
+                k=torch.clamp(gd.k, max=K.K_CLAMP).reshape(1),
+                offset=s_ * cap.shape[0]))
+        return K._shard_waterfill_plain(parts, 1)
+
+    check(np.array_equal(torch.cat(b13_plain()).cpu().numpy(), got[:nb]),
+          "B13's plain composition differs from the kernels'")
     out["B13_weighted"] = dict(
         ms=time_ms(torch, b13, reps=10, warmup=2),
         device_ms=device_ms(torch, b13, ("",), reps=5),
+        plain_ms=time_ms(torch, b13_plain, reps=2, warmup=1),
         bound_ms=bound(nbytes, ops)[0], bytes=nbytes)
 
     inputs = fused_inputs(seed=78)
@@ -1718,8 +1871,15 @@ def phase_mesh_compositions(torch, K, to_device, fused_to_device):
         return K.plan_fused_sharded_packed(shareds, groupss, carries, L,
                                            strats, sids)
 
+    # B14's bytes: per slot K4's prologue and carry (as B5: 42 N + 20 and
+    # 4 N + 48 nnz(x) + 20) and its fill's capacity and level in and
+    # placement out (16 N)
+    n_slots = len(sids)
+    nnz = int(np.count_nonzero(want[:, :nb]))
+    nbytes = n_slots * (62 * nb + 40) + 48 * nnz
     out["B14_chunk"] = dict(ms=time_ms(torch, b14, reps=5, warmup=1),
-                            device_ms=device_ms(torch, b14, ("",), reps=3))
+                            device_ms=device_ms(torch, b14, ("",), reps=3),
+                            bound_ms=bound(nbytes, 0)[0], bytes=nbytes)
     for name, r in out.items():
         print(f"mesh compositions: {name} ({d} shards) == unsharded; "
               f"{r['ms']:.4f} ms per call (CUDA events), device "
@@ -1727,6 +1887,8 @@ def phase_mesh_compositions(torch, K, to_device, fused_to_device):
                  else f"{r['device_ms']:.4f} ms (torch.profiler, every "
                  "device op)")
               + (f", bound {r['bound_ms']:.7f} ms" if "bound_ms" in r
+                 else "")
+              + (f", plain {r['plain_ms']:.4f} ms" if "plain_ms" in r
                  else ""), flush=True)
     return out
 
@@ -1837,10 +1999,49 @@ def phase_mesh_many_service(torch, K, cuda, workload, Task, Scheduler,
                 plan_seconds=stats["plan_seconds"])
 
 
-def phase_kernels_victims(torch, P, victims_to_device):
+def victims_at_calls(torch, P, victims_to_device, calls):
+    """K9 on the inputs of recorded ``select_victims`` calls (config 8's
+    shape: node bucket 1024, V = 4): bit-equal to its plain version, and
+    per call the wrapper ms (CUDA events) and the prefix and pick
+    kernels' device ms (torch.profiler).  Returns (max abs err, rows)."""
+    from swarmkit_tpu_torch.ops.densify import n_bucket
+    dev = torch.device("cuda")
+    err, out = 0, []
+    for cand, args, _, _ in calls:
+        nb = n_bucket(max(cand.ok.shape[0], 1))
+        pb = P.pick_bucket(args[3])
+        inp = victims_to_device(cand, nb, dev)
+        args = tuple(int(a) for a in args)
+
+        def run(inp=inp, args=args, pb=pb):
+            return P.select_victims(inp, *args, pb)
+
+        e = max_abs_err(torch, (run(),), (P._select_victims_plain(
+            inp, *args, pb),))
+        check(e == 0, f"K9 at config 8's call (nb {nb}, V {cand.vb}): "
+              "kernel differs from its plain version")
+        err = max(err, e)
+        prefix_dev, pick_dev = device_ms_each(
+            torch, run, (("victim_prefix_kernel",), ("victim_pick_kernel",)))
+        out.append(dict(nb=nb, v=int(cand.vb), pb=pb, n_picks=args[3],
+                        ms=time_ms(torch, run, reps=20, warmup=3),
+                        prefix_device_ms=prefix_dev,
+                        pick_device_ms=pick_dev))
+        r = out[-1]
+        print(f"kernels: select_victims at config 8's call (nb {nb}, V "
+              f"{r['v']}, pb {pb}, {args[3]} picks asked) == plain: "
+              f"{r['ms']:.4f} ms per wrapper call, device "
+              + ("not measured" if None in (prefix_dev, pick_dev) else
+                 f"{prefix_dev:.4f} ms prefix + {pick_dev:.4f} ms picks"),
+              flush=True)
+    return err, out
+
+
+def phase_kernels_victims(torch, P, victims_to_device, config8_calls):
     """K9 against its plain version on the card at node bucket 16384 for
     V = 4, 16 and 64, 512 picks: a full run, a budget stop and an
-    infeasible stop each, bit-equal.  Times at each V on the full run."""
+    infeasible stop each, bit-equal.  Times at each V on the full run, and
+    at config 8's shape on the inputs of its recorded calls."""
     from swarmkit_tpu_torch.ops.densify import n_bucket
     dev = torch.device("cuda")
     per_v, err = {}, 0
@@ -1910,11 +2111,15 @@ def phase_kernels_victims(torch, P, victims_to_device):
                   f"{r['h2d_ms']:.4f} ms for {r['h2d_bytes']} bytes (pack + "
                   f"upload {prep_ms:.3f} ms), {r['bytes']} bytes, bound "
                   f"{bound(r['bytes'], r['ops'])[0]:.7f} ms", flush=True)
+    err8, config8 = victims_at_calls(torch, P, victims_to_device,
+                                     config8_calls)
     row = dict(per_v[16])
-    row["err"] = err
-    return [row], {f"select_victims_v{v}": {k: x for k, x in r.items()
-                                            if k != "kernel"}
-                   for v, r in per_v.items()}
+    row["err"] = max(err, err8)
+    record = {f"select_victims_v{v}": {k: x for k, x in r.items()
+                                       if k != "kernel"}
+              for v, r in per_v.items()}
+    record["select_victims_config8"] = config8
+    return [row], record
 
 
 def spy_on_victims(planner):
@@ -2013,6 +2218,8 @@ def phase_priority_jobs(torch, K, P, cuda, workload, Task, Scheduler,
                       f"config 8: K9's picks differ from the host oracle's "
                       f"(V={cand.vb}, args {args})")
         outcome[label] = preempt_outcome(store, Task, nodes)
+        if planner is not None:
+            card_calls = calls
         out[label] = dict(decisions=n_dec, tick_s=tick_s,
                           decisions_per_s=n_dec / tick_s,
                           preemptions=preemptions, launches=launches,
@@ -2037,7 +2244,7 @@ def phase_priority_jobs(torch, K, P, cuda, workload, Task, Scheduler,
     print(f"config 8: card == host path (live tasks per service and node; "
           f"{len(outcome['card'][1])} victims); every call's picks == "
           "select_victims_host", flush=True)
-    return out
+    return out, card_calls
 
 
 def picks_of(nodes, ms):
@@ -2485,11 +2692,11 @@ def main():
                                          tracer, card)
     gang = phase_gang(torch, K, cuda, workload, Task, Scheduler,
                       TorchPlanner, gang_to_device, card)
-    victim_rows, victim_kernels = phase_kernels_victims(torch, P,
-                                                        victims_to_device)
+    jobs, config8_calls = phase_priority_jobs(
+        torch, K, P, cuda, workload, Task, Scheduler, TorchPlanner, card)
+    victim_rows, victim_kernels = phase_kernels_victims(
+        torch, P, victims_to_device, config8_calls)
     rows += victim_rows
-    jobs = phase_priority_jobs(torch, K, P, cuda, workload, Task, Scheduler,
-                               TorchPlanner, card)
     storm = phase_storm(torch, K, P, cuda, workload, Task, Scheduler,
                         TorchPlanner, victims_to_device, tracer, card)
     mesh_rows, mesh_cases = phase_kernels_mesh(torch, K)
@@ -2503,6 +2710,10 @@ def main():
     mesh["many_service"] = phase_mesh_many_service(
         torch, K, cuda, workload, Task, Scheduler, TorchPlanner, make_mesh,
         card, many_plans, many_counts)
+    mesh["traced_many_service"] = phase_traced_tick(
+        torch, workload.many_service_cluster, Scheduler,
+        lambda: mesh_planner(TorchPlanner, make_mesh), tracer, card,
+        label="traced mesh many-service tick")
     wide = phase_wide_spread(torch, K, cuda, workload, Task, Scheduler,
                              TorchPlanner, make_mesh, card)
 

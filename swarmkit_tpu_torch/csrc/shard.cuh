@@ -1,20 +1,23 @@
-// The node-axis split's step kernels (K10 shardfill.cu, K11 shardpack.cu):
-// what one shard hands a launch, and the cross-shard fold.
+// The node-axis split's shard table (K10 shardfill.cu, K11 shardpack.cu):
+// what one shard hands a launch, and K11's cross-shard fold.
 //
 // A mesh of D shards splits the node axis: shard d owns rows
 // [d * n, (d + 1) * n) of every node column, in tensors of its own.  The
 // reference runs each search step of a node-level fill under shard_map
 // and psums the step's [L] partial sums over the node axis
-// (swarmkit_tpu/parallel/sharded.py).  Here a fill is a chain of step
-// launches; one launch covers every shard that lives on one card
-// (grid.y = shards, one block each).  Step t reads the [D, L] int64
-// partials that step t - 1 left in the exchange buffer of parity
-// (t - 1) & 1, sums the D rows in shard order (exact, the same on every
-// shard, no atomics across shards), moves the shard's own search bounds,
-// and writes the shard's partials at the new midpoint into its row of
-// parity t & 1.  Reads and writes of one launch touch different parities,
-// and the stream orders the launches.  Every shard of a mesh lies on one
-// card (parallel/sharded.py refuses a mesh over several).
+// (swarmkit_tpu/parallel/sharded.py).  Every shard of a mesh lies on one
+// card (parallel/sharded.py refuses a mesh over several), and one launch
+// covers every shard of the card through this table.
+//
+// K10 reads only the shards' columns: its one cluster launch sums each
+// step over all shards' rows itself.  K11 is a chain of step launches
+// (grid.y = shards, one block each): step t reads the [D] int64 partials
+// that step t - 1 left in the exchange buffer of parity (t - 1) & 1, sums
+// the D rows in shard order (exact, the same on every shard, no atomics
+// across shards), moves the shard's own search bounds (its `state`), and
+// writes the shard's partial at the new midpoint into its row of parity
+// t & 1.  Reads and writes of one launch touch different parities, and
+// the stream orders the launches.
 #pragma once
 
 #include "common.cuh"
@@ -42,11 +45,11 @@ struct Shard {
   const int32_t* seg;       // segment per row, or null: segment 0
   const int32_t* k;         // [L] units per segment (replicated)
   int32_t* x;               // [n] placement (written by the last step)
-  int32_t* state;           // the shard's own search bounds (see kernels)
-  long long* xbuf;          // [2, D, L] exchange on this shard's card
+  int32_t* state;           // K11: the shard's own search bounds
+  long long* xbuf;          // K11: [2, D, 1] exchange on this card
   int n;                    // rows of this shard
   int offset;               // global index of its first row
-  int row;                  // its row in the exchange (its shard index)
+  int row;                  // its shard index (K11's exchange row)
 };
 
 struct ShardTable {

@@ -1,5 +1,5 @@
-// K10: the node-level water-fill over a node-axis split, one search step
-// per launch.
+// K10: the node-level water-fill over a node-axis split, in ONE launch a
+// fill: K3's cluster kernel (waterfill.cuh) fed from the shard table.
 //
 // Replaces the psum'd seg_waterfill (swarmkit_tpu/ops/kernel.py:127) that
 // swarmkit_tpu/parallel/sharded.py:95 plan_group_sharded, :137
@@ -11,190 +11,115 @@
 // r_s smallest tie keys.  Tie keys are global: (clip(total) << 20) |
 // (i + offset), the reference's idx + axis_index * local_n.
 //
-// Steps (STEPS = 70 launches per fill):
-//   0 .. 33   fold step t - 1 into (lo, hi); partials at the level midpoint
-//   34        fold step 33 (hi is lam); partials of the base fill at lam-1
-//   35        fold the base sum: rem = max(k - base, 0); tie bounds; partials
-//             of the marginal count at the first tie midpoint
-//   36 .. 68  fold step t - 1 into (tlo, thi); marginal counts at the
-//             new midpoint
-//   69        fold step 68; write x for the shard's rows
-// State per shard, [5, L] int32: lo, hi, tlo, thi, rem.  Every shard folds
-// the same D rows in the same order, so every shard holds the same bounds.
+// Every shard of a split lies on one card (parallel/sharded.py refuses a
+// mesh over several), so the reference's psum of each step's [L] partials
+// is a sum over rows that one launch can see.  The D shards' rows are the
+// elements 0 .. D * n - 1 of one cluster launch, row i of shard d being
+// element d * n + i; the element source reads that shard's tensors through
+// the table of shard.cuh (staged in shared memory) and writes its
+// placement into the shard's x.  The search, its exchange and owner routes
+// and its registers are K3's: int64 sums, exact in any order, so the
+// shards' rows summed together give what the reference's psum of per-shard
+// partials decides.  No step chain, no exchange buffer in global memory
+// between steps, and nothing kept across launches, so two fills may follow
+// each other on a stream without a sync.
 //
-// Bound on the H100: latency.  Each step is a dependent reduction over all
-// shards' rows; the bytes are those of K3 (16 read, 4 written per row),
-// read once per step from L2.  A simple first version: one block per
-// shard, partial sums in registers (one segment: warp shuffles), in
-// shared int64 atomics (up to kMaxSmemSegments segments: 128 KB), or in
-// int64 atomics straight into the shard's row of the exchange (more
-// segments).  A persistent cross-shard kernel or a CUDA graph per fill is
-// later work.
+// Bound on the H100: latency, as K3: 69 dependent cluster-wide reductions
+// (the bytes are 24 read and 4 written per row, plus k).  A cluster launch
+// the runtime refuses returns its error; there is no step-chain path.
 
 #include "shard.cuh"
+#include "waterfill.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxSmemSegments = 16384;          // 8 bytes each: 128 KB
-constexpr int kBase = sk::LEVEL_ITERS;           // 34: the base fill
-constexpr int kTieBegin = kBase + 1;             // 35
-constexpr int kFinal = kTieBegin + sk::TIE_ITERS;  // 69
+// What an element load reads of one shard.
+struct Cols {
+  const int32_t* e;
+  const int32_t* svc;
+  const int32_t* failures;
+  const int32_t* cap;
+  const int32_t* tie;
+  const int32_t* total;
+  const int32_t* seg;
+  int32_t* x;
+  int offset;
+};
 
-__device__ __forceinline__ int fill(int lam, int e, int cap) {
-  return min(max(lam - e, 0), cap);
-}
+struct ShardElems {
+  sk::ShardTable tab;
+  int count;         // shards in the table
+  int n_local;       // rows of each shard
+  int max_failures;
 
-__device__ __forceinline__ int level_of(const sk::Shard& sh, int i,
-                                        int max_failures) {
-  if (sh.e != nullptr) return sh.e[i];
-  const int sv = sk::clamp_int(sh.svc[i], 0, sk::SVC_CLAMP);
-  const int f = sh.failures[i];
-  const int down = f >= max_failures ? sk::clamp_int(f, 0, sk::FAILURE_CLAMP)
-                                     : 0;
-  return sv + down * sk::F_BIG;
-}
+  struct Stage {
+    Cols c[sk::MAX_LAUNCH_SHARDS];
+  };
 
-__device__ __forceinline__ int key_of(const sk::Shard& sh, int i) {
-  if (sh.tie != nullptr) return sh.tie[i];
-  const int idx = i + sh.offset;
-  if (sh.total != nullptr)
-    return (sk::clamp_int(sh.total[i], 0, sk::TOTAL_CLAMP) << sk::IDX_BITS) |
-           idx;
-  return idx;
-}
-
-__global__ void __launch_bounds__(kThreads) shard_waterfill_kernel(
-    sk::ShardTable tab, int D, int L, int step, int max_failures) {
-  extern __shared__ unsigned long long sum[];  // [L] up to kMaxSmemSegments
-  __shared__ long long red[kWarps + 1];
-  __shared__ sk::Shard me;
-  sk::load_shard(tab, &me);
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const bool one = L == 1;
-  int32_t* lo = me.state;
-  int32_t* hi = lo + L;
-  int32_t* tlo = hi + L;
-  int32_t* thi = tlo + L;
-  int32_t* rem = thi + L;
-
-  // ---- fold the previous step's partials of every shard
-  const long long* prev = me.xbuf + (size_t)((step + 1) & 1) * D * L;
-  for (int s = tid; s < L; s += nt) {
-    if (step == 0) {
-      lo[s] = 0;
-      hi[s] = sk::SEARCH_HI;
-      continue;
-    }
-    const long long tot = sk::fold_rows(prev, D, L, s);
-    const long long k = me.k[s];
-    if (step <= kBase) {
-      const int mid = lo[s] + ((hi[s] - lo[s]) >> 1);
-      if (tot >= k) hi[s] = mid;
-      else lo[s] = mid + 1;
-    } else if (step == kTieBegin) {
-      const long long r = k - tot;
-      rem[s] = r > 0 ? (int)r : 0;
-      tlo[s] = -1;
-      thi[s] = sk::SEARCH_HI;
-    } else {
-      const int mid = tlo[s] + ((thi[s] - tlo[s]) >> 1);
-      if (tot >= (long long)rem[s]) thi[s] = mid;
-      else tlo[s] = mid + 1;
-    }
-  }
-  __syncthreads();
-
-  // ---- the last step writes the shard's placement
-  if (step == kFinal) {
-    for (int i = tid; i < me.n; i += nt) {
-      const int s = me.seg != nullptr ? me.seg[i] : 0;
-      int xi = 0;
-      if ((unsigned)s < (unsigned)L) {
-        const int lam1 = hi[s] - 1;
-        const int e = level_of(me, i, max_failures);
-        const int c = me.cap[i];
-        const int base = fill(lam1, e, c);
-        const bool marginal = e <= lam1 && base < c;
-        const bool grant = marginal && key_of(me, i) <= thi[s] && rem[s] > 0;
-        xi = base + (grant ? 1 : 0);
+  // Thread d copies shard d's columns (the unrolled loop reads the table
+  // at constant offsets: a dynamic index into a kernel parameter would
+  // copy the whole table to local memory).
+  __device__ __forceinline__ void stage(Stage* st) const {
+#pragma unroll
+    for (int d = 0; d < sk::MAX_LAUNCH_SHARDS; ++d) {
+      if (d == (int)threadIdx.x && d < count) {
+        const sk::Shard& s = tab.s[d];
+        st->c[d] = Cols{s.e,     s.svc, s.failures, s.cap, s.tie,
+                        s.total, s.seg, s.x,        s.offset};
       }
-      me.x[i] = xi;
     }
-    return;
   }
 
-  // ---- this shard's partials at the new midpoint: in shared memory, or
-  // in the shard's own row of the exchange (that parity was last read by
-  // the previous launch)
-  long long* next = me.xbuf + (size_t)(step & 1) * D * L + (size_t)me.row * L;
-  unsigned long long* acc =
-      L <= kMaxSmemSegments ? sum : reinterpret_cast<unsigned long long*>(next);
-  if (!one) {
-    for (int s = tid; s < L; s += nt) acc[s] = 0;
-    __syncthreads();
-  }
-  long long mine = 0;
-  for (int i = tid; i < me.n; i += nt) {
-    const int s = me.seg != nullptr ? me.seg[i] : 0;
-    if ((unsigned)s >= (unsigned)L) continue;
-    const int e = level_of(me, i, max_failures);
-    const int c = me.cap[i];
-    int v;
-    if (step < kBase) {
-      v = fill(lo[s] + ((hi[s] - lo[s]) >> 1), e, c);
-    } else if (step == kBase) {
-      v = fill(hi[s] - 1, e, c);
-    } else {
-      const int lam1 = hi[s] - 1;
-      const bool marginal = e <= lam1 && fill(lam1, e, c) < c;
-      const int mid = tlo[s] + ((thi[s] - tlo[s]) >> 1);
-      v = marginal && key_of(me, i) <= mid ? 1 : 0;
+  __device__ __forceinline__ Elem load(const Stage& st, int i, int L) const {
+    const int d = i / n_local;
+    const int r = i - d * n_local;
+    const Cols& c = st.c[d];
+    Elem el{-1, 0, 0, 0};
+    const int s = c.seg != nullptr ? c.seg[r] : 0;
+    if ((unsigned)s < (unsigned)L) {
+      el.s = s;
+      el.lvl = c.e != nullptr
+                   ? c.e[r]
+                   : spread_level(c.svc[r], c.failures[r], max_failures);
+      el.cap = c.cap[r];
+      const int idx = r + c.offset;
+      el.key = c.tie != nullptr ? c.tie[r]
+               : c.total != nullptr
+                   ? (sk::clamp_int(c.total[r], 0, sk::TOTAL_CLAMP)
+                      << sk::IDX_BITS) | idx
+                   : idx;
     }
-    if (v <= 0) continue;
-    if (one) mine += v;
-    else atomicAdd(&acc[s], (unsigned long long)v);
+    return el;
   }
-  if (one) {
-    const long long total = sk::block_sum<kWarps>(mine, red);
-    if (tid == 0) next[0] = total;
-    return;
+
+  __device__ __forceinline__ void store(const Stage& st, int i, int v) const {
+    const int d = i / n_local;
+    st.c[d].x[i - d * n_local] = v;
   }
-  if (acc != sum) return;
-  __syncthreads();
-  for (int s = tid; s < L; s += nt) next[s] = (long long)sum[s];
-}
+};
 
 }  // namespace
 
-// Launches steps [step0, step0 + nsteps) of the fill for the `count`
-// shards of one card; D is the mesh's shard count.  `ptrs` holds
-// sk::SS_COUNT device pointers per shard (null where unused), `ints`
-// (n, offset, row) per shard, both in host memory.
-extern "C" int sk_shard_waterfill(int count, int D, int L, int step0,
-                                  int nsteps, const void* ptrs,
+// One fill over the `count` shards of one card, each of n rows.  `ptrs`
+// holds sk::SS_COUNT device pointers per shard (null where unused; the
+// state and exchange slots are not read), `ints` (n, offset, row) per
+// shard, both in host memory; k is shard 0's (the same [L] on every
+// shard).  `scratch`: sk_waterfill_scratch_bytes(L) bytes, or null where
+// that is 0.
+extern "C" int sk_shard_waterfill(int count, int L, const void* ptrs,
                                   const void* ints, int max_failures,
-                                  void* stream) {
-  sk::ShardTable tab;
-  if (L <= 0 || D <= 0 ||
-      !sk::make_table(count, (const void* const*)ptrs, (const int*)ints,
-                      &tab))
+                                  void* scratch, void* stream) {
+  ShardElems src;
+  if (L <= 0 || !sk::make_table(count, (const void* const*)ptrs,
+                                (const int*)ints, &src.tab))
     return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      L <= kMaxSmemSegments ? (size_t)L * sizeof(unsigned long long) : 0;
-  if (smem > 40 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        shard_waterfill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  for (int t = step0; t < step0 + nsteps; ++t) {
-    shard_waterfill_kernel<<<dim3(1, count), kThreads, smem,
-                             (cudaStream_t)stream>>>(tab, D, L, t,
-                                                     max_failures);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+  const int n = src.tab.s[0].n;
+  for (int d = 1; d < count; ++d)
+    if (src.tab.s[d].n != n) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  src.count = count;
+  src.n_local = n;
+  src.max_failures = max_failures;
+  return launch_waterfill(count * n, L, src, src.tab.s[0].k, nullptr,
+                          nullptr, scratch, stream);
 }

@@ -30,6 +30,20 @@ from .preempt import VictimInputs
 INT64_FIELDS = frozenset({"cpu", "mem", "cpu_d", "mem_d"})
 
 
+def resolve_device(device) -> torch.device:
+    """The device a helper or planner runs on: ``None`` means the card.
+    A CUDA device without CUDA raises: nothing drops to the CPU unless the
+    caller asks for it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("a CUDA device is needed and none is available "
+                           "(pass device='cpu' to run the plain PyTorch "
+                           "versions on the CPU)")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
 def tensor(a, device, wide: bool = False) -> torch.Tensor:
     """One numpy array or scalar as a contiguous tensor on ``device``:
     booleans stay ``torch.bool``, integers become ``torch.int32`` (the
@@ -78,10 +92,10 @@ def hier_to_device(hier, device) -> Tuple:
             None if leaf_parent is None else tensor(leaf_parent, device))
 
 
-def to_device(nodes, group, hier=(), device="cpu"):
+def to_device(nodes, group, hier=(), device=None):
     """(NodeInputs, GroupInputs, hier) as this package's tensors on
-    ``device``."""
-    dev = torch.device(device)
+    ``device`` (None: the card, see :func:`resolve_device`)."""
+    dev = resolve_device(device)
     return (nodes_to_device(nodes, dev), group_to_device(group, dev),
             hier_to_device(hier, dev))
 
@@ -112,11 +126,13 @@ def gang_to_device(rows: Sequence[Tuple], device) -> Tuple:
     return nodes_to_device(nodes, dev), group_to_device(groups, dev)
 
 
-def fused_to_device(shared, groups, carry, strat=None, device="cpu"):
+def fused_to_device(shared, groups, carry, strat=None, device=None):
     """(FusedShared, FusedGroups, FusedCarry, FusedStrategy or None) as
-    this package's tensors on ``device``.  The carry is always a fresh
-    copy: :func:`kernel.plan_fused` updates it in place, and on the CPU a
-    tensor made from a numpy array shares its memory."""
+    this package's tensors on ``device`` (None: the card, see
+    :func:`resolve_device`).  The carry is always a fresh copy:
+    :func:`kernel.plan_fused` updates it in place, and on the CPU a tensor
+    made from a numpy array shares its memory."""
+    device = resolve_device(device)
     carry_t = named_to_device(FusedCarry, carry, device)
     carry_t = FusedCarry(*(t.clone() if t.device.type == "cpu" else t
                            for t in carry_t))

@@ -34,7 +34,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("feasibility.cu", "segsum.cu", "waterfill.cu", "packfill.cu",
            "score.cu", "fused.cu", "scatter.cu", "gangfit.cu", "victims.cu",
            "shardfill.cu", "shardpack.cu")
-HEADERS = ("common.cuh", "feasibility.cuh", "shard.cuh")
+HEADERS = ("common.cuh", "feasibility.cuh", "shard.cuh", "waterfill.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -57,7 +57,8 @@ SIGNATURES = {
     "sk_scatter_rows": ([_I, _I] + [_P] * 7, _I),
     "sk_gang_fit": ([_I] * 4 + [_P] * 19, _I),
     "sk_select_victims": ([_I] * 5 + [_L] * 3 + [_P] * 12, _I),
-    "sk_shard_waterfill": ([_I] * 5 + [_P, _P, _I, _P], _I),
+    "sk_select_victims_scratch_bytes": ([_I], ctypes.c_longlong),
+    "sk_shard_waterfill": ([_I, _I, _P, _P, _I, _P, _P], _I),
     "sk_shard_packfill": ([_I] * 4 + [_P, _P, _I, _P], _I),
     "sk_error_string": ([_I], ctypes.c_char_p),
 }

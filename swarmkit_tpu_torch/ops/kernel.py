@@ -24,10 +24,12 @@ kernels (``csrc/``) carry them on Hopper:
 * ``gang_fit`` / ``gang_fit_fused`` (K8, ``csrc/gangfit.cu``): the gang
   all-or-nothing precheck, K1's per-node body summed per gang, for one
   gang or a stack of them;
-* ``shard_waterfill`` (K10, ``csrc/shardfill.cu``) and ``shard_packfill``
-  (K11, ``csrc/shardpack.cu``): the node-level water-fill and pack fill
-  over a node-axis split, one search step per launch, the shards' partial
-  sums crossing through an exchange buffer (see "node-axis split" below);
+* ``shard_waterfill`` (K10, ``csrc/shardfill.cu``): the node-level
+  water-fill over a node-axis split, K3's cluster kernel over every
+  shard's rows in one launch a fill;
+* ``shard_packfill`` (K11, ``csrc/shardpack.cu``): the pack fill over a
+  node-axis split, one search step per launch, the shards' partial sums
+  crossing through an exchange buffer (see "node-axis split" below);
   ``seg_fold`` is K2's cross-shard fold of the stage-A branch sums.
 
 Every wrapper below takes the kernel for tensors on a CUDA device and its
@@ -1373,20 +1375,22 @@ def gang_fit(nodes: NodeInputs, group: GroupInputs):
 # is what the reference psums, and nothing else: the 8 fail counts (summed
 # at the fetch, see :func:`merge_shard_rows`), stage A's branch sums (K2's
 # per-shard partials, folded by ``seg_fold``), each step of the node-level
-# searches and the base fill (K10, K11: one [L] int64 row per shard per
-# step) and the pack fill's count.  Every fold sums the D rows in shard
-# order, in int64: exact, deterministic, and the same on every shard.
-# Clamps apply to the folded sums, never per shard.  Stage A's water-fills
-# run on [L_d] vectors that every shard holds alike, so every shard
-# computes them (K3 as is) and ends with the same allocation and spill.
+# searches and the base fill, and the pack fill's count.  K10 sums each
+# step over every shard's rows inside one cluster launch (int64, exact in
+# any order); K11 chains its steps, one [1] int64 row per shard per step
+# through an exchange buffer.  Every fold sums the D rows in shard order,
+# in int64: exact, deterministic, and the same on every shard.  Clamps
+# apply to the folded sums, never per shard.  Stage A's water-fills run on
+# [L_d] vectors that every shard holds alike, so every shard computes them
+# (K3 as is) and ends with the same allocation and spill.
 #
 # Every shard of a mesh lies on one card (``parallel.NodeMesh`` refuses a
-# mesh over several), and the shards share one exchange buffer per fill.
-# A mesh over several cards, whose rows would cross by peer copy or NCCL,
-# is queued in ROADMAP.md.
+# mesh over several), which is what lets K10 see every shard's rows in one
+# launch.  A mesh over several cards is blocked (ROADMAP.md).
 
-#: K10's launches per fill: 34 level steps, the base fill, 34 tie steps,
-#: the placement
+#: a node-level water-fill's steps: 34 level steps, the base fill, 34 tie
+#: steps, the placement (K10 runs them in one launch; the plain version's
+#: psums are one fewer)
 WATERFILL_STEPS = LEVEL_ITERS + TIE_ITERS + 2
 #: K11's launches per fill: 34 threshold steps, the sum below it, the fill
 PACKFILL_STEPS = TIE_ITERS + 2
@@ -1521,28 +1525,19 @@ def _shard_waterfill_plain(parts: Sequence[FillShard], L: int,
             for xb, m, t, seg in zip(x_base, marginal, ties, segs)]
 
 
-def _run_steps(kernel, steps: int, parts, L: int, state_len: int,
-               extra: tuple) -> None:
-    """Launch a step kernel's ``steps`` steps over every shard of the card
-    in one call: a pointer table of each shard's tensors (its own search
-    state among them), its (n, offset, row) triple, and one [2, D, L]
-    int64 exchange buffer that the steps fill by parity.  The tensors and
-    ctypes arrays live until the steps are enqueued."""
-    D = len(parts)
-    dev = parts[0].cap.device
-    xbuf = torch.empty((2, D, L), dtype=torch.int64, device=dev)
-    states = torch.empty((D, state_len), dtype=torch.int32, device=dev)
+def _shard_table(parts, vals=None):
+    """A fill's launch table: each shard's ``_SHARD_SLOTS`` pointers
+    (``vals(d)`` overrides slots of shard d by name) and its (n, offset,
+    row) triple, as ctypes arrays that must live until the launch is
+    enqueued."""
     ptrs, ints = [], []
     for d, p in enumerate(parts):
-        vals = {"state": states[d], "xbuf": xbuf}
+        over = vals(d) if vals else {}
         for name in _SHARD_SLOTS:
-            ptrs.append(_cuda.ptr(vals.get(name, getattr(p, name, None))))
+            ptrs.append(_cuda.ptr(over.get(name, getattr(p, name, None))))
         ints += [p.cap.shape[0], p.offset, d]
-    ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    ints = (ctypes.c_int * len(ints))(*ints)
-    with torch.cuda.device(dev):
-        kernel.launch(steps, D, D, *extra, 0, steps, ctypes.addressof(ptrs),
-                      ctypes.addressof(ints), MAX_FAILURES)
+    return ((ctypes.c_void_p * len(ptrs))(*ptrs),
+            (ctypes.c_int * len(ints))(*ints))
 
 
 def _shard_waterfill(parts: Sequence[FillShard], L: int,
@@ -1552,7 +1547,9 @@ def _shard_waterfill(parts: Sequence[FillShard], L: int,
     per shard: the level ``e`` or the spread score of (``svc_tasks``,
     ``failures``); the tie key ``tie`` or (clip(``total``) << 20) | (index
     + offset), or the global index.  ``k`` is the same [L] on every
-    shard.  ``reduce``: the plain version's psum (CPU shards only)."""
+    shard.  On the card: one launch of K3's cluster kernel over every
+    shard's rows (equal row counts, as :func:`_local_n` enforces).
+    ``reduce``: the plain version's psum (CPU shards only)."""
     need = () if all(p.e is not None for p in parts) \
         else ("svc_tasks", "failures")
     for p in parts:
@@ -1562,7 +1559,19 @@ def _shard_waterfill(parts: Sequence[FillShard], L: int,
         for p, x in zip(parts, _shard_waterfill_plain(parts, L, reduce)):
             p.out.copy_(x)
         return
-    _run_steps(SHARD_WATERFILL, WATERFILL_STEPS, parts, L, 5 * L, (L,))
+    n = parts[0].cap.shape[0]
+    if any(p.cap.shape[0] != n for p in parts):
+        raise ValueError("the shards of a fill on the card must hold equal "
+                         "row counts")
+    dev = parts[0].cap.device
+    ptrs, ints = _shard_table(parts)
+    nbytes = _waterfill_scratch_bytes(L)
+    with torch.cuda.device(dev):
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev) \
+            if nbytes else None
+        SHARD_WATERFILL(len(parts), L, ctypes.addressof(ptrs),
+                        ctypes.addressof(ints), MAX_FAILURES,
+                        _cuda.ptr(scratch))
 
 
 def _shard_packfill_plain(parts: Sequence[FillShard],
@@ -1610,7 +1619,18 @@ def _shard_packfill(parts: Sequence[FillShard], reduce=None) -> None:
         for p, x in zip(parts, _shard_packfill_plain(parts, reduce)):
             p.out.copy_(x)
         return
-    _run_steps(SHARD_PACKFILL, PACKFILL_STEPS, parts, 1, 3, ())
+    # the chain's exchange buffer, filled by parity, and each shard's own
+    # search state (lo, hi, rem)
+    D = len(parts)
+    dev = parts[0].cap.device
+    xbuf = torch.empty((2, D, 1), dtype=torch.int64, device=dev)
+    states = torch.empty((D, 3), dtype=torch.int32, device=dev)
+    ptrs, ints = _shard_table(
+        parts, lambda d: {"state": states[d], "xbuf": xbuf})
+    with torch.cuda.device(dev):
+        SHARD_PACKFILL.launch(PACKFILL_STEPS, D, D, 0, PACKFILL_STEPS,
+                              ctypes.addressof(ptrs), ctypes.addressof(ints),
+                              MAX_FAILURES)
 
 
 # ------------------------------------------- K2 over a node-axis split

@@ -66,7 +66,9 @@ from ..scheduler import strategy as strategy_mod
 from ..scheduler.nodeinfo import NodeInfo
 from ..utils.metrics import registry as _metrics
 from . import densify, fusedbatch
-from .convert import gang_to_device, named_to_device, tensor, to_device
+from .convert import (
+    gang_to_device, named_to_device, resolve_device, tensor, to_device,
+)
 from .densify import (
     CC_BUCKETS as _CC_BUCKETS, P_BUCKETS as _P_BUCKETS,
     bucket as _bucket, l_bucket as _l_bucket, n_bucket as _n_bucket,
@@ -110,19 +112,6 @@ def _fast_assign(task: Task, node_id: str, status) -> Task:
     return new
 
 
-def _resolve_device(device) -> torch.device:
-    """``None`` means the card.  A CUDA device without CUDA raises: the
-    planner never drops to the CPU unless the caller asks for it."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("TorchPlanner needs a CUDA device; none is "
-                           "available (pass device='cpu' to run the plain "
-                           "PyTorch versions on the CPU)")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
-
-
 class _InFlightPlan:
     """One dispatched-but-unfetched device plan: everything fetch_group
     needs to finish the group once the result lands."""
@@ -153,7 +142,7 @@ class TorchPlanner:
     device, where the unsharded work runs."""
 
     def __init__(self, device=None, mesh=None):
-        self.device = _resolve_device(
+        self.device = resolve_device(
             mesh.devices[0] if device is None and mesh is not None
             else device)
         self.mesh = None

@@ -15,7 +15,8 @@ victim count exceeds the remaining budget, stops the run.
 :func:`_select_victims_plain` for CPU tensors, with no fallback between
 the two.  The plain version recomputes every node's prefix on every pick,
 as the reference's scan does; K9 recomputes only the chosen node's, since
-a pick changes no other node's state.  Both return the reference's
+a pick changes no other node's state, and finds the next pick in a
+tournament tree of the nodes' keys, re-minimising only that node's path.  Both return the reference's
 integers packed in one int32 buffer ``[node (PB) | m (PB)]`` (so one D2H
 fetches them; ``buf.view(2, -1)`` splits it), -1 / 0 for an inactive pick
 (past ``n_picks``, or after a stop).
@@ -27,6 +28,7 @@ picks to a power of two (:func:`pick_bucket`).
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -165,6 +167,13 @@ def _select_victims_plain(inp: VictimInputs, cpu_d: int, mem_d: int,
 
 # ------------------------------------------------------------------- K9
 
+@lru_cache(maxsize=None)
+def _scratch_bytes(n: int) -> int:
+    """K9's scratch for ``n`` nodes: per node its key, surpluses, used
+    mask and prefix length, and the keys' first tree level."""
+    return int(_cuda.library().sk_select_victims_scratch_bytes(n))
+
+
 def select_victims(inp: VictimInputs, cpu_d: int, mem_d: int, gen_d: int,
                    n_picks: int, budget: int, picks: int) -> torch.Tensor:
     """The reference ``select_victims_jit``'s picks in ONE int32 buffer
@@ -176,8 +185,7 @@ def select_victims(inp: VictimInputs, cpu_d: int, mem_d: int, gen_d: int,
         return _select_victims_plain(inp, cpu_d, mem_d, gen_d, n_picks,
                                      budget, picks)
     out = torch.empty(2 * picks, dtype=torch.int32, device=dev)
-    # key, ex_cpu, ex_mem, ex_gen, used (8 bytes each) and m (4) per node
-    scratch = torch.empty(44 * n, dtype=torch.uint8, device=dev)
+    scratch = torch.empty(_scratch_bytes(n), dtype=torch.uint8, device=dev)
     VICTIMS(n, v, picks, n_picks, budget, cpu_d, mem_d, gen_d,
             *map(_cuda.ptr, inp), _cuda.ptr(scratch), _cuda.ptr(out))
     return out

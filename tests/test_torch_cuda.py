@@ -13,10 +13,10 @@ import pytest
 import torch
 
 from chip_smoke import (
-    SHARD_FILL_CASES, VICTIM_CASES, WATERFILL_MODES, fill_parts,
-    fused_inputs, gang_rows, headline_fill_parts, plan_inputs,
-    scatter_inputs, shard_fill_inputs, victim_inputs, waterfill_call,
-    waterfill_inputs)
+    SHARD_FILL_CASES, VICTIM_CASES, VICTIM_EDGE_CASES, WATERFILL_MODES,
+    edge_fill_inputs, fill_parts, fused_inputs, gang_rows,
+    headline_fill_parts, plan_inputs, scatter_inputs, shard_fill_inputs,
+    victim_edge_inputs, victim_inputs, waterfill_call, waterfill_inputs)
 from swarmkit_tpu_torch.ops import kernel as K
 from swarmkit_tpu_torch.ops import preempt as P
 from swarmkit_tpu_torch.ops.convert import (
@@ -228,10 +228,10 @@ def test_plan_group_twice_without_a_sync():
 
 
 @pytest.mark.parametrize("L", [16384, 32768])
-@pytest.mark.parametrize("shards", [1, 4])
+@pytest.mark.parametrize("shards", [1, 4, 16])
 def test_shard_waterfill_kernel_at_wide_segment_counts(shards, L):
-    """K10 over 16,384 segments (its partials in shared memory) and 32,768
-    (straight into the exchange) against its plain version and the
+    """K10 over 16,384 segments (K3's exchange route) and 32,768 (its
+    owner route, with global scratch) against its plain version and the
     one-shard fill."""
     dev = _card()
     arrs = shard_fill_inputs(9, nb=16384, n_valid=16000, L=L)
@@ -602,6 +602,50 @@ def test_select_victims_kernel_matches_plain(case):
     assert (picks == args[3]) == (kind == "full"), (picks, args[3])
 
 
+@pytest.mark.parametrize("n", [1000, 10000, 1 << 17])
+@pytest.mark.parametrize("case", VICTIM_CASES)
+@pytest.mark.parametrize("v", [4, 16, 64])
+def test_select_victims_kernel_at_node_buckets(v, case, n):
+    """K9 at node buckets 1,024, 16,384 and 2^17 (its tree's leaves in
+    shared memory up to 16,384 nodes, in global memory past that) with
+    512 picks, against its plain version on the same CUDA tensors."""
+    dev = _card()
+    cand, args = victim_inputs(500 + v, v, case, n=n)
+    pb = P.pick_bucket(args[3])
+    inp = victims_to_device(cand, n_bucket(n), dev)
+    got = P.select_victims(inp, *args, pb)
+    torch.cuda.synchronize()
+    _eq(got, P._select_victims_plain(inp, *args, pb))
+
+
+def test_select_victims_kernel_at_max_nodes():
+    """K9 at its largest node bucket, 2^20 (the tree's first two levels in
+    global memory), against its plain version."""
+    dev = _card()
+    n = P.MAX_NODES
+    cand, args = victim_inputs(77, 16, "full", n=n, picks=128)
+    pb = P.pick_bucket(args[3])
+    inp = victims_to_device(cand, n_bucket(n), dev)
+    got = P.select_victims(inp, *args, pb)
+    torch.cuda.synchronize()
+    _eq(got, P._select_victims_plain(inp, *args, pb))
+    assert int((got[:pb] >= 0).sum()) == 128
+
+
+@pytest.mark.parametrize("n", [600, 1 << 17])
+@pytest.mark.parametrize("case", VICTIM_EDGE_CASES)
+def test_select_victims_kernel_at_edge_cases(case, n):
+    """K9 on the cases its pick order turns on (equal keys, a node
+    infeasible after its pick, a node picked again, budget and infeasible
+    stops at V = 64, free pools below zero) against its plain version."""
+    dev = _card()
+    cand, args = victim_edge_inputs(case, n=n, picks=64)
+    inp = victims_to_device(cand, n_bucket(n), dev)
+    got = P.select_victims(inp, *args, 64)
+    torch.cuda.synchronize()
+    _eq(got, P._select_victims_plain(inp, *args, 64))
+
+
 def test_select_victims_counts_launches():
     dev = _card()
     cand, args = victim_inputs(3, 4, "full", n=500, picks=8)
@@ -643,7 +687,7 @@ def _fill(parts, L, pack):
     return torch.cat([p.out for p in parts])
 
 
-@pytest.mark.parametrize("shards", [1, 2, 4, 8])
+@pytest.mark.parametrize("shards", [1, 2, 4, 8, 16])
 @pytest.mark.parametrize("case", sorted(SHARD_FILL_CASES))
 def test_shard_fill_kernels_match_plain(case, shards):
     """K10 and K11 on ``shards`` shards of one card against their plain
@@ -659,7 +703,7 @@ def test_shard_fill_kernels_match_plain(case, shards):
     _eq(got, _fill(fill_parts(arrs, 1, dev), kw["L"], arrs["pack"]))
 
 
-@pytest.mark.parametrize("shards", [1, 4])
+@pytest.mark.parametrize("shards", [1, 2, 4, 8, 16])
 def test_shard_waterfill_kernel_at_headline_shape(shards):
     """K10 at the shape the mesh headline path gives it (the leaf fill of
     a headline group, nb 16384, L = 256, 20 live racks) against its plain
@@ -671,6 +715,45 @@ def test_shard_waterfill_kernel_at_headline_shape(shards):
     assert int(got.to(torch.int64).sum()) == 80000
     one, _ = headline_fill_parts(1, dev)
     _eq(got, _fill(one, L, False))
+
+
+EDGE_FILLS = {
+    "L1": dict(n=16384, L=1),
+    "L20": dict(n=16384, L=20),
+    "L20_level": dict(n=16384, L=20, scored=True),
+    "L8200": dict(n=16400, L=8200),
+}
+
+
+@pytest.mark.parametrize("shards", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("case", sorted(EDGE_FILLS))
+def test_shard_waterfill_kernel_at_edge_cases(case, shards):
+    """K10 where a segment lies inside one shard and another spreads over
+    all, equal levels meet at every shard border, and L passes 8,192,
+    against its plain version on the same CUDA tensors."""
+    dev = _card()
+    kw = EDGE_FILLS[case]
+    parts = fill_parts(edge_fill_inputs(43, **kw), shards, dev)
+    got = _fill(parts, kw["L"], False)
+    _eq(got, torch.cat(K._shard_waterfill_plain(parts, kw["L"])))
+
+
+@pytest.mark.parametrize("L", [256, 32768])
+def test_shard_waterfill_twice_without_a_sync(L):
+    """Two K10 fills of different inputs enqueued back to back, as the
+    fused route's in-flight chunks are: each equals its plain version
+    (nothing of one fill's scratch leaks into the next)."""
+    dev = _card()
+    first = fill_parts(shard_fill_inputs(21, nb=16384, n_valid=16000, L=L),
+                       4, dev)
+    second = fill_parts(shard_fill_inputs(22, nb=16384, n_valid=15000,
+                                          L=L), 4, dev)
+    K._shard_waterfill(first, L)
+    K._shard_waterfill(second, L)
+    torch.cuda.synchronize()
+    for parts in (first, second):
+        _eq(torch.cat([p.out for p in parts]),
+            torch.cat(K._shard_waterfill_plain(parts, L)))
 
 
 def test_seg_fold_kernel_matches_plain():
@@ -693,7 +776,7 @@ def test_shard_fill_kernels_count_launches():
     arrs = shard_fill_inputs(5, nb=4096, n_valid=4000, L=3)
     parts = fill_parts(arrs, 4, dev)
     assert _launched(lambda: K._shard_waterfill(parts, 3)) \
-        == {"shard_waterfill": K.WATERFILL_STEPS}
+        == {"shard_waterfill": 1}
     arrs = shard_fill_inputs(5, nb=4096, n_valid=4000, L=1, pack=True)
     parts = fill_parts(arrs, 4, dev)
     assert _launched(lambda: K._shard_packfill(parts)) \
@@ -721,7 +804,7 @@ def test_plan_group_sharded_on_card_matches_cpu(case, shards):
                                   .numpy()[:n + K.N_FILTERS + 1])
     launched = _launched(lambda: S.ShardedPlanFn(card)(nodes, group, L,
                                                        hier))
-    assert launched["shard_waterfill"] == K.WATERFILL_STEPS
+    assert launched["shard_waterfill"] == 1
     assert launched["seg_fold"] == shards * (2 if hier else 1)
 
 

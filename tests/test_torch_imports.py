@@ -105,3 +105,31 @@ def test_wrappers_refuse_other_devices():
     from swarmkit_tpu_torch.ops import kernel
     with pytest.raises(ValueError):
         kernel._on_cuda(torch.zeros(1, device="meta"))
+
+
+@pytest.mark.parametrize("helper", ["to_device", "fused_to_device"])
+def test_device_helpers_default_to_cuda(helper):
+    """``to_device`` and ``fused_to_device`` called without a device put
+    their tensors on the card, or raise where there is none: never CPU
+    tensors unless the caller asks for the CPU."""
+    import numpy as np
+    from swarmkit_tpu_torch.ops import convert
+    from swarmkit_tpu_torch.ops.kernel import (
+        FusedCarry, FusedGroups, FusedShared, GroupInputs, NodeInputs)
+
+    def arrays(cls):
+        return cls(**{name: np.zeros(4, np.int32) for name in cls._fields})
+
+    if helper == "to_device":
+        args = (arrays(NodeInputs), arrays(GroupInputs))
+    else:
+        args = (arrays(FusedShared), arrays(FusedGroups), arrays(FusedCarry))
+    fn = getattr(convert, helper)
+    if torch.cuda.is_available():
+        tensors = [t for part in fn(*args)[:2] for t in part]
+        assert all(t.device.type == "cuda" for t in tensors)
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(*args)
+    tensors = [t for part in fn(*args, device="cpu")[:2] for t in part]
+    assert all(t.device.type == "cpu" for t in tensors)

@@ -123,7 +123,7 @@ def test_feasibility_and_capacity_matches_reference(case):
     nodes, group = make_inputs(seed, **kw)
     mask_r, cap_r, fail_r = ref.feasibility_and_capacity(
         *jax_inputs(nodes, group))
-    pn, pg, _ = to_device(nodes, group)
+    pn, pg, _ = to_device(nodes, group, device="cpu")
     mask_p, cap_p, fail_p = port.feasibility_and_capacity(pn, pg)
     np.testing.assert_array_equal(_np(mask_p), np.asarray(mask_r))
     np.testing.assert_array_equal(_np(cap_p), np.asarray(cap_r))
@@ -135,7 +135,7 @@ def test_feasibility_and_capacity_matches_reference(case):
 def test_feasibility_entry_matches_reference_jit(case):
     nodes, group = make_inputs(5, **FEAS_CASES[case])
     mask_r, cap_r, fail_r = ref.feasibility_jit(*jax_inputs(nodes, group))
-    pn, pg, _ = to_device(nodes, group)
+    pn, pg, _ = to_device(nodes, group, device="cpu")
     mask_p, cap_p, fail_p = port.feasibility(pn, pg)
     np.testing.assert_array_equal(_np(mask_p), np.asarray(mask_r))
     np.testing.assert_array_equal(_np(cap_p), np.asarray(cap_r))
@@ -297,7 +297,7 @@ def _ref_plan(nodes, group, L, hier):
 def test_plan_group_matches_reference(case):
     nodes, group, L, hier = plan_case(case)
     x_r, fail_r, spill_r = _ref_plan(nodes, group, L, hier)
-    pn, pg, ph = to_device(nodes, group, hier)
+    pn, pg, ph = to_device(nodes, group, hier, "cpu")
     x_p, fail_p, spill_p = port.plan_group(pn, pg, L, ph)
     np.testing.assert_array_equal(_np(x_p), np.asarray(x_r))
     np.testing.assert_array_equal(_np(fail_p), np.asarray(fail_r))
@@ -308,7 +308,7 @@ def test_plan_group_matches_reference(case):
 
 def test_plan_group_places_k_when_capacity_allows():
     nodes, group, L, hier = plan_case("one_level")
-    pn, pg, ph = to_device(nodes, group, hier)
+    pn, pg, ph = to_device(nodes, group, hier, "cpu")
     x, _, spill = port.plan_group(pn, pg, L, ph)
     assert not bool(spill)
     assert int(_np(x).sum()) == int(group.k)
@@ -318,7 +318,7 @@ def test_plan_buffer_round_trip():
     """The single-D2H seam: the packed buffer splits back into the triple
     the planner applies."""
     nodes, group, L, hier = plan_case("two_level")
-    pn, pg, ph = to_device(nodes, group, hier)
+    pn, pg, ph = to_device(nodes, group, hier, "cpu")
     n = nodes.valid.shape[0]
     buf = port.plan_group_packed(pn, pg, L, ph)
     x, fail, spill = port.fetch_plan(port.start_fetch(buf), n)
@@ -330,7 +330,7 @@ def test_plan_buffer_round_trip():
 
 def test_wrapper_refuses_mismatched_inputs():
     nodes, group = make_inputs(1, n=64)
-    pn, pg, _ = to_device(nodes, group)
+    pn, pg, _ = to_device(nodes, group, device="cpu")
     with pytest.raises(ValueError):
         port.feasibility(pn._replace(res_cap=pn.res_cap.to(torch.int64)), pg)
     with pytest.raises(ValueError):

@@ -32,6 +32,7 @@ if not hasattr(jax.experimental, "enable_x64"):
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
+from chip_smoke import VICTIM_EDGE_CASES, victim_edge_inputs  # noqa: E402
 from swarmkit_tpu.ops import fusedbatch as ref_fusedbatch  # noqa: E402
 from swarmkit_tpu.ops import preempt as ref  # noqa: E402
 from swarmkit_tpu_torch.ops import preempt as port  # noqa: E402
@@ -219,6 +220,33 @@ def test_generic_column_decides():
     cand.vgen = np.array([[1, 0], [1, 2]], np.int64)
     picks = check_all(cand, 10 ** 9, 0, 2, 3, 10)
     assert picks[0] == (1, 2)
+
+
+EDGE_PICKS = {
+    # the index decides among equal keys; a chosen node is then infeasible
+    "equal_keys": [(j, 2) for j in range(PB)],
+    # a surplus rides two free picks; a node picked again walks past its
+    # used slots
+    "repick": [(3, 1), (3, 0), (3, 0)] + [(5, m) for m in range(1, 14)],
+    "budget_stop_v64": [(0, 2), (0, 4)],
+    # m counts the dead slots before each prefix's live victims
+    "infeasible_stop_v64": [(j, m) for j in (17, 300, 599)
+                            for m in (21, 64)],
+}
+
+
+@pytest.mark.parametrize("case", VICTIM_EDGE_CASES)
+def test_edge_cases_match_reference_and_host(case):
+    """The cases the device's pick order turns on (equal keys, a node
+    infeasible after its pick, a node picked again, budget and infeasible
+    stops at V = 64, free pools below zero): plain version == reference
+    kernel == host oracle."""
+    cand, args = victim_edge_inputs(case, n=600, picks=PB)
+    picks = check_all(cand, *args)
+    if case in EDGE_PICKS:
+        assert picks == EDGE_PICKS[case]
+    else:
+        assert len(picks) == PB and picks[0][1] > 0
 
 
 def test_plain_version_on_a_tensor_of_another_device_raises():

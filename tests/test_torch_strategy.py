@@ -164,7 +164,7 @@ def test_seg_packfill_matches_reference(case):
 
 def test_binpack_key_matches_reference_formula():
     nodes, _ = make_inputs(3)
-    pn, _, _ = to_device(nodes, make_inputs(3)[1])
+    pn, _, _ = to_device(nodes, make_inputs(3)[1], device="cpu")
     got = _np(port._binpack_key(pn.res_cap, pn.failures))
     want = strategy_mod.binpack_key(nodes.res_cap, nodes.failures,
                                     np.arange(len(nodes.res_cap)))
@@ -193,7 +193,7 @@ def test_strategy_score_matches_reference(case):
             nodes.svc_tasks, ref.SVC_CLAMP + 5))
     sin = make_strategy(21, len(nodes.valid), **kw)
     want = np.asarray(ref.strategy_score(_jax(nodes), _jax(sin), strategy))
-    pn, _, _ = to_device(nodes, group)
+    pn, _, _ = to_device(nodes, group, device="cpu")
     got = port.strategy_score(pn, strategy_to_device(sin), strategy)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(_np(got), want)
@@ -214,7 +214,7 @@ def test_learned_score_matches_host_oracle():
         sin.hr_mem, nodes.ready)
     want = strategy_mod.learned_score_host(feats, (sin.w1, sin.b1, sin.w2,
                                                    sin.b2))
-    pn, _, _ = to_device(nodes, group)
+    pn, _, _ = to_device(nodes, group, device="cpu")
     got = port._learned_score(pn, strategy_to_device(sin))
     np.testing.assert_array_equal(_np(got), want)
 
@@ -241,7 +241,7 @@ def test_plan_strategy_matches_reference_jit(case):
     sin = make_strategy(33, len(nodes.valid), **sin_kw)
     x_r, f_r, s_r = ref.plan_strategy_jit(_jax(nodes), _jax(group),
                                           _jax(sin), strategy)
-    pn, pg, _ = to_device(nodes, group)
+    pn, pg, _ = to_device(nodes, group, device="cpu")
     x_p, f_p, s_p = port.plan_strategy(pn, pg, strategy_to_device(sin),
                                        strategy)
     np.testing.assert_array_equal(_np(x_p), np.asarray(x_r))
