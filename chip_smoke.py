@@ -14,8 +14,10 @@ Phases, each of which exits non-zero on failure:
    K1-K3; a cfg7 chunk of 4 group slots over 16 service slots for K4-K6);
    K2 twice back to back without a sync, one launch a call; K3 (one
    cluster launch a call) also over one spread value per node (L =
-   16,384); outputs must be bit-equal, and so must one fused chunk on the
-   card and on the CPU.  Times come from CUDA events and torch.profiler;
+   16,384); K5 (one launch a call) also on its edge cases
+   (``pack_edge_inputs``); outputs must be bit-equal, and so must one
+   fused chunk on the card and on the CPU.  Times come from CUDA events
+   and torch.profiler (every kernel launch's row counted);
 4. headline path: the headline cluster (10,000 nodes, 100,000 tasks of one
    replicated service, 20% preassigned, spread over 20 racks) through
    ``Scheduler`` + ``TorchPlanner()``: every task placed on the device,
@@ -75,15 +77,19 @@ Phases, each of which exits non-zero on failure:
     the card: K10 (one launch a fill) over 20 segments (equal loads across
     the shard borders, capacity sums past 2^24, a segment that cannot be
     filled), over one, over the headline's leaf fill (L = 256, timed) and
-    over one segment a row (L = 16,384, timed), K11 at and below the
-    whole capacity, each bit-equal to its plain version on the same
-    tensors; K2's cross-shard fold at the headline's leaf level;
+    over one segment a row (L = 16,384, timed), K11 (one launch a fill)
+    at and below the whole capacity and on K5's edge cases, each
+    bit-equal to its plain version on the same tensors, K10's and K11's
+    profiles within 15% of the median of ``probes/kernel_ab.py --fills``
+    run in three processes of its own; K2's cross-shard fold at the
+    headline's leaf level;
 17. the headline tick through ``TorchPlanner(mesh=make_mesh(["cuda:0"] *
     4))``: every task placed, every plan's x, fail counts and spill equal
     to the unsharded tick's (phase 4), K10 launched;
 18. config 7 through the same mesh: every group fused in 3 chunks,
-    binpack through K11, each chunk's rows and the per-(service, node)
-    counts equal to the unsharded tick's (phase 7), and its traced twin;
+    binpack through K11 (two launches, one a fill), each chunk's rows and
+    the per-(service, node) counts equal to the unsharded tick's (phase
+    7), and its traced twin;
     with phase 16, two compositions of the split timed against the
     unsharded plans of the same inputs (B13, a weighted group's plan;
     B14, a cfg7 fused chunk);
@@ -118,6 +124,9 @@ SCALAR_OPS_PER_S = 67e12       # H100 SXM 32-bit rate outside tensor cores
 REPS = 50
 #: shards of the mesh phases, all on the one card
 MESH_SHARDS = 4
+#: integer operations a row of K5 and K11 needs: the binpack key (6), its
+#: histogram bin and sum (3), the placement (3)
+PACK_OPS = 12
 
 
 def fail(msg):
@@ -170,33 +179,120 @@ def device_us(evt):
     return 0.0
 
 
-def device_ms(torch, fn, symbols, reps=20):
-    """Device time per call of the kernels whose names contain one of
-    ``symbols``, from torch.profiler; None when the profiler saw none."""
-    return device_ms_each(torch, fn, (symbols,), reps)[0]
+#: throwaway kernels launched at the start of each profiled session: once
+#: a process has run a traced tick, torch.profiler loses the first rows of
+#: later sessions, usually 8-16, whatever idle time precedes them (PERF.md,
+#: open questions), and these absorb the loss.  Their rows are kept out of
+#: every sum.
+PROFILE_WARM = 64
+#: sessions :func:`device_ms_each` makes before a measured launch without
+#: its device row fails the phase
+PROFILE_TRIES = 3
+#: what each profiled session saw: its kernel rows against the launches it
+#: made, the warm-up rows that came back, the launches without a row, and
+#: the device clock's offset
+PROFILE_LOG = []
 
 
-def device_ms_each(torch, fn, groups, reps=20):
-    """Device time per call for each group of kernel-name ``symbols`` in
-    ``groups``, from one torch.profiler session; None where it saw none."""
+def profiled(torch, body):
+    """Run ``body`` in one torch.profiler session that starts with
+    PROFILE_WARM throwaway kernels, and return the device rows of
+    ``body`` alone as (name, microseconds) pairs, with the session's
+    record: ``warm``, how many warm-up launches came back as kernel rows;
+    ``missing``, how many kernel launch calls of ``body`` show no device
+    row; ``skew``, the least (kernel start - its launch call's start) in
+    ms, a few microseconds when the device and host clocks agree.
+
+    The rows come from the profile's raw events, where each device row
+    carries its launch call's correlation id, so the warm-up's rows are
+    told apart from those of ``body``."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    warm = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_WARM):
+            warm.add_(1)
+        torch.cuda.synchronize()
+        body()
+        torch.cuda.synchronize()
+    try:
+        events = prof.profiler.kineto_results.events()
+    except AttributeError:
+        fail("this torch's profiler exposes no raw events: the warm-up's "
+             "rows cannot be kept out of the device sums")
+    launches = sorted((e for e in events
+                       if e.device_type() != DeviceType.CUDA
+                       and "Launch" in e.name()),
+                      key=lambda e: e.start_ns())
+    check(len(launches) >= PROFILE_WARM,
+          f"the profiler recorded {len(launches)} launch calls, fewer than "
+          f"the {PROFILE_WARM} of its warm-up")
+    warm_ids = {e.correlation_id() for e in launches[:PROFILE_WARM]}
+    device = [e for e in events if e.device_type() == DeviceType.CUDA]
+    kern = {e.correlation_id(): e for e in device}
+    skews = [(kern[e.correlation_id()].start_ns() - e.start_ns()) / 1e6
+             for e in launches if e.correlation_id() in kern]
+    rows = [(e.name(), e.duration_ns() / 1e3) for e in device
+            if e.correlation_id() not in warm_ids]
+    session = dict(
+        warm=sum(e.correlation_id() in kern
+                 for e in launches[:PROFILE_WARM]),
+        missing=sum(e.correlation_id() not in kern
+                    for e in launches[PROFILE_WARM:]),
+        skew=min(skews) if skews else None)
+    return rows, session
+
+
+def device_ms(torch, fn, symbols, reps=20, label=None):
+    """Device time per call of the kernels whose names contain one of
+    ``symbols``, from torch.profiler (see :func:`device_ms_each`)."""
+    return device_ms_each(torch, fn, (symbols,), reps, label=label)[0]
+
+
+def device_ms_each(torch, fn, groups, reps=20, per_call=None, label=None):
+    """Device time per call for each group of kernel-name ``symbols`` in
+    ``groups``, from one :func:`profiled` session of ``reps`` calls.
+
+    Every launch of the ``reps`` calls must show its device row: a session
+    that lost one is made again, up to PROFILE_TRIES in all, and then the
+    phase fails.  A group of kernel names must show exactly ``per_call``
+    rows a call (default 1), so a lost row fails the phase instead of
+    reading short.  A group of every device op (``("",)``) is not counted
+    but must show some row."""
+    fn()
+
+    def body():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    out = []
-    for symbols in groups:
-        total = sum(device_us(e) for e in events
-                    if any(sym in e.key for sym in symbols))
-        out.append(total / reps / 1e3 if total > 0 else None)
-        if total <= 0:
-            seen = sorted((e.key[:80] for e in events if device_us(e) > 0))
-            print(f"device_ms: no device row matches {symbols}; rows seen: "
-                  f"{seen[:6]}", file=sys.stderr, flush=True)
+
+    for attempt in range(PROFILE_TRIES):
+        events, session = profiled(torch, body)
+        session["attempt"] = attempt + 1
+        if session["missing"] == 0:
+            break
+        PROFILE_LOG.append(dict(label=label, session=session))
+    check(session["missing"] == 0,
+          f"device_ms ({label}): {session['missing']} kernel launches show "
+          f"no device row in each of {PROFILE_TRIES} sessions; {session}")
+    seen = sorted({name[:80] for name, _ in events})
+    out, rows = [], []
+    for j, symbols in enumerate(groups):
+        hit = [us for name, us in events
+               if any(sym in name for sym in symbols)]
+        want = None if symbols == ("",) else \
+            (per_call[j] if per_call else 1) * reps
+        rows.append(dict(symbols=list(symbols), rows=len(hit),
+                         expected=want))
+        check(sum(hit) > 0, f"device_ms ({label or symbols}): no device row "
+              f"matches {symbols}; rows seen: {seen[:6]}; {session}")
+        check(want is None or len(hit) == want,
+              f"device_ms ({label or symbols}): {len(hit)} device rows match "
+              f"{symbols}, {want} launched; rows seen: {seen[:6]}; "
+              f"{session}")
+        out.append(sum(hit) / reps / 1e3)
+    PROFILE_LOG.append(dict(label=label, groups=rows, session=session))
     return out
 
 
@@ -549,6 +645,49 @@ def edge_fill_inputs(seed, n, L, scored=False):
     return dict(svc=svc, failures=failures, total=total,
                 res_cap=np.zeros(n, np.int32), cap=cap,
                 e=e if scored else None, leaf=leaf, k=k, pack=False)
+
+
+#: K5's and K11's edge cases (:func:`pack_edge_inputs`)
+PACK_EDGE_CASES = ("k1", "k_total", "k_over", "k0", "failure_band",
+                   "one_bin", "cap0_band", "border", "half")
+
+
+def pack_edge_inputs(seed, n, case):
+    """Seeded numpy columns (length ``n``, a multiple of 16) and k
+    (int32 [1]) of one binpack fill, for the cases its threshold select
+    turns on: k = 1, the whole capacity, 9 past it, 0; every row in the
+    failure band; every row in one score bin; rows of capacity 0 inside
+    the threshold's score bin, next to it; the threshold row the first
+    row of the second half (a shard border at D = 2, 4, 8 and 16); and
+    half the capacity over random scores (past 2^20 rows the index runs
+    into the score bits and keys repeat)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    res_cap = rng.randint(0, 1200, n).astype(np.int32)
+    failures = rng.choice([0] * 10 + [1, 5, 70], n).astype(np.int32)
+    cap = rng.randint(0, 7, n).astype(np.int32)
+    if case == "failure_band":
+        failures = rng.randint(5, 80, n).astype(np.int32)
+    elif case == "one_bin":
+        res_cap[:], failures[:] = 480, 0
+    elif case == "cap0_band":
+        res_cap = rng.choice([100, 480, 700], n).astype(np.int32)
+        failures[:] = 0
+        band = np.nonzero(res_cap == 480)[0]
+        cap[band[::2]] = 0
+        cap[band[1::2]] = 3
+    elif case == "border":
+        res_cap[:], failures[:], cap[:] = 200, 0, 2
+    total = int(cap.astype(np.int64).sum())
+    if case == "cap0_band":
+        # the threshold lands on the middle row of capacity 3 in the band
+        below = int(cap[res_cap < 480].astype(np.int64).sum())
+        k = below + 3 * (len(band[1::2]) // 2) + 2
+    else:
+        k = {"k1": 1, "k_total": total, "k_over": total + 9, "k0": 0,
+             "border": 2 * (n // 2) + 1}.get(case, total // 2)
+    return dict(cap=cap, failures=failures, res_cap=res_cap, e=None,
+                k=np.array([k], np.int32), pack=True)
 
 
 def fill_parts(arrs, d, device):
@@ -982,9 +1121,7 @@ def phase_kernels(torch, K, to_device):
     wide_dev = device_ms(torch, wide, ("waterfill_kernel",))
     print(f"kernels: waterfill stage B over one spread value per node "
           f"(L = {wide_L}, nb 16384) == plain; {wide_ms:.4f} ms per wrapper "
-          "call, device "
-          + ("not measured" if wide_dev is None else f"{wide_dev:.4f} ms"),
-          flush=True)
+          f"call, device {wide_dev:.4f} ms", flush=True)
     extra = dict(seg_sum_public_ms=k2_public_ms,
                  waterfill_stage_a_ms=stage_a_ms,
                  waterfill_stage_b_checked_ms=stage_b_checked_ms,
@@ -1022,22 +1159,42 @@ def phase_kernels(torch, K, to_device):
           "plan_group's plain composition on the card differs")
     plan_plain_ms = time_ms(torch, plan_plain, reps=10, warmup=2)
     print(f"kernels: plan_group (K1 + K2 + 2 x K3) {plan_ms:.4f} ms per call "
-          "(CUDA events), device "
-          + ("not measured" if plan_dev is None
-             else f"{plan_dev:.4f} ms per call (torch.profiler, every "
-             "device op)")
-          + f"; plain composition {plan_plain_ms:.4f} ms", flush=True)
+          f"(CUDA events), device {plan_dev:.4f} ms per call "
+          "(torch.profiler, every device op); plain composition "
+          f"{plan_plain_ms:.4f} ms", flush=True)
     for r in rows:
         check(r["err"] == 0, f"{r['kernel'].name}: kernel differs from its "
               f"plain version (max abs err {r['err']})")
-        dev_ms = r["device_ms"]
         print(f"kernels: {r['kernel'].name} {r['ms']:.4f} ms per wrapper "
-              f"call (CUDA events), device "
-              + ("not measured (the profiler saw no device time)"
-                 if dev_ms is None else f"{dev_ms:.4f} ms per call "
-                 "(torch.profiler)"), flush=True)
+              f"call (CUDA events), device {r['device_ms']:.4f} ms per "
+              "call (torch.profiler)", flush=True)
     return rows, dict(ms=plan_ms, device_ms=plan_dev, plain_ms=plan_plain_ms,
                       **extra)
+
+
+def binpack_slot(torch, K, shared, groups, carry):
+    """(NodeInputs, GroupInputs, capacity) of a fused chunk's binpack slot
+    (slot 1) as the fused route hands them to K5: K4's prologue columns
+    and K1's capacity, from their plain versions."""
+    gb = 1
+    n = shared.valid.shape[0]
+    dev = shared.valid.device
+    res_ok, res_cap, svc = K._fused_prologue_plain(
+        shared, carry, groups.cpu_d[gb], groups.mem_d[gb],
+        K._slot_of(groups, gb, shared.svc0.shape[0]))
+    nodes = K.NodeInputs(
+        valid=shared.valid, ready=shared.ready, res_ok=res_ok,
+        res_cap=res_cap, svc_tasks=svc, total_tasks=carry.total,
+        failures=groups.failures[gb], leaf=groups.leaf[gb],
+        os_hash=shared.os_hash, arch_hash=shared.arch_hash,
+        port_conflict=torch.zeros(n, dtype=torch.bool, device=dev),
+        extra_mask=groups.extra_mask[gb])
+    grp = K.GroupInputs(
+        k=groups.k[gb], con_hash=groups.con_hash[gb],
+        con_op=groups.con_op[gb], con_exp=groups.con_exp[gb],
+        plat=groups.plat[gb], maxrep=groups.maxrep[gb],
+        port_limited=torch.zeros((), dtype=torch.bool, device=dev))
+    return nodes, grp, K._feasibility_plain(nodes, grp)[1]
 
 
 def phase_kernels_fused(torch, K, fused_to_device):
@@ -1102,31 +1259,30 @@ def phase_kernels_fused(torch, K, fused_to_device):
 
     # ---- K5 pack fill on the binpack slot's columns
     gb = 1
-    res_ok, res_cap, svc = K._fused_prologue_plain(
-        shared, carry, groups.cpu_d[gb], groups.mem_d[gb],
-        K._slot_of(groups, gb, s))
-    nodes = K.NodeInputs(
-        valid=shared.valid, ready=shared.ready, res_ok=res_ok,
-        res_cap=res_cap, svc_tasks=svc, total_tasks=carry.total,
-        failures=groups.failures[gb], leaf=groups.leaf[gb],
-        os_hash=shared.os_hash, arch_hash=shared.arch_hash,
-        port_conflict=torch.zeros(n, dtype=torch.bool, device=dev),
-        extra_mask=groups.extra_mask[gb])
-    grp = K.GroupInputs(
-        k=groups.k[gb], con_hash=groups.con_hash[gb],
-        con_op=groups.con_op[gb], con_exp=groups.con_exp[gb],
-        plat=groups.plat[gb], maxrep=groups.maxrep[gb],
-        port_limited=torch.zeros((), dtype=torch.bool, device=dev))
-    _, cap, _ = K._feasibility_plain(nodes, grp)
+    nodes, grp, cap = binpack_slot(torch, K, shared, groups, carry)
+    res_cap = nodes.res_cap
     seg = torch.zeros(n, dtype=i32, device=dev)
     out = torch.empty(n, dtype=i32, device=dev)
     err = 0
-    for k in (int(groups.k[gb]), int(cap.sum()) + 9, 1):
+    total = int(cap.sum())
+    for k in (int(groups.k[gb]), total, total + 9, 1, 0):
         kk = torch.tensor([k], dtype=i32, device=dev)
+        before = K.PACKFILL.launches
         got = K._packfill(res_cap=res_cap, failures=nodes.failures, cap=cap,
                           k=kk, out=out)
+        check(K.PACKFILL.launches - before == 1,
+              "K5 is not one launch a call")
         want = K._packfill_plain(K._binpack_key(res_cap, nodes.failures),
                                  cap, kk, seg, 1)
+        err = max(err, max_abs_err(torch, (got,), (want,)))
+    for case in PACK_EDGE_CASES:
+        cols = {c: torch.from_numpy(a).to(dev)
+                for c, a in pack_edge_inputs(61, n, case).items()
+                if c in ("res_cap", "failures", "cap", "k")}
+        got = K._packfill(out=torch.empty(n, dtype=i32, device=dev), **cols)
+        want = K._packfill_plain(
+            K._binpack_key(cols["res_cap"], cols["failures"]), cols["cap"],
+            cols["k"], seg, 1)
         err = max(err, max_abs_err(torch, (got,), (want,)))
     kk = groups.k[gb].reshape(1)
 
@@ -1140,11 +1296,11 @@ def phase_kernels_fused(torch, K, fused_to_device):
 
     # res_cap, failures and cap in, x out; k
     rows.append(dict(
-        kernel=K.PACKFILL, err=err, bytes=16 * n + 4,
-        ops=(K.TIE_ITERS + 2) * n * 4,
-        device_ms=device_ms(torch, packfill, ("packfill_kernel",)),
+        kernel=K.PACKFILL, err=err, bytes=16 * n + 4, ops=PACK_OPS * n,
+        device_ms=device_ms(torch, packfill, ("packfill_kernel",),
+                            label="K5"),
         ms=time_ms(torch, packfill), plain_ms=time_ms(torch, packfill_plain),
-        library_ms=None))
+        library_ms=None, launches_per_call=1))
 
     # ---- K6 scores: weighted and learned on the same node columns
     hr = [K._fused_headroom(carry.cpu, groups.cpu_d[g]),
@@ -1190,8 +1346,7 @@ def phase_kernels_fused(torch, K, fused_to_device):
     flat_dev = device_ms(torch, waterfill_flat, ("waterfill_kernel",))
     print(f"kernels: waterfill over one segment (weighted group, 16384 "
           f"nodes) {flat_ms:.4f} ms per wrapper call, device "
-          + ("not measured" if flat_dev is None else f"{flat_dev:.4f} ms"),
-          flush=True)
+          f"{flat_dev:.4f} ms", flush=True)
 
     # ---- one fused chunk (spread, binpack, weighted, learned) on the card
     # against the CPU, then its time per chunk
@@ -1215,19 +1370,16 @@ def phase_kernels_fused(torch, K, fused_to_device):
     chunk_dev = device_ms(torch, chunk, ("",), reps=5)
     print(f"kernels: fused chunk (4 slots: spread, binpack, weighted, "
           f"learned) card == cpu, placed {placed}; {chunk_ms:.4f} ms per "
-          f"chunk (CUDA events), device "
-          + ("not measured" if chunk_dev is None
-             else f"{chunk_dev:.4f} ms (torch.profiler, every device op)"),
-          flush=True)
+          f"chunk (CUDA events), device {chunk_dev:.4f} ms (torch.profiler, "
+          "every device op)", flush=True)
     for r in rows:
         check(r["err"] == 0, f"{r['kernel'].name}: kernel differs from its "
               f"plain version (max abs err {r['err']})")
-        dev_ms = r["device_ms"]
         print(f"kernels: {r['kernel'].name} {r['ms']:.4f} ms per wrapper "
-              f"call (CUDA events), device "
-              + ("not measured (the profiler saw no device time)"
-                 if dev_ms is None else f"{dev_ms:.4f} ms per call "
-                 "(torch.profiler)"), flush=True)
+              f"call (CUDA events), device {r['device_ms']:.4f} ms per "
+              "call (torch.profiler)"
+              + (f", {r['launches_per_call']} launch per call"
+                 if "launches_per_call" in r else ""), flush=True)
     return rows, dict(ms=chunk_ms, device_ms=chunk_dev, placed=placed,
                       waterfill_one_segment_ms=flat_ms,
                       waterfill_one_segment_device_ms=flat_dev)
@@ -1304,12 +1456,10 @@ def phase_kernels_resident(torch, K, gang_to_device):
               f"plain version (max abs err {r['err']})")
         shape = (f"d={r['d']} of {r['db']} slots" if "db" in r
                  else f"G={r['g']}, fits {r['fits']}")
-        dev_ms = r["device_ms"]
         print(f"kernels: {r['kernel'].name} ({shape}) == plain; "
               f"{r['ms']:.4f} ms per wrapper call (CUDA events), device "
-              + ("not measured" if dev_ms is None else f"{dev_ms:.4f} ms "
-                 "(torch.profiler)")
-              + f", plain {r['plain_ms']:.4f} ms"
+              f"{r['device_ms']:.4f} ms (torch.profiler), plain "
+              f"{r['plain_ms']:.4f} ms"
               + ("" if r["library_ms"] is None
                  else f", index_copy_ x5 {r['library_ms']:.4f} ms")
               + f", {r['bytes']} bytes, bound "
@@ -1648,19 +1798,60 @@ def same_plans(a, b):
         for pa, pb in zip(a, b))
 
 
+#: processes of ``probes/kernel_ab.py --fills`` run one after the other;
+#: each profiled fill of the mesh phase is held to their median, so that
+#: one process's outlier decides nothing (on an H100 80GB HBM3, K11 once
+#: read 0.0135 ms in the probe's process against 0.0170 ms in this
+#: script's session of the same run, its usual reading)
+FILLS_PROBE_RUNS = 3
+
+
+def card_uuid(torch):
+    """The card's UUID as torch reports it (None where this torch does
+    not)."""
+    uuid = getattr(torch.cuda.get_device_properties(0), "uuid", None)
+    return None if uuid is None else str(uuid)
+
+
+def fills_probe():
+    """K5's, K10's and K11's rows as ``probes/kernel_ab.py --fills``
+    measures them in each of FILLS_PROBE_RUNS processes of its own (the
+    same inputs and profiler as this script's): each process's record
+    (``fills`` and the ``card`` it measured), or a failed phase."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    for _ in range(FILLS_PROBE_RUNS):
+        proc = subprocess.run(
+            [sys.executable, os.path.join(root, "swarmkit_tpu_torch",
+                                          "probes", "kernel_ab.py"),
+             "--fills", root],
+            capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"kernel_ab.py --fills failed: "
+              f"{proc.stderr[-2000:]}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    return runs
+
+
 def phase_kernels_mesh(torch, K):
     """K10, K11 and K2's cross-shard fold on four shards of the card
     against their plain versions on the same tensors, node bucket 16384.
     K10 is timed at the headline path's leaf fill (L = 256, its kernels
     row) and at one segment a row (L = 16,384), K11 at the binpack case,
-    the fold on one shard's exchange at L = 256."""
+    the fold on one shard's exchange at L = 256.  K10's and K11's
+    profiler rows must agree within 15% with the median of
+    ``probes/kernel_ab.py``'s profiles of the same calls in
+    FILLS_PROBE_RUNS processes of their own, each on this card."""
     dev = torch.device("cuda")
     d = MESH_SHARDS
+    nb = 16384
     rows, per_case = [], {}
     errs = {K.SHARD_WATERFILL.name: 0, K.SHARD_PACKFILL.name: 0}
     timed = {}
     cases = [(case, kw, fill_parts(shard_fill_inputs(31, **kw), d, dev))
              for case, kw in SHARD_FILL_CASES.items()]
+    cases += [(f"packfill_{case}", dict(L=1, pack=True),
+               fill_parts(pack_edge_inputs(33, nb, case), d, dev))
+              for case in PACK_EDGE_CASES]
     parts, L = headline_fill_parts(d, dev)
     cases.append(("waterfill_headline", dict(L=L), parts))
     # one segment a row: the shape of the per-host spread's leaf fill
@@ -1689,6 +1880,8 @@ def phase_kernels_mesh(torch, K):
         run()
         torch.cuda.synchronize()
         launches = kern.launches - before
+        check(launches == 1, f"{kern.name} ({case}): {launches} launches "
+              "a fill, not one")
         got = torch.cat([p.out for p in parts])
         err = max_abs_err(torch, (got,), (torch.cat(plain()),))
         errs[kern.name] = max(errs[kern.name], err)
@@ -1700,40 +1893,60 @@ def phase_kernels_mesh(torch, K):
             timed[case] = (kern, run, plain, kw)
         print(f"mesh kernels: {kern.name} ({case}, {d} shards x "
               f"{parts[0].cap.shape[0]} rows, L = {kw['L']}) == plain, "
-              f"{launches} launches per call, placed "
+              f"{launches} launch per call, placed "
               f"{per_case[case]['placed']}", flush=True)
 
-    nb = 16384
     for case in ("waterfill_headline", "packfill", "waterfill_L16384"):
         kern, run, plain, kw = timed[case]
         L = kw["L"]
         if kern is K.SHARD_WATERFILL:
-            # svc, failures, cap, total, seg in, x out; k per shard; one
-            # launch a fill
+            # svc, failures, cap, total, seg in, x out; k per shard
             nbytes, ops = nb * 24 + d * L * 4, K.WATERFILL_STEPS * nb * 4
-            symbol, steps = "ShardElems", 1
+            symbol = "ShardElems"
         else:
             # res_cap, failures, cap in, x out; k per shard
-            nbytes, ops = 16 * nb + 4 * d, K.PACKFILL_STEPS * nb * 4
-            symbol, steps = "shard_packfill_kernel", K.PACKFILL_STEPS
+            nbytes, ops = 16 * nb + 4 * d, PACK_OPS * nb
+            symbol = "ShardRows"
         row = dict(
             kernel=kern, err=errs[kern.name], bytes=nbytes, ops=ops, L=L,
-            device_ms=device_ms(torch, run, (symbol,), reps=10),
+            device_ms=device_ms(torch, run, (symbol,), reps=10,
+                                label=f"{kern.name} {case}"),
             ms=time_ms(torch, run, reps=20, warmup=3),
             plain_ms=time_ms(torch, plain, reps=3, warmup=1),
-            library_ms=None, launches_per_call=steps)
+            library_ms=None, launches_per_call=1)
         if case == "waterfill_L16384":
             per_case[case].update(
                 {k: v for k, v in row.items() if k != "kernel"})
             r = row
             print(f"mesh kernels: shard_waterfill at L = {L}: "
                   f"{r['ms']:.4f} ms per wrapper call (CUDA events), "
-                  f"device " + ("not measured" if r["device_ms"] is None
-                                else f"{r['device_ms']:.4f} ms")
-                  + f", plain {r['plain_ms']:.4f} ms, bound "
+                  f"device {r['device_ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, bound "
                   f"{bound(nbytes, ops)[0]:.7f} ms", flush=True)
         else:
             rows.append(row)
+        per_case[case]["device_ms"] = row["device_ms"]
+
+    # ---- the same calls profiled by the probe in processes of their own
+    probes = fills_probe()
+    here = card_uuid(torch)
+    for run in probes:
+        check(run["card"] == here, f"kernel_ab.py --fills measured the "
+              f"card {run['card']}, not this run's {here}")
+    for case, key in (("waterfill_headline", "k10_L256"),
+                      ("waterfill_L16384", "k10_L16384"),
+                      ("packfill", "k11")):
+        mine = per_case[case]["device_ms"]
+        seen = [run["fills"][key]["device_ms"] for run in probes]
+        theirs = statistics.median(seen)
+        per_case[case]["probe_device_ms"] = seen
+        check(abs(mine - theirs) <= 0.15 * theirs,
+              f"mesh kernels ({case}): this run's profile {mine:.4f} ms "
+              f"and the median {theirs:.4f} ms of kernel_ab.py's "
+              f"{[round(v, 5) for v in seen]} differ by more than 15%")
+        print(f"mesh kernels: {case} device {mine:.4f} ms here, "
+              f"{' / '.join(f'{v:.4f}' for v in seen)} ms in "
+              f"{FILLS_PROBE_RUNS} runs of kernel_ab.py --fills", flush=True)
 
     # ---- K2 over the split: per-shard partials, then the fold on every
     # shard (the leaf level of a headline group, L = 256, with capacity
@@ -1772,10 +1985,8 @@ def phase_kernels_mesh(torch, K):
         library_ms=None, launches_per_call=1))
     for r in rows:
         print(f"mesh kernels: {r['kernel'].name} {r['ms']:.4f} ms per "
-              f"wrapper call (CUDA events), device "
-              + ("not measured" if r["device_ms"] is None
-                 else f"{r['device_ms']:.4f} ms (torch.profiler)")
-              + f", plain {r['plain_ms']:.4f} ms, bound "
+              f"wrapper call (CUDA events), device {r['device_ms']:.4f} ms "
+              f"(torch.profiler), plain {r['plain_ms']:.4f} ms, bound "
               f"{bound(r['bytes'], r['ops'])[0]:.7f} ms, "
               f"{r['launches_per_call']} launches per call", flush=True)
     return rows, per_case
@@ -1883,9 +2094,7 @@ def phase_mesh_compositions(torch, K, to_device, fused_to_device):
     for name, r in out.items():
         print(f"mesh compositions: {name} ({d} shards) == unsharded; "
               f"{r['ms']:.4f} ms per call (CUDA events), device "
-              + ("not measured" if r["device_ms"] is None
-                 else f"{r['device_ms']:.4f} ms (torch.profiler, every "
-                 "device op)")
+              f"{r['device_ms']:.4f} ms (torch.profiler, every device op)"
               + (f", bound {r['bound_ms']:.7f} ms" if "bound_ms" in r
                  else "")
               + (f", plain {r['plain_ms']:.4f} ms" if "plain_ms" in r
@@ -1984,6 +2193,9 @@ def phase_mesh_many_service(torch, K, cuda, workload, Task, Scheduler,
               "many-service path")
     check(launches[K.PACKFILL.name] == 0,
           "the unsharded pack fill ran on the mesh path")
+    check(launches[K.SHARD_PACKFILL.name] == 2,
+          f"K11 launched {launches[K.SHARD_PACKFILL.name]} times for the "
+          "two binpack groups, not once a fill")
     check(same_plans(rec.plans, want_plans),
           "mesh many-service: chunk rows differ from the unsharded tick's")
     counts = service_counts(store, Task, services, nodes)
@@ -2031,8 +2243,7 @@ def victims_at_calls(torch, P, victims_to_device, calls):
         print(f"kernels: select_victims at config 8's call (nb {nb}, V "
               f"{r['v']}, pb {pb}, {args[3]} picks asked) == plain: "
               f"{r['ms']:.4f} ms per wrapper call, device "
-              + ("not measured" if None in (prefix_dev, pick_dev) else
-                 f"{prefix_dev:.4f} ms prefix + {pick_dev:.4f} ms picks"),
+              f"{prefix_dev:.4f} ms prefix + {pick_dev:.4f} ms picks",
               flush=True)
     return err, out
 
@@ -2099,11 +2310,8 @@ def phase_kernels_victims(torch, P, victims_to_device, config8_calls):
                 h2d_bytes=int(stage.host.numel()),
                 pack_and_upload_ms=prep_ms, library_ms=None)
             r = per_v[v]
-            r["device_ms"] = None if None in (r["prefix_device_ms"],
-                                              r["pick_device_ms"]) \
-                else r["prefix_device_ms"] + r["pick_device_ms"]
-            dev_txt = ("not measured" if r["device_ms"] is None else
-                       f"{r['prefix_device_ms']:.4f} ms prefix + "
+            r["device_ms"] = r["prefix_device_ms"] + r["pick_device_ms"]
+            dev_txt = (f"{r['prefix_device_ms']:.4f} ms prefix + "
                        f"{r['pick_device_ms']:.4f} ms picks (torch.profiler)")
             print(f"kernels: select_victims (V={v}, {picks} picks) "
                   f"{r['ms']:.4f} ms per wrapper call (CUDA events), device "
@@ -2471,26 +2679,32 @@ def phase_traced_tick(torch, build, Scheduler, TorchPlanner, tracer, card,
 
 
 def traced(torch, tracer, fn, card, label):
-    """Run ``fn`` under the span tracer and torch.profiler: span sums,
-    device rows and the device's busy share of the wall time."""
-    from torch.profiler import ProfilerActivity, profile
-    tracer.reset()
-    tracer.enable()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    """Run ``fn`` under the span tracer and torch.profiler (a
+    :func:`profiled` session, whose warm-up is kept out of the wall time
+    and the sums): span sums, device rows and the device's busy share of
+    the wall time, with the count of ``fn``'s kernel launches that show
+    no device row (a tick cannot be run again: where it is not 0, the busy
+    time is short by their rows)."""
+    wall = []
+
+    def body():
+        tracer.reset()
+        tracer.enable()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    tracer.disable()
+        wall.append(time.perf_counter() - t0)
+        tracer.disable()
+
+    events, session = profiled(torch, body)
+    PROFILE_LOG.append(dict(label=label, session=session))
+    wall = wall[0]
     spans = Counter()
     for sp in tracer.spans():
         spans[sp.name] += sp.duration
     by_op = Counter()
-    for e in prof.key_averages():
-        us = device_us(e)
-        if us > 0:
-            by_op[e.key[:60]] += us / 1e3
+    for name, us in events:
+        by_op[name[:60]] += us / 1e3
     device_s = sum(by_op.values()) / 1e3
     busy = device_s / wall if device_s > 0 else None
     top = ", ".join(f"{name} {sec * 1e3:.1f} ms"
@@ -2500,9 +2714,11 @@ def traced(torch, tracer, fn, card, label):
     print(f"{label}: {wall:.3f} s wall; device busy "
           + (f"{device_s * 1e3:.3f} ms ({busy:.4%} of the wall time)"
              if busy is not None else "not measured")
-          + f" on {card}; spans: {top}; device rows: {ops}", flush=True)
+          + f" ({session['missing']} launches without a device row) on "
+          f"{card}; spans: {top}; device rows: {ops}", flush=True)
     return dict(wall_s=wall, device_busy_s=device_s or None,
-                device_busy_share=busy,
+                device_busy_share=busy, launches_without_row=session[
+                    "missing"],
                 spans_s={k: v for k, v in spans.most_common()},
                 device_ms_by_row=dict(by_op.most_common()))
 
@@ -2747,6 +2963,7 @@ def main():
               "churn": churn, "gang": gang,
               "victim_kernels": victim_kernels, "priority_jobs": jobs,
               "storm": storm, "mesh": mesh, "per_host_spread": wide,
+              "profiler_sessions": PROFILE_LOG,
               "seconds": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

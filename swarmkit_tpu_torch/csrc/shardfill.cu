@@ -101,11 +101,10 @@ struct ShardElems {
 }  // namespace
 
 // One fill over the `count` shards of one card, each of n rows.  `ptrs`
-// holds sk::SS_COUNT device pointers per shard (null where unused; the
-// state and exchange slots are not read), `ints` (n, offset, row) per
-// shard, both in host memory; k is shard 0's (the same [L] on every
-// shard).  `scratch`: sk_waterfill_scratch_bytes(L) bytes, or null where
-// that is 0.
+// holds sk::SS_COUNT device pointers per shard (null where unused),
+// `ints` (n, offset) per shard, both in host memory; k is shard 0's (the
+// same [L] on every shard).  `scratch`: sk_waterfill_scratch_bytes(L)
+// bytes, or null where that is 0.
 extern "C" int sk_shard_waterfill(int count, int L, const void* ptrs,
                                   const void* ints, int max_failures,
                                   void* scratch, void* stream) {

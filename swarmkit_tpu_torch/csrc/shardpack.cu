@@ -1,120 +1,110 @@
-// K11: the node-level pack fill (binpack) over a node-axis split, one
-// search step per launch.
+// K11: the binpack fill over a node-axis split, in ONE launch a fill: K5's
+// kernel (packfill.cuh) fed from the shard table.
 //
 // Replaces the psum'd seg_packfill (swarmkit_tpu/ops/kernel.py:428-460)
-// that swarmkit_tpu/parallel/sharded.py:137 plan_strategy_sharded and
-// :194 plan_fused_sharded run under shard_map for a binpack group: one
-// segment, key = score << 20 | (i + offset), with score clip(res_cap, 0,
-// BP_CLAMP), or the failure band above it (K5's key with a global index).
-// It finds the least threshold thr with sum(cap_i : key_i <= thr) >= k
-// over EVERY shard's rows, gives each row with key_i < thr its capacity
-// and the one row AT the threshold (keys are unique across shards) the
-// remainder min(cap_i, k - sum(below)).
-//
-// Steps (STEPS = 36 launches per fill):
-//   0 .. 33   fold step t - 1 into (lo, hi); capacity below the midpoint
-//   34        fold step 33 (hi is thr); capacity strictly below thr
-//   35        fold it: rem = max(k - below, 0); write x for the shard's rows
-// State per shard, [3] int32: lo, hi, rem.  Partials cross shards through
-// the [2, D, 1] exchange described in shard.cuh.
-//
-// Bound on the H100: latency, as K5: 36 dependent reductions, 12 bytes
-// read per row from L2 per step.  One block per shard; the block reduces
-// with warp shuffles.
+// that swarmkit_tpu/parallel/sharded.py:137 plan_strategy_sharded and :194
+// plan_fused_sharded run under shard_map for a binpack group: one segment,
+// key = score << 20 | (i + offset), K5's key on the global index.  Every
+// shard of a split lies on one card (parallel/sharded.py refuses a mesh
+// over several), so the reference's psum of each capacity sum is a sum
+// over rows that one launch sees: the D shards' rows are the rows
+// 0 .. D * n - 1 of one block, row r of shard d being row d * n + r.  Sums
+// are int64, exact in any order, so they decide what the reference's psum
+// of per-shard float32 partials decides below 2^24.  No step chain and no
+// exchange buffer: nothing is kept across launches.
 
+#include "packfill.cuh"
 #include "shard.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBelow = sk::TIE_ITERS;   // 34
-constexpr int kFinal = kBelow + 1;      // 35
-constexpr int kBpClamp = 959;           // scheduler/strategy.py BP_CLAMP
+// What a row load reads of one shard.
+struct ShardCols {
+  const int32_t* res_cap;
+  const int32_t* failures;
+  const int32_t* cap;
+  int32_t* x;
+  int offset;
+};
 
-__device__ __forceinline__ int binpack_key(const sk::Shard& sh, int i,
-                                           int max_failures) {
-  const int f = sh.failures[i];
-  const int score = f >= max_failures
-                        ? kBpClamp + 1 + sk::clamp_int(f, 0,
-                                                       sk::FAILURE_CLAMP)
-                        : sk::clamp_int(sh.res_cap[i], 0, kBpClamp);
-  return (score << sk::IDX_BITS) | (i + sh.offset);
-}
+struct ShardRows {
+  sk::ShardTable tab;
+  int count;         // shards in the table
+  int n_local;       // rows of each shard
+  int log2_n;        // log2(n_local) when it is a power of two, else -1
+  float inv_n;       // 1 / n_local
+  int max_failures;
+  bool ordered;      // shard d's first row has global index d * n_local
 
-__global__ void __launch_bounds__(kThreads) shard_packfill_kernel(
-    sk::ShardTable tab, int D, int step, int max_failures) {
-  __shared__ long long red[kWarps + 1];
-  __shared__ sk::Shard me;
-  sk::load_shard(tab, &me);
-  const int tid = threadIdx.x, nt = blockDim.x;
-  int32_t* lo = me.state;
-  int32_t* hi = lo + 1;
-  int32_t* rem = lo + 2;
+  struct Stage {
+    ShardCols c[sk::MAX_LAUNCH_SHARDS];
+  };
 
-  // ---- fold the previous step's capacity sums of every shard
-  if (tid == 0) {
-    if (step == 0) {
-      *lo = -1;
-      *hi = sk::SEARCH_HI;
-    } else {
-      const long long* prev = me.xbuf + (size_t)((step + 1) & 1) * D;
-      const long long tot = sk::fold_rows(prev, D, 1, 0);
-      const long long k = me.k[0];
-      if (step <= kBelow) {
-        const int mid = *lo + ((*hi - *lo) >> 1);
-        if (tot >= k) *hi = mid;
-        else *lo = mid + 1;
-      } else {
-        const long long r = k - tot;
-        *rem = r > 0 ? (int)r : 0;   // r <= k <= K_CLAMP when positive
+  // Thread d copies shard d's columns (the unrolled loop reads the table
+  // at constant offsets: a dynamic index into a kernel parameter would
+  // copy the whole table to local memory).
+  __device__ __forceinline__ void stage(Stage* st) const {
+#pragma unroll
+    for (int d = 0; d < sk::MAX_LAUNCH_SHARDS; ++d) {
+      if (d == (int)threadIdx.x && d < count) {
+        const sk::Shard& s = tab.s[d];
+        st->c[d] = ShardCols{s.res_cap, s.failures, s.cap, s.x, s.offset};
       }
     }
   }
-  __syncthreads();
 
-  if (step == kFinal) {
-    const int thr = *hi, r = *rem;
-    for (int i = tid; i < me.n; i += nt) {
-      const int c = me.cap[i];
-      const int key = binpack_key(me, i, max_failures);
-      int xi = 0;
-      if (key < thr) xi = c;
-      else if (key == thr && r > 0) xi = min(c, r);
-      me.x[i] = xi;
-    }
-    return;
+  // i / n_local: a shift for a power of two (node buckets are), else the
+  // float reciprocal corrected to the exact quotient (it is off by at most
+  // one).
+  __device__ __forceinline__ int shard(int i) const {
+    if (log2_n >= 0) return i >> log2_n;
+    int d = (int)((float)i * inv_n);
+    if ((unsigned)d * (unsigned)n_local > (unsigned)i) --d;
+    else if ((unsigned)(d + 1) * (unsigned)n_local <= (unsigned)i) ++d;
+    return d;
   }
 
-  const int bound = step < kBelow ? *lo + ((*hi - *lo) >> 1) : *hi;
-  const bool strict = step == kBelow;
-  long long mine = 0;
-  for (int i = tid; i < me.n; i += nt) {
-    const int c = me.cap[i];
-    if (c == 0) continue;
-    const int key = binpack_key(me, i, max_failures);
-    if (strict ? key < bound : key <= bound) mine += c;
+  __device__ __forceinline__ RowCols cols(const Stage& st, int i) const {
+    const int d = shard(i);
+    const int r = i - d * n_local;
+    const ShardCols& c = st.c[d];
+    return RowCols{c.res_cap + r, c.failures + r, c.cap + r};
   }
-  const long long total = sk::block_sum<kWarps>(mine, red);
-  if (tid == 0) me.xbuf[(size_t)(step & 1) * D + me.row] = total;
-}
+  __device__ __forceinline__ int gidx(const Stage& st, int i) const {
+    const int d = shard(i);
+    return i - d * n_local + st.c[d].offset;
+  }
+  __device__ __forceinline__ int32_t* out(const Stage& st, int i) const {
+    const int d = shard(i);
+    return st.c[d].x + (i - d * n_local);
+  }
+};
 
 }  // namespace
 
-// Launches steps [step0, step0 + nsteps) of the fill for the `count`
-// shards of one card (pointer table and triples as sk_shard_waterfill's).
-extern "C" int sk_shard_packfill(int count, int D, int step0, int nsteps,
-                                 const void* ptrs, const void* ints,
-                                 int max_failures, void* stream) {
-  sk::ShardTable tab;
-  if (D <= 0 || !sk::make_table(count, (const void* const*)ptrs,
-                                (const int*)ints, &tab))
+// One fill over the `count` shards of one card, each of n rows.  `ptrs`
+// holds sk::SS_COUNT device pointers per shard (null where unused), `ints`
+// (n, offset) per shard, both in host memory; k is shard 0's (the same [1]
+// on every shard).
+extern "C" int sk_shard_packfill(int count, const void* ptrs,
+                                 const void* ints, int max_failures,
+                                 void* stream) {
+  ShardRows src;
+  if (!sk::make_table(count, (const void* const*)ptrs, (const int*)ints,
+                      &src.tab))
     return (int)cudaErrorInvalidValue;
-  for (int t = step0; t < step0 + nsteps; ++t) {
-    shard_packfill_kernel<<<dim3(1, count), kThreads, 0,
-                            (cudaStream_t)stream>>>(tab, D, t, max_failures);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+  const int n = src.tab.s[0].n;
+  for (int d = 1; d < count; ++d)
+    if (src.tab.s[d].n != n) return (int)cudaErrorInvalidValue;
+  if ((long long)count * n > (1LL << 30)) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  src.count = count;
+  src.n_local = n;
+  src.log2_n = (n & (n - 1)) == 0 ? __builtin_ctz((unsigned)n) : -1;
+  src.inv_n = 1.0f / (float)n;
+  src.max_failures = max_failures;
+  src.ordered = true;
+  for (int d = 0; d < count; ++d)
+    src.ordered = src.ordered && src.tab.s[d].offset == d * n;
+  return launch_packfill(count * n, src, src.tab.s[0].k, stream);
 }

@@ -34,7 +34,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("feasibility.cu", "segsum.cu", "waterfill.cu", "packfill.cu",
            "score.cu", "fused.cu", "scatter.cu", "gangfit.cu", "victims.cu",
            "shardfill.cu", "shardpack.cu")
-HEADERS = ("common.cuh", "feasibility.cuh", "shard.cuh", "waterfill.cuh")
+HEADERS = ("common.cuh", "feasibility.cuh", "packfill.cuh", "shard.cuh",
+           "waterfill.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -59,7 +60,7 @@ SIGNATURES = {
     "sk_select_victims": ([_I] * 5 + [_L] * 3 + [_P] * 12, _I),
     "sk_select_victims_scratch_bytes": ([_I], ctypes.c_longlong),
     "sk_shard_waterfill": ([_I, _I, _P, _P, _I, _P, _P], _I),
-    "sk_shard_packfill": ([_I] * 4 + [_P, _P, _I, _P], _I),
+    "sk_shard_packfill": ([_I, _P, _P, _I, _P], _I),
     "sk_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -206,13 +207,11 @@ class CudaKernel:
         self._fn = None     # the C entry, resolved once the library loads
 
     def __call__(self, *args) -> None:
-        self.launch(1, *args)
+        self.launch(*args)
 
-    def launch(self, count: int, *args, stream: Optional[int] = None) -> None:
-        """Call the entry on ``stream`` (default: the current stream),
-        which launches the kernel ``count`` times (the step kernels of the
-        node-axis split run several steps per call), and count those
-        launches."""
+    def launch(self, *args, stream: Optional[int] = None) -> None:
+        """Call the entry on ``stream`` (default: the current stream), which
+        launches the kernel once, and count that launch."""
         fn = self._fn
         if fn is None:
             fn = self._fn = getattr(library(), self.symbol)
@@ -221,7 +220,7 @@ class CudaKernel:
             msg = library().sk_error_string(code).decode(errors="replace")
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
                                f"error {code} ({msg})")
-        self.launches += count
+        self.launches += 1
 
 
 def launch_counts(kernels) -> Dict[str, int]:

@@ -15,8 +15,10 @@ kernels (``csrc/``) carry them on Hopper:
 * ``fused_prologue`` / ``fused_carry`` (K4, ``csrc/fused.cu``): the scan
   step of the fused plan -- a group's resource columns from the carried
   cluster state, and its placements added back into that state;
-* ``packfill`` (K5, ``csrc/packfill.cu``): the binpack key, threshold
-  search and pack fill of one group over all nodes;
+* ``packfill`` (K5, ``csrc/packfill.cu`` + ``packfill.cuh``): the binpack
+  key, threshold select and pack fill of one group over all nodes, in one
+  launch of one block (a radix select of the threshold key, not a
+  bisection);
 * ``strategy_score`` (K6, ``csrc/score.cu``): the weighted and learned
   (fixed-point MLP) scores, in exact int32;
 * ``scatter_rows`` (K7, ``csrc/scatter.cu``): the streaming scheduler's
@@ -28,8 +30,8 @@ kernels (``csrc/``) carry them on Hopper:
   water-fill over a node-axis split, K3's cluster kernel over every
   shard's rows in one launch a fill;
 * ``shard_packfill`` (K11, ``csrc/shardpack.cu``): the pack fill over a
-  node-axis split, one search step per launch, the shards' partial sums
-  crossing through an exchange buffer (see "node-axis split" below);
+  node-axis split, K5's kernel over every shard's rows in one launch a
+  fill;
   ``seg_fold`` is K2's cross-shard fold of the stage-A branch sums.
 
 Every wrapper below takes the kernel for tensors on a CUDA device and its
@@ -383,7 +385,7 @@ def _seg_sum_table(acc: int, ticket: int, outs, rows):
 
 def _launch_seg_sum(svc_tasks, valid, cap, seg, k, L: int, table,
                     stream: int) -> None:
-    SEG_SUM.launch(1, svc_tasks.shape[0], L, svc_tasks.data_ptr(),
+    SEG_SUM.launch(svc_tasks.shape[0], L, svc_tasks.data_ptr(),
                    valid.data_ptr(), cap.data_ptr(), seg.data_ptr(),
                    _cuda.ptr(k), ctypes.addressof(table), stream=stream)
 
@@ -1376,29 +1378,27 @@ def gang_fit(nodes: NodeInputs, group: GroupInputs):
 # at the fetch, see :func:`merge_shard_rows`), stage A's branch sums (K2's
 # per-shard partials, folded by ``seg_fold``), each step of the node-level
 # searches and the base fill, and the pack fill's count.  K10 sums each
-# step over every shard's rows inside one cluster launch (int64, exact in
-# any order); K11 chains its steps, one [1] int64 row per shard per step
-# through an exchange buffer.  Every fold sums the D rows in shard order,
-# in int64: exact, deterministic, and the same on every shard.  Clamps
-# apply to the folded sums, never per shard.  Stage A's water-fills run on
+# step over every shard's rows inside one cluster launch, K11 each level
+# of its select inside one block (int64, exact in any order); the plain
+# versions and ``seg_fold`` sum the D rows in shard order, in int64:
+# exact, deterministic, and the same on every shard.  Clamps apply to the
+# folded sums, never per shard.  Stage A's water-fills run on
 # [L_d] vectors that every shard holds alike, so every shard computes them
 # (K3 as is) and ends with the same allocation and spill.
 #
 # Every shard of a mesh lies on one card (``parallel.NodeMesh`` refuses a
-# mesh over several), which is what lets K10 see every shard's rows in one
-# launch.  A mesh over several cards is blocked (ROADMAP.md).
+# mesh over several), which is what lets K10 and K11 see every shard's rows
+# in one launch.  A mesh over several cards is blocked (ROADMAP.md).
 
 #: a node-level water-fill's steps: 34 level steps, the base fill, 34 tie
 #: steps, the placement (K10 runs them in one launch; the plain version's
 #: psums are one fewer)
 WATERFILL_STEPS = LEVEL_ITERS + TIE_ITERS + 2
-#: K11's launches per fill: 34 threshold steps, the sum below it, the fill
-PACKFILL_STEPS = TIE_ITERS + 2
-#: shards one step launch carries (``csrc/shard.cuh`` MAX_LAUNCH_SHARDS)
+#: shards one launch carries (``csrc/shard.cuh`` MAX_LAUNCH_SHARDS)
 MAX_LAUNCH_SHARDS = 16
 # pointer slots per shard of the launch table (``csrc/shard.cuh``)
 _SHARD_SLOTS = ("e", "svc_tasks", "failures", "res_cap", "cap", "tie",
-                "total", "seg", "k", "out", "state", "xbuf")
+                "total", "seg", "k", "out")
 
 
 class FillShard(NamedTuple):
@@ -1525,17 +1525,19 @@ def _shard_waterfill_plain(parts: Sequence[FillShard], L: int,
             for xb, m, t, seg in zip(x_base, marginal, ties, segs)]
 
 
-def _shard_table(parts, vals=None):
-    """A fill's launch table: each shard's ``_SHARD_SLOTS`` pointers
-    (``vals(d)`` overrides slots of shard d by name) and its (n, offset,
-    row) triple, as ctypes arrays that must live until the launch is
-    enqueued."""
+def _shard_table(parts):
+    """A fill's launch table: each shard's ``_SHARD_SLOTS`` pointers and
+    its (n, offset) pair, as ctypes arrays that must live until the launch
+    is enqueued.  The shards must hold equal row counts."""
+    n = parts[0].cap.shape[0]
+    if any(p.cap.shape[0] != n for p in parts):
+        raise ValueError("the shards of a fill on the card must hold equal "
+                         "row counts")
     ptrs, ints = [], []
-    for d, p in enumerate(parts):
-        over = vals(d) if vals else {}
+    for p in parts:
         for name in _SHARD_SLOTS:
-            ptrs.append(_cuda.ptr(over.get(name, getattr(p, name, None))))
-        ints += [p.cap.shape[0], p.offset, d]
+            ptrs.append(_cuda.ptr(getattr(p, name)))
+        ints += [n, p.offset]
     return ((ctypes.c_void_p * len(ptrs))(*ptrs),
             (ctypes.c_int * len(ints))(*ints))
 
@@ -1559,10 +1561,6 @@ def _shard_waterfill(parts: Sequence[FillShard], L: int,
         for p, x in zip(parts, _shard_waterfill_plain(parts, L, reduce)):
             p.out.copy_(x)
         return
-    n = parts[0].cap.shape[0]
-    if any(p.cap.shape[0] != n for p in parts):
-        raise ValueError("the shards of a fill on the card must hold equal "
-                         "row counts")
     dev = parts[0].cap.device
     ptrs, ints = _shard_table(parts)
     nbytes = _waterfill_scratch_bytes(L)
@@ -1613,24 +1611,18 @@ def _shard_packfill_plain(parts: Sequence[FillShard],
 
 def _shard_packfill(parts: Sequence[FillShard], reduce=None) -> None:
     """K11: the binpack fill of one group (one segment) over every shard
-    of a node-axis split, written into each shard's ``out``.
-    ``reduce``: the plain version's psum (CPU shards only)."""
+    of a node-axis split, written into each shard's ``out``.  On the card:
+    one launch of K5's kernel over every shard's rows (equal row counts,
+    as :func:`_local_n` enforces).  ``reduce``: the plain version's psum
+    (CPU shards only)."""
     if not _check_shards(parts, 1, ("res_cap", "failures"), reduce):
         for p, x in zip(parts, _shard_packfill_plain(parts, reduce)):
             p.out.copy_(x)
         return
-    # the chain's exchange buffer, filled by parity, and each shard's own
-    # search state (lo, hi, rem)
-    D = len(parts)
-    dev = parts[0].cap.device
-    xbuf = torch.empty((2, D, 1), dtype=torch.int64, device=dev)
-    states = torch.empty((D, 3), dtype=torch.int32, device=dev)
-    ptrs, ints = _shard_table(
-        parts, lambda d: {"state": states[d], "xbuf": xbuf})
-    with torch.cuda.device(dev):
-        SHARD_PACKFILL.launch(PACKFILL_STEPS, D, D, 0, PACKFILL_STEPS,
-                              ctypes.addressof(ptrs), ctypes.addressof(ints),
-                              MAX_FAILURES)
+    ptrs, ints = _shard_table(parts)
+    with torch.cuda.device(parts[0].cap.device):
+        SHARD_PACKFILL(len(parts), ctypes.addressof(ptrs),
+                       ctypes.addressof(ints), MAX_FAILURES)
 
 
 # ------------------------------------------- K2 over a node-axis split

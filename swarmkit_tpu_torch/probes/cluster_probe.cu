@@ -3,11 +3,15 @@
 // atomic, an st.async exchange between the blocks of a cluster and a warp
 // reduction cost per step of a 69-step search.  A standalone program with
 // no inputs; each line is the time of one step in microseconds (CUDA
-// events over 2,000 steps in one launch).  Build and run on the card:
+// events over 2,000 steps in one launch).  Build and run on the card, from
+// the root of the checkout (the binary goes to the git-ignored build
+// directory of that checkout):
 //
+//   mkdir -p swarmkit_tpu_torch/_build
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 \
-//       -o /tmp/cluster_probe swarmkit_tpu_torch/probes/cluster_probe.cu
-//   /tmp/cluster_probe
+//       -o swarmkit_tpu_torch/_build/cluster_probe \
+//       swarmkit_tpu_torch/probes/cluster_probe.cu
+//   swarmkit_tpu_torch/_build/cluster_probe
 //
 // It decided K3's design: no release/acquire cluster.sync() in the loop
 // (an st.async round and an mbarrier wait instead), 32-bit shared

@@ -1,34 +1,54 @@
 #!/usr/bin/env python3
-"""Time K9 (victim selection) and K10 (the split's water-fill) of two
-trees of this repository on one CUDA card, in turns.
+"""Time K5 and K9-K11 of two trees of this repository on one CUDA card,
+in turns.
 
     python3 swarmkit_tpu_torch/probes/kernel_ab.py OLD_TREE NEW_TREE
+    python3 swarmkit_tpu_torch/probes/kernel_ab.py --fills TREE
 
 Each tree is a checkout of the repository (for example the parent commit
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists).
 The trees run in the order OLD, NEW, NEW, OLD, each in a process of its
-own that imports that tree's ``swarmkit_tpu_torch`` and ``chip_smoke``,
-builds its kernels and measures, on the same card:
+own that imports that tree's ``swarmkit_tpu_torch``, builds its kernels
+and measures, on the same card, with this script's own helpers (the
+inputs and the profiler of the ``chip_smoke.py`` beside it):
 
 * K9 at config 8's shape: every ``select_victims`` call of bench.py's
   config 8 tick (``workload.priority_jobs``, node bucket 1024, V = 4),
   recorded and then replayed on its own inputs;
 * K9 at node bucket 16384, V = 4, 16 and 64, 512 picks
   (``chip_smoke.victim_inputs``, the full run);
-* K10 at the mesh headline's leaf fill (four shards, L = 256) and at one
-  segment a row (four shards, L = 16,384).
+* the fills (``--fills`` measures these alone, in one process): K5 on
+  config 7's binpack slot (``chip_smoke.binpack_slot`` of a cfg7 chunk,
+  nb 16384), K10 at the mesh headline's leaf fill (four shards, L = 256)
+  and at one segment a row (four shards, L = 16,384), and K11 on four
+  shards of nb 16384 (``chip_smoke.shard_fill_inputs``' pack case).
 
 Per case: the wrapper's ms (CUDA events over 20 warm calls), the
-kernels' device ms (torch.profiler) and the SM clock after it
-(``nvidia-smi``).  Each run prints one JSON line; the
-last line is the whole record, also written to
+kernels' device ms (torch.profiler, every launch's row counted), the
+launches per call and the SM clock after it (``nvidia-smi``).  Each run
+prints one JSON line; the last line is the whole record, also written to
 ``chiprun_out/kernel_ab.json``, with the card's name and power limit.
 """
 
+import importlib.util
 import json
 import os
 import subprocess
 import sys
+
+HERE = os.path.realpath(__file__)
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(HERE)))
+
+
+def _tools():
+    """This tree's ``chip_smoke.py`` (inputs, timers, profiler), loaded
+    under its own name so that the tree under test supplies the
+    kernels."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_tools", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _clocks():
@@ -50,51 +70,100 @@ def _k9_row(torch, cs, P, inp, args, pb):
     want = P._select_victims_plain(inp, *args, pb)
     cs.check(torch.equal(got, want), "K9 differs from its plain version")
     prefix, pick = cs.device_ms_each(
-        torch, run, (("victim_prefix_kernel",), ("victim_pick_kernel",)))
+        torch, run, (("victim_prefix_kernel",), ("victim_pick_kernel",)),
+        label="K9")
     return dict(ms=cs.time_ms(torch, run, reps=20, warmup=3),
                 prefix_device_ms=prefix, pick_device_ms=pick, pb=pb,
                 n_picks=args[3], picks=int((got[:pb] >= 0).sum()),
                 clocks=_clocks())
 
 
-def _k10_row(torch, cs, K, parts, L):
-    def run():
-        K._shard_waterfill(parts, L)
-
+def _fill_row(torch, cs, kern, run, plain, outs, symbols, label):
+    """One fill: == plain, launches per call, wrapper and device ms."""
     run()
-    want = torch.cat(K._shard_waterfill_plain(parts, L))
-    cs.check(torch.equal(torch.cat([p.out for p in parts]), want),
-             "K10 differs from its plain version")
-    before = K.SHARD_WATERFILL.launches
+    torch.cuda.synchronize()
+    cs.check(torch.equal(torch.cat(outs()), torch.cat(plain())),
+             f"{label} differs from its plain version")
+    before = kern.launches
     run()
-    launches = K.SHARD_WATERFILL.launches - before
-    (dev,) = cs.device_ms_each(
-        torch, run, (("shard_waterfill_kernel", "ShardElems"),))
+    launches = kern.launches - before
+    (dev,) = cs.device_ms_each(torch, run, (symbols,), per_call=[launches],
+                               label=label)
     return dict(ms=cs.time_ms(torch, run, reps=20, warmup=3),
-                device_ms=dev, launches_per_fill=launches, clocks=_clocks())
+                device_ms=dev, launches_per_call=launches, clocks=_clocks())
 
 
-def measure(tree):
+def fill_rows(torch, cs, K, fused_to_device, dev):
+    """K5, K10 and K11 at the shapes ``chip_smoke.py`` times them."""
+    out = {}
+    shared, groups, carry, _ = fused_to_device(
+        *cs.fused_inputs(seed=77)[:4], device=dev)
+    nodes, _, cap = cs.binpack_slot(torch, K, shared, groups, carry)
+    n = cap.shape[0]
+    kk = groups.k[1].reshape(1)
+    x = torch.empty(n, dtype=torch.int32, device=dev)
+    seg = torch.zeros(n, dtype=torch.int32, device=dev)
+    out["k5"] = _fill_row(
+        torch, cs, K.PACKFILL,
+        lambda: K._packfill(res_cap=nodes.res_cap, failures=nodes.failures,
+                            cap=cap, k=kk, out=x),
+        lambda: [K._packfill_plain(K._binpack_key(nodes.res_cap,
+                                                  nodes.failures),
+                                   cap, kk, seg, 1)],
+        lambda: [x], ("packfill_kernel",), "K5")
+
+    def k10(parts, L, label):
+        return _fill_row(
+            torch, cs, K.SHARD_WATERFILL,
+            lambda: K._shard_waterfill(parts, L),
+            lambda: K._shard_waterfill_plain(parts, L),
+            lambda: [p.out for p in parts],
+            ("shard_waterfill_kernel", "ShardElems"), label)
+
+    parts, L = cs.headline_fill_parts(4, dev)
+    out["k10_L256"] = k10(parts, L, "K10 L256")
+    wide = cs.shard_fill_inputs(31, L=16384)
+    out["k10_L16384"] = k10(cs.fill_parts(wide, 4, dev), 16384,
+                            "K10 L16384")
+    pack = cs.fill_parts(cs.shard_fill_inputs(31, L=1, pack=True), 4, dev)
+    out["k11"] = _fill_row(
+        torch, cs, K.SHARD_PACKFILL, lambda: K._shard_packfill(pack),
+        lambda: K._shard_packfill_plain(pack),
+        lambda: [p.out for p in pack],
+        ("shard_packfill_kernel", "ShardRows"), "K11")
+    return out
+
+
+def measure(tree, fills_only=False):
     """One tree's numbers (run in a process of its own)."""
     tree = os.path.realpath(tree)
     sys.path.insert(0, tree)
     import torch
 
-    import chip_smoke as cs
-    from swarmkit_tpu_torch import workload
-    from swarmkit_tpu_torch.ops import TorchPlanner, cuda
+    cs = _tools()
+    from swarmkit_tpu_torch.ops import cuda
     from swarmkit_tpu_torch.ops import kernel as K
-    from swarmkit_tpu_torch.ops import preempt as P
-    from swarmkit_tpu_torch.ops.convert import victims_to_device
-    from swarmkit_tpu_torch.ops.densify import n_bucket
+    from swarmkit_tpu_torch.ops.convert import fused_to_device
     cs.check(os.path.realpath(cuda.__file__).startswith(tree),
              f"imported {cuda.__file__}, not the tree {tree}")
     cs.check(torch.cuda.is_available(), "no CUDA device")
     build = cuda.build()
     cuda.library()
     dev = torch.device("cuda")
-    out = dict(tree=tree, build_s=build.seconds)
+    out = dict(tree=tree, build_s=build.seconds, card=cs.card_uuid(torch))
+    if not fills_only:
+        out.update(_k9_rows(torch, cs, dev))
+    out["fills"] = fill_rows(torch, cs, K, fused_to_device, dev)
+    return out
 
+
+def _k9_rows(torch, cs, dev):
+    from swarmkit_tpu_torch import workload
+    from swarmkit_tpu_torch.ops import TorchPlanner
+    from swarmkit_tpu_torch.ops import preempt as P
+    from swarmkit_tpu_torch.ops.convert import victims_to_device
+    from swarmkit_tpu_torch.ops.densify import n_bucket
+    out = {}
     planner = TorchPlanner()
     calls = cs.spy_on_victims(planner)
     store, _, _, _ = workload.priority_jobs()
@@ -114,23 +183,17 @@ def measure(tree):
         inp = victims_to_device(cand, n_bucket(cand.ok.shape[0]), dev)
         out["k9_nb16384"][f"v{v}"] = _k9_row(
             torch, cs, P, inp, args, P.pick_bucket(args[3]))
-
-    parts, L = cs.headline_fill_parts(4, dev)
-    out["k10"] = {"L256": _k10_row(torch, cs, K, parts, L)}
-    wide = cs.shard_fill_inputs(31, L=16384)
-    out["k10"]["L16384"] = _k10_row(torch, cs, K,
-                                    cs.fill_parts(wide, 4, dev), 16384)
     return out
 
 
 def main():
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        print(json.dumps(measure(sys.argv[2])), flush=True)
+    if len(sys.argv) == 3 and sys.argv[1] in ("--one", "--fills"):
+        print(json.dumps(measure(sys.argv[2], sys.argv[1] == "--fills")),
+              flush=True)
         return
     if len(sys.argv) != 3:
         sys.exit(__doc__)
     old, new = sys.argv[1:]
-    here = os.path.realpath(__file__)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -138,7 +201,7 @@ def main():
     runs = []
     for label, tree in (("old", old), ("new", new), ("new", new),
                         ("old", old)):
-        proc = subprocess.run([sys.executable, here, "--one", tree],
+        proc = subprocess.run([sys.executable, HERE, "--one", tree],
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             sys.exit(f"{label} run on {tree} failed:\n{proc.stderr[-4000:]}")

@@ -13,10 +13,11 @@ import pytest
 import torch
 
 from chip_smoke import (
-    SHARD_FILL_CASES, VICTIM_CASES, VICTIM_EDGE_CASES, WATERFILL_MODES,
-    edge_fill_inputs, fill_parts, fused_inputs, gang_rows,
-    headline_fill_parts, plan_inputs, scatter_inputs, shard_fill_inputs,
-    victim_edge_inputs, victim_inputs, waterfill_call, waterfill_inputs)
+    PACK_EDGE_CASES, SHARD_FILL_CASES, VICTIM_CASES, VICTIM_EDGE_CASES,
+    WATERFILL_MODES, edge_fill_inputs, fill_parts, fused_inputs, gang_rows,
+    headline_fill_parts, pack_edge_inputs, plan_inputs, scatter_inputs,
+    shard_fill_inputs, victim_edge_inputs, victim_inputs, waterfill_call,
+    waterfill_inputs)
 from swarmkit_tpu_torch.ops import kernel as K
 from swarmkit_tpu_torch.ops import preempt as P
 from swarmkit_tpu_torch.ops.convert import (
@@ -344,6 +345,63 @@ def test_packfill_kernel_matches_plain(case):
     # the general form (any key, any segments) is the plain version only
     with pytest.raises(ValueError):
         K.seg_packfill(key, cap, kk, seg, 1)
+
+
+def _packfill_cols(case, n, dev, seed=51):
+    cols = {c: torch.from_numpy(a).to(dev)
+            for c, a in pack_edge_inputs(seed, n, case).items()
+            if c in ("res_cap", "failures", "cap", "k")}
+    want = K._packfill_plain(
+        K._binpack_key(cols["res_cap"], cols["failures"]), cols["cap"],
+        cols["k"], torch.zeros(n, dtype=torch.int32, device=dev), 1)
+    return cols, want
+
+
+@pytest.mark.parametrize("n", [1024, 16384, 1 << 17])
+@pytest.mark.parametrize("case", PACK_EDGE_CASES)
+def test_packfill_kernel_at_edge_cases(case, n):
+    """K5's threshold select against the plain bisection on the cases it
+    turns on (k = 1, the whole capacity, past it, 0; the failure band;
+    one score bin; capacity-0 rows in the threshold's bin; the threshold
+    row at n / 2), one launch a call."""
+    dev = _card()
+    cols, want = _packfill_cols(case, n, dev)
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    assert _launched(lambda: K._packfill(out=out, **cols)) \
+        == {"packfill": 1}
+    torch.cuda.synchronize()
+    _eq(out, want)
+
+
+def test_packfill_twice_without_a_sync():
+    """Two K5 fills of different inputs enqueued back to back: each
+    equals its plain version."""
+    dev = _card()
+    n = 16384
+    a, want_a = _packfill_cols("half", n, dev, seed=1)
+    b, want_b = _packfill_cols("one_bin", n, dev, seed=2)
+    out_a = torch.empty(n, dtype=torch.int32, device=dev)
+    out_b = torch.empty(n, dtype=torch.int32, device=dev)
+    K._packfill(out=out_a, **a)
+    K._packfill(out=out_b, **b)
+    torch.cuda.synchronize()
+    _eq(out_a, want_a)
+    _eq(out_b, want_b)
+
+
+def test_packfill_kernel_past_2p20_rows():
+    """Past 2^20 rows the node index runs into the score bits and keys
+    repeat: every row at the threshold key takes the remainder, as the
+    plain bisection gives it."""
+    dev = _card()
+    n = (1 << 20) + 16384
+    cols, want = _packfill_cols("half", n, dev)
+    key = K._binpack_key(cols["res_cap"], cols["failures"])
+    assert torch.unique(key).numel() < n
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    K._packfill(out=out, **cols)
+    torch.cuda.synchronize()
+    _eq(out, want)
 
 
 @pytest.mark.parametrize("mode", ["spread", "weighted", "learned"])
@@ -738,6 +796,52 @@ def test_shard_waterfill_kernel_at_edge_cases(case, shards):
     _eq(got, torch.cat(K._shard_waterfill_plain(parts, kw["L"])))
 
 
+@pytest.mark.parametrize("n", [1024, 12000, 16384, 1 << 17])
+@pytest.mark.parametrize("shards", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("case", PACK_EDGE_CASES)
+def test_shard_packfill_kernel_at_edge_cases(case, shards, n):
+    """K11 over ``shards`` shards of n rows in all on K5's edge cases
+    (the threshold row on a shard border among them; 12,000 rows give
+    shards of a size that is not a power of two) against its plain
+    version on the same CUDA tensors and against K5 on the whole
+    columns, one launch a fill."""
+    dev = _card()
+    arrs = pack_edge_inputs(53, n, case)
+    parts = fill_parts(arrs, shards, dev)
+    assert _launched(lambda: K._shard_packfill(parts)) \
+        == {"shard_packfill": 1}
+    got = _fill(parts, 1, True)
+    _eq(got, torch.cat(K._shard_packfill_plain(parts)))
+    cols, want = _packfill_cols(case, n, dev, seed=53)
+    _eq(got, want)
+
+
+def test_shard_packfill_twice_without_a_sync():
+    """Two K11 fills of different inputs enqueued back to back: each
+    equals its plain version."""
+    dev = _card()
+    first = fill_parts(pack_edge_inputs(23, 16384, "half"), 4, dev)
+    second = fill_parts(shard_fill_inputs(24, nb=16384, n_valid=15000,
+                                          L=1, pack=True), 4, dev)
+    K._shard_packfill(first)
+    K._shard_packfill(second)
+    torch.cuda.synchronize()
+    for parts in (first, second):
+        _eq(torch.cat([p.out for p in parts]),
+            torch.cat(K._shard_packfill_plain(parts)))
+
+
+def test_shard_packfill_kernel_past_2p20_rows():
+    """K11 over 16 shards of 66,560 rows (global indices past 2^20, keys
+    repeat) against its plain version."""
+    dev = _card()
+    n = 16 * 66560
+    arrs = pack_edge_inputs(29, n, "half")
+    parts = fill_parts(arrs, 16, dev)
+    got = _fill(parts, 1, True)
+    _eq(got, torch.cat(K._shard_packfill_plain(parts)))
+
+
 @pytest.mark.parametrize("L", [256, 32768])
 def test_shard_waterfill_twice_without_a_sync(L):
     """Two K10 fills of different inputs enqueued back to back, as the
@@ -780,7 +884,7 @@ def test_shard_fill_kernels_count_launches():
     arrs = shard_fill_inputs(5, nb=4096, n_valid=4000, L=1, pack=True)
     parts = fill_parts(arrs, 4, dev)
     assert _launched(lambda: K._shard_packfill(parts)) \
-        == {"shard_packfill": K.PACKFILL_STEPS}
+        == {"shard_packfill": 1}
 
 
 @pytest.mark.parametrize("shards", [2, 4])

@@ -72,8 +72,9 @@ def test_mesh_only_psum_operands_cross_shards_strategy(sid):
     reduce = CountingReduce()
     bufs = K.plan_strategy_sharded_packed(shards, sins, sid, reduce=reduce)
     assert set(reduce.shapes) <= {(1,)}
-    steps = K.PACKFILL_STEPS if sid == 1 else K.WATERFILL_STEPS
-    assert len(reduce.shapes) == steps - 1
+    # the plain pack fill psums 34 threshold steps and the sum below it
+    steps = K.TIE_ITERS + 1 if sid == 1 else K.WATERFILL_STEPS - 1
+    assert len(reduce.shapes) == steps
     _same(K.unpack_plan(_merged(bufs, 256), 256)[:2],
           S.plan_strategy_sharded(nodes, group, strategy_inputs(sid, 256),
                                   sid, mesh)[:2])
@@ -98,7 +99,7 @@ def test_mesh_only_psum_operands_cross_shards_fused(case):
             strat, K.FusedStrategy, mesh.devices), sids, reduce=reduce)
     assert set(reduce.shapes) <= {(2, L), (L,), (1,)}, set(reduce.shapes)
     # per spread slot one branch-sum exchange; per slot its search steps
-    steps = sum(K.PACKFILL_STEPS - 1 if sid == 1 else
+    steps = sum(K.TIE_ITERS + 1 if sid == 1 else
                 K.WATERFILL_STEPS - 1 for sid in sids)
     assert len(reduce.shapes) == steps + sids.count(0)
     a = fused_to_device(shared, groups, carry, strat, "cpu")
@@ -138,7 +139,7 @@ def test_mesh_route_never_fills_a_concatenation(monkeypatch):
     assert calls["waterfill_n"] and max(calls["waterfill_n"]) <= L
     calls["fold"] = 0
     S.plan_strategy_sharded(nodes, group, None, 1, mesh)
-    assert calls["fold"] == K.PACKFILL_STEPS - 1 and not calls["packfill"]
+    assert calls["fold"] == K.TIE_ITERS + 1 and not calls["packfill"]
 
 
 def test_seg_fold_plain_sums_in_shard_order_then_clamps():
