@@ -11,7 +11,8 @@ Phases, each of which exits non-zero on failure:
 3. kernels: each kernel against its plain PyTorch version on the card, on
    seeded inputs at the main paths' shapes (node bucket 16384; leaf bucket
    256, 4 constraint slots, 4 platform rows, branch totals around 2^24 for
-   K1-K3; a cfg7 chunk of 4 group slots over 16 service slots for K4-K6);
+   K1-K3; a cfg7 chunk of 4 group slots over 16 service slots for K1F,
+   K4's carry update, K5 and K6);
    K2 twice back to back without a sync, one launch a call; K3 (one
    cluster launch a call) also over one spread value per node (L =
    16,384); K5 (one launch a call) also on its edge cases
@@ -30,7 +31,9 @@ Phases, each of which exits non-zero on failure:
 7. many-service path: bench.py's config 7 (10,000 nodes, 10 services of
    50,000 tasks, one tick) with the services split over spread, binpack,
    weighted and learned: all 500,000 tasks placed through the fused route
-   (10 groups fused in 3 chunks, none on the host), every kernel launched;
+   (10 groups fused in 3 chunks, none on the host), every kernel of the
+   route launched: K1F once a group slot, K4's carry update once a chunk,
+   no standalone K1;
 8. traced many-service tick: its traced twin;
 9. many-service host oracle: at 1,000 nodes x 10,000 tasks, per-service
    per-node counts of the card's fused tick equal the host path's (the
@@ -101,13 +104,13 @@ Phases, each of which exits non-zero on failure:
     one.
 
 The counts of kernel launches are set to 0 just before each main path and
-read just after it; the kernels' JSON line reports K1-K6 from the
-many-service path, K7 from the churn path, K8 from the gang path, K9
-from the storm, and K10, K11 and K2's fold from the mesh many-service
-path.  The last lines are that JSON line, the card's name and
-power limit, and
-``{"ok": true, "device": {...}}``.  The full record also goes to
-``chiprun_out/chip_smoke.json``.
+read just after it; the kernels' JSON line reports K1 from the headline
+path, K1F and K2-K6 from the many-service path (one K1F launch a group
+slot, one K4 carry update a chunk, no standalone K1 there), K7 from the
+churn path, K8 from the gang path, K9 from the storm, and K10, K11 and
+K2's fold from the mesh many-service path.  The last lines are that JSON
+line, the card's name and power limit, and ``{"ok": true, "device":
+{...}}``.  The full record also goes to ``chiprun_out/chip_smoke.json``.
 """
 
 import hashlib
@@ -181,13 +184,18 @@ def device_us(evt):
 
 #: throwaway kernels launched at the start of each profiled session: once
 #: a process has run a traced tick, torch.profiler loses the first rows of
-#: later sessions, usually 8-16, whatever idle time precedes them (PERF.md,
-#: open questions), and these absorb the loss.  Their rows are kept out of
-#: every sum.
-PROFILE_WARM = 64
+#: later sessions, usually 8-16, whatever idle time precedes them, and
+#: once at least 104 (PERF.md, open questions); these absorb the loss.
+#: Their rows are kept out of every sum.
+PROFILE_WARM = 512
 #: sessions :func:`device_ms_each` makes before a measured launch without
 #: its device row fails the phase
 PROFILE_TRIES = 3
+#: ... and, when the profiler returned no device row at all in a session
+#: (not one of the warm-up's), the sessions it makes in all, waiting
+#: PROFILE_DEAD_WAIT_S before each new one
+PROFILE_TRIES_DEAD = 6
+PROFILE_DEAD_WAIT_S = 2.0
 #: what each profiled session saw: its kernel rows against the launches it
 #: made, the warm-up rows that came back, the launches without a row, and
 #: the device clock's offset
@@ -245,37 +253,51 @@ def profiled(torch, body):
     return rows, session
 
 
-def device_ms(torch, fn, symbols, reps=20, label=None):
+def device_ms(torch, fn, symbols, reps=20, label=None, before_session=None):
     """Device time per call of the kernels whose names contain one of
     ``symbols``, from torch.profiler (see :func:`device_ms_each`)."""
-    return device_ms_each(torch, fn, (symbols,), reps, label=label)[0]
+    return device_ms_each(torch, fn, (symbols,), reps, label=label,
+                          before_session=before_session)[0]
 
 
-def device_ms_each(torch, fn, groups, reps=20, per_call=None, label=None):
+def device_ms_each(torch, fn, groups, reps=20, per_call=None, label=None,
+                   before_session=None):
     """Device time per call for each group of kernel-name ``symbols`` in
-    ``groups``, from one :func:`profiled` session of ``reps`` calls.
+    ``groups``, from one :func:`profiled` session of ``reps`` calls
+    (``before_session()``, when given, runs before each session, outside
+    it).
 
     Every launch of the ``reps`` calls must show its device row: a session
-    that lost one is made again, up to PROFILE_TRIES in all, and then the
-    phase fails.  A group of kernel names must show exactly ``per_call``
-    rows a call (default 1), so a lost row fails the phase instead of
-    reading short.  A group of every device op (``("",)``) is not counted
-    but must show some row."""
+    that lost one is made again, up to PROFILE_TRIES in all
+    (PROFILE_TRIES_DEAD after a session without a single device row), and
+    then the phase fails.  A group of kernel names must show exactly
+    ``per_call`` rows a call (default 1), so a lost row fails the phase
+    instead of reading short.  A group of every device op (``("",)``) is
+    not counted but must show some row."""
     fn()
 
     def body():
         for _ in range(reps):
             fn()
 
-    for attempt in range(PROFILE_TRIES):
+    attempt = 0
+    while True:
+        if before_session is not None:
+            before_session()
         events, session = profiled(torch, body)
-        session["attempt"] = attempt + 1
+        attempt += 1
+        session["attempt"] = attempt
         if session["missing"] == 0:
             break
         PROFILE_LOG.append(dict(label=label, session=session))
+        dead = session["warm"] == 0
+        if attempt >= (PROFILE_TRIES_DEAD if dead else PROFILE_TRIES):
+            break
+        if dead:
+            time.sleep(PROFILE_DEAD_WAIT_S)
     check(session["missing"] == 0,
           f"device_ms ({label}): {session['missing']} kernel launches show "
-          f"no device row in each of {PROFILE_TRIES} sessions; {session}")
+          f"no device row in each of {attempt} sessions; {session}")
     seen = sorted({name[:80] for name, _ in events})
     out, rows = [], []
     for j, symbols in enumerate(groups):
@@ -533,6 +555,106 @@ def fused_inputs(seed, nb=16384, n_valid=10000, strategies=(0, 1, 2, 3),
                           b2=np.asarray(b2, np.int32))
     L = l_bucket(n_leaves) if strategy_mod.STRAT_SPREAD in strategies else 1
     return shared, groups, carry, strat, L
+
+
+#: the slot-entry (K1F) cases: the first slot of a chunk, a carried
+#: placement, a slot repeating the previous slot's service, a padding slot
+#: (k = 0), slots above [0, S) and below it (the previous slot's scatter
+#: dropped), nodes pushed short of the demand, a zero cpu or memory demand
+#: or none, and a carry with negative availability
+FUSED_ENTRY_CASES = ("first_slot", "carried_x", "repeat_service",
+                     "padding_slot", "slot_above", "slot_negative",
+                     "short_of_demand", "zero_cpu_demand", "zero_mem_demand",
+                     "no_demand", "negative_carry")
+
+
+def fused_entry_inputs(seed, case, nb=1024, n_valid=None):
+    """Seeded inputs of one slot entry, as numpy (shared, groups, carry, g,
+    x_prev) in the planner's layout: four group slots over six service
+    slots with constraints (== and !=), platform rows (the wildcard, an os,
+    an os on an arch), max-replicas and quota rows; available resources
+    at, just under and far under one task's demand, zero and negative;
+    ``g`` the slot to enter and ``x_prev`` slot g - 1's placements (None
+    for the first slot).  ``case`` is one of FUSED_ENTRY_CASES."""
+    import numpy as np
+    from swarmkit_tpu_torch.ops.kernel import (
+        FusedCarry, FusedGroups, FusedShared)
+    rng = np.random.RandomState(seed)
+    G, S, cc, P = 4, 6, 4, 4
+    n_valid = nb - nb // 40 if n_valid is None else n_valid
+    valid = np.zeros(nb, bool)
+    valid[:n_valid] = True
+    cpu_unit, mem_unit = 10**8, 64 << 20
+    cpu = (rng.randint(-3, 40, nb) * cpu_unit
+           + rng.choice([0, 0, 1, -1, 7], nb)).astype(np.int64)
+    mem = (rng.randint(-2, 60, nb) * mem_unit
+           + rng.choice([0, 3, -5], nb)).astype(np.int64)
+    cpu[:16] = cpu_unit
+    cpu[16:32] = cpu_unit - 1
+    cpu[32:40] = 0
+    cpu[40:48] = -7
+    mem[48:64] = mem_unit
+    mem[64:72] = mem_unit - 1
+    shared = FusedShared(
+        valid=valid, ready=rng.rand(nb) < 0.95,
+        os_hash=rng.randint(0, 2, (2, nb)).astype(np.int32),
+        arch_hash=rng.randint(0, 2, (2, nb)).astype(np.int32),
+        svc0=rng.randint(0, 6, (S, nb)).astype(np.int32))
+    carry = FusedCarry(
+        total=rng.randint(0, 600, nb).astype(np.int32), cpu=cpu, mem=mem,
+        svc_acc=rng.randint(0, 3, (S, nb)).astype(np.int32))
+    k = rng.randint(100, 5000, G).astype(np.int32)
+    slot = np.array([0, 1, 2, 3], np.int32)
+    maxrep = np.array([0, 4, 0, 6], np.int32)
+    cpu_d = np.full(G, cpu_unit, np.int64)
+    mem_d = np.full(G, mem_unit, np.int64)
+    con_op = np.array([[1, 2, 0, 2], [2, 2, 2, 2], [0, 1, 2, 2],
+                       [2, 0, 2, 2]], np.int32)
+    plat = np.full((G, P, 4), -1, np.int32)
+    plat[0, 1] = (0, 0, 0, 0)            # any platform
+    plat[1, 0] = (1, 1, 0, 0)            # os (1, 1), any arch
+    plat[2, 2] = (0, 1, 1, 0)            # os (0, 1) on arch (1, 0)
+    plat[2, 3] = (1, 1, 0, 0)
+    quota_ok = rng.rand(G, nb) < 0.9
+    quota_ok[3] = True
+    g = 2
+    x_prev = (rng.randint(0, 4, nb) * (rng.rand(nb) < 0.5)
+              * valid).astype(np.int32)
+    if case == "first_slot":
+        g, x_prev = 0, None
+    elif case == "repeat_service":
+        slot[g] = slot[g - 1]
+    elif case == "padding_slot":
+        k[g] = 0
+    elif case == "slot_above":
+        slot[g], slot[g - 1] = S + 2, S + 1
+    elif case == "slot_negative":
+        slot[g], slot[g - 1] = -1, -S - 2
+    elif case == "short_of_demand":
+        # many nodes one or two tasks above the demand, then placed on
+        cpu[: nb // 2] = rng.randint(0, 3, nb // 2) * cpu_unit \
+            + rng.choice([0, -1, 1], nb // 2)
+        x_prev[: nb // 2] = rng.randint(0, 3, nb // 2)
+    elif case == "zero_cpu_demand":
+        cpu_d[g] = cpu_d[g - 1] = 0
+    elif case == "zero_mem_demand":
+        mem_d[g] = 0
+    elif case == "no_demand":
+        cpu_d[g] = mem_d[g] = 0
+    elif case == "negative_carry":
+        cpu[::3] = -rng.randint(1, 10**10, len(cpu[::3]))
+        mem[1::3] = -rng.randint(1, 1 << 34, len(mem[1::3]))
+    elif case != "carried_x":
+        raise ValueError(f"unknown slot-entry case {case!r}")
+    groups = FusedGroups(
+        k=k, slot=slot, maxrep=maxrep, cpu_d=cpu_d, mem_d=mem_d,
+        con_hash=rng.randint(0, 3, (G, cc, 2, nb)).astype(np.int32),
+        con_op=con_op,
+        con_exp=rng.randint(0, 3, (G, cc, 2)).astype(np.int32), plat=plat,
+        failures=rng.choice([0] * 12 + [1, 5, 70], (G, nb)).astype(np.int32),
+        leaf=np.zeros((G, nb), np.int32),
+        extra_mask=rng.rand(G, nb) < 0.97, quota_ok=quota_ok)
+    return shared, groups, carry, g, x_prev
 
 
 def scatter_inputs(seed, nb=16384, d=200, db=256):
@@ -1172,10 +1294,92 @@ def phase_kernels(torch, K, to_device):
                       **extra)
 
 
+#: integer operations a node of K1F needs: the carried placement (4),
+#: two int64 floor divisions and their clamps (8), the filters and the
+#: capacity (12)
+ENTRY_OPS = 24
+
+
+def fused_entry_bytes(groups, g, n, s, sid, has_prev, nnz_prev):
+    """The bytes K1F's function must move for slot ``g`` of a fused chunk
+    over ``n`` nodes and ``s`` service slots: valid, ready and the plugin
+    mask, the carry's cpu and mem, svc0 and svc_acc at the slot, the
+    previous slot's placement, the active constraints' hashes and the quota
+    row read; capacity and svc written, res_cap (binpack) or the headroom
+    (weighted, learned); the fail counts and the slot's scalars.  For each
+    of the ``nnz_prev`` nodes the previous slot placed on, the carry's
+    update: total read and written (8), cpu and mem written (16; read
+    above), svc_acc at the previous slot's service written (4) and read
+    (4) unless that row is the one this slot reads (read above); no svc_acc
+    where the previous slot's service lies outside [0, S)."""
+    from swarmkit_tpu_torch.ops import kernel as K
+    from swarmkit_tpu_torch.scheduler import strategy as strategy_mod
+    op = groups.con_op[g]
+    per_node = 3 + 16 + 8 + 8 * int(((op == 0) | (op == 1)).sum())
+    per_node += 4 if has_prev else 0
+    per_node += 1 if groups.quota_ok is not None else 0
+    rows = [tuple(int(v) for v in r) for r in groups.plat[g].tolist()
+            if r[0] != -1]
+    if rows and (0, 0, 0, 0) not in rows:
+        per_node += 8 * any(r[0] != 0 or r[1] != 0 for r in rows)
+        per_node += 8 * any(r[2] != 0 or r[3] != 0 for r in rows)
+    per_node += 8
+    if sid == strategy_mod.STRAT_BINPACK:
+        per_node += 4
+    elif sid in (strategy_mod.STRAT_WEIGHTED, strategy_mod.STRAT_LEARNED):
+        per_node += 8
+    placed = 0
+    if has_prev:
+        prev = K._scatter_slot(groups, g - 1, s)
+        placed = 24 + (0 if prev is None else
+                       4 if prev == K._slot_of(groups, g, s) else 8)
+    return n * per_node + placed * nnz_prev + 4 * 8 + 64
+
+
+#: calls a fresh cfg7 chunk's carry (``fused_inputs``, seeds 77 and 78)
+#: sustains while every call places all its tasks: 16, on the CPU plain
+#: path; then the carry runs dry and a chunk places nothing.  Each timed
+#: measurement of a chunk below (each profiled session) makes at most this
+#: many calls on a carry of its own.
+CHUNK_CALLS_PER_CARRY = 16
+
+
+def time_chunk(torch, plan, fresh_carry, placed_of, want, label, reps,
+               warmup, dev_reps):
+    """A fused chunk's wrapper and device times, each measured on a fresh
+    carry (``fresh_carry()``; every profiled session on one of its own),
+    every call planning on the carry the last one left as the route's
+    chunks do.  Fails unless each measurement's last call still placed
+    ``want`` (``placed_of`` of its rows): a drained carry would time a
+    chunk that places nothing."""
+    check(max(reps + warmup, 1 + dev_reps) <= CHUNK_CALLS_PER_CARRY,
+          f"{label}: too many calls for a carry")
+    times = []
+    for profile in (False, True):
+        carry = [fresh_carry()]
+        last = []
+
+        def run():
+            last[:] = [plan(carry[0])]
+            return last[0]
+
+        def renew():
+            carry[0] = fresh_carry()
+
+        times.append(
+            device_ms(torch, run, ("",), reps=dev_reps, label=label,
+                      before_session=renew) if profile
+            else time_ms(torch, run, reps=reps, warmup=warmup))
+        got = placed_of(last[0])
+        check(got == want, f"{label}: the last timed chunk placed {got}, "
+              f"not {want}: its carry ran dry")
+    return times
+
+
 def binpack_slot(torch, K, shared, groups, carry):
     """(NodeInputs, GroupInputs, capacity) of a fused chunk's binpack slot
-    (slot 1) as the fused route hands them to K5: K4's prologue columns
-    and K1's capacity, from their plain versions."""
+    (slot 1) as the fused route hands them to K5: the slot's columns from
+    the carry and K1's capacity, from their plain versions."""
     gb = 1
     n = shared.valid.shape[0]
     dev = shared.valid.device
@@ -1198,8 +1402,9 @@ def binpack_slot(torch, K, shared, groups, carry):
 
 
 def phase_kernels_fused(torch, K, fused_to_device):
-    """K4, K5 and K6 against their plain versions on a cfg7 chunk at node
-    bucket 16384, and one fused chunk on the card against the CPU."""
+    """K1F, K4's carry update, K5 and K6 against their plain versions on a
+    cfg7 chunk at node bucket 16384, and one fused chunk on the card
+    against the CPU."""
     dev = torch.device("cuda")
     i32 = torch.int32
     inputs = fused_inputs(seed=77)
@@ -1210,31 +1415,40 @@ def phase_kernels_fused(torch, K, fused_to_device):
     g = 2                                    # the weighted slot
     rows = []
 
-    # ---- K4 prologue (with the headroom columns of a weighted group)
-    outs = [torch.empty(n, dtype=torch.bool, device=dev)] + [
-        torch.empty(n, dtype=i32, device=dev) for _ in range(4)]
+    # ---- K1F, the slot entry of the weighted slot, with a carried x: the
+    # previous slot's placements into the carry, the slot's columns and
+    # K1's filters, with the headroom columns of a weighted group
+    x_prev = torch.zeros(n, dtype=i32, device=dev)
+    x_prev[:10000] = torch.randint(0, 6, (10000,), generator=torch.Generator(
+        device=dev).manual_seed(4), device=dev, dtype=i32)
+    outs = [torch.empty(n, dtype=i32, device=dev) for _ in range(4)]
+    fail = torch.zeros(K.N_FILTERS, dtype=i32, device=dev)
+    entry_carry = K.FusedCarry(*(t.clone() for t in carry))
 
-    def prologue():
-        K._fused_prologue(shared, groups, carry, g, s, *outs)
+    def entry(c=entry_carry):
+        K._fused_feasibility(shared, groups, c, g, s, x_prev, fail, outs[0],
+                             outs[1], None, outs[2], outs[3])
 
-    def prologue_plain():
-        ok, cap, svc = K._fused_prologue_plain(
-            shared, carry, groups.cpu_d[g], groups.mem_d[g],
-            K._slot_of(groups, g, s))
-        return (ok, cap, svc, K._fused_headroom(carry.cpu, groups.cpu_d[g]),
-                K._fused_headroom(carry.mem, groups.mem_d[g]))
+    def entry_plain(c=entry_carry):
+        return K._fused_feasibility_plain(shared, groups, c, g, s, x_prev)
 
-    prologue()
-    want = prologue_plain()
-    err = max_abs_err(torch, outs, want)
-    check(bool((~want[0][:n // 2]).any()) and bool(want[0][:n // 2].any()),
+    clones = [K.FusedCarry(*(t.clone() for t in carry)) for _ in range(2)]
+    entry(clones[0])
+    _, cap_p, fail_p, ok_p, _, svc_p, hrc_p, hrm_p = entry_plain(clones[1])
+    err = max(max_abs_err(torch, [outs[0], fail, outs[1], outs[2], outs[3]],
+                          [cap_p, fail_p, svc_p, hrc_p, hrm_p]),
+              max_abs_err(torch, tuple(clones[0]), tuple(clones[1])))
+    check(bool((~ok_p[:n // 2]).any()) and bool(ok_p[:n // 2].any()),
           "the fused inputs must leave some nodes short of the demand")
+    nnz_prev = int((x_prev != 0).sum())
     rows.append(dict(
-        kernel=K.FUSED_PROLOGUE, err=err,
-        bytes=n * (1 + 8 + 8 + 4 + 4) + n * (1 + 4 + 4 + 4 + 4) + 20,
-        ops=16 * n,
-        device_ms=device_ms(torch, prologue, ("fused_prologue_kernel",)),
-        ms=time_ms(torch, prologue), plain_ms=time_ms(torch, prologue_plain),
+        kernel=K.FUSED_FEASIBILITY, err=err,
+        bytes=fused_entry_bytes(groups, g, n, s, K.STRAT_WEIGHTED, True,
+                                nnz_prev),
+        ops=ENTRY_OPS * n,
+        device_ms=device_ms(torch, entry, ("fused_feasibility_kernel",),
+                            label="K1F"),
+        ms=time_ms(torch, entry), plain_ms=time_ms(torch, entry_plain),
         library_ms=None))
 
     # ---- K4 carry update, with a placement of the chunk's own sizes
@@ -1351,6 +1565,7 @@ def phase_kernels_fused(torch, K, fused_to_device):
     # ---- one fused chunk (spread, binpack, weighted, learned) on the card
     # against the CPU, then its time per chunk
     sids = inputs[3].sid.tolist()
+    pristine = K.FusedCarry(*(t.clone() for t in carry))
     on_card = K.plan_fused_packed(shared, groups, carry, L, strat, sids)
     cpu_in = fused_to_device(*inputs[:4], device="cpu")
     on_cpu = K.plan_fused_packed(*cpu_in[:3], L, cpu_in[3], sids)
@@ -1363,11 +1578,12 @@ def phase_kernels_fused(torch, K, fused_to_device):
     check(all(p > 0 for p in placed), f"a fused group placed nothing: "
           f"{placed}")
 
-    def chunk():
-        return K.plan_fused_packed(shared, groups, scratch, L, strat, sids)
-
-    chunk_ms = time_ms(torch, chunk, reps=10, warmup=2)
-    chunk_dev = device_ms(torch, chunk, ("",), reps=5)
+    chunk_ms, chunk_dev = time_chunk(
+        torch, lambda c: K.plan_fused_packed(shared, groups, c, L, strat,
+                                             sids),
+        lambda: K.FusedCarry(*(t.clone() for t in pristine)),
+        lambda buf: buf[:, :n].sum(dim=1).tolist(), placed, "fused chunk",
+        reps=10, warmup=2, dev_reps=5)
     print(f"kernels: fused chunk (4 slots: spread, binpack, weighted, "
           f"learned) card == cpu, placed {placed}; {chunk_ms:.4f} ms per "
           f"chunk (CUDA events), device {chunk_dev:.4f} ms (torch.profiler, "
@@ -1998,8 +2214,9 @@ def phase_mesh_compositions(torch, K, to_device, fused_to_device):
     its wrapper time (CUDA events) and device time (torch.profiler, every
     device op): B13, a weighted group's plan (K1 and K6 per shard, then
     K10 over one segment), and B14, a cfg7 fused chunk (spread, binpack,
-    weighted, learned: K4 and each slot's sharded plan).  B13's bound is
-    the sum of its kernels' byte counts."""
+    weighted, learned: K1F and each slot's sharded fill per slot, K4's
+    carry update per chunk).  Each bound is the sum of its kernels' byte
+    counts."""
     import numpy as np
     from swarmkit_tpu_torch.parallel import sharded as S
     from swarmkit_tpu_torch.scheduler import strategy as strategy_mod
@@ -2078,18 +2295,25 @@ def phase_mesh_compositions(torch, K, to_device, fused_to_device):
     check(np.array_equal(got, want), "B14: a fused chunk on four shards "
           "differs from the unsharded chunk")
 
-    def b14():
-        return K.plan_fused_sharded_packed(shareds, groupss, carries, L,
-                                           strats, sids)
-
-    # B14's bytes: per slot K4's prologue and carry (as B5: 42 N + 20 and
-    # 4 N + 48 nnz(x) + 20) and its fill's capacity and level in and
-    # placement out (16 N)
-    n_slots = len(sids)
-    nnz = int(np.count_nonzero(want[:, :nb]))
-    nbytes = n_slots * (62 * nb + 40) + 48 * nnz
-    out["B14_chunk"] = dict(ms=time_ms(torch, b14, reps=5, warmup=1),
-                            device_ms=device_ms(torch, b14, ("",), reps=3),
+    # B14's bytes: per slot K1F's (fused_entry_bytes, with the previous
+    # slot's placements into the carry) and its fill's capacity and level
+    # in and placement out (16 N); the chunk's last carry update reads the
+    # last slot's placement (4 N) and reads and writes the carry of each
+    # node it placed on (48 B)
+    nnz = [int(np.count_nonzero(want[g, :nb])) for g in range(len(sids))]
+    n_svc = inputs[0].svc0.shape[0]
+    nbytes = sum(fused_entry_bytes(inputs[1], g, nb, n_svc, sid, g > 0,
+                                   nnz[g - 1] if g > 0 else 0)
+                 + 16 * nb for g, sid in enumerate(sids)) \
+        + 4 * nb + 48 * nnz[-1]
+    b14_ms, b14_dev = time_chunk(
+        torch, lambda c: K.plan_fused_sharded_packed(shareds, groupss, c, L,
+                                                     strats, sids),
+        lambda: fn.prepare_fused(inputs[0], inputs[2])[1],
+        lambda bufs: K.merge_shard_rows(np.stack(
+            [b.cpu().numpy() for b in bufs]), nb)[:, :nb].sum(1).tolist(),
+        want[:, :nb].sum(1).tolist(), "B14", reps=5, warmup=1, dev_reps=3)
+    out["B14_chunk"] = dict(ms=b14_ms, device_ms=b14_dev,
                             bound_ms=bound(nbytes, 0)[0], bytes=nbytes)
     for name, r in out.items():
         print(f"mesh compositions: {name} ({d} shards) == unsharded; "
@@ -2186,11 +2410,14 @@ def phase_mesh_many_service(torch, K, cuda, workload, Task, Scheduler,
                 "fused_overflows", "fused_mesh_indivisible"):
         check(stats.get(key, 0) == 0, f"mesh many-service: {key} = "
               f"{stats.get(key)}")
-    for k in (K.FEASIBILITY, K.SEG_SUM, K.SEG_FOLD, K.WATERFILL,
-              K.SHARD_WATERFILL, K.SHARD_PACKFILL, K.SCORE,
-              K.FUSED_PROLOGUE, K.FUSED_CARRY):
+    for k in (K.SEG_SUM, K.SEG_FOLD, K.WATERFILL, K.SHARD_WATERFILL,
+              K.SHARD_PACKFILL, K.SCORE, K.FUSED_FEASIBILITY,
+              K.FUSED_CARRY):
         check(launches[k.name] > 0, f"{k.name} never launched on the mesh "
               "many-service path")
+    check_fused_launches(K, launches, len(workload.MANY_SERVICE_MIX),
+                         stats["fused_chunks"], "mesh many-service",
+                         MESH_SHARDS)
     check(launches[K.PACKFILL.name] == 0,
           "the unsharded pack fill ran on the mesh path")
     check(launches[K.SHARD_PACKFILL.name] == 2,
@@ -2591,9 +2818,12 @@ def phase_wide_spread(torch, K, cuda, workload, Task, Scheduler,
                   f"{key} = {stats.get(key)}")
         fills = (K.SEG_FOLD, K.SHARD_WATERFILL) if posture == "mesh" \
             else (K.SEG_SUM,)
-        for k in (K.FEASIBILITY, K.WATERFILL, K.FUSED_PROLOGUE) + fills:
+        for k in (K.WATERFILL, K.FUSED_FEASIBILITY, K.FUSED_CARRY) + fills:
             check(launches[k.name] > 0, f"{k.name} never launched on the "
                   f"per-host spread path ({posture})")
+        check_fused_launches(K, launches, 2, stats["fused_chunks"],
+                             f"per-host spread ({posture})",
+                             MESH_SHARDS if posture == "mesh" else 1)
         out[posture] = run
         print(f"per-host spread ({posture}): {run['decisions']} decisions "
               f"in {run['tick_s']:.3f} s on {card} (CPU plain path "
@@ -2764,6 +2994,28 @@ def service_counts(store, Task, services, nodes):
         lambda tx: tx.find(Task)) if t.node_id)
 
 
+def check_fused_launches(K, launches, n_groups, chunks, label, shards=1):
+    """The fused route's slot entries for ``n_groups`` fused groups: one
+    K1F launch a group slot (each chunk padded to a power of two) and one
+    K4 carry update a chunk, each per shard on a mesh, and no standalone
+    K1."""
+    from swarmkit_tpu_torch.ops.densify import pow2_bucket
+    from swarmkit_tpu_torch.ops.fusedbatch import chunk_sizes
+    sizes = chunk_sizes(n_groups)
+    check(len(sizes) == chunks, f"{label}: {chunks} chunks, "
+          f"{len(sizes)} expected for {n_groups} groups")
+    slots = sum(pow2_bucket(c) for c in sizes)
+    check(launches[K.FUSED_FEASIBILITY.name] == slots * shards,
+          f"{label}: {launches[K.FUSED_FEASIBILITY.name]} K1F launches for "
+          f"{slots} slots x {shards} shards")
+    check(launches[K.FUSED_CARRY.name] == chunks * shards,
+          f"{label}: {launches[K.FUSED_CARRY.name]} carry updates for "
+          f"{chunks} chunks x {shards} shards")
+    check(launches[K.FEASIBILITY.name] == 0,
+          f"{label}: K1 launched {launches[K.FEASIBILITY.name]} times on "
+          "the fused route")
+
+
 def phase_many_service(torch, K, cuda, workload, Task, Scheduler,
                        TorchPlanner, card):
     """bench.py's config 7 with mixed strategies, one tick through the
@@ -2796,11 +3048,13 @@ def phase_many_service(torch, K, cuda, workload, Task, Scheduler,
                 "fused_overflows"):
         check(stats.get(key, 0) == 0, f"{key} = {stats.get(key)}")
     for k in K.KERNELS:
-        if k in (K.SCATTER, K.GANG_FIT, K.SEG_FOLD, K.SHARD_WATERFILL,
-                 K.SHARD_PACKFILL):
-            continue   # the churn, gang and mesh paths' kernels
+        if k in (K.FEASIBILITY, K.SCATTER, K.GANG_FIT, K.SEG_FOLD,
+                 K.SHARD_WATERFILL, K.SHARD_PACKFILL):
+            continue   # the headline, churn, gang and mesh paths' kernels
         check(launches[k.name] > 0, f"{k.name} never launched on the "
               "many-service path")
+    check_fused_launches(K, launches, n_groups, stats["fused_chunks"],
+                         "many-service")
     counts = service_counts(store, Task, services, nodes)
     check(sum(counts.values()) == n_tasks, "not every task holds a node")
     by_host = {n.description.hostname: n for n in nodes}
@@ -2935,6 +3189,7 @@ def main():
 
     # each kernel's launches from the main path that runs it
     path_launches = dict(many["launches"])
+    path_launches["feasibility"] = main_path["launches"]["feasibility"]
     path_launches["scatter_rows"] = \
         churn["streaming"]["launches"]["scatter_rows"]
     path_launches["gang_fit"] = gang["card"]["launches"]["gang_fit"]

@@ -2,60 +2,92 @@
 // failure counts.
 //
 // Replaces swarmkit_tpu/ops/kernel.py:190 feasibility_and_capacity (and its
-// jitted entry feasibility_jit, :763).  One thread per node evaluates the
-// eight filter masks in pipeline order (ready, resources, plugins,
-// constraints, platforms, host ports, max replicas, tenant quota), the
-// node's capacity for this group, and which filter rejected it first; the
-// per-node body lives in feasibility.cuh, which K8 (gangfit.cu) shares.
+// jitted entry feasibility_jit, :763).  It evaluates the eight filter masks
+// in pipeline order (ready, resources, plugins, constraints, platforms,
+// host ports, max replicas, tenant quota), the node's capacity for this
+// group, and which filter rejected it first; the per-node body lives in
+// feasibility.cuh, which K1F (fused.cu) and K8 (gangfit.cu) share.
 //
 // Bound on the H100: bytes.  Each node is read once and written once (4
 // bytes of capacity, 1 of mask); the arithmetic is a few integer compares.
-// A column that the group does not need is never read: the hashes of an
-// unused constraint slot (op 2), the node platform hashes when no used
-// platform row names an os or arch (or once a row matched), the host-port
-// column unless the group is port-limited, the service's task counts
-// unless it has max-replicas.  So a group with two constraints and the
-// wildcard platform moves 29 bytes per node.  The design keeps it a single
-// pass: the Cc constraint and P platform loops run inside the thread, and
-// the eight counters are reduced per warp with ballots, per block in
-// shared memory, and across blocks with one integer atomicAdd per counter
-// and block -- integer atomics give the same sum in any order.
+// A column that the group does not need is never read (feasibility.cuh),
+// so a group with two constraints and the wildcard platform moves 29 bytes
+// per node: 0.14 us at node bucket 16,384, far under the launch itself.
+// What bounds it in practice is latency: the launch, the memory round
+// trips and the block's tail.  The design keeps those few:
+//  * the loads that do not depend on the group's scalars are issued
+//    first; every warp then stages its own copy of the scalars in shared
+//    memory with one load a lane, with no block barrier, and the rest are
+//    issued, so a thread waits on two round trips, not the five of a chain
+//    con_op -> con_hash -> plat -> hashes;
+//  * the fail counts are folded per warp with __reduce_add_sync and added
+//    with one global atomic per counter and block, with no shared atomics.
+// The launch shape was measured (probes/feasibility_probe.cu, PERF.md): at
+// node bucket 16,384 one node a thread beats two or four (vector loads of
+// four nodes leave 128 warps on the card, each with four nodes' dependent
+// compute), and per-warp staging beats a block barrier.  The grid is sized
+// to the node count, 128 blocks at 16,384 nodes: one partial wave of the
+// 132 SMs, which a grid-stride cap of one wave would not change.
 
 #include "feasibility.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+// K1's launch shape, chosen by probes/feasibility_probe.cu (PERF.md): one
+// node a thread, 128 threads a block
+constexpr int kK1Threads = 128;
 
-__global__ void __launch_bounds__(kThreads) feasibility_kernel(
-    int n, int cc, int np, sk::FeasColumns cols,
-    const int32_t* __restrict__ k_ptr, const int32_t* __restrict__ maxrep_ptr,
-    const uint8_t* __restrict__ port_limited_ptr,
-    uint8_t* __restrict__ mask_out,        // nullable
-    int32_t* __restrict__ cap_out, int32_t* __restrict__ fail_out) {
-  __shared__ int block_fail[8];
-  if (threadIdx.x < 8) block_fail[threadIdx.x] = 0;
-  __syncthreads();
+struct K1Args {
+  int n, cc, np;
+  sk::NodeColumns cols;
+  const uint8_t* res_ok;
+  const int32_t* res_cap;
+  const int32_t* svc_tasks;
+  const int32_t* con_op;
+  const int32_t* con_exp;
+  const int32_t* plat;
+  const int32_t* k;
+  const int32_t* maxrep;
+  const uint8_t* port_limited;
+  uint8_t* mask_out;   // nullable
+  int32_t* cap_out;
+  int32_t* fail_out;
+};
 
-  const int k = *k_ptr;
-  const int maxrep = *maxrep_ptr;
-  const bool port_limited = *port_limited_ptr != 0;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  unsigned fails = 0;  // bit j: filter j is the first to reject this node
+template <int T>
+__global__ void __launch_bounds__(T) feasibility_kernel(const K1Args a) {
+  constexpr int kWarps = T / 32;
+  extern __shared__ int sm[];
+  __shared__ unsigned wsum[2 * kWarps];
+  const int n = a.n;
+  const int i = blockIdx.x * T + threadIdx.x;
+
+  sk::NodeRegs regs;
+  sk::load_early(a.cols, i, n, regs);
+  sk::PlainSource src{a.res_ok, a.res_cap, a.svc_tasks};
+  src.load_early(i, n);
+  const int* grp = sk::stage_group(sm, a.cc, a.np, a.con_op, a.con_exp,
+                                   a.plat, a.k, a.maxrep, a.port_limited);
+
+  unsigned fails;
+  bool mask;
+  int cap;
+  sk::feasible_node(grp, a.cols, regs, src, i, n, fails, mask, cap);
   if (i < n) {
-    bool m;
-    int cap;
-    fails = sk::feasible_node(cols, i, n, cc, np, k, maxrep, port_limited,
-                              &m, &cap);
-    cap_out[i] = cap;
-    if (mask_out != nullptr) mask_out[i] = m ? 1 : 0;
+    a.cap_out[i] = cap;
+    if (a.mask_out != nullptr) a.mask_out[i] = mask ? 1 : 0;
   }
+  // every lane of every warp reaches the fold (no early return above)
+  sk::fold_fails<kWarps>(fails, wsum, a.fail_out);
+}
 
-  // every lane of every warp reaches the ballots (no early return above)
-  sk::ballot_fails(fails, block_fail);
-  __syncthreads();
-  if (threadIdx.x < 8 && block_fail[threadIdx.x] != 0)
-    atomicAdd(&fail_out[threadIdx.x], block_fail[threadIdx.x]);
+template <int T>
+int launch_feasibility(const K1Args& a, cudaStream_t stream) {
+  if (a.n <= 0) return 0;
+  const size_t smem = sk::staged_bytes(T / 32, a.cc, a.np);
+  if (smem > sk::kMaxGroupSmem) return (int)cudaErrorInvalidValue;
+  feasibility_kernel<T><<<(a.n + T - 1) / T, T, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -68,20 +100,19 @@ extern "C" int sk_feasibility(
     const void* arch_hash, const void* port_conflict, const void* quota_ok,
     const void* k, const void* maxrep, const void* port_limited,
     void* mask_out, void* cap_out, void* fail_out, void* stream) {
-  if (n <= 0) return 0;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  const sk::FeasColumns cols{
-      (const uint8_t*)valid, (const uint8_t*)ready, (const uint8_t*)res_ok,
-      (const int32_t*)res_cap, (const int32_t*)svc_tasks,
-      (const uint8_t*)extra_mask, (const int32_t*)con_hash,
-      (const int32_t*)con_op, (const int32_t*)con_exp, (const int32_t*)plat,
-      (const int32_t*)os_hash, (const int32_t*)arch_hash,
-      (const uint8_t*)port_conflict, (const uint8_t*)quota_ok};
-  feasibility_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      n, cc, np, cols, (const int32_t*)k, (const int32_t*)maxrep,
-      (const uint8_t*)port_limited, (uint8_t*)mask_out, (int32_t*)cap_out,
-      (int32_t*)fail_out);
-  return (int)cudaGetLastError();
+  const K1Args a{
+      n, cc, np,
+      sk::NodeColumns{(const uint8_t*)valid, (const uint8_t*)ready,
+                      (const uint8_t*)extra_mask, (const int32_t*)con_hash,
+                      (const int32_t*)os_hash, (const int32_t*)arch_hash,
+                      (const uint8_t*)port_conflict,
+                      (const uint8_t*)quota_ok},
+      (const uint8_t*)res_ok, (const int32_t*)res_cap,
+      (const int32_t*)svc_tasks, (const int32_t*)con_op,
+      (const int32_t*)con_exp, (const int32_t*)plat, (const int32_t*)k,
+      (const int32_t*)maxrep, (const uint8_t*)port_limited,
+      (uint8_t*)mask_out, (int32_t*)cap_out, (int32_t*)fail_out};
+  return launch_feasibility<kK1Threads>(a, (cudaStream_t)stream);
 }
 
 extern "C" const char* sk_error_string(int code) {

@@ -1,106 +1,203 @@
-// K4: the scan step of the fused many-service plan, around the per-group
-// kernels.
+// K1F and K4's carry update: the scan step of the fused many-service plan,
+// around the per-group fills.
 //
 // Replaces the body of swarmkit_tpu/ops/kernel.py:640 plan_fused (its
-// jitted entry plan_fused_jit, :728) other than the plan itself: the
-// reference's lax.scan carries the cluster state from one group slot to
-// the next, and each step derives the group's resource columns from that
-// carry (:669-678, :692-694) and adds the group's placements back into it
-// (:715-719).  The plan between the two is K1 + K2 + K3 (spread), K1 + K5
-// (binpack) or K1 + K6 + K3 (weighted, learned), chosen on the host per
-// group slot.  Two entry points, one thread per node each:
+// jitted entry plan_fused_jit, :728) other than the fills: the reference's
+// lax.scan carries the cluster state from one group slot to the next; each
+// step adds the previous group's placements into that carry (:715-719),
+// derives the group's resource columns from it (:669-678, :692-694) and
+// runs the filter pipeline on them (plan_group / plan_strategy -> :190
+// feasibility_and_capacity).  The fill between two steps is K2 + 2 x K3
+// (spread), K5 (binpack) or K6 + K3 (weighted, learned), chosen on the host
+// per slot.  Two entry points:
 //
-//  * prologue for group slot g: from the carry's int64 cpu/mem and the
-//    group's int64 demands,
-//      res_ok  = valid & (d == 0 | avail >= d) for cpu and memory;
-//      res_cap = clip(min over demanded resources of avail // d, 0,
-//                     K_CLAMP);
-//      svc     = svc0[slot] + svc_acc[slot];
-//    and, for a weighted or learned group, the headroom columns
-//      hr      = d > 0 ? clip(avail // d, 0, HR_CLAMP) : HR_CLAMP;
-//  * carry update after the group's placements x:
-//      total += x; cpu -= x * cpu_d; mem -= x * mem_d; svc_acc[slot] += x.
+//  * K1F, sk_fused_feasibility, the slot entry of group slot g: for node i
+//    (one thread a node, feasibility.cuh's FusedSource)
+//      1. when the chunk has a slot g - 1, its placements x = out[g - 1]
+//         go into node i's carry: total += x; cpu -= x * cpu_d[g - 1];
+//         mem -= x * mem_d[g - 1]; svc_acc[slot(g - 1)] += x;
+//      2. res_ok, res_cap and svc = svc0[slot] + svc_acc[slot] follow in
+//         registers, after step 1, so a slot that repeats the previous
+//         slot's service sees its own update;
+//      3. K1's filters run on them (feasibility.cuh); the capacity and the
+//         slot's fail counts (into out[g]'s fail slot) are written;
+//      4. the columns this slot's fill reads are written: svc always,
+//         res_cap for a binpack slot (K5's / K11's key), and the headroom
+//           hr = d > 0 ? clip(avail // d, 0, HR_CLAMP) : HR_CLAMP
+//         for a weighted or learned slot (K6); res_ok never.
+//  * the carry update, sk_fused_carry, after the last slot of a chunk:
+//      total += x; cpu -= x * cpu_d; mem -= x * mem_d; svc_acc[slot] += x,
+//    one thread a node, so the carry is complete when the chunk ends.
+//
+// Only thread i touches node i of the carry, so K1F reads and writes it
+// with no hazard inside the launch.  Ordering across launches: slot
+// g - 1's fill (K3, K5, K10 or K11, and K6 before it) reads carry.total
+// before K1F of slot g adds x into it; that holds because every launch of
+// a chunk runs in stream order on one card.  A fill enqueued on another
+// stream would break it.
 //
 // The divisions are floor divisions in int64, as the reference's under
 // x64: C++'s / truncates, so the quotient is corrected when the remainder
 // is non-zero and the dividend negative (d > 0 here).  Every product
-// x * d is taken in long long.  The group's scalars (demands, slot) are
-// read from device memory, so the host never reads the carry and a chunk
-// runs without a host synchronisation.
+// x * d is taken in long long.  A service slot is indexed as the
+// reference's jnp indexing does (feasibility.cuh gather_slot and
+// scatter_slot): the builder keeps slots in [0, S), and a bad one reads a
+// clamped row and adds into none, as the reference's gather and scatter.
+// The group's scalars (demands, slots, k, maxrep, constraints, platform
+// rows) are read from device memory, staged in shared memory once a warp,
+// so the host never reads the carry and a chunk runs without a host
+// synchronisation.
 //
-// Bound on the H100: bytes.  The prologue reads 17 bytes per node (valid,
-// cpu, mem) plus 8 of service counts and writes 9 (13 more with the
-// headroom columns); the carry update reads 4 bytes of x and updates
-// 4 + 8 + 8 + 4 bytes where x is non-zero.  The arithmetic is a handful
-// of integer operations per node.
+// Bound on the H100: bytes.  K1F reads valid, ready, plugins (3 B a node),
+// cpu and mem (16), svc0[slot] and svc_acc[slot] (8), the previous x (4)
+// and the hashes of active constraints; it writes cap and svc (8), res_cap
+// (4) or the headroom (8); for each node the previous slot placed on it
+// reads and writes total (8), writes cpu and mem (16) and reads and writes
+// svc_acc at the previous slot's service (8; 4 where that is the row it
+// reads anyway).  The arithmetic is two int64 floor divisions a node,
+// taken from a reciprocal staged once a warp and corrected exactly
+// (feasibility.cuh floor_div_rcp; the int64 division is a long software
+// sequence).  Like K1 it is latency-bound at node bucket 16,384
+// (feasibility.cu): one launch where K4's prologue, K1 and K4's carry
+// update took three.
 
-#include <climits>
-
-#include "common.cuh"
+#include "feasibility.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr long long kHrClamp = 1023;  // scheduler/strategy.py HR_CLAMP
+// K1F's launch shape, chosen by probes/feasibility_probe.cu (PERF.md): as
+// K1's
+constexpr int kEntryThreads = 128;
+constexpr int kCarryThreads = 256;
 
-__device__ __forceinline__ long long floor_div(long long a, long long b) {
-  // b > 0
-  long long q = a / b;
-  if ((a % b != 0) && (a < 0)) q -= 1;
-  return q;
-}
+struct K1FArgs {
+  int n, S, cc, np, g;
+  sk::NodeColumns cols;                   // slot g's slices
+  const int32_t* con_op;                  // slot g's
+  const int32_t* con_exp;
+  const int32_t* plat;
+  const int32_t* k;
+  const int32_t* maxrep;
+  const long long* cpu_d;                 // [G]: slots g and g - 1
+  const long long* mem_d;
+  const int32_t* slot;
+  const int32_t* svc0;                    // [S, n]
+  int32_t* svc_acc;                       // [S, n], carry
+  int32_t* total;                         // carry
+  long long* cpu;
+  long long* mem;
+  const int32_t* x_prev;                  // nullable: first slot
+  int32_t* fail_out;
+  int32_t* cap_out;
+  int32_t* svc_out;
+  int32_t* res_cap_out;                   // nullable
+  int32_t* hr_cpu;                        // nullable: no headroom
+  int32_t* hr_mem;
+};
 
-__device__ __forceinline__ long long clamp_ll(long long v, long long lo,
-                                              long long hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
-
-__device__ __forceinline__ long long slot_offset(const int32_t* slot_ptr,
-                                                int S, int n) {
-  // the builder keeps slots in [0, S); the clamp only keeps a bad slot
-  // inside the arrays
-  return (long long)sk::clamp_int(*slot_ptr, 0, S - 1) * n;
-}
-
-__global__ void __launch_bounds__(kThreads) fused_prologue_kernel(
-    int n, int S, const uint8_t* __restrict__ valid,
-    const long long* __restrict__ cpu, const long long* __restrict__ mem,
-    const long long* __restrict__ cpu_d_ptr,
-    const long long* __restrict__ mem_d_ptr,
-    const int32_t* __restrict__ slot_ptr,
-    const int32_t* __restrict__ svc0,     // [S, n]
-    const int32_t* __restrict__ svc_acc,  // [S, n]
-    uint8_t* __restrict__ res_ok, int32_t* __restrict__ res_cap,
-    int32_t* __restrict__ svc,
-    int32_t* __restrict__ hr_cpu,         // nullable: no headroom
-    int32_t* __restrict__ hr_mem) {       // nullable
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const long long cd = *cpu_d_ptr, md = *mem_d_ptr;
-  const long long slot_off = slot_offset(slot_ptr, S, n);
-  const long long c = cpu[i], m = mem[i];
-  bool ok = valid[i] != 0;
-  long long cap = sk::K_CLAMP;
-  if (cd > 0) {
-    ok = ok && c >= cd;
-    cap = clamp_ll(floor_div(c, cd), LLONG_MIN, cap);
+// the slot scalars, one a lane of the staging warp (held by value: the
+// kernel's parameters are not addressed)
+struct SlotExtra {
+  const long long* cpu_d;
+  const long long* mem_d;
+  const int32_t* slot;
+  int g, S;
+  bool prev;
+  sk::SlotScalars* sc;
+  __device__ long long load(int lane) const {
+    switch (lane) {
+      case 4: return cpu_d[g];
+      case 5: return mem_d[g];
+      case 6: return prev ? cpu_d[g - 1] : 0;
+      case 7: return prev ? mem_d[g - 1] : 0;
+      case 8: return slot[g];
+      case 9: return prev ? slot[g - 1] : 0;
+      default: return 0;
+    }
   }
-  if (md > 0) {
-    ok = ok && m >= md;
-    cap = clamp_ll(floor_div(m, md), LLONG_MIN, cap);
+  __device__ void store(int lane, long long v) const {
+    switch (lane) {
+      case 4:
+        sc->cd = v;
+        sc->rcp_c = v > 0 ? 1.0 / (double)v : 0.0;
+        break;
+      case 5:
+        sc->md = v;
+        sc->rcp_m = v > 0 ? 1.0 / (double)v : 0.0;
+        break;
+      case 6: sc->cd_prev = v; break;
+      case 7: sc->md_prev = v; break;
+      case 8: sc->slot = sk::gather_slot((int)v, S); break;
+      case 9: sc->slot_prev = prev ? sk::scatter_slot((int)v, S) : -1; break;
+      default: break;
+    }
   }
-  res_ok[i] = ok ? 1 : 0;
-  res_cap[i] = (int)clamp_ll(cap, 0, sk::K_CLAMP);
-  svc[i] = svc0[slot_off + i] + svc_acc[slot_off + i];
-  if (hr_cpu != nullptr) {
-    hr_cpu[i] = cd > 0 ? (int)clamp_ll(floor_div(c, cd), 0, kHrClamp)
-                       : (int)kHrClamp;
-    hr_mem[i] = md > 0 ? (int)clamp_ll(floor_div(m, md), 0, kHrClamp)
-                       : (int)kHrClamp;
+};
+
+template <int T>
+__global__ void __launch_bounds__(T) fused_feasibility_kernel(
+    const K1FArgs a) {
+  constexpr int kWarps = T / 32;
+  extern __shared__ int sm[];
+  __shared__ unsigned wsum[2 * kWarps];
+  __shared__ sk::SlotScalars scs[kWarps];   // one a warp, as the group
+  sk::SlotScalars* sc = &scs[threadIdx.x >> 5];
+  const int n = a.n;
+  const int i = blockIdx.x * T + threadIdx.x;
+  const bool has_prev = a.x_prev != nullptr;
+
+  // loads that need no staged scalar, then the staging
+  sk::NodeRegs regs;
+  sk::load_early(a.cols, i, n, regs);
+  sk::FusedSource src{a.cpu, a.mem, a.total, a.svc_acc, a.svc0, a.x_prev,
+                      n, sc};
+  src.load_early(i, n);
+  const int* grp = sk::stage_group(
+      sm, a.cc, a.np, a.con_op, a.con_exp, a.plat, a.k, a.maxrep, nullptr,
+      SlotExtra{a.cpu_d, a.mem_d, a.slot, a.g, a.S, has_prev, sc});
+
+  unsigned fails;
+  bool mask;
+  int cap;
+  sk::feasible_node(grp, a.cols, regs, src, i, n, fails, mask, cap);
+
+  if (i < n) {
+    a.cap_out[i] = cap;
+    a.svc_out[i] = src.svc;
+    if (a.res_cap_out != nullptr) a.res_cap_out[i] = src.cap;
+    if (a.hr_cpu != nullptr) {
+      a.hr_cpu[i] = src.hr_cpu();
+      a.hr_mem[i] = src.hr_mem();
+    }
+    // the previous slot's placements into the carry, where any landed on
+    // this node (the others keep the values just read)
+    if (has_prev && src.x != 0) {
+      a.total[i] = src.total;
+      a.cpu[i] = src.c;
+      a.mem[i] = src.m;
+      if (src.same_slot())
+        a.svc_acc[(size_t)sc->slot * n + i] = src.acc;
+      else if (src.other_slot())
+        a.svc_acc[(size_t)sc->slot_prev * n + i] = src.acc_prev;
+    }
   }
+  // every lane of every warp reaches the fold (no early return above)
+  sk::fold_fails<kWarps>(fails, wsum, a.fail_out);
 }
 
-__global__ void __launch_bounds__(kThreads) fused_carry_kernel(
+template <int T>
+int launch_fused_feasibility(const K1FArgs& a, cudaStream_t stream) {
+  if (a.n <= 0 || a.S <= 0) return 0;
+  if (a.g < 0 || (a.g == 0 && a.x_prev != nullptr) ||
+      (a.hr_cpu == nullptr) != (a.hr_mem == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sk::staged_bytes(T / 32, a.cc, a.np);
+  if (smem > sk::kMaxGroupSmem) return (int)cudaErrorInvalidValue;
+  fused_feasibility_kernel<T><<<(a.n + T - 1) / T, T, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+__global__ void __launch_bounds__(kCarryThreads) fused_carry_kernel(
     int n, int S, const int32_t* __restrict__ x,
     const long long* __restrict__ cpu_d_ptr,
     const long long* __restrict__ mem_d_ptr,
@@ -111,31 +208,46 @@ __global__ void __launch_bounds__(kThreads) fused_carry_kernel(
   if (i >= n) return;
   const int xi = x[i];
   if (xi == 0) return;
-  const long long slot_off = slot_offset(slot_ptr, S, n);
+  const int slot = sk::scatter_slot(*slot_ptr, S);
   total[i] += xi;
   cpu[i] -= (long long)xi * *cpu_d_ptr;
   mem[i] -= (long long)xi * *mem_d_ptr;
-  svc_acc[slot_off + i] += xi;
+  if (slot >= 0) svc_acc[(size_t)slot * n + i] += xi;
 }
 
 }  // namespace
 
-extern "C" int sk_fused_prologue(
-    int n, int S, const void* valid, const void* cpu, const void* mem,
-    const void* cpu_d, const void* mem_d, const void* slot, const void* svc0,
-    const void* svc_acc, void* res_ok, void* res_cap, void* svc,
-    void* hr_cpu, void* hr_mem, void* stream) {
-  if (n <= 0 || S <= 0) return 0;
-  if ((hr_cpu == nullptr) != (hr_mem == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  fused_prologue_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      n, S, (const uint8_t*)valid, (const long long*)cpu,
-      (const long long*)mem, (const long long*)cpu_d,
+extern "C" int sk_fused_feasibility(
+    int n, int S, int cc, int np, int g, const void* valid,
+    const void* ready, const void* os_hash, const void* arch_hash,
+    const void* svc0, const void* k, const void* slot, const void* maxrep,
+    const void* cpu_d, const void* mem_d, const void* con_hash,
+    const void* con_op, const void* con_exp, const void* plat,
+    const void* extra_mask, const void* quota_ok, void* total, void* cpu,
+    void* mem, void* svc_acc, const void* x_prev, void* fail_out,
+    void* cap_out, void* svc_out, void* res_cap_out, void* hr_cpu,
+    void* hr_mem, void* stream) {
+  if (g < 0) return (int)cudaErrorInvalidValue;
+  const size_t gn = (size_t)g * n;
+  // group slot g's slices of the stacked [G, ...] inputs
+  const K1FArgs a{
+      n, S, cc, np, g,
+      sk::NodeColumns{
+          (const uint8_t*)valid, (const uint8_t*)ready,
+          (const uint8_t*)extra_mask + gn,
+          (const int32_t*)con_hash + (size_t)g * cc * 2 * n,
+          (const int32_t*)os_hash, (const int32_t*)arch_hash, nullptr,
+          quota_ok == nullptr ? nullptr : (const uint8_t*)quota_ok + gn},
+      (const int32_t*)con_op + (size_t)g * cc,
+      (const int32_t*)con_exp + (size_t)g * cc * 2,
+      (const int32_t*)plat + (size_t)g * np * 4, (const int32_t*)k + g,
+      (const int32_t*)maxrep + g, (const long long*)cpu_d,
       (const long long*)mem_d, (const int32_t*)slot, (const int32_t*)svc0,
-      (const int32_t*)svc_acc, (uint8_t*)res_ok, (int32_t*)res_cap,
-      (int32_t*)svc, (int32_t*)hr_cpu, (int32_t*)hr_mem);
-  return (int)cudaGetLastError();
+      (int32_t*)svc_acc, (int32_t*)total, (long long*)cpu, (long long*)mem,
+      (const int32_t*)x_prev, (int32_t*)fail_out, (int32_t*)cap_out,
+      (int32_t*)svc_out, (int32_t*)res_cap_out, (int32_t*)hr_cpu,
+      (int32_t*)hr_mem};
+  return launch_fused_feasibility<kEntryThreads>(a, (cudaStream_t)stream);
 }
 
 extern "C" int sk_fused_carry(int n, int S, const void* x, const void* cpu_d,
@@ -143,8 +255,8 @@ extern "C" int sk_fused_carry(int n, int S, const void* x, const void* cpu_d,
                               void* total, void* cpu, void* mem,
                               void* svc_acc, void* stream) {
   if (n <= 0 || S <= 0) return 0;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  fused_carry_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  const int blocks = (n + kCarryThreads - 1) / kCarryThreads;
+  fused_carry_kernel<<<blocks, kCarryThreads, 0, (cudaStream_t)stream>>>(
       n, S, (const int32_t*)x, (const long long*)cpu_d,
       (const long long*)mem_d, (const int32_t*)slot, (int32_t*)total,
       (long long*)cpu, (long long*)mem, (int32_t*)svc_acc);

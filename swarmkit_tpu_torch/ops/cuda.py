@@ -53,7 +53,7 @@ SIGNATURES = {
     "sk_waterfill_scratch_bytes": ([_I], ctypes.c_longlong),
     "sk_packfill": ([_I, _P, _P, _I] + [_P] * 4, _I),
     "sk_strategy_score": ([_I] * 4 + [_P] * 14, _I),
-    "sk_fused_prologue": ([_I, _I] + [_P] * 14, _I),
+    "sk_fused_feasibility": ([_I] * 5 + [_P] * 28, _I),
     "sk_fused_carry": ([_I, _I] + [_P] * 9, _I),
     "sk_scatter_rows": ([_I, _I] + [_P] * 7, _I),
     "sk_gang_fit": ([_I] * 4 + [_P] * 19, _I),

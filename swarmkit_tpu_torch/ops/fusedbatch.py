@@ -24,7 +24,7 @@ shutdown-marked stragglers) breaks the run and takes the per-group route
 the run, or a cluster with no node, degrades the same way.
 
 Resource arithmetic is exact: the carry holds int64 nano-cpus and bytes,
-and K4's floor divisions match the host densifier's numpy ones.
+and K1F's floor divisions match the host densifier's numpy ones.
 """
 
 from __future__ import annotations

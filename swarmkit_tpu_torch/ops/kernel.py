@@ -12,9 +12,12 @@ kernels (``csrc/``) carry them on Hopper:
 * ``waterfill`` (K3, ``csrc/waterfill.cu``): both 34-step binary searches
   of one capacity-bounded water-fill in a single launch of one
   thread-block cluster, for any number of segments;
-* ``fused_prologue`` / ``fused_carry`` (K4, ``csrc/fused.cu``): the scan
-  step of the fused plan -- a group's resource columns from the carried
-  cluster state, and its placements added back into that state;
+* ``fused_feasibility`` (K1F, ``csrc/fused.cu``): the slot entry of the
+  fused plan -- the previous slot's placements added into the carried
+  cluster state, this slot's resource columns derived from it and K1's
+  filters run on them, in one launch a slot; ``fused_carry`` (K4's carry
+  update, the same file) adds a chunk's last placements after its last
+  fill;
 * ``packfill`` (K5, ``csrc/packfill.cu`` + ``packfill.cuh``): the binpack
   key, threshold select and pack fill of one group over all nodes, in one
   launch of one block (a radix select of the threshold key, not a
@@ -93,9 +96,9 @@ SEG_SUM = _cuda.CudaKernel(
 WATERFILL = _cuda.CudaKernel(
     "waterfill", "sk_waterfill", "swarmkit_tpu_torch/csrc/waterfill.cu",
     "swarmkit_tpu/ops/kernel.py:127")
-FUSED_PROLOGUE = _cuda.CudaKernel(
-    "fused_prologue", "sk_fused_prologue", "swarmkit_tpu_torch/csrc/fused.cu",
-    "swarmkit_tpu/ops/kernel.py:640")
+FUSED_FEASIBILITY = _cuda.CudaKernel(
+    "fused_feasibility", "sk_fused_feasibility",
+    "swarmkit_tpu_torch/csrc/fused.cu", "swarmkit_tpu/ops/kernel.py:640")
 FUSED_CARRY = _cuda.CudaKernel(
     "fused_carry", "sk_fused_carry", "swarmkit_tpu_torch/csrc/fused.cu",
     "swarmkit_tpu/ops/kernel.py:715")
@@ -122,7 +125,7 @@ SHARD_PACKFILL = _cuda.CudaKernel(
     "shard_packfill", "sk_shard_packfill",
     "swarmkit_tpu_torch/csrc/shardpack.cu",
     "swarmkit_tpu/parallel/sharded.py:137")
-KERNELS = (FEASIBILITY, SEG_SUM, WATERFILL, FUSED_PROLOGUE, FUSED_CARRY,
+KERNELS = (FEASIBILITY, SEG_SUM, WATERFILL, FUSED_FEASIBILITY, FUSED_CARRY,
            PACKFILL, SCORE, SCATTER, GANG_FIT, SEG_FOLD, SHARD_WATERFILL,
            SHARD_PACKFILL)
 
@@ -616,7 +619,8 @@ def _plan_buffer(n: int, device, out: Optional[torch.Tensor]
 
 def plan_group_packed(nodes: NodeInputs, group: GroupInputs, L: int,
                       hier: Tuple = (),
-                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      out: Optional[torch.Tensor] = None,
+                      cap: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Place one task group; returns the int32 buffer ``[x (N) |
     fail_counts (8) | spill (1)]`` on the inputs' device (``out``, a
     zeroed row of that layout, when given).
@@ -630,13 +634,19 @@ def plan_group_packed(nodes: NodeInputs, group: GroupInputs, L: int,
     leaves, top level first, and ``leaf_parent i32[L]``; ``()`` for a flat
     tree.  Every intermediate stays on the device.  The inputs are
     checked once here (K1's checks and the tree's); K2 and K3 run their
-    unchecked entries."""
+    unchecked entries.
+
+    ``cap``, when given, is the group's capacity column from K1F (the
+    fused route), whose fail counts already sit in ``out``: K1 and its
+    checks are skipped and ``nodes`` needs only the columns the fills read
+    (valid, svc_tasks, total_tasks, failures, leaf) and ``group`` only k."""
     n = nodes.valid.shape[0]
     dev = nodes.valid.device
     buf = _plan_buffer(n, dev, out)
     x, fail, spill = buf[:n], buf[n:n + N_FILTERS], buf[n + N_FILTERS:]
-    cap = torch.empty(n, dtype=torch.int32, device=dev)
-    _feasibility_into(nodes, group, None, cap, fail)
+    if cap is None:
+        cap = torch.empty(n, dtype=torch.int32, device=dev)
+        _feasibility_into(nodes, group, None, cap, fail)
 
     upper_levels, leaf_parent = hier if hier else ((), None)
     i32 = torch.int32
@@ -873,7 +883,9 @@ def strategy_score(nodes: NodeInputs, sin: StrategyInputs,
 
 def plan_strategy_packed(nodes: NodeInputs, group: GroupInputs,
                          sin: Optional[StrategyInputs], strategy: int,
-                         out: Optional[torch.Tensor] = None
+                         out: Optional[torch.Tensor] = None,
+                         cap: Optional[torch.Tensor] = None,
+                         seg: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """Place one task group under a non-spread strategy; the int32 buffer
     ``[x (N) | fail_counts (8) | spill (1)]`` of :func:`plan_group_packed`
@@ -881,19 +893,25 @@ def plan_strategy_packed(nodes: NodeInputs, group: GroupInputs,
     capacity and fail counts; binpack then pack-fills on its key (K5);
     weighted and learned score the nodes (K6) and water-fill them (K3)
     with the tie key (clip(total) << 20) | index.  ``sin`` may be None for
-    binpack, which reads no strategy column."""
+    binpack, which reads no strategy column.  ``cap``: as in
+    :func:`plan_group_packed` (K1 skipped; binpack also reads
+    ``nodes.res_cap``, weighted and learned ``nodes.ready``).  ``seg``: the
+    all-zero segment column of the one-segment water-fill, when the caller
+    holds one (the fused route makes one a chunk)."""
     n = nodes.valid.shape[0]
     dev = nodes.valid.device
     buf = _plan_buffer(n, dev, out)
     x, fail = buf[:n], buf[n:n + N_FILTERS]
-    cap = torch.empty(n, dtype=torch.int32, device=dev)
-    _feasibility_into(nodes, group, None, cap, fail)
+    if cap is None:
+        cap = torch.empty(n, dtype=torch.int32, device=dev)
+        _feasibility_into(nodes, group, None, cap, fail)
     kk = torch.clamp(group.k, max=K_CLAMP).reshape(1)
     if strategy == STRAT_BINPACK:
         _packfill(res_cap=nodes.res_cap, failures=nodes.failures, cap=cap,
                   k=kk, out=x)
     else:
-        seg = torch.zeros(n, dtype=torch.int32, device=dev)
+        if seg is None:
+            seg = torch.zeros(n, dtype=torch.int32, device=dev)
         _waterfill_into(e=strategy_score(nodes, sin, strategy),
                         total=nodes.total_tasks, cap=cap, k_seg=kk, seg=seg,
                         L=1, out=x)
@@ -914,11 +932,13 @@ def plan_strategy(nodes: NodeInputs, group: GroupInputs,
 # One chunk of a fused run plans its group slots in order, each step seeing
 # the cluster state the earlier steps left (reference ``plan_fused``, a
 # lax.scan).  Here the scan is a host loop that only ENQUEUES work: per
-# slot, K4's prologue derives the group's resource columns from the device
-# carry, the host picks the plan's launch sequence from the slot's
-# strategy id (known on the host from the run's builder), and K4's carry
-# update adds the placements back.  Nothing in the loop reads the device,
-# so a chunk is one stream of launches and one D2H of its result rows.
+# slot, K1F adds the previous slot's placements into the device carry,
+# derives the group's resource columns from it and runs K1's filters on
+# them, in one launch; the host picks the fill's launch sequence from the
+# slot's strategy id (known on the host from the run's builder).  After the
+# last slot, K4's carry update adds its placements.  Nothing in the loop
+# reads the device, so a chunk is one stream of launches and one D2H of
+# its result rows.
 
 class FusedShared(NamedTuple):
     """Run-wide node state, densified once per fused run."""
@@ -1012,10 +1032,12 @@ def _check_fused_inputs(shared: FusedShared, groups: FusedGroups,
     return n, s
 
 
-# ---------------------------------------------------- K4: the scan step
+# ------------------------------------------- K1F and K4: the scan step
 
 def _fused_prologue_plain(shared: FusedShared, carry: FusedCarry, cpu_d,
                           mem_d, slot: int):
+    """The reference's in-scan resource columns (``kernel.py:669-678``):
+    (res_ok, res_cap, svc) of one slot from the carry."""
     res_ok = shared.valid
     cap = torch.full_like(carry.cpu, K_CLAMP)
     for avail, d in ((carry.cpu, cpu_d), (carry.mem, mem_d)):
@@ -1038,33 +1060,23 @@ def _fused_headroom(avail: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
 
 
 def _slot_of(groups: FusedGroups, g: int, s: int) -> int:
-    """Plain versions only (a read of the device on the card): group g's
-    service slot, clamped into [0, S) as K4 clamps it."""
-    return min(max(int(groups.slot[g]), 0), s - 1)
+    """Plain versions only (a read of the device on the card): the service
+    slot group g reads, as the reference's jnp indexing reads it -- a
+    negative slot counts from the end, then the slot is clamped into
+    [0, S) (K1F's ``gather_slot``)."""
+    v = int(groups.slot[g])
+    v = v + s if v < 0 else v
+    return min(max(v, 0), s - 1)
 
 
-def _fused_prologue(shared: FusedShared, groups: FusedGroups,
-                    carry: FusedCarry, g: int, s: int, res_ok, res_cap, svc,
-                    hr_cpu=None, hr_mem=None) -> None:
-    """K4's prologue for group slot ``g``: writes res_ok, res_cap, svc
-    and, when given, the headroom columns (inputs checked by the
-    caller)."""
-    n = shared.valid.shape[0]
-    if not _on_cuda(shared.valid):
-        ok, cap, sv = _fused_prologue_plain(
-            shared, carry, groups.cpu_d[g], groups.mem_d[g],
-            _slot_of(groups, g, s))
-        res_ok.copy_(ok)
-        res_cap.copy_(cap)
-        svc.copy_(sv)
-        if hr_cpu is not None:
-            hr_cpu.copy_(_fused_headroom(carry.cpu, groups.cpu_d[g]))
-            hr_mem.copy_(_fused_headroom(carry.mem, groups.mem_d[g]))
-        return
-    FUSED_PROLOGUE(n, s, *map(_cuda.ptr, (
-        shared.valid, carry.cpu, carry.mem, groups.cpu_d[g],
-        groups.mem_d[g], groups.slot[g], shared.svc0, carry.svc_acc, res_ok,
-        res_cap, svc, hr_cpu, hr_mem)))
+def _scatter_slot(groups: FusedGroups, g: int, s: int) -> Optional[int]:
+    """Plain versions only: the service slot group g's placements are
+    added into, as the reference's ``.at[slot].add`` scatters them -- a
+    negative slot counts from the end, and a slot outside [0, S) is
+    dropped (None; K1F's and K4's ``scatter_slot``)."""
+    v = int(groups.slot[g])
+    v = v + s if v < 0 else v
+    return v if 0 <= v < s else None
 
 
 def _fused_carry_plain(groups: FusedGroups, carry: FusedCarry, g: int,
@@ -1073,7 +1085,9 @@ def _fused_carry_plain(groups: FusedGroups, carry: FusedCarry, g: int,
     carry.total.add_(x)
     carry.cpu.sub_(x64 * groups.cpu_d[g])
     carry.mem.sub_(x64 * groups.mem_d[g])
-    carry.svc_acc[_slot_of(groups, g, s)].add_(x)
+    slot = _scatter_slot(groups, g, s)
+    if slot is not None:
+        carry.svc_acc[slot].add_(x)
 
 
 def _fused_carry(groups: FusedGroups, carry: FusedCarry, g: int, s: int,
@@ -1088,6 +1102,161 @@ def _fused_carry(groups: FusedGroups, carry: FusedCarry, g: int, s: int,
         carry.cpu, carry.mem, carry.svc_acc)))
 
 
+def _fused_slot_inputs(shared: FusedShared, groups: FusedGroups,
+                       carry: FusedCarry, g: int, res_ok, res_cap, svc
+                       ) -> Tuple[NodeInputs, GroupInputs]:
+    """The (NodeInputs, GroupInputs) that group slot ``g``'s filters read,
+    from its derived resource columns (the reference's ``step``,
+    ``kernel.py:679-690``): no host ports, never port-limited."""
+    dev = shared.valid.device
+    nodes = NodeInputs(
+        valid=shared.valid, ready=shared.ready, res_ok=res_ok,
+        res_cap=res_cap, svc_tasks=svc, total_tasks=carry.total,
+        failures=groups.failures[g], leaf=groups.leaf[g],
+        os_hash=shared.os_hash, arch_hash=shared.arch_hash,
+        port_conflict=torch.zeros_like(shared.valid),
+        extra_mask=groups.extra_mask[g],
+        quota_ok=(groups.quota_ok[g] if groups.quota_ok is not None
+                  else None))
+    grp = GroupInputs(
+        k=groups.k[g], con_hash=groups.con_hash[g], con_op=groups.con_op[g],
+        con_exp=groups.con_exp[g], plat=groups.plat[g],
+        maxrep=groups.maxrep[g],
+        port_limited=torch.zeros((), dtype=torch.bool, device=dev))
+    return nodes, grp
+
+
+def _fused_feasibility_plain(shared: FusedShared, groups: FusedGroups,
+                             carry: FusedCarry, g: int, s: int,
+                             x_prev: Optional[torch.Tensor] = None):
+    """Plain version of K1F, the slot entry of group slot ``g``: slot
+    ``g - 1``'s placements ``x_prev`` (None for the first slot of a chunk)
+    added into ``carry`` in place (K4's carry update), then that slot's
+    resource columns from the carry (the reference's ``kernel.py:669-678``)
+    and K1 on them.
+    Returns (mask, cap, fail_counts, res_ok, res_cap, svc, hr_cpu,
+    hr_mem)."""
+    if x_prev is not None:
+        _fused_carry_plain(groups, carry, g - 1, s, x_prev)
+    res_ok, res_cap, svc = _fused_prologue_plain(
+        shared, carry, groups.cpu_d[g], groups.mem_d[g],
+        _slot_of(groups, g, s))
+    hr_cpu = _fused_headroom(carry.cpu, groups.cpu_d[g])
+    hr_mem = _fused_headroom(carry.mem, groups.mem_d[g])
+    mask, cap, fail = _feasibility_plain(*_fused_slot_inputs(
+        shared, groups, carry, g, res_ok, res_cap, svc))
+    return mask, cap, fail, res_ok, res_cap, svc, hr_cpu, hr_mem
+
+
+def _fused_feasibility(shared: FusedShared, groups: FusedGroups,
+                       carry: FusedCarry, g: int, s: int,
+                       x_prev: Optional[torch.Tensor], fail: torch.Tensor,
+                       cap: torch.Tensor, svc: torch.Tensor,
+                       res_cap: Optional[torch.Tensor] = None,
+                       hr_cpu: Optional[torch.Tensor] = None,
+                       hr_mem: Optional[torch.Tensor] = None) -> None:
+    """K1F for group slot ``g`` (inputs checked by the caller): adds
+    ``x_prev``, slot ``g - 1``'s placements, into ``carry`` (None for the
+    first slot of a chunk), then writes the slot's capacity ``cap``, its
+    fail counts into ``fail`` (zeroed: the kernel adds), ``svc`` and, when
+    given, ``res_cap`` and the headroom columns.  One launch."""
+    if not _on_cuda(shared.valid):
+        _, c, f, _, rc, sv, hc, hm = _fused_feasibility_plain(
+            shared, groups, carry, g, s, x_prev)
+        cap.copy_(c)
+        fail.copy_(f)
+        svc.copy_(sv)
+        if res_cap is not None:
+            res_cap.copy_(rc)
+        if hr_cpu is not None:
+            hr_cpu.copy_(hc)
+            hr_mem.copy_(hm)
+        return
+    FUSED_FEASIBILITY(
+        shared.valid.shape[0], s, groups.con_op.shape[-1],
+        groups.plat.shape[1], g, *map(_cuda.ptr, (
+            shared.valid, shared.ready, shared.os_hash, shared.arch_hash,
+            shared.svc0, groups.k, groups.slot, groups.maxrep, groups.cpu_d,
+            groups.mem_d, groups.con_hash, groups.con_op, groups.con_exp,
+            groups.plat, groups.extra_mask, groups.quota_ok, carry.total,
+            carry.cpu, carry.mem, carry.svc_acc, x_prev, fail, cap, svc,
+            res_cap, hr_cpu, hr_mem)))
+
+
+class _SlotScratch(NamedTuple):
+    """The columns a chunk's slots hand from K1F to their fills, made once
+    a chunk (per shard on a mesh)."""
+
+    cap: torch.Tensor
+    svc: torch.Tensor
+    res_cap: Optional[torch.Tensor]   # binpack slots
+    hr_cpu: Optional[torch.Tensor]    # weighted and learned slots
+    hr_mem: Optional[torch.Tensor]
+    hr_gen: Optional[torch.Tensor]
+    seg: Optional[torch.Tensor]       # the one-segment fill's zeros
+
+
+def _slot_scratch(n: int, dev, sids: Sequence[int]) -> _SlotScratch:
+    i32 = torch.int32
+    scored = any(v in (STRAT_WEIGHTED, STRAT_LEARNED) for v in sids)
+
+    def col():
+        return torch.empty(n, dtype=i32, device=dev)
+
+    return _SlotScratch(
+        cap=col(), svc=col(),
+        res_cap=col() if STRAT_BINPACK in sids else None,
+        hr_cpu=col() if scored else None, hr_mem=col() if scored else None,
+        hr_gen=(torch.full((n,), HR_CLAMP, dtype=i32, device=dev)
+                if scored else None),
+        seg=torch.zeros(n, dtype=i32, device=dev) if scored else None)
+
+
+def _slot_entry(shared: FusedShared, groups: FusedGroups, carry: FusedCarry,
+                g: int, s: int, sid: int, x_prev, row: torch.Tensor,
+                sc: _SlotScratch):
+    """K1F for slot ``g`` into ``sc`` and ``row``'s fail slot; returns the
+    (NodeInputs, GroupInputs) its fill reads: the fill's columns and k
+    alone (K1's other inputs stay unread once ``cap`` is given)."""
+    n = shared.valid.shape[0]
+    with_hr = sid in (STRAT_WEIGHTED, STRAT_LEARNED)
+    _fused_feasibility(
+        shared, groups, carry, g, s, x_prev, row[n:n + N_FILTERS], sc.cap,
+        sc.svc, sc.res_cap if sid == STRAT_BINPACK else None,
+        sc.hr_cpu if with_hr else None, sc.hr_mem if with_hr else None)
+    nodes = NodeInputs(
+        valid=shared.valid, ready=shared.ready, res_ok=None,
+        res_cap=sc.res_cap, svc_tasks=sc.svc, total_tasks=carry.total,
+        failures=groups.failures[g], leaf=groups.leaf[g], os_hash=None,
+        arch_hash=None, port_conflict=None, extra_mask=None)
+    grp = GroupInputs(k=groups.k[g], con_hash=None, con_op=None,
+                      con_exp=None, plat=None, maxrep=None,
+                      port_limited=None)
+    return nodes, grp
+
+
+def _slot_strategy(strat: FusedStrategy, g: int, sid: int,
+                   sc: _SlotScratch) -> Optional[StrategyInputs]:
+    if sid not in (STRAT_WEIGHTED, STRAT_LEARNED):
+        return None
+    return StrategyInputs(
+        hr_cpu=sc.hr_cpu, hr_mem=sc.hr_mem, hr_gen=sc.hr_gen,
+        weights=strat.weights[g], w1=strat.w1, b1=strat.b1, w2=strat.w2,
+        b2=strat.b2)
+
+
+def _check_sids(sids: Sequence[int], g_count: int,
+                strat) -> List[int]:
+    """Strategy ids clipped to [0, 3] as the reference's switch clips
+    them, checked against the slot count."""
+    sids = [min(max(int(v), STRAT_SPREAD), STRAT_LEARNED) for v in sids]
+    if len(sids) != g_count:
+        raise ValueError(f"{len(sids)} strategy ids for {g_count} slots")
+    if strat is None and any(sids):
+        raise ValueError("non-spread group slots need a FusedStrategy")
+    return sids
+
+
 def plan_fused_packed(shared: FusedShared, groups: FusedGroups,
                       carry: FusedCarry, L: int,
                       strat: Optional[FusedStrategy], sids: Sequence[int],
@@ -1097,63 +1266,37 @@ def plan_fused_packed(shared: FusedShared, groups: FusedGroups,
     given) and updates ``carry`` in place.
 
     ``sids`` is the host's copy of each slot's strategy id, which picks the
-    slot's launch sequence without reading the device: K4 prologue, K1,
-    then K2 + 2 x K3 (spread, over the run-wide ``L`` leaves), K5
-    (binpack) or K6 + K3 (weighted, learned), then K4's carry update.
-    It equals ``strat.sid`` (all spread when ``strat`` is None).  Ids are
-    clipped to [0, 3] as the reference's switch clips them; padding slots
-    (k = 0) plan like any other and place nothing."""
+    slot's launch sequence without reading the device: K1F (the previous
+    slot's placements into the carry, this slot's columns and K1), then
+    K2 + 2 x K3 (spread, over the run-wide ``L`` leaves), K5 (binpack) or
+    K6 + K3 (weighted, learned); after the last slot, K4's carry update.
+    The inputs are checked once a chunk; each slot makes unchecked
+    launches.  ``sids`` equals ``strat.sid`` (all spread when ``strat`` is
+    None).  Ids are clipped to [0, 3] as the reference's switch clips
+    them; padding slots (k = 0) plan like any other and place nothing."""
     n, s = _check_fused_inputs(shared, groups, carry, strat)
     g_count = groups.k.shape[0]
     dev = shared.valid.device
-    sids = [min(max(int(v), STRAT_SPREAD), STRAT_LEARNED) for v in sids]
-    if len(sids) != g_count:
-        raise ValueError(f"{len(sids)} strategy ids for {g_count} slots")
-    if strat is None and any(sids):
-        raise ValueError("non-spread group slots need a FusedStrategy")
+    sids = _check_sids(sids, g_count, strat)
     if out is None:
         out = torch.zeros((g_count, n + N_FILTERS + 1), dtype=torch.int32,
                           device=dev)
     _check("out", out, torch.int32, (g_count, n + N_FILTERS + 1), dev)
-    i32 = torch.int32
-    res_ok = torch.empty(n, dtype=torch.bool, device=dev)
-    res_cap = torch.empty(n, dtype=i32, device=dev)
-    svc = torch.empty(n, dtype=i32, device=dev)
-    scored = any(v in (STRAT_WEIGHTED, STRAT_LEARNED) for v in sids)
-    hr_cpu = torch.empty(n, dtype=i32, device=dev) if scored else None
-    hr_mem = torch.empty(n, dtype=i32, device=dev) if scored else None
-    hr_gen = torch.full((n,), HR_CLAMP, dtype=i32, device=dev) \
-        if scored else None
-    no_ports = torch.zeros(n, dtype=torch.bool, device=dev)
-    not_limited = torch.zeros((), dtype=torch.bool, device=dev)
+    sc = _slot_scratch(n, dev, sids)
+    x_prev = None
     for g, sid in enumerate(sids):
-        with_hr = sid in (STRAT_WEIGHTED, STRAT_LEARNED)
-        _fused_prologue(shared, groups, carry, g, s, res_ok, res_cap, svc,
-                        hr_cpu if with_hr else None,
-                        hr_mem if with_hr else None)
-        nodes = NodeInputs(
-            valid=shared.valid, ready=shared.ready, res_ok=res_ok,
-            res_cap=res_cap, svc_tasks=svc, total_tasks=carry.total,
-            failures=groups.failures[g], leaf=groups.leaf[g],
-            os_hash=shared.os_hash, arch_hash=shared.arch_hash,
-            port_conflict=no_ports, extra_mask=groups.extra_mask[g],
-            quota_ok=(groups.quota_ok[g] if groups.quota_ok is not None
-                      else None))
-        grp = GroupInputs(
-            k=groups.k[g], con_hash=groups.con_hash[g],
-            con_op=groups.con_op[g], con_exp=groups.con_exp[g],
-            plat=groups.plat[g], maxrep=groups.maxrep[g],
-            port_limited=not_limited)
         row = out[g]
+        nodes, grp = _slot_entry(shared, groups, carry, g, s, sid, x_prev,
+                                 row, sc)
         if sid == STRAT_SPREAD:
-            plan_group_packed(nodes, grp, L, out=row)
+            plan_group_packed(nodes, grp, L, out=row, cap=sc.cap)
         else:
-            sin = StrategyInputs(
-                hr_cpu=hr_cpu, hr_mem=hr_mem, hr_gen=hr_gen,
-                weights=strat.weights[g], w1=strat.w1, b1=strat.b1,
-                w2=strat.w2, b2=strat.b2) if with_hr else None
-            plan_strategy_packed(nodes, grp, sin, sid, out=row)
-        _fused_carry(groups, carry, g, s, row[:n])
+            plan_strategy_packed(nodes, grp, _slot_strategy(strat, g, sid,
+                                                            sc),
+                                 sid, out=row, cap=sc.cap, seg=sc.seg)
+        x_prev = row[:n]
+    if g_count:
+        _fused_carry(groups, carry, g_count - 1, s, x_prev)
     return out
 
 
@@ -1373,13 +1516,14 @@ def gang_fit(nodes: NodeInputs, group: GroupInputs):
 # (swarmkit_tpu/parallel/sharded.py): D shards, shard d owning rows
 # [d * n, (d + 1) * n) of every node column in tensors of its own, on its
 # own device (one card may hold several shards).  Each shard runs the
-# elementwise kernels (K1, K4, K6) on its rows alone.  What crosses shards
-# is what the reference psums, and nothing else: the 8 fail counts (summed
-# at the fetch, see :func:`merge_shard_rows`), stage A's branch sums (K2's
-# per-shard partials, folded by ``seg_fold``), each step of the node-level
-# searches and the base fill, and the pack fill's count.  K10 sums each
-# step over every shard's rows inside one cluster launch, K11 each level
-# of its select inside one block (int64, exact in any order); the plain
+# elementwise kernels (K1, K1F, K4's carry update, K6) on its rows alone.
+# What crosses shards is what the reference psums, and nothing else: the 8
+# fail counts (summed at the fetch, see :func:`merge_shard_rows`), stage
+# A's branch sums (K2's per-shard partials, folded by ``seg_fold``), each
+# step of the node-level searches and the base fill, and the pack fill's
+# count.  K10 sums each step over every shard's rows inside one cluster
+# launch, K11 each level of its select inside one block (int64, exact in
+# any order); the plain
 # versions and ``seg_fold`` sum the D rows in shard order, in int64:
 # exact, deterministic, and the same on every shard.  Clamps apply to the
 # folded sums, never per shard.  Stage A's water-fills run on
@@ -1720,7 +1864,9 @@ def _local_n(first: torch.Tensor, shards) -> int:
 
 def plan_group_sharded_packed(shards: Sequence[Tuple], L: int,
                               outs: Optional[Sequence[torch.Tensor]] = None,
-                              reduce=None) -> List[torch.Tensor]:
+                              reduce=None,
+                              caps: Optional[Sequence[torch.Tensor]] = None
+                              ) -> List[torch.Tensor]:
     """:func:`plan_group_packed` over a node-axis split (reference
     ``plan_group_sharded``): ``shards`` holds each shard's (NodeInputs,
     GroupInputs, hier) on its device, rows split and group scalars
@@ -1733,17 +1879,21 @@ def plan_group_sharded_packed(shards: Sequence[Tuple], L: int,
     K3 over the replicated branch vectors; then K10 over every shard.  On
     CPU shards every value that crosses shards, except the fail counts
     that :func:`merge_shard_rows` sums at the fetch, goes through
-    ``reduce`` (the reference's psum; default :func:`sum_shards`)."""
+    ``reduce`` (the reference's psum; default :func:`sum_shards`).
+    ``caps``: each shard's capacity from K1F, as ``cap`` in
+    :func:`plan_group_packed` (K1 skipped on every shard)."""
     n = _local_n(shards[0][0].valid, [s[0] for s in shards])
     bufs = [_plan_buffer(n, nodes.valid.device,
                          None if outs is None else outs[d])
             for d, (nodes, _g, _h) in enumerate(shards)]
     rows = _shard_rows(bufs, n)
-    caps = []
-    for (nodes, group, _h), (_x, fail, _s) in zip(shards, rows):
-        cap = torch.empty(n, dtype=torch.int32, device=nodes.valid.device)
-        _feasibility_into(nodes, group, None, cap, fail)
-        caps.append(cap)
+    if caps is None:
+        caps = []
+        for (nodes, group, _h), (_x, fail, _s) in zip(shards, rows):
+            cap = torch.empty(n, dtype=torch.int32,
+                              device=nodes.valid.device)
+            _feasibility_into(nodes, group, None, cap, fail)
+            caps.append(cap)
 
     uppers = [h[0] if h else () for _n, _g, h in shards]
     leaf_parents = [h[1] if h else None for _n, _g, h in shards]
@@ -1799,13 +1949,15 @@ def plan_group_sharded_packed(shards: Sequence[Tuple], L: int,
 def plan_strategy_sharded_packed(shards: Sequence[Tuple],
                                  sins: Optional[Sequence], strategy: int,
                                  outs: Optional[Sequence[torch.Tensor]] = None,
-                                 reduce=None) -> List[torch.Tensor]:
+                                 reduce=None,
+                                 caps: Optional[Sequence[torch.Tensor]] = None
+                                 ) -> List[torch.Tensor]:
     """:func:`plan_strategy_packed` over a node-axis split (reference
     ``plan_strategy_sharded``): ``shards`` holds each shard's (NodeInputs,
     GroupInputs), ``sins`` each shard's StrategyInputs (headroom split,
     weights and MLP replicated; None for binpack).  Per shard K1 (and K6
     for weighted and learned); then K11 (binpack) or K10 over every
-    shard, on global indices.  ``reduce`` as in
+    shard, on global indices.  ``reduce`` and ``caps`` as in
     :func:`plan_group_sharded_packed`."""
     n = _local_n(shards[0][0].valid, [s[0] for s in shards])
     bufs = [_plan_buffer(n, nodes.valid.device,
@@ -1814,8 +1966,12 @@ def plan_strategy_sharded_packed(shards: Sequence[Tuple],
     parts = []
     for d, ((nodes, group), (x, fail, _s)) in enumerate(
             zip(shards, _shard_rows(bufs, n))):
-        cap = torch.empty(n, dtype=torch.int32, device=nodes.valid.device)
-        _feasibility_into(nodes, group, None, cap, fail)
+        if caps is None:
+            cap = torch.empty(n, dtype=torch.int32,
+                              device=nodes.valid.device)
+            _feasibility_into(nodes, group, None, cap, fail)
+        else:
+            cap = caps[d]
         kk = torch.clamp(group.k, max=K_CLAMP).reshape(1)
         if strategy == STRAT_BINPACK:
             parts.append(FillShard(res_cap=nodes.res_cap,
@@ -1846,8 +2002,8 @@ def plan_fused_sharded_packed(shareds: Sequence[FusedShared],
     and FusedStrategy (replicated, or None for a spread-only run).  The
     carry stays split and is updated in place, shard by shard.  Returns
     each shard's rows ``[G, x (n) | fail_counts (8) | spill (1)]``.  Per
-    slot: K4's prologue on every shard, the slot's sharded plan, K4's
-    carry update on every shard.  ``reduce`` as in
+    slot: K1F on every shard, then the slot's sharded fill; after the last
+    slot, K4's carry update on every shard.  ``reduce`` as in
     :func:`plan_group_sharded_packed`."""
     D = len(shareds)
     n = _local_n(shareds[0].valid, shareds)
@@ -1857,11 +2013,7 @@ def plan_fused_sharded_packed(shareds: Sequence[FusedShared],
                                                     carries))]
     s = checked[0][1]
     g_count = groupss[0].k.shape[0]
-    sids = [min(max(int(v), STRAT_SPREAD), STRAT_LEARNED) for v in sids]
-    if len(sids) != g_count:
-        raise ValueError(f"{len(sids)} strategy ids for {g_count} slots")
-    if strats is None and any(sids):
-        raise ValueError("non-spread group slots need a FusedStrategy")
+    sids = _check_sids(sids, g_count, strats)
     i32 = torch.int32
     bufs = []
     for d, sh in enumerate(shareds):
@@ -1872,56 +2024,29 @@ def plan_fused_sharded_packed(shareds: Sequence[FusedShared],
         else:
             _check("out", outs[d], i32, (g_count, n + N_FILTERS + 1), dev)
             bufs.append(outs[d])
-    scored = any(v in (STRAT_WEIGHTED, STRAT_LEARNED) for v in sids)
-    scratch = []
-    for sh in shareds:
-        dev = sh.valid.device
-        scratch.append(dict(
-            res_ok=torch.empty(n, dtype=torch.bool, device=dev),
-            res_cap=torch.empty(n, dtype=i32, device=dev),
-            svc=torch.empty(n, dtype=i32, device=dev),
-            hr_cpu=torch.empty(n, dtype=i32, device=dev) if scored else None,
-            hr_mem=torch.empty(n, dtype=i32, device=dev) if scored else None,
-            hr_gen=(torch.full((n,), HR_CLAMP, dtype=i32, device=dev)
-                    if scored else None),
-            no_ports=torch.zeros(n, dtype=torch.bool, device=dev),
-            not_limited=torch.zeros((), dtype=torch.bool, device=dev)))
+    scratch = [_slot_scratch(n, sh.valid.device, sids) for sh in shareds]
+    x_prev = [None] * D
     for g, sid in enumerate(sids):
-        with_hr = sid in (STRAT_WEIGHTED, STRAT_LEARNED)
+        rows = [b[g] for b in bufs]
         plans, sins = [], []
         for d in range(D):
-            sh, gr, ca, sc = shareds[d], groupss[d], carries[d], scratch[d]
-            _fused_prologue(sh, gr, ca, g, s, sc["res_ok"], sc["res_cap"],
-                            sc["svc"], sc["hr_cpu"] if with_hr else None,
-                            sc["hr_mem"] if with_hr else None)
-            nodes = NodeInputs(
-                valid=sh.valid, ready=sh.ready, res_ok=sc["res_ok"],
-                res_cap=sc["res_cap"], svc_tasks=sc["svc"],
-                total_tasks=ca.total, failures=gr.failures[g],
-                leaf=gr.leaf[g], os_hash=sh.os_hash, arch_hash=sh.arch_hash,
-                port_conflict=sc["no_ports"], extra_mask=gr.extra_mask[g],
-                quota_ok=(gr.quota_ok[g] if gr.quota_ok is not None
-                          else None))
-            grp = GroupInputs(
-                k=gr.k[g], con_hash=gr.con_hash[g], con_op=gr.con_op[g],
-                con_exp=gr.con_exp[g], plat=gr.plat[g], maxrep=gr.maxrep[g],
-                port_limited=sc["not_limited"])
+            nodes, grp = _slot_entry(shareds[d], groupss[d], carries[d], g,
+                                     s, sid, x_prev[d], rows[d], scratch[d])
             plans.append((nodes, grp, ()) if sid == STRAT_SPREAD
                          else (nodes, grp))
-            if with_hr:
-                st = strats[d]
-                sins.append(StrategyInputs(
-                    hr_cpu=sc["hr_cpu"], hr_mem=sc["hr_mem"],
-                    hr_gen=sc["hr_gen"], weights=st.weights[g], w1=st.w1,
-                    b1=st.b1, w2=st.w2, b2=st.b2))
-        rows = [b[g] for b in bufs]
+            sins.append(_slot_strategy(strats[d], g, sid, scratch[d])
+                        if strats is not None else None)
+        caps = [sc.cap for sc in scratch]
         if sid == STRAT_SPREAD:
-            plan_group_sharded_packed(plans, L, rows, reduce)
+            plan_group_sharded_packed(plans, L, rows, reduce, caps=caps)
         else:
-            plan_strategy_sharded_packed(plans, sins or None, sid, rows,
-                                         reduce)
+            plan_strategy_sharded_packed(
+                plans, None if sins[0] is None else sins, sid, rows, reduce,
+                caps=caps)
+        x_prev = [r[:n] for r in rows]
+    if g_count:
         for d in range(D):
-            _fused_carry(groupss[d], carries[d], g, s, rows[d][:n])
+            _fused_carry(groupss[d], carries[d], g_count - 1, s, x_prev[d])
     return bufs
 
 

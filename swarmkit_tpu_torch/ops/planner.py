@@ -12,8 +12,9 @@ dispatch: a spread group through K1 -> K2 -> K3, a binpack, weighted or
 learned group through ``plan_strategy`` (K1, then K5 or K6 -> K3).  The
 fused route (``probe_fused_run`` .. ``abort_fused_run``) plans a run of
 consecutive fusable groups in chunks (``ops/fusedbatch.py``): per chunk one
-stream of launches over its group slots, K4 carrying the cluster state from
-slot to slot on the device, and one D2H of the chunk's result rows.  Gang
+stream of launches over its group slots, the cluster state carried from
+slot to slot on the device (K1F enters each slot, K4's carry update closes
+the chunk), and one D2H of the chunk's result rows.  Gang
 admission asks ``gang_feasible`` / ``gang_feasible_many`` for its
 all-or-nothing precheck, which K8 decides on the card, and the preemption
 pass asks ``select_victims`` for its victim picks, which K9 makes on the

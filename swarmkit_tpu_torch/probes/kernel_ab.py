@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time K5 and K9-K11 of two trees of this repository on one CUDA card,
-in turns.
+"""Time K1, the fused chunk, K5 and K9-K11 of two trees of this repository
+on one CUDA card, in turns.
 
     python3 swarmkit_tpu_torch/probes/kernel_ab.py OLD_TREE NEW_TREE
     python3 swarmkit_tpu_torch/probes/kernel_ab.py --fills TREE
@@ -17,15 +17,26 @@ inputs and the profiler of the ``chip_smoke.py`` beside it):
   recorded and then replayed on its own inputs;
 * K9 at node bucket 16384, V = 4, 16 and 64, 512 picks
   (``chip_smoke.victim_inputs``, the full run);
+* K1 at the headline plan's shape (``chip_smoke.plan_inputs``, nb 16384,
+  10,000 nodes, four constraint slots, four platform rows) and at nb 2^20
+  (the grid sized to the node count against one wave of the 132 SMs),
+  K8 at G = 1 and at the gang fleet's G = 8 (``chip_smoke.gang_rows``,
+  nb 16384),
+  and a cfg7 fused chunk (``chip_smoke.fused_inputs``, nb 16384: spread,
+  binpack, weighted, learned; each measurement on a fresh carry, checked
+  to place every task on its last call) with its launches by kernel and
+  the device time of its slot-entry kernels (K4's prologue, K1 and K4's
+  carry update in a tree before K1F; K1F and the carry update after);
 * the fills (``--fills`` measures these alone, in one process): K5 on
   config 7's binpack slot (``chip_smoke.binpack_slot`` of a cfg7 chunk,
   nb 16384), K10 at the mesh headline's leaf fill (four shards, L = 256)
   and at one segment a row (four shards, L = 16,384), and K11 on four
   shards of nb 16384 (``chip_smoke.shard_fill_inputs``' pack case).
 
-Per case: the wrapper's ms (CUDA events over 20 warm calls), the
-kernels' device ms (torch.profiler, every launch's row counted), the
-launches per call and the SM clock after it (``nvidia-smi``).  Each run
+Per case: the wrapper's ms (CUDA events over 20 warm calls; 10 for the
+chunk), the kernels' device ms (torch.profiler, every launch's row
+counted; every device op for the chunk), the launches per call and the SM
+clock after it (``nvidia-smi``).  Each run
 prints one JSON line; the last line is the whole record, also written to
 ``chiprun_out/kernel_ab.json``, with the card's name and power limit.
 """
@@ -134,6 +145,109 @@ def fill_rows(torch, cs, K, fused_to_device, dev):
     return out
 
 
+#: the kernels of a fused chunk's slot entries, in either tree
+ENTRY_KERNELS = ("fused_prologue", "feasibility", "fused_feasibility",
+                 "fused_carry")
+
+
+def _launch_deltas(K, fn):
+    before = {k.name: k.launches for k in K.KERNELS}
+    fn()
+    return {k.name: k.launches - before[k.name] for k in K.KERNELS
+            if k.launches != before[k.name]}
+
+
+def entry_rows(torch, cs, K, to_device, fused_to_device, dev):
+    """K1 at the headline plan's shape and at nb 2^20, K8 at G = 1 and 8,
+    and a cfg7 fused chunk, each checked against the CPU's plain path
+    first."""
+    from swarmkit_tpu_torch.ops.convert import gang_to_device
+    out = {}
+    for label, nb, n_valid in (("k1_headline", 16384, 10000),
+                               ("k1_nb2p20", 1 << 20, 1000000)):
+        nodes_np, group_np, _, _ = cs.plan_inputs(
+            seed=2024, nb=nb, n_valid=n_valid, n_leaves=20,
+            k=K.K_CLAMP - 1, near_2p24=True)
+        nodes, group, _ = to_device(nodes_np, group_np, (), dev)
+
+        def run():
+            return K.feasibility_packed(nodes, group)
+
+        got = K.unpack_feasibility(run(), nb)
+        want = K._feasibility_plain(nodes, group)
+        cs.check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                 f"{label}: K1 differs from its plain version")
+        launches = _launch_deltas(K, run)
+        (dev_ms,) = cs.device_ms_each(
+            torch, run, (("feasibility_kernel",),),
+            per_call=[launches["feasibility"]], label=label)
+        out[label] = dict(ms=cs.time_ms(torch, run, reps=20, warmup=3),
+                          device_ms=dev_ms, launches=launches,
+                          clocks=_clocks())
+
+    # K8 at G = 1 and at chip_smoke.py's gang-fleet stack of G = 8
+    for label, seed, g_count in (("k8_g1", 41, 1), ("k8_g8", 508, 8)):
+        rows = cs.gang_rows(seed, g_count=g_count)
+        gnodes, ggroups = gang_to_device(rows, dev)
+
+        def gang():
+            return K.gang_fit_packed(gnodes, ggroups)
+
+        got = K.unpack_gang(gang().cpu(), g_count)
+        want = K.unpack_gang(K.gang_fit_packed(
+            *gang_to_device(rows, "cpu")), g_count)
+        cs.check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                 f"{label}: K8 differs from its plain version")
+        (dev_ms,) = cs.device_ms_each(torch, gang, (("gang_fit_kernel",),),
+                                      label=label)
+        out[label] = dict(ms=cs.time_ms(torch, gang, reps=20, warmup=3),
+                          device_ms=dev_ms, clocks=_clocks())
+
+    inputs = cs.fused_inputs(seed=77)
+    L, sids = inputs[4], inputs[3].sid.tolist()
+    shared, groups, carry, strat = fused_to_device(*inputs[:4], device=dev)
+    cpu_in = fused_to_device(*inputs[:4], device="cpu")
+    first = K.plan_fused_packed(shared, groups, carry, L, strat, sids)
+    cs.check(torch.equal(first.cpu(), K.plan_fused_packed(
+        *cpu_in[:3], L, cpu_in[3], sids)), "the fused chunk on the card "
+        "differs from the CPU plain path")
+    n = shared.valid.shape[0]
+    placed = first[:, :n].sum(dim=1).tolist()
+
+    def chunk_on_fresh_carry():
+        """A chunk planning on a carry of its own (at most
+        CHUNK_CALLS_PER_CARRY calls keep it placing every task), and its
+        last rows."""
+        fresh = fused_to_device(*inputs[:4], device=dev)[2]
+        last = []
+
+        def run():
+            last[:] = [K.plan_fused_packed(shared, groups, fresh, L, strat,
+                                           sids)]
+            return last[0]
+        return run, last
+
+    def still_full(last):
+        got = last[0][:, :n].sum(dim=1).tolist()
+        cs.check(got == placed, f"cfg7 chunk: the last timed chunk placed "
+                 f"{got}, not {placed}: its carry ran dry")
+
+    launches = _launch_deltas(K, chunk_on_fresh_carry()[0])
+    entry = sum(launches.get(name, 0) for name in ENTRY_KERNELS)
+    run, last = chunk_on_fresh_carry()
+    all_ms, entry_ms = cs.device_ms_each(
+        torch, run, (("",), tuple(f"{name}_kernel"
+                                  for name in ENTRY_KERNELS)),
+        reps=5, per_call=[0, entry], label="cfg7 chunk")
+    still_full(last)
+    run, last = chunk_on_fresh_carry()
+    ms = cs.time_ms(torch, run, reps=10, warmup=2)
+    still_full(last)
+    out["cfg7_chunk"] = dict(ms=ms, device_ms=all_ms, entry_device_ms=entry_ms,
+                             launches=launches, clocks=_clocks())
+    return out
+
+
 def measure(tree, fills_only=False):
     """One tree's numbers (run in a process of its own)."""
     tree = os.path.realpath(tree)
@@ -143,7 +257,7 @@ def measure(tree, fills_only=False):
     cs = _tools()
     from swarmkit_tpu_torch.ops import cuda
     from swarmkit_tpu_torch.ops import kernel as K
-    from swarmkit_tpu_torch.ops.convert import fused_to_device
+    from swarmkit_tpu_torch.ops.convert import fused_to_device, to_device
     cs.check(os.path.realpath(cuda.__file__).startswith(tree),
              f"imported {cuda.__file__}, not the tree {tree}")
     cs.check(torch.cuda.is_available(), "no CUDA device")
@@ -152,6 +266,8 @@ def measure(tree, fills_only=False):
     dev = torch.device("cuda")
     out = dict(tree=tree, build_s=build.seconds, card=cs.card_uuid(torch))
     if not fills_only:
+        out["entry"] = entry_rows(torch, cs, K, to_device, fused_to_device,
+                                  dev)
         out.update(_k9_rows(torch, cs, dev))
     out["fills"] = fill_rows(torch, cs, K, fused_to_device, dev)
     return out

@@ -13,11 +13,11 @@ import pytest
 import torch
 
 from chip_smoke import (
-    PACK_EDGE_CASES, SHARD_FILL_CASES, VICTIM_CASES, VICTIM_EDGE_CASES,
-    WATERFILL_MODES, edge_fill_inputs, fill_parts, fused_inputs, gang_rows,
-    headline_fill_parts, pack_edge_inputs, plan_inputs, scatter_inputs,
-    shard_fill_inputs, victim_edge_inputs, victim_inputs, waterfill_call,
-    waterfill_inputs)
+    FUSED_ENTRY_CASES, PACK_EDGE_CASES, SHARD_FILL_CASES, VICTIM_CASES,
+    VICTIM_EDGE_CASES, WATERFILL_MODES, edge_fill_inputs, fill_parts,
+    fused_entry_inputs, fused_inputs, gang_rows, headline_fill_parts,
+    pack_edge_inputs, plan_inputs, scatter_inputs, shard_fill_inputs,
+    victim_edge_inputs, victim_inputs, waterfill_call, waterfill_inputs)
 from swarmkit_tpu_torch.ops import kernel as K
 from swarmkit_tpu_torch.ops import preempt as P
 from swarmkit_tpu_torch.ops.convert import (
@@ -110,6 +110,47 @@ def test_plan_group_on_card_matches_cpu(case):
     torch.cuda.synchronize()
     cn, cg, _, ch = _inputs(case, "cpu")
     _eq(got, K.plan_group_packed(cn, cg, L, ch))
+
+
+def _at_offset(t, off):
+    """``t`` copied into a contiguous view that starts ``off`` elements
+    into a larger buffer, as a shard's slice of a column does."""
+    if t is None or t.dim() == 0:
+        return t
+    buf = torch.empty(off + t.numel(), dtype=t.dtype, device=t.device)
+    view = buf[off:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("off", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("nb", [1021, 1022, 1023, 4097, (1 << 17) + 3])
+def test_feasibility_kernel_odd_sizes_and_offset_views(nb, off):
+    """K1's column reads at their edges: a node count that fills no whole
+    block (padding threads in the last one) and every column a view at an
+    offset (shard slices start at any row) give the plain version's
+    outputs, with and without the mask column, from one block an SM up to
+    far more (2^17 nodes: 1,025 blocks, each warp staging its own copy of
+    the group)."""
+    dev = _card()
+    nodes_np, group_np, _, _ = plan_inputs(
+        13, nb=nb, n_valid=nb - 5, n_leaves=3, k=5000, near_2p24=False,
+        quota=True, maxrep=4, port_limited=True, plat_wildcard=False)
+    nodes, group, _ = to_device(nodes_np, group_np, (), dev)
+    nodes = K.NodeInputs(*(_at_offset(t, off) for t in nodes))
+    group = group._replace(con_hash=_at_offset(group.con_hash, off))
+    mask, cap, fail = K.feasibility_and_capacity(nodes, group)
+    n = nodes.valid.shape[0]
+    cap_only = _at_offset(torch.full((n,), -1, dtype=torch.int32,
+                                     device=dev), off)
+    fail_only = torch.zeros(K.N_FILTERS, dtype=torch.int32, device=dev)
+    K._feasibility_into(nodes, group, None, cap_only, fail_only)
+    torch.cuda.synchronize()
+    pm, pc, pf = K._feasibility_plain(nodes, group)
+    assert int(pf.sum()) > 0 and int(pc.sum()) > 0
+    for got, want in ((mask, pm), (cap, pc), (fail, pf), (cap_only, pc),
+                      (fail_only, pf)):
+        _eq(got, want)
 
 
 def _launched(fn):
@@ -287,24 +328,67 @@ def _strategy_nodes(shared, groups, carry, g):
     return nodes, grp, sin
 
 
+def _entry_matches_plain(shared, groups, carry, g, x_prev, cols=True):
+    """K1F for slot ``g`` on clones of ``carry`` against its plain version
+    on other clones: capacity, fail counts, svc, res_cap and the headroom
+    (``cols``; else only capacity and svc, the rest left unwritten) and
+    the updated carry."""
+    dev = shared.valid.device
+    n = shared.valid.shape[0]
+    s = shared.svc0.shape[0]
+    a = K.FusedCarry(*(t.clone() for t in carry))
+    b = K.FusedCarry(*(t.clone() for t in carry))
+    out = [torch.full((n,), -1, dtype=torch.int32, device=dev)
+           for _ in range(5)]
+    fail = torch.zeros(K.N_FILTERS, dtype=torch.int32, device=dev)
+    K._fused_feasibility(shared, groups, a, g, s, x_prev, fail, out[0],
+                         out[1], *(out[2:] if cols else (None,) * 3))
+    torch.cuda.synchronize()
+    _, cap, pf, _, res_cap, svc, hr_cpu, hr_mem = \
+        K._fused_feasibility_plain(shared, groups, b, g, s, x_prev)
+    _eq(out[0], cap)
+    _eq(fail, pf)
+    _eq(out[1], svc)
+    if cols:
+        for got, want in zip(out[2:], (res_cap, hr_cpu, hr_mem)):
+            _eq(got, want)
+    else:
+        assert bool((torch.stack(out[2:]) == -1).all())
+    for u, v in zip(a, b):
+        _eq(u, v)
+    return cap, pf
+
+
 @pytest.mark.parametrize("case", sorted(FUSED_SHAPES))
-def test_fused_prologue_kernel_matches_plain(case):
+def test_fused_feasibility_kernel_matches_plain(case):
+    """K1F on every slot of a cfg7 chunk (spread, binpack, weighted,
+    learned), the first slot without a previous placement and the others
+    with a carried one, against ``_fused_feasibility_plain``."""
     dev = _card()
     shared, groups, carry, strat, L = _fused(case, dev)
     n = shared.valid.shape[0]
-    s = shared.svc0.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(3)
     for g in range(groups.k.shape[0]):
-        outs = [torch.empty(n, dtype=torch.bool, device=dev)] + [
-            torch.empty(n, dtype=torch.int32, device=dev) for _ in range(4)]
-        K._fused_prologue(shared, groups, carry, g, s, *outs)
-        torch.cuda.synchronize()
-        ok, cap, svc = K._fused_prologue_plain(
-            shared, carry, groups.cpu_d[g], groups.mem_d[g],
-            K._slot_of(groups, g, s))
-        for got, want in zip(outs, (
-                ok, cap, svc, K._fused_headroom(carry.cpu, groups.cpu_d[g]),
-                K._fused_headroom(carry.mem, groups.mem_d[g]))):
-            _eq(got, want)
+        x_prev = None if g == 0 else torch.randint(
+            0, 6, (n,), generator=gen, device=dev, dtype=torch.int32)
+        _entry_matches_plain(shared, groups, carry, g, x_prev)
+
+
+@pytest.mark.parametrize("cols", [True, False])
+@pytest.mark.parametrize("nb", [1024, 16384, 1 << 17])
+@pytest.mark.parametrize("case", FUSED_ENTRY_CASES)
+def test_fused_feasibility_kernel_at_entry_cases(case, nb, cols):
+    """K1F on the slot-entry cases the CPU holds to the reference's scan
+    step (``tests/test_torch_fused_entry.py``): bit-equal to the plain
+    version, with and without the fill's optional columns, staged once a
+    warp (up to one block an SM) and once a block (2^17 nodes)."""
+    dev = _card()
+    shared, groups, carry, g, x_prev = fused_entry_inputs(7, case, nb=nb)
+    shared, groups, carry, _ = fused_to_device(shared, groups, carry,
+                                               device=dev)
+    x = None if x_prev is None else torch.from_numpy(x_prev).to(dev)
+    cap, fail = _entry_matches_plain(shared, groups, carry, g, x, cols)
+    assert int(fail.sum()) > 0
 
 
 @pytest.mark.parametrize("case", sorted(FUSED_SHAPES))
@@ -450,11 +534,33 @@ def test_fused_chunk_on_card_matches_cpu(case):
 def test_fused_chunk_counts_launches():
     dev = _card()
     shared, groups, carry, strat, L = _fused("nb1024", dev)
-    # slots: spread, binpack, weighted, learned
+    # slots: spread, binpack, weighted, learned; one slot entry (K1F) a
+    # slot and one carry update a chunk, no standalone K1
     assert _launched(lambda: K.plan_fused_packed(
         shared, groups, carry, L, strat, [0, 1, 2, 3])) == {
-        "fused_prologue": 4, "fused_carry": 4, "feasibility": 4,
-        "seg_sum": 1, "waterfill": 4, "packfill": 1, "strategy_score": 2}
+        "fused_feasibility": 4, "fused_carry": 1, "seg_sum": 1,
+        "waterfill": 4, "packfill": 1, "strategy_score": 2}
+
+
+def test_fused_chunks_twice_without_a_sync():
+    """Two fused chunks of different inputs, each with its own carry,
+    enqueued back to back: each equals the CPU's, carry included."""
+    dev = _card()
+    runs = []
+    for seed in (11, 12):
+        shared, groups, carry, strat, L = fused_inputs(seed, nb=4096,
+                                                       n_valid=4000)
+        sids = strat.sid.tolist()
+        card = fused_to_device(shared, groups, carry, strat, device=dev)
+        cpu = fused_to_device(shared, groups, carry, strat, device="cpu")
+        runs.append((card, cpu, L, sids))
+    outs = [K.plan_fused_packed(*card[:3], L, card[3], sids)
+            for card, _, L, sids in runs]
+    torch.cuda.synchronize()
+    for buf, (card, cpu, L, sids) in zip(outs, runs):
+        _eq(buf, K.plan_fused_packed(*cpu[:3], L, cpu[3], sids))
+        for a, b in zip(card[2], cpu[2]):
+            _eq(a, b)
 
 
 def test_many_service_tick_on_card_matches_host_path():
