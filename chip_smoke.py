@@ -11,8 +11,10 @@ Phases, each of which exits non-zero on failure:
 3. kernels: each kernel against its plain PyTorch version on the card, on
    seeded inputs at the main paths' shapes (node bucket 16384; leaf bucket
    256, 4 constraint slots, 4 platform rows, branch totals around 2^24 for
-   K1-K3; a cfg7 chunk of 4 group slots over 16 service slots for K1F,
-   K4's carry update, K5 and K6);
+   K1-K3; a cfg7 chunk of 4 group slots over 16 service slots for K1F
+   (its binpack slot), the scored K1F (its weighted and learned slots:
+   K6's score as the slot entry's epilogue), K4's carry update, K5, K6 and
+   the scored K1 (spread, weighted, learned));
    K2 twice back to back without a sync, one launch a call; K3 (one
    cluster launch a call) also over one spread value per node (L =
    16,384); K5 (one launch a call) also on its edge cases
@@ -32,8 +34,9 @@ Phases, each of which exits non-zero on failure:
    50,000 tasks, one tick) with the services split over spread, binpack,
    weighted and learned: all 500,000 tasks placed through the fused route
    (10 groups fused in 3 chunks, none on the host), every kernel of the
-   route launched: K1F once a group slot, K4's carry update once a chunk,
-   no standalone K1;
+   route launched: K1F once a group slot (scored for the weighted and
+   learned ones), K4's carry update once a chunk, no standalone K1 and no
+   K6; every kernel's count exactly the route's (31 launches);
 8. traced many-service tick: its traced twin;
 9. many-service host oracle: at 1,000 nodes x 10,000 tasks, per-service
    per-node counts of the card's fused tick equal the host path's (the
@@ -84,15 +87,18 @@ Phases, each of which exits non-zero on failure:
     at and below the whole capacity and on K5's edge cases, each
     bit-equal to its plain version on the same tensors, K10's and K11's
     profiles within 15% of the median of ``probes/kernel_ab.py --fills``
-    run in three processes of its own; K2's cross-shard fold at the
-    headline's leaf level;
+    run in three processes of its own; K2 over the shard table (one
+    launch a level) at the headline's leaf level, against its plain
+    version and K2 on the unsplit columns, twice without a sync;
 17. the headline tick through ``TorchPlanner(mesh=make_mesh(["cuda:0"] *
     4))``: every task placed, every plan's x, fail counts and spill equal
-    to the unsharded tick's (phase 4), K10 launched;
+    to the unsharded tick's (phase 4), K10 launched, stage A once a card
+    (one K2 over the shard table and one K3 a level, no per-shard K2);
 18. config 7 through the same mesh: every group fused in 3 chunks,
-    binpack through K11 (two launches, one a fill), each chunk's rows and
-    the per-(service, node) counts equal to the unsharded tick's (phase
-    7), and its traced twin;
+    binpack through K11 (two launches, one a fill), every kernel's count
+    exactly the route's (70 launches: no K6, four K2 and four stage-A
+    K3), each chunk's rows and the per-(service, node) counts equal to the
+    unsharded tick's (phase 7), and its traced twin;
     with phase 16, two compositions of the split timed against the
     unsharded plans of the same inputs (B13, a weighted group's plan;
     B14, a cfg7 fused chunk);
@@ -105,10 +111,11 @@ Phases, each of which exits non-zero on failure:
 
 The counts of kernel launches are set to 0 just before each main path and
 read just after it; the kernels' JSON line reports K1 from the headline
-path, K1F and K2-K6 from the many-service path (one K1F launch a group
-slot, one K4 carry update a chunk, no standalone K1 there), K7 from the
-churn path, K8 from the gang path, K9 from the storm, and K10, K11 and
-K2's fold from the mesh many-service path.  The last lines are that JSON
+path, K1F, the scored K1F and K2-K6 from the many-service path (one K1F
+launch a group slot, one K4 carry update a chunk, no standalone K1 and
+no K6 there: K6, the port of the public ``strategy_score``, reports 0),
+K7 from the churn path, K8 from the gang path, K9 from the storm, and
+K10, K11 and K2 over the shard table from the mesh many-service path.  The last lines are that JSON
 line, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.  The full record also goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -1300,13 +1307,28 @@ def phase_kernels(torch, K, to_device):
 ENTRY_OPS = 24
 
 
-def fused_entry_bytes(groups, g, n, s, sid, has_prev, nnz_prev):
+def score_ops(sid, hidden):
+    """Integer operations a node of the score (K6, or the scored K1F's
+    epilogue) needs: the down-weight (4) and the weighted sum (12), or the
+    learned MLP (a multiply-add each of 6 x hidden and hidden weights, the
+    features, shifts and clamps)."""
+    from swarmkit_tpu_torch.scheduler import strategy as strategy_mod
+    if sid == strategy_mod.STRAT_LEARNED:
+        return 2 * 6 * hidden + 2 * hidden + 24
+    return 16
+
+
+def fused_entry_bytes(groups, g, n, s, sid, has_prev, nnz_prev, hidden=0):
     """The bytes K1F's function must move for slot ``g`` of a fused chunk
     over ``n`` nodes and ``s`` service slots: valid, ready and the plugin
     mask, the carry's cpu and mem, svc0 and svc_acc at the slot, the
     previous slot's placement, the active constraints' hashes and the quota
-    row read; capacity and svc written, res_cap (binpack) or the headroom
-    (weighted, learned); the fail counts and the slot's scalars.  For each
+    row read; capacity and svc written, and res_cap (binpack) or, for a
+    weighted or learned slot (the scored launch), the group's failures
+    read, the carry's total read (learned; already counted where the chunk
+    has a previous slot) and the level e written, with the slot's weights
+    or the ``hidden``-unit MLP; the fail counts and the slot's scalars.
+    The headroom is derived in registers and never written.  For each
     of the ``nnz_prev`` nodes the previous slot placed on, the carry's
     update: total read and written (8), cpu and mem written (16; read
     above), svc_acc at the previous slot's service written (4) and read
@@ -1324,16 +1346,19 @@ def fused_entry_bytes(groups, g, n, s, sid, has_prev, nnz_prev):
         per_node += 8 * any(r[0] != 0 or r[1] != 0 for r in rows)
         per_node += 8 * any(r[2] != 0 or r[3] != 0 for r in rows)
     per_node += 8
+    scalars = 4 * 8 + 64
     if sid == strategy_mod.STRAT_BINPACK:
         per_node += 4
     elif sid in (strategy_mod.STRAT_WEIGHTED, strategy_mod.STRAT_LEARNED):
-        per_node += 8
+        learned = sid == strategy_mod.STRAT_LEARNED
+        per_node += 4 + 4 + (4 if learned and not has_prev else 0)
+        scalars += 4 * (4 + ((6 + 2) * hidden + 1 if learned else 0))
     placed = 0
     if has_prev:
         prev = K._scatter_slot(groups, g - 1, s)
         placed = 24 + (0 if prev is None else
                        4 if prev == K._slot_of(groups, g, s) else 8)
-    return n * per_node + placed * nnz_prev + 4 * 8 + 64
+    return n * per_node + placed * nnz_prev + scalars
 
 
 #: calls a fresh cfg7 chunk's carry (``fused_inputs``, seeds 77 and 78)
@@ -1415,41 +1440,63 @@ def phase_kernels_fused(torch, K, fused_to_device):
     g = 2                                    # the weighted slot
     rows = []
 
-    # ---- K1F, the slot entry of the weighted slot, with a carried x: the
+    # ---- K1F, the slot entry of the binpack slot, with a carried x: the
     # previous slot's placements into the carry, the slot's columns and
-    # K1's filters, with the headroom columns of a weighted group
+    # K1's filters, with res_cap written (K5's key)
     x_prev = torch.zeros(n, dtype=i32, device=dev)
     x_prev[:10000] = torch.randint(0, 6, (10000,), generator=torch.Generator(
         device=dev).manual_seed(4), device=dev, dtype=i32)
-    outs = [torch.empty(n, dtype=i32, device=dev) for _ in range(4)]
-    fail = torch.zeros(K.N_FILTERS, dtype=i32, device=dev)
-    entry_carry = K.FusedCarry(*(t.clone() for t in carry))
-
-    def entry(c=entry_carry):
-        K._fused_feasibility(shared, groups, c, g, s, x_prev, fail, outs[0],
-                             outs[1], None, outs[2], outs[3])
-
-    def entry_plain(c=entry_carry):
-        return K._fused_feasibility_plain(shared, groups, c, g, s, x_prev)
-
-    clones = [K.FusedCarry(*(t.clone() for t in carry)) for _ in range(2)]
-    entry(clones[0])
-    _, cap_p, fail_p, ok_p, _, svc_p, hrc_p, hrm_p = entry_plain(clones[1])
-    err = max(max_abs_err(torch, [outs[0], fail, outs[1], outs[2], outs[3]],
-                          [cap_p, fail_p, svc_p, hrc_p, hrm_p]),
-              max_abs_err(torch, tuple(clones[0]), tuple(clones[1])))
-    check(bool((~ok_p[:n // 2]).any()) and bool(ok_p[:n // 2].any()),
-          "the fused inputs must leave some nodes short of the demand")
     nnz_prev = int((x_prev != 0).sum())
-    rows.append(dict(
-        kernel=K.FUSED_FEASIBILITY, err=err,
-        bytes=fused_entry_bytes(groups, g, n, s, K.STRAT_WEIGHTED, True,
-                                nnz_prev),
-        ops=ENTRY_OPS * n,
-        device_ms=device_ms(torch, entry, ("fused_feasibility_kernel",),
-                            label="K1F"),
-        ms=time_ms(torch, entry), plain_ms=time_ms(torch, entry_plain),
-        library_ms=None))
+    hidden = int(strat.w1.shape[1])
+
+    def entry_row(kern, gs, scored, label):
+        """K1F at slot ``gs`` on clones of the carry against its plain
+        version on others (bit-equal columns and carry), then timed."""
+        outs = [torch.empty(n, dtype=i32, device=dev) for _ in range(3)]
+        fail = torch.zeros(K.N_FILTERS, dtype=i32, device=dev)
+        sid = int(strat.sid[gs])
+        entry_carry = K.FusedCarry(*(t.clone() for t in carry))
+
+        def entry(c=entry_carry):
+            K._fused_feasibility(
+                shared, groups, c, gs, s, x_prev, fail, outs[0], outs[1],
+                None if scored else outs[2], strat if scored else None, sid,
+                outs[2] if scored else None)
+
+        def entry_plain(c=entry_carry):
+            return K._fused_feasibility_plain(shared, groups, c, gs, s,
+                                              x_prev, strat, sid)
+
+        clones = [K.FusedCarry(*(t.clone() for t in carry))
+                  for _ in range(2)]
+        before = kern.launches
+        entry(clones[0])
+        check(kern.launches - before == 1, f"{label}: not one launch")
+        _, cap_p, fail_p, ok_p, rc_p, svc_p, _, _, e_p = \
+            entry_plain(clones[1])
+        err = max(max_abs_err(torch, [outs[0], fail, outs[1], outs[2]],
+                              [cap_p, fail_p, svc_p,
+                               e_p if scored else rc_p]),
+                  max_abs_err(torch, tuple(clones[0]), tuple(clones[1])))
+        check(bool((~ok_p[:n // 2]).any()) and bool(ok_p[:n // 2].any()),
+              "the fused inputs must leave some nodes short of the demand")
+        return dict(
+            kernel=kern, err=err, sid=sid,
+            bytes=fused_entry_bytes(groups, gs, n, s, sid, True, nnz_prev,
+                                    hidden),
+            ops=(ENTRY_OPS + (score_ops(sid, hidden) if scored else 0)) * n,
+            device_ms=device_ms(torch, entry, ("fused_feasibility_kernel",),
+                                label=label),
+            ms=time_ms(torch, entry), plain_ms=time_ms(torch, entry_plain),
+            library_ms=None)
+
+    rows.append(entry_row(K.FUSED_FEASIBILITY, 1, False, "K1F"))
+    # the scored K1F on the weighted and the learned slot; the learned
+    # one (the MLP) is its row, the weighted one goes to the record
+    scored_weighted = entry_row(K.FUSED_SCORED, 2, True, "K1F weighted")
+    rows.append(entry_row(K.FUSED_SCORED, 3, True, "K1F learned"))
+    check(scored_weighted["err"] == 0, "the scored K1F (weighted) differs "
+          f"from its plain version ({scored_weighted['err']})")
 
     # ---- K4 carry update, with a placement of the chunk's own sizes
     x = torch.zeros(n, dtype=i32, device=dev)
@@ -1516,18 +1563,33 @@ def phase_kernels_fused(torch, K, fused_to_device):
         ms=time_ms(torch, packfill), plain_ms=time_ms(torch, packfill_plain),
         library_ms=None, launches_per_call=1))
 
-    # ---- K6 scores: weighted and learned on the same node columns
+    # ---- K6 scores: weighted and learned on the same node columns (the
+    # public strategy_score; the plans score in K1's and K1F's epilogue),
+    # and the scored K1 on them, bit-equal to its plain version
     hr = [K._fused_headroom(carry.cpu, groups.cpu_d[g]),
           K._fused_headroom(carry.mem, groups.mem_d[g]),
           torch.full((n,), K.HR_CLAMP, dtype=i32, device=dev)]
     sin = K.StrategyInputs(*hr, weights=strat.weights[g], w1=strat.w1,
                            b1=strat.b1, w2=strat.w2, b2=strat.b2)
     err = 0
-    for mode in (K.STRAT_WEIGHTED, K.STRAT_LEARNED):
+    scored_k1_err = 0
+    for mode in (K.STRAT_SPREAD, K.STRAT_WEIGHTED, K.STRAT_LEARNED):
         err = max(err, max_abs_err(
             torch, (K.strategy_score(nodes, sin, mode),),
             (K._strategy_score_plain(nodes, sin, mode),)))
-    hidden = int(strat.w1.shape[1])
+        cap_k, e_k = (torch.empty(n, dtype=i32, device=dev)
+                      for _ in range(2))
+        fail_k = torch.zeros(K.N_FILTERS, dtype=i32, device=dev)
+        before = K.FEASIBILITY.launches
+        K._feasibility_into(nodes, grp, None, cap_k, fail_k, (sin, mode),
+                            e_k)
+        check(K.FEASIBILITY.launches - before == 1,
+              "the scored K1 is not one launch")
+        scored_k1_err = max(scored_k1_err, max_abs_err(
+            torch, (cap_k, fail_k, e_k),
+            K._feasibility_plain(nodes, grp, (sin, mode))[1:]))
+    check(scored_k1_err == 0, "the scored K1 differs from its plain "
+          f"version ({scored_k1_err})")
     # timed in learned mode: svc, total, failures, hr_cpu, hr_mem (int32)
     # and ready (a byte) in, e out, and the scorer's weights
     rows.append(dict(
@@ -1596,9 +1658,16 @@ def phase_kernels_fused(torch, K, fused_to_device):
               "call (torch.profiler)"
               + (f", {r['launches_per_call']} launch per call"
                  if "launches_per_call" in r else ""), flush=True)
+    print(f"kernels: fused_feasibility_scored (weighted slot) "
+          f"{scored_weighted['ms']:.4f} ms per wrapper call, device "
+          f"{scored_weighted['device_ms']:.4f} ms; scored K1 == plain "
+          "(spread, weighted, learned)", flush=True)
     return rows, dict(ms=chunk_ms, device_ms=chunk_dev, placed=placed,
                       waterfill_one_segment_ms=flat_ms,
-                      waterfill_one_segment_device_ms=flat_dev)
+                      waterfill_one_segment_device_ms=flat_dev,
+                      scored_entry_weighted={
+                          k: v for k, v in scored_weighted.items()
+                          if k != "kernel"})
 
 
 def phase_kernels_resident(torch, K, gang_to_device):
@@ -2049,11 +2118,11 @@ def fills_probe():
 
 
 def phase_kernels_mesh(torch, K):
-    """K10, K11 and K2's cross-shard fold on four shards of the card
+    """K10, K11 and K2 over the shard table on four shards of the card
     against their plain versions on the same tensors, node bucket 16384.
     K10 is timed at the headline path's leaf fill (L = 256, its kernels
     row) and at one segment a row (L = 16,384), K11 at the binpack case,
-    the fold on one shard's exchange at L = 256.  K10's and K11's
+    K2 at the headline's leaf level (L = 256).  K10's and K11's
     profiler rows must agree within 15% with the median of
     ``probes/kernel_ab.py``'s profiles of the same calls in
     FILLS_PROBE_RUNS processes of their own, each on this card."""
@@ -2164,9 +2233,11 @@ def phase_kernels_mesh(torch, K):
               f"{' / '.join(f'{v:.4f}' for v in seen)} ms in "
               f"{FILLS_PROBE_RUNS} runs of kernel_ab.py --fills", flush=True)
 
-    # ---- K2 over the split: per-shard partials, then the fold on every
-    # shard (the leaf level of a headline group, L = 256, with capacity
-    # totals past 2^24); the fold timed alone on one shard's exchange
+    # ---- K2 over the split: ONE launch over the shard table sums the
+    # leaf level of a headline group (L = 256, capacity totals past 2^24)
+    # over every shard's rows and clamps; held to its plain version (the
+    # shards' partials summed in shard order, then the clamps) and to K2
+    # on the unsplit columns, twice without a sync, and timed
     nodes_np, group_np, L, hier_np = plan_inputs(
         seed=2024, nb=nb, n_valid=10000, n_leaves=20, k=K.K_CLAMP - 1)
     from swarmkit_tpu_torch.parallel import sharded as S
@@ -2176,35 +2247,61 @@ def phase_kernels_mesh(torch, K):
     parts = [(nd.svc_tasks, nd.valid, cap, nd.leaf, gd.k)
              for (nd, gd, _), cap in zip(shards, caps)]
 
-    acc = [K._seg_partial_plain(*p[:4], L) for p in parts]
-    exchange, k = torch.stack(acc), parts[0][4]
+    def table_sums():
+        return K.branch_sums_sharded(parts, L)[0]
 
-    def fold():
-        return K.seg_fold(exchange, k)
+    def table_entry():
+        """The composition's entry: no input checks, this stream's output
+        buffers (as K2's row times the plan's entry)."""
+        return K._shard_seg_sum(parts, L)
 
-    def fold_plain():
-        total = K.sum_shards(list(exchange))
-        return K._seg_clamp(total[0], total[1], k)
+    def table_plain():
+        return K._seg_fold_plain(
+            [K._seg_partial_plain(*p[:4], L) for p in parts], parts[0][4])
 
-    want = fold_plain()
-    err = max(max_abs_err(torch, g, want)
-              for g in K.branch_sums_sharded(parts, L) + [fold()])
-    check(err == 0, f"seg_fold differs from its plain version ({err})")
-    check(int(want[2].max()) >= 1 << 24, "the fold's inputs must carry "
+    before = K.SHARD_SEG_SUM.launches
+    got = [table_sums(), table_sums()]
+    check(K.SHARD_SEG_SUM.launches - before == 2,
+          "K2 over the shard table is not one launch a level")
+    want = table_plain()
+    unsplit = K.branch_sums(*(torch.cat([p[j] for p in parts])
+                              for j in range(4)), L, parts[0][4])
+    err = max(max_abs_err(torch, g, want) for g in got + [unsplit])
+    check(err == 0, f"K2 over the shard table differs from its plain "
+          f"version ({err})")
+    check(int(want[2].max()) >= 1 << 24, "the table's inputs must carry "
           "capacity totals above 2^24")
+    # the yardstick: one index_add_ of the unsplit (load, capacity) rows
+    unsplit_seg = torch.cat([p[3] for p in parts]).to(torch.int64)
+    unsplit_vals = torch.stack([
+        torch.where(torch.cat([p[1] for p in parts]),
+                    torch.clamp(torch.cat([p[0] for p in parts]), 0,
+                                K.SVC_CLAMP), 0),
+        torch.cat([p[2] for p in parts])]).to(torch.int64)
+    unsplit_acc = torch.zeros((2, L), dtype=torch.int64, device=dev)
+    # svc, cap, seg (4 B each) and valid (1 B) a node read, k read; load,
+    # bcap (4 B each) and raw_cap (8 B) a segment written, kk written
     rows.append(dict(
-        kernel=K.SEG_FOLD, err=err,
-        bytes=d * 2 * L * 8 + L * 16 + 8, ops=d * 2 * L,
-        device_ms=device_ms(torch, fold, ("seg_clamp_kernel",), reps=50),
-        ms=time_ms(torch, fold, reps=20, warmup=3),
-        plain_ms=time_ms(torch, fold_plain, reps=20, warmup=3),
-        library_ms=None, launches_per_call=1))
+        kernel=K.SHARD_SEG_SUM, err=err, bytes=13 * nb + 16 * L + 8,
+        ops=4 * nb + 4 * L, L=L,
+        device_ms=device_ms(torch, table_entry, ("seg_sum_kernel",),
+                            reps=50, label="K2 shard table"),
+        ms=time_ms(torch, table_entry, reps=20, warmup=3),
+        public_ms=time_ms(torch, table_sums, reps=20, warmup=3),
+        plain_ms=time_ms(torch, table_plain, reps=20, warmup=3),
+        library_ms=time_ms(torch, lambda: unsplit_acc.index_add_(
+            1, unsplit_seg, unsplit_vals), reps=20, warmup=3),
+        launches_per_call=1))
+    per_case["shard_seg_sum"] = dict(public_ms=rows[-1]["public_ms"],
+                                     library_ms=rows[-1]["library_ms"])
     for r in rows:
         print(f"mesh kernels: {r['kernel'].name} {r['ms']:.4f} ms per "
               f"wrapper call (CUDA events), device {r['device_ms']:.4f} ms "
               f"(torch.profiler), plain {r['plain_ms']:.4f} ms, bound "
               f"{bound(r['bytes'], r['ops'])[0]:.7f} ms, "
-              f"{r['launches_per_call']} launches per call", flush=True)
+              f"{r['launches_per_call']} launches per call"
+              + (f"; the checked public entry {r['public_ms']:.4f} ms"
+                 if "public_ms" in r else ""), flush=True)
     return rows, per_case
 
 
@@ -2212,11 +2309,11 @@ def phase_mesh_compositions(torch, K, to_device, fused_to_device):
     """Two compositions of the split on four shards of the card at node
     bucket 16384, each against the unsharded plan of the same inputs, with
     its wrapper time (CUDA events) and device time (torch.profiler, every
-    device op): B13, a weighted group's plan (K1 and K6 per shard, then
-    K10 over one segment), and B14, a cfg7 fused chunk (spread, binpack,
-    weighted, learned: K1F and each slot's sharded fill per slot, K4's
-    carry update per chunk).  Each bound is the sum of its kernels' byte
-    counts."""
+    device op): B13, a weighted group's plan (the scored K1 per shard,
+    then K10 over one segment), and B14, a cfg7 fused chunk (spread,
+    binpack, weighted, learned: K1F and each slot's sharded fill per slot,
+    K4's carry update per chunk).  Each bound is the sum of its kernels'
+    byte counts."""
     import numpy as np
     from swarmkit_tpu_torch.parallel import sharded as S
     from swarmkit_tpu_torch.scheduler import strategy as strategy_mod
@@ -2260,8 +2357,8 @@ def phase_mesh_compositions(torch, K, to_device, fused_to_device):
            + K.WATERFILL_STEPS * nb * 4)
 
     def b13_plain():
-        """B13's plain composition on the card: per shard K1's and K6's
-        plain versions, then K10's over every shard."""
+        """B13's plain composition on the card: per shard the scored K1's
+        plain version (K1's and K6's), then K10's over every shard."""
         parts = []
         for s_, ((nd, gd), sd) in enumerate(zip(shards, sins)):
             cap = K._feasibility_plain(nd, gd)[1]
@@ -2358,10 +2455,15 @@ def phase_mesh_headline(torch, K, cuda, workload, Task, Scheduler,
     for key in ("groups_spill_to_host", "groups_fallback"):
         check(stats.get(key, 0) == 0, f"mesh headline: {key} = "
               f"{stats.get(key)}")
-    for k in (K.FEASIBILITY, K.SEG_SUM, K.SEG_FOLD, K.WATERFILL,
+    for k in (K.FEASIBILITY, K.SHARD_SEG_SUM, K.WATERFILL,
               K.SHARD_WATERFILL):
         check(launches[k.name] > 0, f"{k.name} never launched on the mesh "
               "headline path")
+    # stage A once a card: one K2 over the shard table and one K3 fill a
+    # level (the headline's racks: every level has several values)
+    check(launches[K.SEG_SUM.name] == 0
+          and launches[K.WATERFILL.name] == launches[K.SHARD_SEG_SUM.name],
+          f"mesh headline: stage A not once a level: {launches}")
     check(same_plans(rec.plans, want_plans),
           f"mesh headline: {len(rec.plans)} plans differ from the "
           f"unsharded tick's {len(want_plans)}")
@@ -2410,14 +2512,14 @@ def phase_mesh_many_service(torch, K, cuda, workload, Task, Scheduler,
                 "fused_overflows", "fused_mesh_indivisible"):
         check(stats.get(key, 0) == 0, f"mesh many-service: {key} = "
               f"{stats.get(key)}")
-    for k in (K.SEG_SUM, K.SEG_FOLD, K.WATERFILL, K.SHARD_WATERFILL,
-              K.SHARD_PACKFILL, K.SCORE, K.FUSED_FEASIBILITY,
+    for k in (K.SHARD_SEG_SUM, K.WATERFILL, K.SHARD_WATERFILL,
+              K.SHARD_PACKFILL, K.FUSED_FEASIBILITY, K.FUSED_SCORED,
               K.FUSED_CARRY):
         check(launches[k.name] > 0, f"{k.name} never launched on the mesh "
               "many-service path")
-    check_fused_launches(K, launches, len(workload.MANY_SERVICE_MIX),
-                         stats["fused_chunks"], "mesh many-service",
-                         MESH_SHARDS)
+    total = check_fused_launches(
+        K, launches, len(workload.MANY_SERVICE_MIX), stats["fused_chunks"],
+        "mesh many-service", MESH_SHARDS, mix=workload.MANY_SERVICE_MIX)
     check(launches[K.PACKFILL.name] == 0,
           "the unsharded pack fill ran on the mesh path")
     check(launches[K.SHARD_PACKFILL.name] == 2,
@@ -2432,10 +2534,10 @@ def phase_mesh_many_service(torch, K, cuda, workload, Task, Scheduler,
     print(f"mesh many-service ({MESH_SHARDS} shards on one card): {n_dec} "
           f"decisions in {tick_s:.3f} s ({rate:.0f} decisions/s; cluster "
           f"build {build_s:.1f} s) on {card}; {len(rec.plans)} chunks == "
-          f"unsharded; launches {launches}", flush=True)
+          f"unsharded; {total} launches {launches}", flush=True)
     return dict(decisions=n_dec, tick_s=tick_s, decisions_per_s=rate,
                 cluster_build_s=build_s, launches=launches,
-                plan_seconds=stats["plan_seconds"])
+                launches_total=total, plan_seconds=stats["plan_seconds"])
 
 
 def victims_at_calls(torch, P, victims_to_device, calls):
@@ -2816,7 +2918,7 @@ def phase_wide_spread(torch, K, cuda, workload, Task, Scheduler,
                     "groups_spill_to_host"):
             check(stats.get(key, 0) == 0, f"per-host spread ({posture}): "
                   f"{key} = {stats.get(key)}")
-        fills = (K.SEG_FOLD, K.SHARD_WATERFILL) if posture == "mesh" \
+        fills = (K.SHARD_SEG_SUM, K.SHARD_WATERFILL) if posture == "mesh" \
             else (K.SEG_SUM,)
         for k in (K.WATERFILL, K.FUSED_FEASIBILITY, K.FUSED_CARRY) + fills:
             check(launches[k.name] > 0, f"{k.name} never launched on the "
@@ -2994,26 +3096,69 @@ def service_counts(store, Task, services, nodes):
         lambda tx: tx.find(Task)) if t.node_id)
 
 
-def check_fused_launches(K, launches, n_groups, chunks, label, shards=1):
+def check_fused_launches(K, launches, n_groups, chunks, label, shards=1,
+                         mix=None):
     """The fused route's slot entries for ``n_groups`` fused groups: one
-    K1F launch a group slot (each chunk padded to a power of two) and one
-    K4 carry update a chunk, each per shard on a mesh, and no standalone
-    K1."""
+    K1F launch a group slot (each chunk padded to a power of two; the
+    scored instantiation for a weighted or learned slot) and one K4 carry
+    update a chunk, each per shard on a mesh, no standalone K1 and no K6
+    (the slot entry scores).  With ``mix`` (the groups' strategies, no
+    padding slot) every kernel's count must be exactly the route's
+    (:func:`fused_tick_launches`); returns the launches in all."""
     from swarmkit_tpu_torch.ops.densify import pow2_bucket
     from swarmkit_tpu_torch.ops.fusedbatch import chunk_sizes
     sizes = chunk_sizes(n_groups)
     check(len(sizes) == chunks, f"{label}: {chunks} chunks, "
           f"{len(sizes)} expected for {n_groups} groups")
     slots = sum(pow2_bucket(c) for c in sizes)
-    check(launches[K.FUSED_FEASIBILITY.name] == slots * shards,
-          f"{label}: {launches[K.FUSED_FEASIBILITY.name]} K1F launches for "
-          f"{slots} slots x {shards} shards")
+    entries = launches[K.FUSED_FEASIBILITY.name] \
+        + launches[K.FUSED_SCORED.name]
+    check(entries == slots * shards,
+          f"{label}: {entries} K1F launches for {slots} slots x {shards} "
+          "shards")
     check(launches[K.FUSED_CARRY.name] == chunks * shards,
           f"{label}: {launches[K.FUSED_CARRY.name]} carry updates for "
           f"{chunks} chunks x {shards} shards")
     check(launches[K.FEASIBILITY.name] == 0,
           f"{label}: K1 launched {launches[K.FEASIBILITY.name]} times on "
           "the fused route")
+    check(launches[K.SCORE.name] == 0,
+          f"{label}: K6 launched {launches[K.SCORE.name]} times on the "
+          "fused route (the slot entry scores)")
+    if mix is not None:
+        check(slots == len(mix), f"{label}: padding slots")
+        want = fused_tick_launches(K, mix, chunks, shards)
+        got = {k.name: launches[k.name] for k in K.KERNELS}
+        check(got == want, f"{label}: launches {got}, expected {want}")
+    return sum(launches[k.name] for k in K.KERNELS)
+
+
+def fused_tick_launches(K, mix, chunks, shards=1):
+    """Every kernel's launches in a fused tick of the groups of ``mix``
+    (``workload.MANY_SERVICE_MIX``'s layout; spread groups over one
+    spread level of several values) in ``chunks`` chunks, unsharded or
+    over ``shards`` shards of the card: per slot K1F (scored for weighted
+    and learned), per chunk K4's carry update, each per shard; a spread
+    group's stage A (one K2, one K3 fill; on a mesh K2 over the shard
+    table) and its leaf fill (K3, on a mesh K10), a weighted or learned
+    group's fill (K3 or K10), a binpack group's (K5 or K11)."""
+    spread = sum(st == "spread" for st, *_ in mix)
+    binpack = sum(st == "binpack" for st, *_ in mix)
+    scored = len(mix) - spread - binpack
+    want = {k.name: 0 for k in K.KERNELS}
+    want[K.FUSED_FEASIBILITY.name] = (spread + binpack) * shards
+    want[K.FUSED_SCORED.name] = scored * shards
+    want[K.FUSED_CARRY.name] = chunks * shards
+    if shards == 1:
+        want[K.SEG_SUM.name] = spread
+        want[K.WATERFILL.name] = 2 * spread + scored
+        want[K.PACKFILL.name] = binpack
+    else:
+        want[K.SHARD_SEG_SUM.name] = spread
+        want[K.WATERFILL.name] = spread
+        want[K.SHARD_WATERFILL.name] = spread + scored
+        want[K.SHARD_PACKFILL.name] = binpack
+    return want
 
 
 def phase_many_service(torch, K, cuda, workload, Task, Scheduler,
@@ -3048,13 +3193,15 @@ def phase_many_service(torch, K, cuda, workload, Task, Scheduler,
                 "fused_overflows"):
         check(stats.get(key, 0) == 0, f"{key} = {stats.get(key)}")
     for k in K.KERNELS:
-        if k in (K.FEASIBILITY, K.SCATTER, K.GANG_FIT, K.SEG_FOLD,
-                 K.SHARD_WATERFILL, K.SHARD_PACKFILL):
-            continue   # the headline, churn, gang and mesh paths' kernels
+        if k in (K.FEASIBILITY, K.SCATTER, K.GANG_FIT, K.SHARD_SEG_SUM,
+                 K.SHARD_WATERFILL, K.SHARD_PACKFILL, K.SCORE):
+            continue   # the headline, churn, gang and mesh paths' kernels,
+            # and K6, which the slot entry's epilogue replaces
         check(launches[k.name] > 0, f"{k.name} never launched on the "
               "many-service path")
-    check_fused_launches(K, launches, n_groups, stats["fused_chunks"],
-                         "many-service")
+    total = check_fused_launches(K, launches, n_groups,
+                                 stats["fused_chunks"], "many-service",
+                                 mix=workload.MANY_SERVICE_MIX)
     counts = service_counts(store, Task, services, nodes)
     check(sum(counts.values()) == n_tasks, "not every task holds a node")
     by_host = {n.description.hostname: n for n in nodes}
@@ -3073,12 +3220,12 @@ def phase_many_service(torch, K, cuda, workload, Task, Scheduler,
     rate = n_dec / tick_s
     print(f"many-service path: {n_dec} decisions in {tick_s:.3f} s "
           f"({rate:.0f} decisions/s; cluster build {build_s:.1f} s) on "
-          f"{card}; launches {launches}; stats "
+          f"{card}; {total} launches {launches}; stats "
           f"{ {k: v for k, v in stats.items() if k != 'plan_seconds'} }",
           flush=True)
     return dict(decisions=n_dec, tick_s=tick_s, decisions_per_s=rate,
                 cluster_build_s=build_s, launches=launches,
-                plan_seconds=stats["plan_seconds"],
+                launches_total=total, plan_seconds=stats["plan_seconds"],
                 groups_fused=stats["groups_fused"],
                 fused_chunks=stats["fused_chunks"]), rec.plans, counts
 
@@ -3194,7 +3341,7 @@ def main():
         churn["streaming"]["launches"]["scatter_rows"]
     path_launches["gang_fit"] = gang["card"]["launches"]["gang_fit"]
     path_launches["select_victims"] = storm["launches"]["select_victims"]
-    for k in (K.SEG_FOLD, K.SHARD_WATERFILL, K.SHARD_PACKFILL):
+    for k in (K.SHARD_SEG_SUM, K.SHARD_WATERFILL, K.SHARD_PACKFILL):
         path_launches[k.name] = mesh["many_service"]["launches"][k.name]
     kernels = []
     for r in rows:

@@ -8,6 +8,13 @@
 // group, and which filter rejected it first; the per-node body lives in
 // feasibility.cuh, which K1F (fused.cu) and K8 (gangfit.cu) share.
 //
+// A scored launch (the per-group strategy route's weighted or learned
+// group: swarmkit_tpu/ops/kernel.py:502 plan_strategy -> :484
+// strategy_score) also writes each node's level e, K6's score as the
+// epilogue of the same launch (feasibility.cuh score_node), from the
+// group's svc, total, failures, ready and headroom columns and its weights
+// or MLP, staged a copy a warp with the group's scalars.
+//
 // Bound on the H100: bytes.  Each node is read once and written once (4
 // bytes of capacity, 1 of mask); the arithmetic is a few integer compares.
 // A column that the group does not need is never read (feasibility.cuh),
@@ -39,6 +46,7 @@ constexpr int kK1Threads = 128;
 
 struct K1Args {
   int n, cc, np;
+  const int32_t* total;    // scored, learned: the total task counts
   sk::NodeColumns cols;
   const uint8_t* res_ok;
   const int32_t* res_cap;
@@ -52,22 +60,45 @@ struct K1Args {
   uint8_t* mask_out;   // nullable
   int32_t* cap_out;
   int32_t* fail_out;
+  sk::ScoreArgs score;  // the scored instantiation's
 };
 
-template <int T>
+// kScored: the strategy route's instantiation, which also writes e
+template <int T, bool kScored>
 __global__ void __launch_bounds__(T) feasibility_kernel(const K1Args a) {
   constexpr int kWarps = T / 32;
   extern __shared__ int sm[];
   __shared__ unsigned wsum[2 * kWarps];
   const int n = a.n;
   const int i = blockIdx.x * T + threadIdx.x;
+  const sk::ScoreArgs& s = a.score;
+  const int tail = kScored ? sk::score_words(s.mode, s.hidden) : 0;
 
   sk::NodeRegs regs;
   sk::load_early(a.cols, i, n, regs);
-  sk::PlainSource src{a.res_ok, a.res_cap, a.svc_tasks};
+  sk::PlainSource src{a.res_ok, a.res_cap, a.svc_tasks, kScored};
   src.load_early(i, n);
+  // the score's columns: what its mode reads
+  int32_t f = 0, total = 0, hc = 0, hm = 0, hg = 0;
+  sk::ScoreStage st;
+  if (kScored) {
+    f = sk::load_col(s.failures, i, n);
+    if (s.mode == sk::kStratWeighted || s.mode == sk::kStratLearned) {
+      hc = sk::load_col(s.hr_cpu, i, n);
+      hm = sk::load_col(s.hr_mem, i, n);
+    }
+    if (s.mode == sk::kStratWeighted) hg = sk::load_col(s.hr_gen, i, n);
+    if (s.mode == sk::kStratLearned) total = sk::load_col(a.total, i, n);
+    sk::score_load(s, st);
+  }
   const int* grp = sk::stage_group(sm, a.cc, a.np, a.con_op, a.con_exp,
-                                   a.plat, a.k, a.maxrep, a.port_limited);
+                                   a.plat, a.k, a.maxrep, a.port_limited,
+                                   sk::NoExtra(), tail);
+  const int* ws = grp + sk::group_words(a.cc, a.np);
+  if (kScored) {
+    sk::score_store(s, st, const_cast<int*>(ws));
+    __syncwarp();
+  }
 
   unsigned fails;
   bool mask;
@@ -76,17 +107,36 @@ __global__ void __launch_bounds__(T) feasibility_kernel(const K1Args a) {
   if (i < n) {
     a.cap_out[i] = cap;
     if (a.mask_out != nullptr) a.mask_out[i] = mask ? 1 : 0;
+    if (kScored)
+      s.e[i] = sk::score_node(s, ws, src.svc, total, f, regs.ready != 0, hc,
+                              hm, hg);
   }
   // every lane of every warp reaches the fold (no early return above)
   sk::fold_fails<kWarps>(fails, wsum, a.fail_out);
 }
 
-template <int T>
+template <int T, bool kScored>
 int launch_feasibility(const K1Args& a, cudaStream_t stream) {
   if (a.n <= 0) return 0;
-  const size_t smem = sk::staged_bytes(T / 32, a.cc, a.np);
+  size_t extra = 0;
+  if (kScored) {
+    const sk::ScoreArgs& s = a.score;
+    const bool hr = s.mode == sk::kStratWeighted ||
+                    s.mode == sk::kStratLearned;
+    if (s.e == nullptr || s.failures == nullptr ||
+        (hr && (s.hr_cpu == nullptr || s.hr_mem == nullptr)) ||
+        (s.mode == sk::kStratWeighted &&
+         (s.weights == nullptr || s.hr_gen == nullptr)) ||
+        (s.mode == sk::kStratLearned &&
+         (a.total == nullptr || s.hidden <= 0 || s.hidden > sk::kMaxHidden ||
+          s.w1 == nullptr || s.b1 == nullptr || s.w2 == nullptr ||
+          s.b2 == nullptr)))
+      return (int)cudaErrorInvalidValue;
+    extra = (size_t)sk::score_words(s.mode, s.hidden);
+  }
+  const size_t smem = sk::staged_bytes(T / 32, a.cc, a.np, extra);
   if (smem > sk::kMaxGroupSmem) return (int)cudaErrorInvalidValue;
-  feasibility_kernel<T><<<(a.n + T - 1) / T, T, smem, stream>>>(a);
+  feasibility_kernel<T, kScored><<<(a.n + T - 1) / T, T, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -99,9 +149,10 @@ extern "C" int sk_feasibility(
     const void* con_exp, const void* plat, const void* os_hash,
     const void* arch_hash, const void* port_conflict, const void* quota_ok,
     const void* k, const void* maxrep, const void* port_limited,
-    void* mask_out, void* cap_out, void* fail_out, void* stream) {
-  const K1Args a{
-      n, cc, np,
+    void* mask_out, void* cap_out, void* fail_out, const void* total,
+    const void* score, void* stream) {
+  K1Args a{
+      n, cc, np, (const int32_t*)total,
       sk::NodeColumns{(const uint8_t*)valid, (const uint8_t*)ready,
                       (const uint8_t*)extra_mask, (const int32_t*)con_hash,
                       (const int32_t*)os_hash, (const int32_t*)arch_hash,
@@ -111,8 +162,13 @@ extern "C" int sk_feasibility(
       (const int32_t*)svc_tasks, (const int32_t*)con_op,
       (const int32_t*)con_exp, (const int32_t*)plat, (const int32_t*)k,
       (const int32_t*)maxrep, (const uint8_t*)port_limited,
-      (uint8_t*)mask_out, (int32_t*)cap_out, (int32_t*)fail_out};
-  return launch_feasibility<kK1Threads>(a, (cudaStream_t)stream);
+      (uint8_t*)mask_out, (int32_t*)cap_out, (int32_t*)fail_out,
+      sk::ScoreArgs{}};
+  if (score == nullptr)
+    return launch_feasibility<kK1Threads, false>(a, (cudaStream_t)stream);
+  // score: a host ScoreArgs (feasibility.cuh); total its learned feature
+  a.score = *(const sk::ScoreArgs*)score;
+  return launch_feasibility<kK1Threads, true>(a, (cudaStream_t)stream);
 }
 
 extern "C" const char* sk_error_string(int code) {

@@ -8,6 +8,13 @@
 //  * FusedSource (fused.cu, K1F) derives them in registers from the fused
 //    plan's carried cluster state, with K4's exact int64 arithmetic.
 //
+// A scored instantiation of K1 or K1F ends with K6's score as an epilogue
+// (score_node, below): the node's effective level e under the weighted,
+// learned or spread strategy (score.cu's formulas, bit for bit), from the
+// svc, total, ready and headroom the body already holds and one more load,
+// the group's failures.  The slot's weights and, in learned mode, the MLP
+// are staged with the group's scalars, a copy a warp.
+//
 // Reference: swarmkit_tpu/ops/kernel.py:190 feasibility_and_capacity.  For
 // node i it evaluates the eight filter masks in pipeline order (ready,
 // resources, plugins, constraints, platforms, host ports, max replicas,
@@ -85,8 +92,10 @@ constexpr size_t kMaxGroupSmem = 46 * 1024;
 __host__ __device__ constexpr size_t group_words(int cc, int np) {
   return (size_t)GW_WORDS + 4u * (size_t)cc + 4u * (size_t)np;
 }
-__host__ __device__ constexpr size_t staged_bytes(int warps, int cc, int np) {
-  return 4u * group_words(cc, np) * (size_t)warps;
+// ``extra``: words a kernel stages after each warp's group (the score's)
+__host__ __device__ constexpr size_t staged_bytes(int warps, int cc, int np,
+                                                  size_t extra = 0) {
+  return 4u * (group_words(cc, np) + extra) * (size_t)warps;
 }
 
 // One warp stages a group's scalars into ``sm``: every lane's loads (a
@@ -204,14 +213,16 @@ struct NoExtra {
 };
 
 // Every warp stages its own copy of the group into ``sm`` (one copy of
-// group_words(cc, np) words a warp) and returns the copy this thread
-// reads.  Every thread must call it.
+// group_words(cc, np) + ``tail`` words a warp: the kernel's own staged
+// words follow its group) and returns the copy this thread reads.  Every
+// thread must call it.
 template <class Extra = NoExtra>
 __device__ __forceinline__ const int* stage_group(
     int* sm, int cc, int np, const int32_t* con_op, const int32_t* con_exp,
     const int32_t* plat, const int32_t* k, const int32_t* maxrep,
-    const uint8_t* port_limited, const Extra& extra = Extra()) {
-  int* mine = sm + (threadIdx.x >> 5) * group_words(cc, np);
+    const uint8_t* port_limited, const Extra& extra = Extra(),
+    int tail = 0) {
+  int* mine = sm + (threadIdx.x >> 5) * (group_words(cc, np) + tail);
   stage_warp(mine, cc, np, con_op, con_exp, plat, k, maxrep, port_limited,
              extra);
   __syncwarp();
@@ -238,17 +249,19 @@ struct PlainSource {
   const uint8_t* __restrict__ res_ok_col;
   const int32_t* __restrict__ res_cap_col;
   const int32_t* __restrict__ svc_col;
+  bool svc_always;   // a scored K1 reads the task counts for its score
   uint8_t ok;
   int32_t cap, svc;
 
   __device__ __forceinline__ void load_early(int i, int n) {
     ok = load_col(res_ok_col, i, n);
     cap = load_col(res_cap_col, i, n);
+    if (svc_always) svc = load_col(svc_col, i, n);
   }
-  // after the group's scalars are staged: the task counts only for a
+  // after the group's scalars are staged: else the task counts only for a
   // group with max-replicas
   __device__ __forceinline__ void load_late(const int* sm, int i, int n) {
-    svc = sm[GW_MAXREP] > 0 ? load_col(svc_col, i, n) : 0;
+    if (!svc_always) svc = sm[GW_MAXREP] > 0 ? load_col(svc_col, i, n) : 0;
   }
   __device__ __forceinline__ void derive() {}
   __device__ __forceinline__ bool res_ok() const { return ok != 0; }
@@ -327,6 +340,7 @@ struct FusedSource {
   const int32_t* x_prev;        // previous slot's placement, or null
   int n_rows;                   // n: the stride of svc0 / svc_acc
   const SlotScalars* sc;        // in shared memory
+  bool total_always;            // a learned score reads total (a feature)
 
   long long c, m, qc, qm;
   int32_t x, total, acc, acc_prev, s0, svc;
@@ -347,7 +361,8 @@ struct FusedSource {
     c = load_col((const long long*)cpu_col, i, n);
     m = load_col((const long long*)mem_col, i, n);
     x = has_prev() ? load_col(x_prev, i, n) : 0;
-    total = has_prev() ? load_col((const int32_t*)total_col, i, n) : 0;
+    total = has_prev() || total_always
+                ? load_col((const int32_t*)total_col, i, n) : 0;
   }
   __device__ __forceinline__ void load_late(const int*, int i, int n) {
     const size_t off = (size_t)sc->slot * n_rows;
@@ -384,7 +399,7 @@ struct FusedSource {
   }
   __device__ __forceinline__ bool res_ok() const { return ok; }
   __device__ __forceinline__ int res_cap() const { return cap; }
-  // headroom in demand units (reference _fused_headroom)
+  // headroom in demand units (reference _fused_headroom), for the score
   __device__ __forceinline__ int hr_cpu() const {
     return sc->cd > 0 ? (int)clamp_ll(qc, 0, kHrClamp) : (int)kHrClamp;
   }
@@ -392,6 +407,139 @@ struct FusedSource {
     return sc->md > 0 ? (int)clamp_ll(qm, 0, kHrClamp) : (int)kHrClamp;
   }
 };
+
+// ------------------------------------------------- the score epilogue (K6)
+//
+// Reference: swarmkit_tpu/ops/kernel.py:484 strategy_score and :464
+// _learned_score, which the fused plan's scan step runs after the filters
+// (:702-712); score.cu is its standalone port and argues the arithmetic:
+// int32, arithmetic >> on a negative pre-activation, no float, so the
+// result is bit-exact.  Products that can leave int32 in weighted mode
+// wrap, as the reference's int32 arithmetic wraps (taken unsigned here,
+// where the wrap is defined).
+
+constexpr int kStratWeighted = 2;   // scheduler/strategy.py STRAT_WEIGHTED
+constexpr int kStratLearned = 3;    // STRAT_LEARNED
+constexpr int kFeatures = 6;        // MLP_FEATURES
+constexpr int kMaxHidden = 64;      // the learned scorer's hidden units
+constexpr int kFeatClamp = 1023;    // FEAT_CLAMP
+constexpr int kMlpShift = 7;        // MLP_SHIFT
+constexpr int kScoreClamp = (1 << 24) - 1;  // SCORE_CLAMP
+
+// What a scored launch reads and writes beside the filters; the host
+// passes it as a table (ops/kernel.py _ScoreTable has this layout).
+struct ScoreArgs {
+  int mode;           // kStratWeighted, kStratLearned, else spread
+  int hidden;         // learned: hidden units, 1..kMaxHidden
+  int max_failures;   // the down-weight's threshold (MAX_FAILURES)
+  const int32_t* weights;   // [4] weighted terms (weighted; else unread)
+  const int32_t* w1;        // [kFeatures, hidden] (learned)
+  const int32_t* b1;        // [hidden]
+  const int32_t* w2;        // [hidden]
+  const int32_t* b2;        // []
+  const int32_t* failures;  // [n] the group's recent failures
+  const int32_t* hr_cpu;    // [n] K1's headroom columns; null in K1F,
+  const int32_t* hr_mem;    // which derives them from the carry
+  const int32_t* hr_gen;    // null: HR_CLAMP (K1F: no generic demand)
+  int32_t* e;               // [n] the level, written
+};
+
+// words a warp stages for the score: the four weights, then in learned
+// mode w1, b1, w2 and b2
+__host__ __device__ constexpr int score_words(int mode, int hidden) {
+  return 4 + (mode == kStratLearned ? (kFeatures + 2) * hidden + 1 : 0);
+}
+// the most a lane loads while its warp stages them
+constexpr int kScoreRegs = (score_words(kStratLearned, kMaxHidden) + 31) / 32;
+
+// a lane's share of its warp's staged score words, in registers
+struct ScoreStage {
+  int v[kScoreRegs];
+};
+
+__device__ __forceinline__ int score_word(const ScoreArgs& s, int j) {
+  const int h = s.hidden;
+  if (j < 4) return s.weights != nullptr ? s.weights[j] : 0;
+  j -= 4;
+  if (j < kFeatures * h) return s.w1[j];
+  j -= kFeatures * h;
+  if (j < h) return s.b1[j];
+  j -= h;
+  if (j < h) return s.w2[j];
+  return *s.b2;
+}
+
+// every lane issues its loads of the score words (before the group's
+// staging, so both are in flight together) ...
+__device__ __forceinline__ void score_load(const ScoreArgs& s,
+                                           ScoreStage& st) {
+  const int lane = threadIdx.x & 31;
+  const int nw = score_words(s.mode, s.hidden);
+#pragma unroll
+  for (int r = 0; r < kScoreRegs; ++r) {
+    if (32 * r >= nw) break;           // uniform across the warp
+    const int j = lane + 32 * r;
+    st.v[r] = j < nw ? score_word(s, j) : 0;
+  }
+}
+
+// ... and stores them into the warp's copy ``ws`` (the caller syncs the
+// warp before any lane reads them)
+__device__ __forceinline__ void score_store(const ScoreArgs& s,
+                                            const ScoreStage& st, int* ws) {
+  const int lane = threadIdx.x & 31;
+  const int nw = score_words(s.mode, s.hidden);
+#pragma unroll
+  for (int r = 0; r < kScoreRegs; ++r) {
+    if (32 * r >= nw) break;
+    const int j = lane + 32 * r;
+    if (j < nw) ws[j] = st.v[r];
+  }
+}
+
+// K6's score of one node from its staged words ``ws``: weighted
+// w0 * clip(svc) + w1 (HR - hr_cpu) + w2 (HR - hr_mem) + w3 (HR - hr_gen);
+// learned, the fixed-point MLP over [svc, total, failures, hr_cpu,
+// hr_mem, ready]; else the spread score clip(svc); each plus the
+// failure down-weight.
+__device__ __forceinline__ int score_node(const ScoreArgs& s, const int* ws,
+                                          int svc, int total, int f,
+                                          bool ready, int hc, int hm,
+                                          int hg) {
+  const int down = f >= s.max_failures ? clamp_int(f, 0, FAILURE_CLAMP)
+                                       : 0;
+  unsigned score;
+  if (s.mode == kStratWeighted) {
+    const unsigned hr = (unsigned)kHrClamp;
+    score = (unsigned)ws[0] * (unsigned)clamp_int(svc, 0, SVC_CLAMP) +
+            (unsigned)ws[1] * (hr - (unsigned)hc) +
+            (unsigned)ws[2] * (hr - (unsigned)hm) +
+            (unsigned)ws[3] * (hr - (unsigned)hg);
+  } else if (s.mode == kStratLearned) {
+    const int h_n = s.hidden;
+    const int* w1 = ws + 4;
+    const int* b1 = w1 + kFeatures * h_n;
+    const int* w2 = b1 + h_n;
+    const int feat[kFeatures] = {
+        clamp_int(svc, 0, kFeatClamp),   clamp_int(total, 0, kFeatClamp),
+        clamp_int(f, 0, kFeatClamp),     clamp_int(hc, 0, kFeatClamp),
+        clamp_int(hm, 0, kFeatClamp),    ready ? kFeatClamp : 0,
+    };
+    int out = 0;
+    for (int h = 0; h < h_n; ++h) {
+      int acc = 0;
+#pragma unroll
+      for (int j = 0; j < kFeatures; ++j) acc += feat[j] * w1[j * h_n + h];
+      acc = clamp_int((acc + b1[h]) >> kMlpShift, 0, kFeatClamp);
+      out += acc * w2[h];
+    }
+    score = (unsigned)clamp_int((out + w2[h_n]) >> kMlpShift, 0,
+                                kScoreClamp);
+  } else {
+    score = (unsigned)clamp_int(svc, 0, SVC_CLAMP);
+  }
+  return (int)(score + (unsigned)down * (unsigned)F_BIG);
+}
 
 // ------------------------------------------------------------- the body
 

@@ -1,5 +1,5 @@
-// The node-axis split's shard table (K10 shardfill.cu, K11 shardpack.cu):
-// what one shard hands a launch.
+// The node-axis split's shard table (K10 shardfill.cu, K11 shardpack.cu,
+// K2's stage-A sums segsum.cu): what one shard hands a launch.
 //
 // A mesh of D shards splits the node axis: shard d owns rows
 // [d * n, (d + 1) * n) of every node column, in tensors of its own.  The
@@ -9,7 +9,8 @@
 // card (parallel/sharded.py refuses a mesh over several), and one launch
 // covers every shard of the card through this table: K10's cluster and
 // K11's block read the shards' columns and sum each step over all shards'
-// rows themselves, so no partial sum crosses a launch.
+// rows themselves, and K2 sums a stage-A level's branch loads and
+// capacities over all shards' rows, so no partial sum crosses a launch.
 #pragma once
 
 #include "common.cuh"
@@ -17,13 +18,13 @@
 namespace sk {
 
 // shards one launch may carry (the table travels by value as a kernel
-// parameter: 16 x 88 bytes)
+// parameter: 16 x 96 bytes)
 constexpr int MAX_LAUNCH_SHARDS = 16;
 
 // pointer slots of one shard, in the order of the host's pointer table
 enum ShardSlot {
   SS_E, SS_SVC, SS_FAILURES, SS_RES_CAP, SS_CAP, SS_TIE, SS_TOTAL, SS_SEG,
-  SS_K, SS_X, SS_COUNT
+  SS_K, SS_X, SS_VALID, SS_COUNT
 };
 
 struct Shard {
@@ -37,6 +38,7 @@ struct Shard {
   const int32_t* seg;       // segment per row, or null: segment 0
   const int32_t* k;         // [L] units per segment (replicated)
   int32_t* x;               // [n] placement
+  const uint8_t* valid;     // padding mask (K2's branch loads)
   int n;                    // rows of this shard
   int offset;               // global index of its first row
 };
@@ -63,6 +65,7 @@ inline bool make_table(int count, const void* const* ptrs, const int* ints,
     s.seg = (const int32_t*)p[SS_SEG];
     s.k = (const int32_t*)p[SS_K];
     s.x = (int32_t*)p[SS_X];
+    s.valid = (const uint8_t*)p[SS_VALID];
     s.n = ints[2 * d];
     s.offset = ints[2 * d + 1];
   }

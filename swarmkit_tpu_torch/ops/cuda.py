@@ -46,14 +46,14 @@ _L = ctypes.c_longlong
 # C signatures: symbol -> (argtypes, restype); the stream is the last
 # pointer of each launching entry
 SIGNATURES = {
-    "sk_feasibility": ([_I, _I, _I] + [_P] * 21, _I),
+    "sk_feasibility": ([_I, _I, _I] + [_P] * 23, _I),
     "sk_seg_sum": ([_I, _I] + [_P] * 7, _I),
-    "sk_seg_fold": ([_I, _I] + [_P] * 7, _I),
+    "sk_shard_seg_sum": ([_I, _I] + [_P] * 5, _I),
     "sk_waterfill": ([_I, _I, _P, _P, _P, _I] + [_P] * 10, _I),
     "sk_waterfill_scratch_bytes": ([_I], ctypes.c_longlong),
     "sk_packfill": ([_I, _P, _P, _I] + [_P] * 4, _I),
     "sk_strategy_score": ([_I] * 4 + [_P] * 14, _I),
-    "sk_fused_feasibility": ([_I] * 5 + [_P] * 28, _I),
+    "sk_fused_feasibility": ([_I] * 5 + [_P] * 27, _I),
     "sk_fused_carry": ([_I, _I] + [_P] * 9, _I),
     "sk_scatter_rows": ([_I, _I] + [_P] * 7, _I),
     "sk_gang_fit": ([_I] * 4 + [_P] * 19, _I),

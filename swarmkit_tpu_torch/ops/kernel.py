@@ -15,15 +15,17 @@ kernels (``csrc/``) carry them on Hopper:
 * ``fused_feasibility`` (K1F, ``csrc/fused.cu``): the slot entry of the
   fused plan -- the previous slot's placements added into the carried
   cluster state, this slot's resource columns derived from it and K1's
-  filters run on them, in one launch a slot; ``fused_carry`` (K4's carry
-  update, the same file) adds a chunk's last placements after its last
-  fill;
+  filters run on them, in one launch a slot; for a weighted or learned
+  slot (``fused_feasibility_scored``) K6's score is the same launch's
+  epilogue; ``fused_carry`` (K4's carry update, the same file) adds a
+  chunk's last placements after its last fill;
 * ``packfill`` (K5, ``csrc/packfill.cu`` + ``packfill.cuh``): the binpack
   key, threshold select and pack fill of one group over all nodes, in one
   launch of one block (a radix select of the threshold key, not a
   bisection);
 * ``strategy_score`` (K6, ``csrc/score.cu``): the weighted and learned
-  (fixed-point MLP) scores, in exact int32;
+  (fixed-point MLP) scores, in exact int32, the public scoring stage; the
+  plans score in K1's and K1F's epilogue (``csrc/feasibility.cuh``);
 * ``scatter_rows`` (K7, ``csrc/scatter.cu``): the streaming scheduler's
   dirty-row scatter into its five resident node columns, in place;
 * ``gang_fit`` / ``gang_fit_fused`` (K8, ``csrc/gangfit.cu``): the gang
@@ -35,7 +37,9 @@ kernels (``csrc/``) carry them on Hopper:
 * ``shard_packfill`` (K11, ``csrc/shardpack.cu``): the pack fill over a
   node-axis split, K5's kernel over every shard's rows in one launch a
   fill;
-  ``seg_fold`` is K2's cross-shard fold of the stage-A branch sums.
+* ``shard_seg_sum`` (K2 over a node-axis split, ``csrc/segsum.cu``): a
+  stage-A level's branch sums over every shard's rows in one launch, so
+  the level's stage-A fill (K3) runs once a card.
 
 Every wrapper below takes the kernel for tensors on a CUDA device and its
 plain PyTorch version, in this module, for tensors on the CPU; on any other
@@ -99,6 +103,9 @@ WATERFILL = _cuda.CudaKernel(
 FUSED_FEASIBILITY = _cuda.CudaKernel(
     "fused_feasibility", "sk_fused_feasibility",
     "swarmkit_tpu_torch/csrc/fused.cu", "swarmkit_tpu/ops/kernel.py:640")
+FUSED_SCORED = _cuda.CudaKernel(
+    "fused_feasibility_scored", "sk_fused_feasibility",
+    "swarmkit_tpu_torch/csrc/fused.cu", "swarmkit_tpu/ops/kernel.py:484")
 FUSED_CARRY = _cuda.CudaKernel(
     "fused_carry", "sk_fused_carry", "swarmkit_tpu_torch/csrc/fused.cu",
     "swarmkit_tpu/ops/kernel.py:715")
@@ -114,8 +121,8 @@ SCATTER = _cuda.CudaKernel(
 GANG_FIT = _cuda.CudaKernel(
     "gang_fit", "sk_gang_fit", "swarmkit_tpu_torch/csrc/gangfit.cu",
     "swarmkit_tpu/ops/kernel.py:786")
-SEG_FOLD = _cuda.CudaKernel(
-    "seg_fold", "sk_seg_fold", "swarmkit_tpu_torch/csrc/segsum.cu",
+SHARD_SEG_SUM = _cuda.CudaKernel(
+    "shard_seg_sum", "sk_shard_seg_sum", "swarmkit_tpu_torch/csrc/segsum.cu",
     "swarmkit_tpu/parallel/sharded.py:95")
 SHARD_WATERFILL = _cuda.CudaKernel(
     "shard_waterfill", "sk_shard_waterfill",
@@ -125,11 +132,12 @@ SHARD_PACKFILL = _cuda.CudaKernel(
     "shard_packfill", "sk_shard_packfill",
     "swarmkit_tpu_torch/csrc/shardpack.cu",
     "swarmkit_tpu/parallel/sharded.py:137")
-KERNELS = (FEASIBILITY, SEG_SUM, WATERFILL, FUSED_FEASIBILITY, FUSED_CARRY,
-           PACKFILL, SCORE, SCATTER, GANG_FIT, SEG_FOLD, SHARD_WATERFILL,
-           SHARD_PACKFILL)
+KERNELS = (FEASIBILITY, SEG_SUM, WATERFILL, FUSED_FEASIBILITY, FUSED_SCORED,
+           FUSED_CARRY, PACKFILL, SCORE, SCATTER, GANG_FIT, SHARD_SEG_SUM,
+           SHARD_WATERFILL, SHARD_PACKFILL)
 
-# K6 stages the learned scorer's hidden layer in shared memory
+# K6 and the score epilogue stage the learned scorer's hidden layer in
+# shared memory
 SCORE_MAX_HIDDEN = 64
 
 
@@ -220,8 +228,11 @@ def _check_feasibility_inputs(nodes: NodeInputs,
 
 # ------------------------------------------------- K1: feasibility/capacity
 
-def _feasibility_plain(nodes: NodeInputs, group: GroupInputs):
-    """Plain version of K1: (mask bool[N], cap i32[N], fail i32[8])."""
+def _feasibility_plain(nodes: NodeInputs, group: GroupInputs,
+                       scored: Optional[Tuple] = None):
+    """Plain version of K1: (mask bool[N], cap i32[N], fail i32[8]); with
+    ``scored`` = (StrategyInputs, strategy) also the level e i32[N] of the
+    scored launch (:func:`_strategy_score_plain`)."""
     i32 = torch.int32
     ch = group.con_hash
     eq = (ch[:, 0, :] == group.con_exp[:, 0:1]) \
@@ -262,29 +273,77 @@ def _feasibility_plain(nodes: NodeInputs, group: GroupInputs):
     cap = torch.where(group.port_limited, torch.clamp(cap, max=1), cap)
     cap = torch.where(mask, torch.clamp(cap, min=0),
                       torch.zeros_like(cap)).to(i32)
-    return mask, cap, fail_counts
+    if scored is None:
+        return mask, cap, fail_counts
+    return mask, cap, fail_counts, _strategy_score_plain(nodes, *scored)
+
+
+class _ScoreTable(ctypes.Structure):
+    """The score epilogue's table (``csrc/feasibility.cuh`` ScoreArgs):
+    what a scored K1 or K1F reads and writes beside its filters."""
+
+    _fields_ = [("mode", ctypes.c_int), ("hidden", ctypes.c_int),
+                ("max_failures", ctypes.c_int)] + [
+        (name, ctypes.c_void_p) for name in (
+            "weights", "w1", "b1", "w2", "b2", "failures", "hr_cpu",
+            "hr_mem", "hr_gen", "e")]
+
+
+def _score_table(strategy: int, failures: torch.Tensor, e: torch.Tensor,
+                 params=None, hr=None) -> _ScoreTable:
+    """The table of one scored launch: the group's ``failures``, the
+    output ``e``, the strategy's ``params`` (weights, w1, b1, w2, b2), of
+    which weighted mode reads the weights and learned mode the MLP (None
+    for spread), and K1's headroom columns ``hr`` (hr_cpu, hr_mem, hr_gen;
+    None where the kernel derives them, K1F)."""
+    weights, w1, b1, w2, b2 = params if params is not None else (None,) * 5
+    learned = strategy == STRAT_LEARNED
+    mlp = (w1, b1, w2, b2) if learned else (None,) * 4
+    return _ScoreTable(
+        int(strategy), w1.shape[-1] if learned else 0, MAX_FAILURES,
+        *map(_cuda.ptr, (weights if strategy == STRAT_WEIGHTED else None,
+                         *mlp, failures, *(hr or (None,) * 3), e)))
 
 
 def _feasibility_into(nodes: NodeInputs, group: GroupInputs,
                       mask_out: Optional[torch.Tensor],
-                      cap_out: torch.Tensor, fail_out: torch.Tensor) -> None:
+                      cap_out: torch.Tensor, fail_out: torch.Tensor,
+                      scored: Optional[Tuple] = None,
+                      e_out: Optional[torch.Tensor] = None) -> None:
     """Write K1's results into caller-owned views.  ``fail_out`` must hold
-    zeros (the kernel adds its counts); ``mask_out`` may be None."""
+    zeros (the kernel adds its counts); ``mask_out`` may be None.  With
+    ``scored`` = (StrategyInputs, strategy) the same launch writes the
+    level of :func:`strategy_score` into ``e_out`` (the score epilogue)."""
     n, cc, npl = _check_feasibility_inputs(nodes, group)
+    if scored is not None:
+        _check_score_inputs(nodes, *scored)
+        _check("e", e_out, torch.int32, (n,), nodes.valid.device)
     if not _on_cuda(nodes.valid):
-        mask, cap, fail = _feasibility_plain(nodes, group)
+        mask, cap, fail, *e = _feasibility_plain(nodes, group, scored)
         if mask_out is not None:
             mask_out.copy_(mask)
         cap_out.copy_(cap)
         fail_out.copy_(fail)
+        if e:
+            e_out.copy_(e[0])
         return
+    table = None
+    if scored is not None:
+        sin, strategy = scored
+        table = ctypes.byref(_score_table(
+            strategy, nodes.failures, e_out,
+            (sin.weights, sin.w1, sin.b1, sin.w2, sin.b2)
+            if _scored(strategy) else None,
+            (sin.hr_cpu, sin.hr_mem, sin.hr_gen)
+            if _scored(strategy) else None))
     FEASIBILITY(
         n, cc, npl, *map(_cuda.ptr, (
             nodes.valid, nodes.ready, nodes.res_ok, nodes.res_cap,
             nodes.svc_tasks, nodes.extra_mask, group.con_hash, group.con_op,
             group.con_exp, group.plat, nodes.os_hash, nodes.arch_hash,
             nodes.port_conflict, nodes.quota_ok, group.k, group.maxrep,
-            group.port_limited, mask_out, cap_out, fail_out)))
+            group.port_limited, mask_out, cap_out, fail_out,
+            nodes.total_tasks)), table)
 
 
 def _feas_layout(n: int) -> Tuple[int, int]:
@@ -379,11 +438,11 @@ def _seg_sum_outputs(dev: torch.device, L: int):
             torch.empty(1, dtype=i32, device=dev))
 
 
-def _seg_sum_table(acc: int, ticket: int, outs, rows):
+def _seg_sum_table(acc: int, ticket: int, outs):
     """K2's launch table (``csrc/segsum.cu`` SegSumTable): accumulator,
-    ticket, load, bcap, raw_cap, kk, rows."""
-    ptrs = (None,) * 4 if outs is None else tuple(t.data_ptr() for t in outs)
-    return (ctypes.c_void_p * 7)(acc, ticket, *ptrs, _cuda.ptr(rows))
+    ticket, load, bcap, raw_cap, kk."""
+    return (ctypes.c_void_p * 6)(acc, ticket,
+                                 *(t.data_ptr() for t in outs))
 
 
 def _launch_seg_sum(svc_tasks, valid, cap, seg, k, L: int, table,
@@ -417,33 +476,23 @@ def branch_sums(svc_tasks: torch.Tensor, valid: torch.Tensor,
     stream = _cuda.stream_handle()
     _launch_seg_sum(svc_tasks, valid, cap, seg, k, L,
                     _seg_sum_table(*_seg_sum_acc(svc_tasks, L, stream),
-                                   outs, None), stream)
+                                   outs), stream)
     return outs
 
 
-def _branch_sums(svc_tasks, valid, cap, seg, L: int, k, rows=None):
+def _branch_sums(svc_tasks, valid, cap, seg, L: int, k):
     """K2 as a composition calls it, without input checks (it checked
     them): the branch arrays of :func:`branch_sums` in this stream's
-    output buffers for ``L`` (valid until the next call on the stream), or
-    with ``rows`` (int64 [2, L]) one shard's unclamped partials written
-    into it (returns None)."""
+    output buffers for ``L`` (valid until the next call on the stream)."""
     if not svc_tasks.is_cuda:
-        part = _seg_partial_plain(svc_tasks, valid, cap, seg, L)
-        if rows is not None:
-            rows.copy_(part)
-            return None
-        return _seg_clamp(part[0], part[1], k)
+        return _seg_sum_plain(svc_tasks, valid, cap, seg, L, k)
     stream = _cuda.stream_handle()
-    if rows is not None:
-        _launch_seg_sum(svc_tasks, valid, cap, seg, None, L, _seg_sum_table(
-            *_seg_sum_acc(svc_tasks, L, stream), None, rows), stream)
-        return None
     key = (svc_tasks.get_device(), stream, L)
     entry = _SEG_SUM_OUT.get(key)
     if entry is None:
         acc = _seg_sum_acc(svc_tasks, L, stream)
         outs = _seg_sum_outputs(svc_tasks.device, L)
-        entry = _SEG_SUM_OUT[key] = (outs, _seg_sum_table(*acc, outs, None))
+        entry = _SEG_SUM_OUT[key] = (outs, _seg_sum_table(*acc, outs))
     _launch_seg_sum(svc_tasks, valid, cap, seg, k, L, entry[1], stream)
     return entry[0]
 
@@ -840,32 +889,48 @@ def _strategy_score_plain(nodes: NodeInputs, sin: StrategyInputs,
     return spread_score(nodes)
 
 
-def strategy_score(nodes: NodeInputs, sin: StrategyInputs,
-                   strategy: int) -> torch.Tensor:
-    """The pluggable scoring stage (reference ``strategy_score``): each
-    node's effective level i32[N], lower preferred -- the weighted linear
-    score, the learned MLP score, or (any other strategy) the spread
-    score; every one failure-down-weighted."""
+def _check_mlp(sin, dev) -> int:
+    """Check a learned scorer's parameters; returns its hidden units."""
+    i32 = torch.int32
+    hidden = sin.w1.shape[-1]
+    if not 0 < hidden <= SCORE_MAX_HIDDEN:
+        raise ValueError(f"learned scorer: {hidden} hidden units "
+                         f"(1..{SCORE_MAX_HIDDEN})")
+    _check("w1", sin.w1, i32, (len(MLP_FEATURES), hidden), dev)
+    _check("b1", sin.b1, i32, (hidden,), dev)
+    _check("w2", sin.w2, i32, (hidden,), dev)
+    _check("b2", sin.b2, i32, (), dev)
+    return hidden
+
+
+def _check_score_inputs(nodes: NodeInputs, sin: Optional[StrategyInputs],
+                        strategy: int) -> int:
+    """Check what K6 (or a scored K1) reads for ``strategy``; returns the
+    learned scorer's hidden units (0 for another strategy)."""
     n = nodes.valid.shape[0]
     dev = nodes.valid.device
     i32 = torch.int32
     for name in ("svc_tasks", "total_tasks", "failures"):
         _check(name, getattr(nodes, name), i32, (n,), dev)
     _check("ready", nodes.ready, torch.bool, (n,), dev)
-    hidden = 0
     if strategy in (STRAT_WEIGHTED, STRAT_LEARNED):
         for name in ("hr_cpu", "hr_mem", "hr_gen"):
             _check(name, getattr(sin, name), i32, (n,), dev)
         _check("weights", sin.weights, i32, (4,), dev)
-    if strategy == STRAT_LEARNED:
-        hidden = sin.w1.shape[-1]
-        if not 0 < hidden <= SCORE_MAX_HIDDEN:
-            raise ValueError(f"learned scorer: {hidden} hidden units "
-                             f"(1..{SCORE_MAX_HIDDEN})")
-        _check("w1", sin.w1, i32, (len(MLP_FEATURES), hidden), dev)
-        _check("b1", sin.b1, i32, (hidden,), dev)
-        _check("w2", sin.w2, i32, (hidden,), dev)
-        _check("b2", sin.b2, i32, (), dev)
+    return _check_mlp(sin, dev) if strategy == STRAT_LEARNED else 0
+
+
+def strategy_score(nodes: NodeInputs, sin: StrategyInputs,
+                   strategy: int) -> torch.Tensor:
+    """The pluggable scoring stage (reference ``strategy_score``): each
+    node's effective level i32[N], lower preferred -- the weighted linear
+    score, the learned MLP score, or (any other strategy) the spread
+    score; every one failure-down-weighted.  The plans do not call it:
+    K1 and K1F compute the same level as their epilogue."""
+    n = nodes.valid.shape[0]
+    dev = nodes.valid.device
+    i32 = torch.int32
+    hidden = _check_score_inputs(nodes, sin, strategy)
     if not _on_cuda(nodes.valid):
         return _strategy_score_plain(nodes, sin, strategy)
     e = torch.empty(n, dtype=i32, device=dev)
@@ -881,21 +946,40 @@ def strategy_score(nodes: NodeInputs, sin: StrategyInputs,
 
 # --------------------------------------------------------- plan_strategy
 
+def _scored_entry(n: int, dev, nodes: NodeInputs, group: GroupInputs,
+                  sin: Optional[StrategyInputs], strategy: int,
+                  fail: torch.Tensor) -> Tuple[torch.Tensor, Optional[
+                      torch.Tensor]]:
+    """K1 for a strategy plan: (cap, e), the capacity into a new column
+    and the fail counts into ``fail``; a non-binpack strategy's level e
+    from the same launch (the score epilogue), else None."""
+    cap = torch.empty(n, dtype=torch.int32, device=dev)
+    if strategy == STRAT_BINPACK:
+        _feasibility_into(nodes, group, None, cap, fail)
+        return cap, None
+    e = torch.empty(n, dtype=torch.int32, device=dev)
+    _feasibility_into(nodes, group, None, cap, fail, (sin, strategy), e)
+    return cap, e
+
+
 def plan_strategy_packed(nodes: NodeInputs, group: GroupInputs,
                          sin: Optional[StrategyInputs], strategy: int,
                          out: Optional[torch.Tensor] = None,
                          cap: Optional[torch.Tensor] = None,
-                         seg: Optional[torch.Tensor] = None
+                         seg: Optional[torch.Tensor] = None,
+                         e: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """Place one task group under a non-spread strategy; the int32 buffer
     ``[x (N) | fail_counts (8) | spill (1)]`` of :func:`plan_group_packed`
     (spill stays 0: a strategy plans one flat segment).  K1 gives mask,
-    capacity and fail counts; binpack then pack-fills on its key (K5);
-    weighted and learned score the nodes (K6) and water-fill them (K3)
-    with the tie key (clip(total) << 20) | index.  ``sin`` may be None for
-    binpack, which reads no strategy column.  ``cap``: as in
+    capacity and fail counts, and for weighted and learned the nodes'
+    level (K6's score, the epilogue of the same launch); binpack then
+    pack-fills on its key (K5), weighted and learned water-fill the level
+    (K3) with the tie key (clip(total) << 20) | index.  ``sin`` may be
+    None for binpack, which reads no strategy column.  ``cap`` and ``e``:
+    the capacity and level from K1F (the fused route), as ``cap`` in
     :func:`plan_group_packed` (K1 skipped; binpack also reads
-    ``nodes.res_cap``, weighted and learned ``nodes.ready``).  ``seg``: the
+    ``nodes.res_cap``; weighted and learned need ``e``).  ``seg``: the
     all-zero segment column of the one-segment water-fill, when the caller
     holds one (the fused route makes one a chunk)."""
     n = nodes.valid.shape[0]
@@ -903,18 +987,19 @@ def plan_strategy_packed(nodes: NodeInputs, group: GroupInputs,
     buf = _plan_buffer(n, dev, out)
     x, fail = buf[:n], buf[n:n + N_FILTERS]
     if cap is None:
-        cap = torch.empty(n, dtype=torch.int32, device=dev)
-        _feasibility_into(nodes, group, None, cap, fail)
+        cap, e = _scored_entry(n, dev, nodes, group, sin, strategy, fail)
     kk = torch.clamp(group.k, max=K_CLAMP).reshape(1)
     if strategy == STRAT_BINPACK:
         _packfill(res_cap=nodes.res_cap, failures=nodes.failures, cap=cap,
                   k=kk, out=x)
     else:
+        if e is None:
+            raise ValueError("a weighted or learned plan given its "
+                             "capacity needs its level e too")
         if seg is None:
             seg = torch.zeros(n, dtype=torch.int32, device=dev)
-        _waterfill_into(e=strategy_score(nodes, sin, strategy),
-                        total=nodes.total_tasks, cap=cap, k_seg=kk, seg=seg,
-                        L=1, out=x)
+        _waterfill_into(e=e, total=nodes.total_tasks, cap=cap, k_seg=kk,
+                        seg=seg, L=1, out=x)
     return buf
 
 
@@ -1126,16 +1211,40 @@ def _fused_slot_inputs(shared: FusedShared, groups: FusedGroups,
     return nodes, grp
 
 
+def _slot_score_inputs(groups: FusedGroups, carry: FusedCarry, g: int,
+                       svc: torch.Tensor, ready: torch.Tensor,
+                       strat: FusedStrategy) -> Tuple[NodeInputs,
+                                                      StrategyInputs]:
+    """What slot ``g``'s score reads (the reference's ``sin``,
+    ``kernel.py:702-708``): its svc, the carry's total, the group's
+    failures and the nodes' ready flags; the headroom from the carry and
+    hr_gen = HR_CLAMP (a group with a generic demand never fuses)."""
+    hr_gen = torch.full_like(svc, HR_CLAMP)
+    nodes = NodeInputs(
+        valid=None, ready=ready, res_ok=None, res_cap=None, svc_tasks=svc,
+        total_tasks=carry.total, failures=groups.failures[g], leaf=None,
+        os_hash=None, arch_hash=None, port_conflict=None, extra_mask=None)
+    sin = StrategyInputs(
+        hr_cpu=_fused_headroom(carry.cpu, groups.cpu_d[g]),
+        hr_mem=_fused_headroom(carry.mem, groups.mem_d[g]), hr_gen=hr_gen,
+        weights=strat.weights[g], w1=strat.w1, b1=strat.b1, w2=strat.w2,
+        b2=strat.b2)
+    return nodes, sin
+
+
 def _fused_feasibility_plain(shared: FusedShared, groups: FusedGroups,
                              carry: FusedCarry, g: int, s: int,
-                             x_prev: Optional[torch.Tensor] = None):
+                             x_prev: Optional[torch.Tensor] = None,
+                             strat: Optional[FusedStrategy] = None,
+                             sid: int = STRAT_SPREAD):
     """Plain version of K1F, the slot entry of group slot ``g``: slot
     ``g - 1``'s placements ``x_prev`` (None for the first slot of a chunk)
     added into ``carry`` in place (K4's carry update), then that slot's
     resource columns from the carry (the reference's ``kernel.py:669-678``)
-    and K1 on them.
-    Returns (mask, cap, fail_counts, res_ok, res_cap, svc, hr_cpu,
-    hr_mem)."""
+    and K1 on them, and with ``strat`` the slot's level under strategy
+    ``sid`` (:func:`_strategy_score_plain`, the scored launch's epilogue).
+    Returns (mask, cap, fail_counts, res_ok, res_cap, svc, hr_cpu, hr_mem,
+    e), e None without ``strat``."""
     if x_prev is not None:
         _fused_carry_plain(groups, carry, g - 1, s, x_prev)
     res_ok, res_cap, svc = _fused_prologue_plain(
@@ -1145,7 +1254,9 @@ def _fused_feasibility_plain(shared: FusedShared, groups: FusedGroups,
     hr_mem = _fused_headroom(carry.mem, groups.mem_d[g])
     mask, cap, fail = _feasibility_plain(*_fused_slot_inputs(
         shared, groups, carry, g, res_ok, res_cap, svc))
-    return mask, cap, fail, res_ok, res_cap, svc, hr_cpu, hr_mem
+    e = None if strat is None else _strategy_score_plain(
+        *_slot_score_inputs(groups, carry, g, svc, shared.ready, strat), sid)
+    return mask, cap, fail, res_ok, res_cap, svc, hr_cpu, hr_mem, e
 
 
 def _fused_feasibility(shared: FusedShared, groups: FusedGroups,
@@ -1153,26 +1264,37 @@ def _fused_feasibility(shared: FusedShared, groups: FusedGroups,
                        x_prev: Optional[torch.Tensor], fail: torch.Tensor,
                        cap: torch.Tensor, svc: torch.Tensor,
                        res_cap: Optional[torch.Tensor] = None,
-                       hr_cpu: Optional[torch.Tensor] = None,
-                       hr_mem: Optional[torch.Tensor] = None) -> None:
+                       strat: Optional[FusedStrategy] = None,
+                       sid: int = STRAT_SPREAD,
+                       e: Optional[torch.Tensor] = None) -> None:
     """K1F for group slot ``g`` (inputs checked by the caller): adds
     ``x_prev``, slot ``g - 1``'s placements, into ``carry`` (None for the
     first slot of a chunk), then writes the slot's capacity ``cap``, its
     fail counts into ``fail`` (zeroed: the kernel adds), ``svc`` and, when
-    given, ``res_cap`` and the headroom columns.  One launch."""
+    given, ``res_cap``.  With ``e`` (and ``strat``) the launch is the
+    scored one (``FUSED_SCORED``): it writes the slot's level under
+    strategy ``sid`` into ``e`` in place of ``res_cap``.  One launch."""
+    if e is not None and (strat is None or res_cap is not None):
+        raise ValueError("a scored slot entry takes the run's strategy "
+                         "parameters and writes no res_cap")
+    if e is not None and sid == STRAT_LEARNED:
+        _check_mlp(strat, e.device)
     if not _on_cuda(shared.valid):
-        _, c, f, _, rc, sv, hc, hm = _fused_feasibility_plain(
-            shared, groups, carry, g, s, x_prev)
+        _, c, f, _, rc, sv, _, _, lv = _fused_feasibility_plain(
+            shared, groups, carry, g, s, x_prev,
+            strat if e is not None else None, sid)
         cap.copy_(c)
         fail.copy_(f)
         svc.copy_(sv)
         if res_cap is not None:
             res_cap.copy_(rc)
-        if hr_cpu is not None:
-            hr_cpu.copy_(hc)
-            hr_mem.copy_(hm)
+        if e is not None:
+            e.copy_(lv)
         return
-    FUSED_FEASIBILITY(
+    table = None if e is None else ctypes.byref(_score_table(
+        sid, groups.failures[g], e,
+        (strat.weights[g], strat.w1, strat.b1, strat.w2, strat.b2)))
+    (FUSED_FEASIBILITY if e is None else FUSED_SCORED)(
         shared.valid.shape[0], s, groups.con_op.shape[-1],
         groups.plat.shape[1], g, *map(_cuda.ptr, (
             shared.valid, shared.ready, shared.os_hash, shared.arch_hash,
@@ -1180,7 +1302,13 @@ def _fused_feasibility(shared: FusedShared, groups: FusedGroups,
             groups.mem_d, groups.con_hash, groups.con_op, groups.con_exp,
             groups.plat, groups.extra_mask, groups.quota_ok, carry.total,
             carry.cpu, carry.mem, carry.svc_acc, x_prev, fail, cap, svc,
-            res_cap, hr_cpu, hr_mem)))
+            res_cap)), table)
+
+
+def _scored(sid: int) -> bool:
+    """True for a strategy that scores with parameters (weighted, learned):
+    its slot entry writes its level."""
+    return sid in (STRAT_WEIGHTED, STRAT_LEARNED)
 
 
 class _SlotScratch(NamedTuple):
@@ -1190,15 +1318,13 @@ class _SlotScratch(NamedTuple):
     cap: torch.Tensor
     svc: torch.Tensor
     res_cap: Optional[torch.Tensor]   # binpack slots
-    hr_cpu: Optional[torch.Tensor]    # weighted and learned slots
-    hr_mem: Optional[torch.Tensor]
-    hr_gen: Optional[torch.Tensor]
+    e: Optional[torch.Tensor]         # weighted and learned slots' level
     seg: Optional[torch.Tensor]       # the one-segment fill's zeros
 
 
 def _slot_scratch(n: int, dev, sids: Sequence[int]) -> _SlotScratch:
     i32 = torch.int32
-    scored = any(v in (STRAT_WEIGHTED, STRAT_LEARNED) for v in sids)
+    scored = any(_scored(v) for v in sids)
 
     def col():
         return torch.empty(n, dtype=i32, device=dev)
@@ -1206,24 +1332,23 @@ def _slot_scratch(n: int, dev, sids: Sequence[int]) -> _SlotScratch:
     return _SlotScratch(
         cap=col(), svc=col(),
         res_cap=col() if STRAT_BINPACK in sids else None,
-        hr_cpu=col() if scored else None, hr_mem=col() if scored else None,
-        hr_gen=(torch.full((n,), HR_CLAMP, dtype=i32, device=dev)
-                if scored else None),
+        e=col() if scored else None,
         seg=torch.zeros(n, dtype=i32, device=dev) if scored else None)
 
 
 def _slot_entry(shared: FusedShared, groups: FusedGroups, carry: FusedCarry,
                 g: int, s: int, sid: int, x_prev, row: torch.Tensor,
-                sc: _SlotScratch):
-    """K1F for slot ``g`` into ``sc`` and ``row``'s fail slot; returns the
-    (NodeInputs, GroupInputs) its fill reads: the fill's columns and k
-    alone (K1's other inputs stay unread once ``cap`` is given)."""
+                sc: _SlotScratch, strat: Optional[FusedStrategy]):
+    """K1F for slot ``g`` into ``sc`` and ``row``'s fail slot (the scored
+    launch for a weighted or learned slot); returns the (NodeInputs,
+    GroupInputs) its fill reads: the fill's columns and k alone (K1's other
+    inputs stay unread once ``cap`` is given)."""
     n = shared.valid.shape[0]
-    with_hr = sid in (STRAT_WEIGHTED, STRAT_LEARNED)
+    scored = _scored(sid)
     _fused_feasibility(
         shared, groups, carry, g, s, x_prev, row[n:n + N_FILTERS], sc.cap,
         sc.svc, sc.res_cap if sid == STRAT_BINPACK else None,
-        sc.hr_cpu if with_hr else None, sc.hr_mem if with_hr else None)
+        strat if scored else None, sid, sc.e if scored else None)
     nodes = NodeInputs(
         valid=shared.valid, ready=shared.ready, res_ok=None,
         res_cap=sc.res_cap, svc_tasks=sc.svc, total_tasks=carry.total,
@@ -1233,16 +1358,6 @@ def _slot_entry(shared: FusedShared, groups: FusedGroups, carry: FusedCarry,
                       con_exp=None, plat=None, maxrep=None,
                       port_limited=None)
     return nodes, grp
-
-
-def _slot_strategy(strat: FusedStrategy, g: int, sid: int,
-                   sc: _SlotScratch) -> Optional[StrategyInputs]:
-    if sid not in (STRAT_WEIGHTED, STRAT_LEARNED):
-        return None
-    return StrategyInputs(
-        hr_cpu=sc.hr_cpu, hr_mem=sc.hr_mem, hr_gen=sc.hr_gen,
-        weights=strat.weights[g], w1=strat.w1, b1=strat.b1, w2=strat.w2,
-        b2=strat.b2)
 
 
 def _check_sids(sids: Sequence[int], g_count: int,
@@ -1267,13 +1382,14 @@ def plan_fused_packed(shared: FusedShared, groups: FusedGroups,
 
     ``sids`` is the host's copy of each slot's strategy id, which picks the
     slot's launch sequence without reading the device: K1F (the previous
-    slot's placements into the carry, this slot's columns and K1), then
-    K2 + 2 x K3 (spread, over the run-wide ``L`` leaves), K5 (binpack) or
-    K6 + K3 (weighted, learned); after the last slot, K4's carry update.
-    The inputs are checked once a chunk; each slot makes unchecked
-    launches.  ``sids`` equals ``strat.sid`` (all spread when ``strat`` is
-    None).  Ids are clipped to [0, 3] as the reference's switch clips
-    them; padding slots (k = 0) plan like any other and place nothing."""
+    slot's placements into the carry, this slot's columns and K1, and for
+    a weighted or learned slot K6's score in the same launch), then K2 + 2
+    x K3 (spread, over the run-wide ``L`` leaves), K5 (binpack) or K3
+    (weighted, learned); after the last slot, K4's carry update.  The
+    inputs are checked once a chunk; each slot makes unchecked launches.
+    ``sids`` equals ``strat.sid`` (all spread when ``strat`` is None).  Ids
+    are clipped to [0, 3] as the reference's switch clips them; padding
+    slots (k = 0) plan like any other and place nothing."""
     n, s = _check_fused_inputs(shared, groups, carry, strat)
     g_count = groups.k.shape[0]
     dev = shared.valid.device
@@ -1287,13 +1403,12 @@ def plan_fused_packed(shared: FusedShared, groups: FusedGroups,
     for g, sid in enumerate(sids):
         row = out[g]
         nodes, grp = _slot_entry(shared, groups, carry, g, s, sid, x_prev,
-                                 row, sc)
+                                 row, sc, strat)
         if sid == STRAT_SPREAD:
             plan_group_packed(nodes, grp, L, out=row, cap=sc.cap)
         else:
-            plan_strategy_packed(nodes, grp, _slot_strategy(strat, g, sid,
-                                                            sc),
-                                 sid, out=row, cap=sc.cap, seg=sc.seg)
+            plan_strategy_packed(nodes, grp, None, sid, out=row, cap=sc.cap,
+                                 seg=sc.seg, e=sc.e)
         x_prev = row[:n]
     if g_count:
         _fused_carry(groups, carry, g_count - 1, s, x_prev)
@@ -1516,23 +1631,26 @@ def gang_fit(nodes: NodeInputs, group: GroupInputs):
 # (swarmkit_tpu/parallel/sharded.py): D shards, shard d owning rows
 # [d * n, (d + 1) * n) of every node column in tensors of its own, on its
 # own device (one card may hold several shards).  Each shard runs the
-# elementwise kernels (K1, K1F, K4's carry update, K6) on its rows alone.
+# elementwise kernels (K1, K1F with its score epilogue, K4's carry update)
+# on its rows alone.
 # What crosses shards is what the reference psums, and nothing else: the 8
 # fail counts (summed at the fetch, see :func:`merge_shard_rows`), stage
-# A's branch sums (K2's per-shard partials, folded by ``seg_fold``), each
-# step of the node-level searches and the base fill, and the pack fill's
-# count.  K10 sums each step over every shard's rows inside one cluster
-# launch, K11 each level of its select inside one block (int64, exact in
-# any order); the plain
-# versions and ``seg_fold`` sum the D rows in shard order, in int64:
-# exact, deterministic, and the same on every shard.  Clamps apply to the
-# folded sums, never per shard.  Stage A's water-fills run on
-# [L_d] vectors that every shard holds alike, so every shard computes them
-# (K3 as is) and ends with the same allocation and spill.
+# A's branch sums, each step of the node-level searches and the base fill,
+# and the pack fill's count.  On the card K2 sums a stage-A level over
+# every shard's rows in one launch, K10 each search step inside one
+# cluster launch, K11 each level of its select inside one block (int64,
+# exact in any order); the plain versions sum the D shards' partials in
+# shard order through ``reduce``, in int64: exact, deterministic, and the
+# same on every shard.  Clamps apply to the summed sums, never per shard.
+# Stage A's water-fills run on [L_d] vectors that every shard holds alike:
+# on the card one K3 launch a level fills them for every shard (they share
+# its output), and only shard 0's row carries the spill it flags; on CPU
+# shards every shard computes them and ends with the same allocation and
+# spill.  Either way :func:`merge_shard_rows` takes shard 0's spill.
 #
 # Every shard of a mesh lies on one card (``parallel.NodeMesh`` refuses a
-# mesh over several), which is what lets K10 and K11 see every shard's rows
-# in one launch.  A mesh over several cards is blocked (ROADMAP.md).
+# mesh over several), which is what lets K2, K10 and K11 see every shard's
+# rows in one launch.  A mesh over several cards is blocked (ROADMAP.md).
 
 #: a node-level water-fill's steps: 34 level steps, the base fill, 34 tie
 #: steps, the placement (K10 runs them in one launch; the plain version's
@@ -1542,7 +1660,7 @@ WATERFILL_STEPS = LEVEL_ITERS + TIE_ITERS + 2
 MAX_LAUNCH_SHARDS = 16
 # pointer slots per shard of the launch table (``csrc/shard.cuh``)
 _SHARD_SLOTS = ("e", "svc_tasks", "failures", "res_cap", "cap", "tie",
-                "total", "seg", "k", "out")
+                "total", "seg", "k", "out", "valid")
 
 
 class FillShard(NamedTuple):
@@ -1560,6 +1678,7 @@ class FillShard(NamedTuple):
     total: Optional[torch.Tensor] = None     # (clip(total) << 20) | idx
     seg: Optional[torch.Tensor] = None       # i32[n] segment, None: 0
     offset: int = 0
+    valid: Optional[torch.Tensor] = None     # bool[n] (K2's branch loads)
 
 
 def sum_shards(parts: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -1772,14 +1891,17 @@ def _shard_packfill(parts: Sequence[FillShard], reduce=None) -> None:
 # ------------------------------------------- K2 over a node-axis split
 
 def _seg_partial_plain(svc_tasks, valid, cap, seg, L: int) -> torch.Tensor:
-    """One shard's unclamped branch sums: int64 [2, L] (load, capacity)."""
+    """One shard's unclamped branch sums: int64 [2, L] (load, capacity).
+    A row whose segment lies outside [0, L) is dropped, as the reference's
+    ``segment_sum`` drops it (and K2)."""
     i64 = torch.int64
-    seg_l = seg.to(i64)
-    svc = torch.where(valid, torch.clamp(svc_tasks, 0, SVC_CLAMP),
+    inside = (seg >= 0) & (seg < L)
+    seg_l = torch.where(inside, seg, 0).to(i64)
+    svc = torch.where(valid & inside, torch.clamp(svc_tasks, 0, SVC_CLAMP),
                       torch.zeros_like(svc_tasks))
     out = torch.zeros((2, L), dtype=i64, device=svc_tasks.device)
     out[0].index_add_(0, seg_l, svc.to(i64))
-    out[1].index_add_(0, seg_l, cap.to(i64))
+    out[1].index_add_(0, seg_l, torch.where(inside, cap, 0).to(i64))
     return out
 
 
@@ -1792,38 +1914,19 @@ def _seg_clamp(load_raw, raw_cap, k):
     return load, bcap, raw_cap, kk
 
 
-def seg_fold(rows: torch.Tensor, k: torch.Tensor):
-    """K2's fold for one shard: the [D, 2, L] int64 exchange of the
-    shards' unclamped (load, capacity) partials summed in shard order,
-    then clamped as the reference clamps its psummed branch arrays.
-    Returns (load i32[L], bcap i32[L], raw_cap i64[L], kk i32[1]) on the
-    exchange's device; its plain version on the CPU."""
-    D, two, L = rows.shape
-    dev = rows.device
-    _check("rows", rows, torch.int64, (D, 2, L), dev)
-    _check("k", k, torch.int32, (), dev)
-    if not _on_cuda(rows):
-        total = sum_shards(list(rows))
-        return _seg_clamp(total[0], total[1], k)
-    load = torch.empty(L, dtype=torch.int32, device=dev)
-    bcap = torch.empty(L, dtype=torch.int32, device=dev)
-    raw = torch.empty(L, dtype=torch.int64, device=dev)
-    kk = torch.empty(1, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        SEG_FOLD(D, L, *map(_cuda.ptr, (rows, k, load, bcap, raw, kk)))
-    return load, bcap, raw, kk
+def _seg_fold_plain(rows: Sequence[torch.Tensor], k: torch.Tensor,
+                    reduce=None):
+    """Plain version of a split's stage-A sums after the shards' partials:
+    the shards' unclamped [2, L] (load, capacity) rows summed through
+    ``reduce`` (the reference's psum; default :func:`sum_shards`, in shard
+    order, int64), then clamped as the reference clamps its psummed branch
+    arrays: (load i32[L], bcap i32[L], raw_cap i64[L], kk i32[1]) on the
+    sum's device."""
+    total = (reduce or sum_shards)(list(rows))
+    return _seg_clamp(total[0], total[1], k.to(total.device))
 
 
-def branch_sums_sharded(parts: Sequence[Tuple], L: int,
-                        reduce=None) -> List[Tuple]:
-    """Stage-A branch arrays over a node-axis split: ``parts`` holds each
-    shard's (svc_tasks, valid, cap, seg, k) on its device.  K2 writes each
-    shard's unclamped partials into its row of a [D, 2, L] exchange;
-    :func:`seg_fold` sums the rows in shard order and clamps, on every
-    shard.  Returns each shard's (load, bcap, raw_cap, kk), equal on every
-    shard.  On CPU shards the partials are summed through ``reduce``
-    (the reference's psum; default :func:`sum_shards`)."""
-    D = len(parts)
+def _check_stage_a_parts(parts: Sequence[Tuple]) -> None:
     i32 = torch.int32
     for svc_tasks, valid, cap, seg, k in parts:
         n, dev = svc_tasks.shape[0], svc_tasks.device
@@ -1832,18 +1935,60 @@ def branch_sums_sharded(parts: Sequence[Tuple], L: int,
         _check("cap", cap, i32, (n,), dev)
         _check("seg", seg, i32, (n,), dev)
         _check("k", k, i32, (), dev)
+
+
+def _shard_seg_sum(parts: Sequence[Tuple], L: int, outs=None):
+    """K2 over a split on the card: ONE launch sums the level over every
+    shard's rows (``csrc/segsum.cu`` sk_shard_seg_sum; the shards must
+    hold equal row counts) and clamps.  Returns the level's (load, bcap,
+    raw_cap, kk): ``outs``, fresh tensors, else this stream's output
+    buffers for ``L``, valid until the next K2 call on the stream (a
+    composition reads them before it makes the next call)."""
+    first = parts[0][0]
+    n = first.shape[0]
+    if len(parts) > MAX_LAUNCH_SHARDS:
+        raise ValueError(f"more than {MAX_LAUNCH_SHARDS} shards on one card")
+    ptrs, ints = _shard_table([
+        FillShard(cap=cap, k=None, svc_tasks=svc, seg=seg, valid=valid,
+                  offset=d * n)
+        for d, (svc, valid, cap, seg, _k) in enumerate(parts)])
+    stream = _cuda.stream_handle()
+    if outs is None:
+        key = (first.get_device(), stream, L)
+        entry = _SEG_SUM_OUT.get(key)
+        if entry is None:
+            acc = _seg_sum_acc(first, L, stream)
+            outs = _seg_sum_outputs(first.device, L)
+            entry = _SEG_SUM_OUT[key] = (outs, _seg_sum_table(*acc, outs))
+        outs, table = entry
+    else:
+        table = _seg_sum_table(*_seg_sum_acc(first, L, stream), outs)
+    SHARD_SEG_SUM.launch(len(parts), L, ctypes.addressof(ptrs),
+                         ctypes.addressof(ints), parts[0][4].data_ptr(),
+                         ctypes.addressof(table), stream=stream)
+    return outs
+
+
+def branch_sums_sharded(parts: Sequence[Tuple], L: int,
+                        reduce=None) -> List[Tuple]:
+    """Stage-A branch arrays over a node-axis split: ``parts`` holds each
+    shard's (svc_tasks, valid, cap, seg, k) on its device.  Returns each
+    shard's (load, bcap, raw_cap, kk), equal on every shard.  On the card
+    ONE K2 launch sums every shard's rows and clamps (``shard_seg_sum``),
+    and every shard's entry is that one tuple (the shards share a card).
+    On CPU shards each shard's partials are summed through ``reduce``
+    (the reference's psum; default :func:`sum_shards`) and clamped
+    (:func:`_seg_fold_plain`)."""
+    _check_stage_a_parts(parts)
     devices = [p[0].device for p in parts]
     if not _split_route(devices, reduce):
         rows = [_seg_partial_plain(svc, valid, cap, seg, L)
                 for svc, valid, cap, seg, _ in parts]
-        total = (reduce or sum_shards)(rows)
-        return [tuple(t.to(dev) for t in _seg_clamp(total[0], total[1], k))
-                for dev, (*_, k) in zip(devices, parts)]
-    rows = torch.empty((D, 2, L), dtype=torch.int64, device=devices[0])
+        sums = _seg_fold_plain(rows, parts[0][4], reduce)
+        return [tuple(t.to(dev) for t in sums) for dev in devices]
     with torch.cuda.device(devices[0]):
-        for d, (svc, valid, cap, seg, k) in enumerate(parts):
-            _branch_sums(svc, valid, cap, seg, L, k, rows=rows[d])
-    return [seg_fold(rows, k) for *_, k in parts]
+        sums = _shard_seg_sum(parts, L, _seg_sum_outputs(devices[0], L))
+    return [sums] * len(parts)
 
 
 # ---------------------------------------------- sharded plan compositions
@@ -1873,16 +2018,22 @@ def plan_group_sharded_packed(shards: Sequence[Tuple], L: int,
     replicated; ``hier``'s segment columns are split and its parent maps
     replicated.  Returns each shard's int32 row ``[x (n) | fail_counts (8)
     | spill (1)]`` (``outs``, zeroed, when given): its own placements and
-    fail counts, and the spill every shard computes alike.
+    fail counts, and the spill.
 
-    Per shard: K1, then per stage-A level K2's partials, ``seg_fold`` and
-    K3 over the replicated branch vectors; then K10 over every shard.  On
-    CPU shards every value that crosses shards, except the fail counts
-    that :func:`merge_shard_rows` sums at the fetch, goes through
-    ``reduce`` (the reference's psum; default :func:`sum_shards`).
-    ``caps``: each shard's capacity from K1F, as ``cap`` in
-    :func:`plan_group_packed` (K1 skipped on every shard)."""
+    Per shard K1; then per stage-A level the branch sums over every shard
+    and a K3 fill of the replicated branch vectors; then K10 over every
+    shard.  On the card each level is ONE K2 launch over the shard table
+    and ONE K3 launch, whose allocation every shard's next level (or K10)
+    reads, and only shard 0's row carries the spill (the row
+    :func:`merge_shard_rows` takes it from).  On CPU shards every value
+    that crosses shards, except the fail counts that
+    :func:`merge_shard_rows` sums at the fetch, goes through ``reduce``
+    (the reference's psum; default :func:`sum_shards`), and every shard
+    runs the level's fill and carries the spill.  ``caps``: each shard's
+    capacity from K1F, as ``cap`` in :func:`plan_group_packed` (K1 skipped
+    on every shard)."""
     n = _local_n(shards[0][0].valid, [s[0] for s in shards])
+    D = len(shards)
     bufs = [_plan_buffer(n, nodes.valid.device,
                          None if outs is None else outs[d])
             for d, (nodes, _g, _h) in enumerate(shards)]
@@ -1894,17 +2045,24 @@ def plan_group_sharded_packed(shards: Sequence[Tuple], L: int,
                               device=nodes.valid.device)
             _feasibility_into(nodes, group, None, cap, fail)
             caps.append(cap)
+    on_cuda = _split_route([nodes.valid.device for nodes, _g, _h in shards],
+                           reduce)
+    # the shards whose rows run stage A's fills: one a card, else each
+    fills = 1 if on_cuda else D
 
     uppers = [h[0] if h else () for _n, _g, h in shards]
     leaf_parents = [h[1] if h else None for _n, _g, h in shards]
-    k_parent = [None] * len(shards)
+    k_parent = [None] * D
     parent_count = 1
 
     def stage_a(segs, L_d):
-        return branch_sums_sharded(
-            [(nodes.svc_tasks, nodes.valid, cap, seg, group.k)
-             for (nodes, group, _h), cap, seg in zip(shards, caps, segs)],
-            L_d, reduce)
+        parts = [(nodes.svc_tasks, nodes.valid, cap, seg, group.k)
+                 for (nodes, group, _h), cap, seg in zip(shards, caps, segs)]
+        if not on_cuda:
+            return branch_sums_sharded(parts, L_d, reduce)
+        _check_stage_a_parts(parts)
+        with torch.cuda.device(parts[0][0].device):
+            return [_shard_seg_sum(parts, L_d)]
 
     for level in range(len(uppers[0])):
         parents = [u[level][1] for u in uppers]
@@ -1912,20 +2070,20 @@ def plan_group_sharded_packed(shards: Sequence[Tuple], L: int,
         sums = stage_a([u[level][0] for u in uppers], L_d)
         new = []
         for (load, bcap, raw, kk), parent, kp, (_x, _f, spill) in zip(
-                sums, parents, k_parent, rows):
+                sums, parents[:fills], k_parent, rows):
             new.append(_waterfill(
                 e=load, cap=bcap, k_seg=kk if kp is None else kp,
                 seg=parent, L=parent_count,
                 out=torch.empty(L_d, dtype=torch.int32, device=load.device),
                 raw_cap=raw if L_d > 1 else None,
                 spill=spill if L_d > 1 else None))
-        k_parent = new
+        k_parent = new * (D // fills)
         parent_count = L_d
 
     sums = stage_a([nodes.leaf for nodes, _g, _h in shards], L)
     k_branch = []
     for (load, bcap, raw, kk), lp, kp, (_x, _f, spill) in zip(
-            sums, leaf_parents, k_parent, rows):
+            sums, leaf_parents[:fills], k_parent, rows):
         if L == 1 and not uppers[0]:
             k_branch.append(bcap)
             continue
@@ -1936,6 +2094,7 @@ def plan_group_sharded_packed(shards: Sequence[Tuple], L: int,
             L=parent_count,
             out=torch.empty(L, dtype=torch.int32, device=load.device),
             raw_cap=raw if L > 1 else None, spill=spill if L > 1 else None))
+    k_branch = k_branch * (D // fills)
 
     _shard_waterfill([
         FillShard(svc_tasks=nodes.svc_tasks, failures=nodes.failures,
@@ -1950,15 +2109,17 @@ def plan_strategy_sharded_packed(shards: Sequence[Tuple],
                                  sins: Optional[Sequence], strategy: int,
                                  outs: Optional[Sequence[torch.Tensor]] = None,
                                  reduce=None,
-                                 caps: Optional[Sequence[torch.Tensor]] = None
+                                 caps: Optional[Sequence[torch.Tensor]] = None,
+                                 es: Optional[Sequence[torch.Tensor]] = None
                                  ) -> List[torch.Tensor]:
     """:func:`plan_strategy_packed` over a node-axis split (reference
     ``plan_strategy_sharded``): ``shards`` holds each shard's (NodeInputs,
     GroupInputs), ``sins`` each shard's StrategyInputs (headroom split,
-    weights and MLP replicated; None for binpack).  Per shard K1 (and K6
-    for weighted and learned); then K11 (binpack) or K10 over every
-    shard, on global indices.  ``reduce`` and ``caps`` as in
-    :func:`plan_group_sharded_packed`."""
+    weights and MLP replicated; None for binpack).  Per shard K1 (for
+    weighted and learned with K6's score as its epilogue); then K11
+    (binpack) or K10 over every shard, on global indices.  ``reduce`` and
+    ``caps`` as in :func:`plan_group_sharded_packed`; with ``caps``,
+    weighted and learned take each shard's level ``es`` from K1F."""
     n = _local_n(shards[0][0].valid, [s[0] for s in shards])
     bufs = [_plan_buffer(n, nodes.valid.device,
                          None if outs is None else outs[d])
@@ -1967,21 +2128,22 @@ def plan_strategy_sharded_packed(shards: Sequence[Tuple],
     for d, ((nodes, group), (x, fail, _s)) in enumerate(
             zip(shards, _shard_rows(bufs, n))):
         if caps is None:
-            cap = torch.empty(n, dtype=torch.int32,
-                              device=nodes.valid.device)
-            _feasibility_into(nodes, group, None, cap, fail)
+            cap, e = _scored_entry(n, nodes.valid.device, nodes, group,
+                                   None if sins is None else sins[d],
+                                   strategy, fail)
         else:
-            cap = caps[d]
+            cap, e = caps[d], None if es is None else es[d]
         kk = torch.clamp(group.k, max=K_CLAMP).reshape(1)
         if strategy == STRAT_BINPACK:
             parts.append(FillShard(res_cap=nodes.res_cap,
                                    failures=nodes.failures, cap=cap, k=kk,
                                    out=x, offset=d * n))
         else:
-            parts.append(FillShard(
-                e=strategy_score(nodes, sins[d], strategy),
-                total=nodes.total_tasks, cap=cap, k=kk, out=x,
-                offset=d * n))
+            if e is None:
+                raise ValueError("a weighted or learned plan given its "
+                                 "capacity needs its level e too")
+            parts.append(FillShard(e=e, total=nodes.total_tasks, cap=cap,
+                                   k=kk, out=x, offset=d * n))
     if strategy == STRAT_BINPACK:
         _shard_packfill(parts, reduce)
     else:
@@ -2002,9 +2164,9 @@ def plan_fused_sharded_packed(shareds: Sequence[FusedShared],
     and FusedStrategy (replicated, or None for a spread-only run).  The
     carry stays split and is updated in place, shard by shard.  Returns
     each shard's rows ``[G, x (n) | fail_counts (8) | spill (1)]``.  Per
-    slot: K1F on every shard, then the slot's sharded fill; after the last
-    slot, K4's carry update on every shard.  ``reduce`` as in
-    :func:`plan_group_sharded_packed`."""
+    slot: K1F on every shard (scored for a weighted or learned slot), then
+    the slot's sharded fill; after the last slot, K4's carry update on
+    every shard.  ``reduce`` as in :func:`plan_group_sharded_packed`."""
     D = len(shareds)
     n = _local_n(shareds[0].valid, shareds)
     checked = [_check_fused_inputs(sh, gr, ca,
@@ -2028,21 +2190,20 @@ def plan_fused_sharded_packed(shareds: Sequence[FusedShared],
     x_prev = [None] * D
     for g, sid in enumerate(sids):
         rows = [b[g] for b in bufs]
-        plans, sins = [], []
+        plans = []
         for d in range(D):
-            nodes, grp = _slot_entry(shareds[d], groupss[d], carries[d], g,
-                                     s, sid, x_prev[d], rows[d], scratch[d])
+            nodes, grp = _slot_entry(
+                shareds[d], groupss[d], carries[d], g, s, sid, x_prev[d],
+                rows[d], scratch[d], None if strats is None else strats[d])
             plans.append((nodes, grp, ()) if sid == STRAT_SPREAD
                          else (nodes, grp))
-            sins.append(_slot_strategy(strats[d], g, sid, scratch[d])
-                        if strats is not None else None)
         caps = [sc.cap for sc in scratch]
         if sid == STRAT_SPREAD:
             plan_group_sharded_packed(plans, L, rows, reduce, caps=caps)
         else:
             plan_strategy_sharded_packed(
-                plans, None if sins[0] is None else sins, sid, rows, reduce,
-                caps=caps)
+                plans, None, sid, rows, reduce, caps=caps,
+                es=[sc.e for sc in scratch] if _scored(sid) else None)
         x_prev = [r[:n] for r in rows]
     if g_count:
         for d in range(D):
@@ -2055,7 +2216,8 @@ def merge_shard_rows(arr: np.ndarray, n: int) -> np.ndarray:
     unsharded row ``[..., n + 9]``: the placements in shard order, cut to
     ``n``; the fail counts summed over the shards in shard order (the
     exchange of the 8 counts, which the reference psums); the spill of
-    shard 0 (every shard computes it alike)."""
+    shard 0 (on the card stage A runs once and only shard 0's row carries
+    its spill; on CPU shards every shard computes it alike)."""
     d = arr.shape[0]
     ln = arr.shape[-1] - N_FILTERS - 1
     x = np.moveaxis(arr[..., :ln], 0, -2)

@@ -1,12 +1,20 @@
 // Probe of the per-node filter kernels (csrc/feasibility.cuh) on Hopper:
 // the block size K1 (feasibility.cu), K1F (fused.cu) and K8 (gangfit.cu)
-// take.  It compiles the kernels' own sources and runs, at node bucket
-// 16,384:
+// take, and how the scored K1F stages its learned scorer.  It compiles the
+// kernels' own sources and runs, at node bucket 16,384:
 //  * K1 on the headline plan's shape (10,000 nodes, four constraint slots
-//    of which two are active, four platform rows with the wildcard);
-//  * K1F on a cfg7 chunk's weighted slot (16 service slots, 0.1 CPU and
-//    64 MiB demands on 64-CPU nodes, a carried placement of 0-5 tasks on
-//    10,000 nodes, the headroom columns written);
+//    of which two are active, four platform rows with the wildcard), and
+//    scored (learned, 8 hidden units) on it;
+//  * K1F on a cfg7 chunk's slot (16 service slots, 0.1 CPU and 64 MiB
+//    demands on 64-CPU nodes, a carried placement of 0-5 tasks on 10,000
+//    nodes, res_cap written), and scored (K6's score as the epilogue,
+//    weighted and learned with 8 and 64 hidden units, e written): the
+//    shipped staging, each warp loading its copy of the weights and the
+//    MLP one word a lane with the group's scalars, against a probe-only
+//    kernel whose warps stage the MLP with one bulk asynchronous copy
+//    (cp.async.bulk, the TMA engine, completing on a per-warp mbarrier)
+//    issued before the group's staging and waited for only before the
+//    score;
 //  * K8 at G = 1 on the headline's inputs;
 //  * an empty kernel, the floor of a launch;
 // each over threads a block (T), one node a thread.  Every variant's
@@ -121,6 +129,9 @@ struct K1Case {
   int32_t* cap;
   uint8_t* mask;
   int32_t* fail;
+  int32_t* e;
+  const int32_t* failures;
+  const int32_t* hr;   // hr_cpu, hr_mem, hr_gen
 };
 
 K1Case k1_case() {
@@ -151,34 +162,78 @@ K1Case k1_case() {
   c.cap = upload(std::vector<int32_t>(n));
   c.mask = upload(std::vector<uint8_t>(n));
   c.fail = upload(std::vector<int32_t>(8));
-  c.a = K1Args{n, cc, np,
+  std::vector<int32_t> total(n), failures(n), hr(3 * n);
+  for (int i = 0; i < n; ++i) {
+    total[i] = rnd() % 1500;
+    failures[i] = (rnd() % 10 == 0) ? rnd() % 80 : 0;
+  }
+  for (auto& h : hr) h = rnd() % 1024;
+  c.e = upload(std::vector<int32_t>(n));
+  const int32_t* hr_d = upload(hr);
+  c.a = K1Args{n, cc, np, upload(total),
                sk::NodeColumns{upload(valid), upload(ready), upload(extra),
                                upload(con_hash), upload(os), upload(arch),
                                upload(port), nullptr},
                upload(res_ok), upload(res_cap), upload(svc), upload(op),
                upload(exp), upload(plat), upload(k), upload(maxrep),
-               upload(limited), c.mask, c.cap, c.fail};
+               upload(limited), c.mask, c.cap, c.fail, sk::ScoreArgs{}};
+  c.failures = upload(failures);
+  c.hr = hr_d;
   return c;
 }
 
-template <int T>
-void k1_variant(const K1Case& c, std::vector<int32_t>* want_cap,
-                std::vector<int32_t>* want_fail) {
+// the learned scorer of ``hidden`` units (within the artifact's clamps,
+// pre-activations of both signs), one device array each, and the same
+// packed [w1 | b1 | w2 | b2] padded to 16 bytes for the bulk copy
+struct Mlp {
+  int hidden;
+  int32_t *w1, *b1, *w2, *b2, *packed, *weights;
+  int packed_bytes;
+};
+
+Mlp make_mlp(int hidden) {
+  std::vector<int32_t> w1(6 * hidden), b1(hidden), w2(hidden), b2(1);
+  for (auto& v : w1) v = (int)(rnd() % 255) - 127;
+  for (auto& v : b1) v = (int)(rnd() % 255) - 127;
+  for (auto& v : w2) v = (int)(rnd() % 255) - 127;
+  b2[0] = (int)(rnd() % 255) - 127;
+  std::vector<int32_t> packed(w1);
+  packed.insert(packed.end(), b1.begin(), b1.end());
+  packed.insert(packed.end(), w2.begin(), w2.end());
+  packed.push_back(b2[0]);
+  while (packed.size() % 4) packed.push_back(0);
+  Mlp m{hidden, upload(w1), upload(b1), upload(w2), upload(b2),
+        upload(packed), upload(std::vector<int32_t>{2, 3, 1, 1}),
+        (int)(packed.size() * 4)};
+  return m;
+}
+
+sk::ScoreArgs score_args(int mode, const Mlp& m, const int32_t* failures,
+                         const int32_t* hr, int n, int32_t* e) {
+  return sk::ScoreArgs{mode,     m.hidden, 5,      m.weights, m.w1,
+                       m.b1,     m.w2,     m.b2,   failures,  hr,
+                       hr ? hr + n : nullptr, hr ? hr + 2 * n : nullptr, e};
+}
+
+template <int T, bool kScored>
+void k1_variant(const K1Case& c, const char* label,
+                std::vector<int32_t>* want) {
   CK(cudaMemsetAsync(c.fail, 0, 32, g_stream));
-  CK((cudaError_t)launch_feasibility<T>(c.a, g_stream));
+  CK((cudaError_t)launch_feasibility<T, kScored>(c.a, g_stream));
   CK(cudaDeviceSynchronize());
-  auto cap = download(c.cap, c.a.n);
+  auto got = download(c.cap, c.a.n);
   auto fail = download(c.fail, 8);
-  bool same = true;
-  if (want_cap->empty()) {
-    *want_cap = cap;
-    *want_fail = fail;
-  } else {
-    same = cap == *want_cap && fail == *want_fail;
+  got.insert(got.end(), fail.begin(), fail.end());
+  if (kScored) {
+    auto e = download(c.e, c.a.n);
+    got.insert(got.end(), e.begin(), e.end());
   }
+  bool same = true;
+  if (want->empty()) *want = got;
+  else same = got == *want;
   const double us =
-      time_us([&] { launch_feasibility<T>(c.a, g_stream); });
-  printf("K1  T=%3d                            %7.3f us  %s\n", T, us,
+      time_us([&] { launch_feasibility<T, kScored>(c.a, g_stream); });
+  printf("K1  %-16s T=%3d               %7.3f us  %s\n", label, T, us,
          same ? "== first" : "DIFFERS");
   if (!same) exit(2);
 }
@@ -189,7 +244,8 @@ struct K1FCase {
   K1FArgs a;
   std::vector<long long> cpu, mem;
   std::vector<int32_t> total, acc;
-  int32_t* outs[5];   // cap, svc, hr_cpu, hr_mem, fail
+  int32_t* outs[5];   // cap, svc, res_cap, e, fail
+  const int32_t* failures;   // [G, n]
 };
 
 K1FCase k1f_case() {
@@ -219,8 +275,10 @@ K1FCase k1f_case() {
   std::vector<int32_t> slot = {0, 1, 2, 0}, maxrep(G, 0);
   std::vector<long long> cpu_d(G, cpu_unit), mem_d(G, mem_unit);
   std::vector<int32_t> op(G * cc, 2), exp(G * cc * 2, 0),
-      plat(G * np * 4, -1);
+      plat(G * np * 4, -1), failures(G * n);
+  for (auto& f : failures) f = (rnd() % 10 == 0) ? rnd() % 80 : 0;
   for (auto& o : c.outs) o = upload(std::vector<int32_t>(n));
+  c.failures = upload(failures);
   c.a = K1FArgs{n, S, cc, np, g,
                 sk::NodeColumns{upload(valid), upload(ready),
                                 upload(extra) + (size_t)g * n,
@@ -231,8 +289,8 @@ K1FCase k1f_case() {
                 upload(plat) + g * np * 4, upload(k) + g, upload(maxrep) + g,
                 upload(cpu_d), upload(mem_d), upload(slot), upload(svc0),
                 upload(c.acc), upload(c.total), upload(c.cpu), upload(c.mem),
-                upload(x), c.outs[4], c.outs[0], c.outs[1], nullptr,
-                c.outs[2], c.outs[3]};
+                upload(x), c.outs[4], c.outs[0], c.outs[1], c.outs[2],
+                sk::ScoreArgs{}};
   return c;
 }
 
@@ -250,6 +308,8 @@ void k1f_reset(const K1FCase& c) {
 std::vector<long long> k1f_digest(const K1FCase& c) {
   std::vector<long long> d;
   for (int j = 0; j < 4; ++j) {
+    if (j == 2 && c.a.res_cap_out == nullptr) continue;
+    if (j == 3 && c.a.score.e == nullptr) continue;
     auto v = download(c.outs[j], kN);
     d.insert(d.end(), v.begin(), v.end());
   }
@@ -264,18 +324,122 @@ std::vector<long long> k1f_digest(const K1FCase& c) {
   return d;
 }
 
+// The probe-only scored K1F: the shipped kernel's body (fused.cu) with
+// the learned scorer staged by one bulk asynchronous copy a warp (the TMA
+// engine, cp.async.bulk into the warp's copy, completing on the warp's
+// mbarrier) from the packed [w1 | b1 | w2 | b2], issued before the group's
+// staging and waited for just before the score; the weights by lanes 0-3.
+constexpr int kWordsPad = 4 + sk::score_words(sk::kStratLearned,
+                                              sk::kMaxHidden) + 3;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
 template <int T>
-void k1f_variant(const K1FCase& c, std::vector<long long>* want) {
+__global__ void __launch_bounds__(T) fused_bulk_kernel(
+    const K1FArgs a, const int32_t* __restrict__ packed, int packed_bytes) {
+  constexpr int kWarps = T / 32;
+  extern __shared__ int sm[];
+  __shared__ unsigned wsum[2 * kWarps];
+  __shared__ sk::SlotScalars scs[kWarps];
+  __shared__ __align__(16) int words[kWarps][kWordsPad & ~3];
+  __shared__ __align__(8) unsigned long long bars[kWarps];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  sk::SlotScalars* sc = &scs[warp];
+  int* ws = words[warp];
+  const uint32_t bar = smem_u32(&bars[warp]);
+  const bool learned = a.score.mode == sk::kStratLearned;
+  if (learned && lane == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(bar));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(bar), "r"(packed_bytes) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];"
+        :: "r"(smem_u32(ws + 4)), "l"(packed), "r"(packed_bytes), "r"(bar)
+        : "memory");
+  }
+  const int n = a.n;
+  const int i = blockIdx.x * T + threadIdx.x;
+  const bool has_prev = a.x_prev != nullptr;
+  sk::NodeRegs regs;
+  sk::load_early(a.cols, i, n, regs);
+  sk::FusedSource src{a.cpu, a.mem, a.total, a.svc_acc, a.svc0, a.x_prev,
+                      n, sc, learned};
+  src.load_early(i, n);
+  const int32_t f = sk::load_col(a.score.failures, i, n);
+  const int w = lane < 4 && a.score.weights != nullptr ? a.score.weights[lane]
+                                                       : 0;
+  const int* grp = sk::stage_group(
+      sm, a.cc, a.np, a.con_op, a.con_exp, a.plat, a.k, a.maxrep, nullptr,
+      SlotExtra{a.cpu_d, a.mem_d, a.slot, a.g, a.S, has_prev, sc});
+  if (lane < 4) ws[lane] = w;
+  unsigned fails;
+  bool mask;
+  int cap;
+  sk::feasible_node(grp, a.cols, regs, src, i, n, fails, mask, cap);
+  if (learned) {
+    uint32_t done = 0;
+    while (!done)
+      asm volatile(
+          "{ .reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+          "selp.b32 %0, 1, 0, p; }"
+          : "=r"(done) : "r"(bar) : "memory");
+  }
+  __syncwarp();
+  if (i < n) {
+    a.cap_out[i] = cap;
+    a.svc_out[i] = src.svc;
+    a.score.e[i] = sk::score_node(a.score, ws, src.svc, src.total, f,
+                                  regs.ready != 0, src.hr_cpu(),
+                                  src.hr_mem(), (int)sk::kHrClamp);
+    if (has_prev && src.x != 0) {
+      a.total[i] = src.total;
+      a.cpu[i] = src.c;
+      a.mem[i] = src.m;
+      if (src.same_slot())
+        a.svc_acc[(size_t)sc->slot * n + i] = src.acc;
+      else if (src.other_slot())
+        a.svc_acc[(size_t)sc->slot_prev * n + i] = src.acc_prev;
+    }
+  }
+  sk::fold_fails<kWarps>(fails, wsum, a.fail_out);
+}
+
+template <int T>
+int launch_bulk(const K1FArgs& a, const Mlp& m, cudaStream_t stream) {
+  const size_t smem = sk::staged_bytes(T / 32, a.cc, a.np);
+  fused_bulk_kernel<T><<<(a.n + T - 1) / T, T, smem, stream>>>(
+      a, m.packed, m.packed_bytes);
+  return (int)cudaGetLastError();
+}
+
+// variant: 0 = the shipped per-warp staging, 1 = the bulk copy (scored)
+template <int T, bool kScored>
+void k1f_variant(K1FCase c, const char* label, std::vector<long long>* want,
+                 int mode = 0, const Mlp* m = nullptr, int variant = 0) {
+  if (kScored) {
+    c.a.res_cap_out = nullptr;
+    c.a.score = score_args(mode, *m, c.failures + (size_t)c.a.g * kN,
+                           nullptr, kN, c.outs[3]);
+  }
+  auto launch = [&] {
+    return variant == 1 ? launch_bulk<T>(c.a, *m, g_stream)
+                        : launch_fused_feasibility<T, kScored>(c.a,
+                                                               g_stream);
+  };
   k1f_reset(c);
-  CK((cudaError_t)launch_fused_feasibility<T>(c.a, g_stream));
+  CK((cudaError_t)launch());
   CK(cudaDeviceSynchronize());
   const auto got = k1f_digest(c);
   bool same = true;
   if (want->empty()) *want = got;
   else same = got == *want;
-  const double us =
-      time_us([&] { launch_fused_feasibility<T>(c.a, g_stream); });
-  printf("K1F T=%3d                            %7.3f us  %s\n", T, us,
+  const double us = time_us(launch);
+  printf("K1F %-24s T=%3d       %7.3f us  %s\n", label, T, us,
          same ? "== first" : "DIFFERS");
   if (!same) exit(2);
 }
@@ -334,19 +498,42 @@ void pass(const char* label) {
   printf("empty kernel, 128 blocks of 128      %7.3f us\n",
          time_us([] { empty_kernel<<<128, 128, 0, g_stream>>>(); }));
 
-  const K1Case k1 = k1_case();
-  std::vector<int32_t> cap, fail;
-  k1_variant<128>(k1, &cap, &fail);   // shipped
-  k1_variant<64>(k1, &cap, &fail);
-  k1_variant<32>(k1, &cap, &fail);
-  k1_variant<256>(k1, &cap, &fail);
+  K1Case k1 = k1_case();
+  std::vector<int32_t> want1;
+  k1_variant<128, false>(k1, "", &want1);   // shipped
+  k1_variant<64, false>(k1, "", &want1);
+  k1_variant<32, false>(k1, "", &want1);
+  k1_variant<256, false>(k1, "", &want1);
+  const Mlp h8 = make_mlp(8), h64 = make_mlp(64);
+  k1.a.score = score_args(sk::kStratLearned, h8, k1.failures, k1.hr, kN,
+                          k1.e);
+  want1.clear();
+  k1_variant<128, true>(k1, "scored learned8", &want1);   // shipped
+  k1_variant<64, true>(k1, "scored learned8", &want1);
 
   const K1FCase f = k1f_case();
   std::vector<long long> want;
-  k1f_variant<128>(f, &want);   // shipped
-  k1f_variant<64>(f, &want);
-  k1f_variant<32>(f, &want);
-  k1f_variant<256>(f, &want);
+  k1f_variant<128, false>(f, "", &want);   // shipped
+  k1f_variant<64, false>(f, "", &want);
+  k1f_variant<32, false>(f, "", &want);
+  k1f_variant<256, false>(f, "", &want);
+  // the scored slot entry: each mode against its own first variant
+  want.clear();
+  k1f_variant<128, true>(f, "scored weighted", &want, sk::kStratWeighted,
+                         &h8);
+  k1f_variant<64, true>(f, "scored weighted", &want, sk::kStratWeighted,
+                        &h8);
+  for (const Mlp* m : {&h8, &h64}) {
+    const char* lw = m->hidden == 8 ? "learned8 per-warp" : "learned64 "
+                                                            "per-warp";
+    const char* lb = m->hidden == 8 ? "learned8 bulk copy" : "learned64 "
+                                                             "bulk copy";
+    want.clear();
+    k1f_variant<128, true>(f, lw, &want, sk::kStratLearned, m);  // shipped
+    k1f_variant<128, true>(f, lb, &want, sk::kStratLearned, m, 1);
+    k1f_variant<64, true>(f, lw, &want, sk::kStratLearned, m);
+    k1f_variant<64, true>(f, lb, &want, sk::kStratLearned, m, 1);
+  }
 
   uint8_t* out = upload(std::vector<uint8_t>(48));
   std::vector<uint8_t> want8;

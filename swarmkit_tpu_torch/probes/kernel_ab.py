@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time K1, the fused chunk, K5 and K9-K11 of two trees of this repository
-on one CUDA card, in turns.
+"""Time K1, the fused chunk and its scored slot entry, a split's stage A,
+K5 and K9-K11 of two trees of this repository on one CUDA card, in turns.
 
     python3 swarmkit_tpu_torch/probes/kernel_ab.py OLD_TREE NEW_TREE
     python3 swarmkit_tpu_torch/probes/kernel_ab.py --fills TREE
@@ -26,7 +26,18 @@ inputs and the profiler of the ``chip_smoke.py`` beside it):
   binpack, weighted, learned; each measurement on a fresh carry, checked
   to place every task on its last call) with its launches by kernel and
   the device time of its slot-entry kernels (K4's prologue, K1 and K4's
-  carry update in a tree before K1F; K1F and the carry update after);
+  carry update in a tree before K1F; K1F and the carry update after; K6
+  in a tree whose slot entry does not score);
+* a scored slot: a chunk of the cfg7 chunk's weighted slot alone, and of
+  its learned slot alone, with the device time of the slot's entry (K1F
+  and K6 in a tree whose entry does not score; the scored K1F after);
+* B13, a weighted group's plan at D = 4 (``chip_smoke.py``'s inputs),
+  with its device time by kernel;
+* a split's stage A at D = 4: the mesh headline's plan
+  (``chip_smoke.plan_inputs``, nb 16384, L = 256, four shards of the
+  card) with the device time of its stage-A kernels (per shard K2's
+  partials, ``seg_fold`` and K3 in a tree before one K2 launch over the
+  shard table; that launch and one K3 after);
 * the fills (``--fills`` measures these alone, in one process): K5 on
   config 7's binpack slot (``chip_smoke.binpack_slot`` of a cfg7 chunk,
   nb 16384), K10 at the mesh headline's leaf fill (four shards, L = 256)
@@ -145,9 +156,21 @@ def fill_rows(torch, cs, K, fused_to_device, dev):
     return out
 
 
-#: the kernels of a fused chunk's slot entries, in either tree
-ENTRY_KERNELS = ("fused_prologue", "feasibility", "fused_feasibility",
-                 "fused_carry")
+#: the kernels of a fused chunk's slot entries, in either tree: launch
+#: counter -> kernel symbol (K6's score moved into the scored K1F)
+ENTRY_KERNELS = {"fused_prologue": "fused_prologue_kernel",
+                 "feasibility": "feasibility_kernel",
+                 "fused_feasibility": "fused_feasibility_kernel",
+                 "fused_feasibility_scored": "fused_feasibility_kernel",
+                 "fused_carry": "fused_carry_kernel",
+                 "strategy_score": "score_kernel"}
+#: a split's stage-A kernels, in either tree: launch counter -> symbols
+#: (K3 is the water-fill over flat columns, ``Elems``; K10 is over the
+#: shard table, ``ShardElems``)
+STAGE_A_KERNELS = {"seg_sum": ("seg_sum_kernel",),
+                   "seg_fold": ("seg_clamp_kernel",),
+                   "shard_seg_sum": ("seg_sum_kernel",),
+                   "waterfill": ("::Elems>", "<Elems>")}
 
 
 def _launch_deltas(K, fn):
@@ -236,8 +259,7 @@ def entry_rows(torch, cs, K, to_device, fused_to_device, dev):
     entry = sum(launches.get(name, 0) for name in ENTRY_KERNELS)
     run, last = chunk_on_fresh_carry()
     all_ms, entry_ms = cs.device_ms_each(
-        torch, run, (("",), tuple(f"{name}_kernel"
-                                  for name in ENTRY_KERNELS)),
+        torch, run, (("",), tuple(set(ENTRY_KERNELS.values()))),
         reps=5, per_call=[0, entry], label="cfg7 chunk")
     still_full(last)
     run, last = chunk_on_fresh_carry()
@@ -245,7 +267,131 @@ def entry_rows(torch, cs, K, to_device, fused_to_device, dev):
     still_full(last)
     out["cfg7_chunk"] = dict(ms=ms, device_ms=all_ms, entry_device_ms=entry_ms,
                              launches=launches, clocks=_clocks())
+    for label, g in (("scored_slot_weighted", 2), ("scored_slot_learned", 3)):
+        out[label] = scored_slot_row(torch, cs, K, fused_to_device, dev,
+                                     inputs, g, label)
     return out
+
+
+def scored_slot_row(torch, cs, K, fused_to_device, dev, inputs, g, label):
+    """A chunk of slot ``g`` of the cfg7 chunk alone (K1F, the fill, K4's
+    carry update), each call on a fresh carry, against the CPU: the
+    wrapper time, every device op, and the slot entry's kernels."""
+    shared, groups, carry, strat = inputs[:4]
+    one = type(groups)(*(None if v is None else v[g:g + 1]
+                         for v in groups))
+    strat = strat._replace(sid=strat.sid[g:g + 1],
+                           weights=strat.weights[g:g + 1])
+    sids = strat.sid.tolist()
+    card = fused_to_device(shared, one, carry, strat, device=dev)
+    cpu = fused_to_device(shared, one, carry, strat, device="cpu")
+    got = K.plan_fused_packed(*card[:3], inputs[4], card[3], sids)
+    cs.check(torch.equal(got.cpu(), K.plan_fused_packed(
+        *cpu[:3], inputs[4], cpu[3], sids)), f"{label}: the card differs "
+        "from the CPU plain path")
+
+    def run():
+        fresh = fused_to_device(shared, one, carry, strat, device=dev)[2]
+        return K.plan_fused_packed(card[0], card[1], fresh, inputs[4],
+                                   card[3], sids)
+
+    launches = _launch_deltas(K, run)
+    entry = sum(launches.get(name, 0) for name in ENTRY_KERNELS
+                if name != "fused_carry")
+    all_ms, entry_ms = cs.device_ms_each(
+        torch, run, (("",), ("fused_feasibility_kernel", "score_kernel")),
+        reps=10, per_call=[0, entry], label=label)
+    return dict(ms=cs.time_ms(torch, run, reps=20, warmup=3),
+                device_ms=all_ms, entry_device_ms=entry_ms,
+                entry_launches=entry, launches=launches, clocks=_clocks())
+
+
+def stage_a_row(torch, cs, K, dev, shards=4):
+    """The mesh headline's plan over ``shards`` shards of the card, against
+    the unsharded plan on the CPU: the wrapper time, every device op, and
+    its stage-A kernels (one level: the leaves, L = 256)."""
+    import numpy as np
+    from swarmkit_tpu_torch.ops.convert import to_device
+    from swarmkit_tpu_torch.parallel import sharded as S
+    nodes_np, group_np, L, hier_np = cs.plan_inputs(
+        seed=2024, nb=16384, n_valid=10000, n_leaves=20, k=80000)
+    parts = S.shard_group(nodes_np, group_np, hier_np,
+                          S.make_mesh(["cuda:0"] * shards))
+
+    def run():
+        return K.plan_group_sharded_packed(parts, L)
+
+    got = K.merge_shard_rows(torch.stack(run()).cpu().numpy(), 16384)
+    cn, cg, ch = to_device(nodes_np, group_np, hier_np, "cpu")
+    cs.check(np.array_equal(got, K.plan_group_packed(cn, cg, L, ch)
+                            .numpy()), "stage A: the split differs from "
+             "the unsharded plan")
+    launches = _launch_deltas(K, run)
+    names = [n for n in STAGE_A_KERNELS if launches.get(n)]
+    stage = sum(launches[n] for n in names)
+    symbols = tuple({sym for n in names for sym in STAGE_A_KERNELS[n]})
+    all_ms, stage_ms = cs.device_ms_each(
+        torch, run, (("",), symbols), reps=10, per_call=[0, stage],
+        label="stage A")
+    return dict(ms=cs.time_ms(torch, run, reps=20, warmup=3),
+                device_ms=all_ms, stage_a_device_ms=stage_ms,
+                stage_a_launches={n: launches[n] for n in names},
+                launches=launches, by_kernel=by_kernel(torch, cs, run),
+                clocks=_clocks())
+
+
+def by_kernel(torch, cs, run, reps=10):
+    """Device ms a call of ``run`` by device row name (its first 60
+    characters), from one profiled session."""
+    run()
+    rows, _ = cs.profiled(torch, lambda: [run() for _ in range(reps)])
+    out = {}
+    for name, us in rows:
+        out[name[:60]] = out.get(name[:60], 0.0) + us / reps / 1e3
+    return out
+
+
+def b13_row(torch, cs, K, dev, shards=4):
+    """B13, a weighted group's plan over ``shards`` shards of the card
+    (``chip_smoke.phase_mesh_compositions``' inputs), against the
+    unsharded plan: the wrapper time, every device op, and the device ms
+    by kernel."""
+    import numpy as np
+    from swarmkit_tpu_torch.ops.convert import to_device
+    from swarmkit_tpu_torch.parallel import sharded as S
+    from swarmkit_tpu_torch.scheduler import strategy as strategy_mod
+    nb = 16384
+    mesh = S.make_mesh(["cuda:0"] * shards)
+    nodes_np, group_np, _, _ = cs.plan_inputs(
+        seed=2027, nb=nb, n_valid=10000, n_leaves=1, k=80000,
+        near_2p24=False)
+    rng = np.random.RandomState(2027)
+    w1, b1, w2, b2 = strategy_mod.learned_params()
+    sin_np = K.StrategyInputs(
+        hr_cpu=rng.randint(0, 1024, nb).astype(np.int32),
+        hr_mem=rng.randint(0, 1024, nb).astype(np.int32),
+        hr_gen=np.full(nb, 1023, np.int32),
+        weights=np.array([2, 3, 1, 1], np.int32), w1=w1, b1=b1, w2=w2,
+        b2=np.asarray(b2, np.int32))
+    parts = [(nd, gd) for nd, gd, _ in
+             S.shard_group(nodes_np, group_np, (), mesh)]
+    sins = S.shard_to_device(sin_np, K.StrategyInputs, mesh.devices)
+
+    def run():
+        return K.plan_strategy_sharded_packed(parts, sins, K.STRAT_WEIGHTED)
+
+    nodes, group, _ = to_device(nodes_np, group_np, (), dev)
+    sin = K.StrategyInputs(*(torch.from_numpy(np.asarray(a)).to(dev)
+                             for a in sin_np))
+    want = K.plan_strategy_packed(nodes, group, sin, K.STRAT_WEIGHTED)
+    got = K.merge_shard_rows(torch.stack(run()).cpu().numpy(), nb)
+    cs.check(np.array_equal(got, want.cpu().numpy()), "B13 on the shards "
+             "differs from the unsharded weighted plan")
+    (all_ms,) = cs.device_ms_each(torch, run, (("",),), reps=10,
+                                  label="B13")
+    return dict(ms=cs.time_ms(torch, run, reps=20, warmup=3),
+                device_ms=all_ms, launches=_launch_deltas(K, run),
+                by_kernel=by_kernel(torch, cs, run), clocks=_clocks())
 
 
 def measure(tree, fills_only=False):
@@ -268,6 +414,8 @@ def measure(tree, fills_only=False):
     if not fills_only:
         out["entry"] = entry_rows(torch, cs, K, to_device, fused_to_device,
                                   dev)
+        out["stage_a_d4"] = stage_a_row(torch, cs, K, dev)
+        out["b13_weighted_d4"] = b13_row(torch, cs, K, dev)
         out.update(_k9_rows(torch, cs, dev))
     out["fills"] = fill_rows(torch, cs, K, fused_to_device, dev)
     return out

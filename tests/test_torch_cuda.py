@@ -235,8 +235,7 @@ def _seg_sum_inputs(seed, n, L, dev):
 def test_seg_sum_kernel_at_segment_counts(L):
     """K2 in one launch a call, through shared-memory partials (L <= 2048)
     and global ones: equal to its plain version, also for two calls
-    queued back to back without a sync, and in its partial mode (one
-    shard's unclamped row, overwritten)."""
+    queued back to back without a sync."""
     dev = _card()
     ins = [_seg_sum_inputs(seed, 16384, L, dev) for seed in (3, 4)]
     got = []
@@ -246,12 +245,45 @@ def test_seg_sum_kernel_at_segment_counts(L):
     for g, a in zip(got, ins):
         for u, v in zip(g, K._seg_sum_plain(*a[:4], L, a[4])):
             _eq(u, v)
-    rows = torch.full((2, 2, L), -1, dtype=torch.int64, device=dev)
-    for d, a in enumerate(ins):
-        K._branch_sums(*a[:4], L, a[4], rows=rows[d])
-    torch.cuda.synchronize()
-    for d, a in enumerate(ins):
-        _eq(rows[d], K._seg_partial_plain(*a[:4], L))
+
+
+def _shard_sum_parts(seed, d, n, L, dev):
+    """``d`` shards of ``n`` rows of K2's inputs as (svc, valid, cap, seg,
+    k) tuples: :func:`_seg_sum_inputs` (a capacity total past 2^24) with
+    some segments past L - 1 and below 0, which K2 drops."""
+    svc, valid, cap, seg, k = _seg_sum_inputs(seed, d * n, L, dev)
+    seg[9::11] = L
+    seg[10::13] = -1
+    return [(svc[i * n:(i + 1) * n], valid[i * n:(i + 1) * n],
+             cap[i * n:(i + 1) * n], seg[i * n:(i + 1) * n], k)
+            for i in range(d)]
+
+
+@pytest.mark.parametrize("L", [1, 256, 2048, 2049, 16384])
+@pytest.mark.parametrize("d", [1, 2, 4, 8, 16])
+def test_shard_seg_sum_kernel_matches_plain(d, L):
+    """K2 over the shard table (one launch a level, every shard's rows):
+    equal to the plain sum of the shards' partials in shard order then the
+    clamps, and to K2 on the unsplit columns; sums past 2^24, segments
+    out of range dropped; two calls without a sync (the accumulator is
+    left zero)."""
+    dev = _card()
+    n = 16384 // d
+    calls = [_shard_sum_parts(seed, d, n, L, dev) for seed in (8, 9)]
+    got = []
+    assert _launched(lambda: got.extend(
+        K.branch_sums_sharded(parts, L) for parts in calls)) \
+        == {"shard_seg_sum": 2}
+    for sums, parts in zip(got, calls):
+        assert len(sums) == d
+        want = K._seg_fold_plain(
+            [K._seg_partial_plain(*p[:4], L) for p in parts], parts[0][4])
+        unsplit = K._seg_sum_plain(*(torch.cat([p[j] for p in parts])
+                                     for j in range(4)), L, parts[0][4])
+        for u, v, w in zip(sums[0], want, unsplit):
+            _eq(u, v)
+            _eq(u, w)
+        assert int(want[2].max()) > 1 << 24
 
 
 def test_plan_group_twice_without_a_sync():
@@ -328,32 +360,37 @@ def _strategy_nodes(shared, groups, carry, g):
     return nodes, grp, sin
 
 
-def _entry_matches_plain(shared, groups, carry, g, x_prev, cols=True):
+def _entry_matches_plain(shared, groups, carry, g, x_prev, cols=True,
+                         strat=None, sid=0):
     """K1F for slot ``g`` on clones of ``carry`` against its plain version
-    on other clones: capacity, fail counts, svc, res_cap and the headroom
-    (``cols``; else only capacity and svc, the rest left unwritten) and
-    the updated carry."""
+    on other clones: capacity, fail counts, svc, res_cap (``cols``; else
+    only capacity and svc, res_cap left unwritten) and the updated carry;
+    with ``strat`` the scored launch under strategy ``sid``, its level e
+    in place of res_cap."""
     dev = shared.valid.device
     n = shared.valid.shape[0]
     s = shared.svc0.shape[0]
     a = K.FusedCarry(*(t.clone() for t in carry))
     b = K.FusedCarry(*(t.clone() for t in carry))
     out = [torch.full((n,), -1, dtype=torch.int32, device=dev)
-           for _ in range(5)]
+           for _ in range(3)]
     fail = torch.zeros(K.N_FILTERS, dtype=torch.int32, device=dev)
+    scored = strat is not None
     K._fused_feasibility(shared, groups, a, g, s, x_prev, fail, out[0],
-                         out[1], *(out[2:] if cols else (None,) * 3))
+                         out[1], out[2] if cols and not scored else None,
+                         strat, sid, out[2] if scored else None)
     torch.cuda.synchronize()
-    _, cap, pf, _, res_cap, svc, hr_cpu, hr_mem = \
-        K._fused_feasibility_plain(shared, groups, b, g, s, x_prev)
+    _, cap, pf, _, res_cap, svc, _, _, e = K._fused_feasibility_plain(
+        shared, groups, b, g, s, x_prev, strat, sid)
     _eq(out[0], cap)
     _eq(fail, pf)
     _eq(out[1], svc)
-    if cols:
-        for got, want in zip(out[2:], (res_cap, hr_cpu, hr_mem)):
-            _eq(got, want)
+    if scored:
+        _eq(out[2], e)
+    elif cols:
+        _eq(out[2], res_cap)
     else:
-        assert bool((torch.stack(out[2:]) == -1).all())
+        assert bool((out[2] == -1).all())
     for u, v in zip(a, b):
         _eq(u, v)
     return cap, pf
@@ -380,8 +417,8 @@ def test_fused_feasibility_kernel_matches_plain(case):
 def test_fused_feasibility_kernel_at_entry_cases(case, nb, cols):
     """K1F on the slot-entry cases the CPU holds to the reference's scan
     step (``tests/test_torch_fused_entry.py``): bit-equal to the plain
-    version, with and without the fill's optional columns, staged once a
-    warp (up to one block an SM) and once a block (2^17 nodes)."""
+    version, with and without the fill's optional column, one node a
+    thread and the group staged a copy a warp, at 1,024 to 2^17 nodes."""
     dev = _card()
     shared, groups, carry, g, x_prev = fused_entry_inputs(7, case, nb=nb)
     shared, groups, carry, _ = fused_to_device(shared, groups, carry,
@@ -389,6 +426,163 @@ def test_fused_feasibility_kernel_at_entry_cases(case, nb, cols):
     x = None if x_prev is None else torch.from_numpy(x_prev).to(dev)
     cap, fail = _entry_matches_plain(shared, groups, carry, g, x, cols)
     assert int(fail.sum()) > 0
+
+
+def _mlp(seed, hidden, dev, negative=False):
+    """A seeded learned scorer of ``hidden`` units inside the artifact's
+    clamps (``negative``: pre-activations mostly below zero)."""
+    from swarmkit_tpu_torch.scheduler import strategy as strategy_mod
+    rng = np.random.RandomState(seed)
+    w, f = strategy_mod.MLP_W_CLAMP, len(strategy_mod.MLP_FEATURES)
+    hi = w // 3 if negative else w + 1
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+
+    return (t(rng.randint(-w, hi, (f, hidden))), t(rng.randint(-w, hi,
+                                                               hidden)),
+            t(rng.randint(-w, w + 1, hidden)), t(rng.randint(-w, w + 1)))
+
+
+def _entry_strategy(seed, g_count, hidden, dev, negative=False):
+    from swarmkit_tpu_torch.scheduler import strategy as strategy_mod
+    rng = np.random.RandomState(seed + 1)
+    w1, b1, w2, b2 = _mlp(seed, hidden, dev, negative)
+    return K.FusedStrategy(
+        sid=torch.full((g_count,), 2, dtype=torch.int32, device=dev),
+        weights=torch.from_numpy(rng.randint(
+            0, strategy_mod.W_CLAMP + 1, (g_count, 4)).astype(np.int32)
+        ).to(dev), w1=w1, b1=b1, w2=w2, b2=b2)
+
+
+#: the scored entry's modes: (strategy id, hidden units, negative MLP)
+SCORED_MODES = {
+    "spread": (0, 8, False), "weighted": (2, 8, False),
+    "learned_h1": (3, 1, False), "learned_h8": (3, 8, False),
+    "learned_h64": (3, 64, False), "learned_negative": (3, 8, True),
+}
+
+
+@pytest.mark.parametrize("nb", [1024, 16384, 1 << 20])
+@pytest.mark.parametrize("mode", sorted(SCORED_MODES))
+@pytest.mark.parametrize("case", FUSED_ENTRY_CASES)
+def test_scored_fused_feasibility_kernel_matches_plain(case, mode, nb):
+    """The scored K1F (K6's score as the slot entry's epilogue) on the
+    slot-entry cases, in spread, weighted and learned mode (hidden 1, 8,
+    64; negative pre-activations): capacity, fail counts, svc, the level
+    e and the carry bit-equal to the plain version."""
+    dev = _card()
+    sid, hidden, negative = SCORED_MODES[mode]
+    shared, groups, carry, g, x_prev = fused_entry_inputs(
+        7, case, nb=nb, n_valid=None if nb < (1 << 20) else nb - 1000)
+    shared, groups, carry, _ = fused_to_device(shared, groups, carry,
+                                               device=dev)
+    strat = _entry_strategy(5 + hidden, groups.k.shape[0], hidden, dev,
+                            negative)
+    x = None if x_prev is None else torch.from_numpy(x_prev).to(dev)
+    launched = _launched(lambda: _entry_matches_plain(
+        shared, groups, carry, g, x, strat=strat, sid=sid))
+    assert launched == {"fused_feasibility_scored": 1}
+
+
+@pytest.mark.parametrize("push", ["clamps", "failures"])
+def test_scored_fused_feasibility_kernel_at_clamps(push):
+    """The scored K1F with svc past SVC_CLAMP and FEAT_CLAMP, headroom at
+    HR_CLAMP and 0, or failures at and above MAX_FAILURES and
+    FAILURE_CLAMP, weighted with every weight at W_CLAMP and learned."""
+    from swarmkit_tpu_torch.scheduler import strategy as strategy_mod
+    from swarmkit_tpu_torch.scheduler.nodeinfo import MAX_FAILURES
+    dev = _card()
+    shared, groups, carry, g, x_prev = fused_entry_inputs(9, "carried_x",
+                                                          nb=16384)
+    rng = np.random.RandomState(3)
+    if push == "clamps":
+        svc0 = shared.svc0.copy()
+        svc0[:, ::7] = K.SVC_CLAMP + 3
+        svc0[:, 3::7] = strategy_mod.FEAT_CLAMP + 1
+        shared = shared._replace(svc0=svc0)
+        cpu, mem = carry.cpu.copy(), carry.mem.copy()
+        cpu[::5] = 5000 * groups.cpu_d[g]
+        mem[1::5] = 5000 * groups.mem_d[g]
+        cpu[2::5] = 0
+        carry = carry._replace(cpu=cpu, mem=mem)
+    else:
+        failures = groups.failures.copy()
+        failures[g] = rng.choice(
+            [0, MAX_FAILURES - 1, MAX_FAILURES, MAX_FAILURES + 1,
+             K.FAILURE_CLAMP, K.FAILURE_CLAMP + 1, 500], failures.shape[1])
+        groups = groups._replace(failures=failures)
+    shared, groups, carry, _ = fused_to_device(shared, groups, carry,
+                                               device=dev)
+    strat = _entry_strategy(11, groups.k.shape[0], 8, dev)
+    strat = strat._replace(weights=torch.full_like(strat.weights,
+                                                   strategy_mod.W_CLAMP))
+    x = torch.from_numpy(x_prev).to(dev)
+    for sid in (2, 3):
+        _entry_matches_plain(shared, groups, carry, g, x, strat=strat,
+                             sid=sid)
+
+
+def test_scored_fused_entries_twice_without_a_sync():
+    """Two scored slots entered back to back on one carry, no sync
+    between them (a chunk's weighted then learned slot): each equals the
+    plain version's, carry included."""
+    dev = _card()
+    shared, groups, carry, strat, L = _fused("nb16384", dev)
+    n = shared.valid.shape[0]
+    s = shared.svc0.shape[0]
+    x = torch.randint(0, 6, (n,), generator=torch.Generator(
+        device=dev).manual_seed(5), device=dev, dtype=torch.int32)
+    a = K.FusedCarry(*(t.clone() for t in carry))
+    b = K.FusedCarry(*(t.clone() for t in carry))
+    outs, want = [], []
+    for g, sid, x_prev in ((2, 2, x), (3, 3, x.flip(0).contiguous())):
+        cols = [torch.empty(n, dtype=torch.int32, device=dev)
+                for _ in range(3)]
+        fail = torch.zeros(K.N_FILTERS, dtype=torch.int32, device=dev)
+        K._fused_feasibility(shared, groups, a, g, s, x_prev, fail, cols[0],
+                             cols[1], None, strat, sid, cols[2])
+        outs.append((cols[0], fail, cols[1], cols[2]))
+        p = K._fused_feasibility_plain(shared, groups, b, g, s, x_prev,
+                                       strat, sid)
+        want.append((p[1], p[2], p[5], p[8]))
+    torch.cuda.synchronize()
+    for got, w in zip(outs, want):
+        for u, v in zip(got, w):
+            _eq(u, v)
+    for u, v in zip(a, b):
+        _eq(u, v)
+
+
+@pytest.mark.parametrize("nb", [1024, 16384, 1 << 20])
+@pytest.mark.parametrize("mode", sorted(SCORED_MODES))
+def test_scored_feasibility_kernel_matches_plain(mode, nb):
+    """The scored K1 (the per-group strategy route's entry: K6's score as
+    its epilogue) against its plain version: mask, capacity, fail counts
+    and the level e, one launch."""
+    from swarmkit_tpu_torch.scheduler import strategy as strategy_mod
+    dev = _card()
+    sid, hidden, negative = SCORED_MODES[mode]
+    nodes, group, _, _ = plan_inputs(7, nb=nb, n_valid=nb - nb // 10,
+                                     n_leaves=1, k=9000, near_2p24=False)
+    nodes, group, _ = to_device(nodes, group, (), dev)
+    rng = np.random.RandomState(hidden)
+    hr = [torch.from_numpy(rng.randint(0, strategy_mod.HR_CLAMP + 1, nb)
+                           .astype(np.int32)).to(dev) for _ in range(3)]
+    sin = K.StrategyInputs(
+        *hr, weights=torch.tensor([3, 15, 0, 7], dtype=torch.int32,
+                                  device=dev),
+        w1=None, b1=None, w2=None, b2=None)._replace(
+        **dict(zip(("w1", "b1", "w2", "b2"),
+                   _mlp(hidden, hidden, dev, negative))))
+    mask, cap, e = (torch.empty(nb, dtype=t, device=dev)
+                    for t in (torch.bool, torch.int32, torch.int32))
+    fail = torch.zeros(K.N_FILTERS, dtype=torch.int32, device=dev)
+    assert _launched(lambda: K._feasibility_into(
+        nodes, group, mask, cap, fail, (sin, sid), e)) == {"feasibility": 1}
+    for got, want in zip((mask, cap, fail, e),
+                         K._feasibility_plain(nodes, group, (sin, sid))):
+        _eq(got, want)
 
 
 @pytest.mark.parametrize("case", sorted(FUSED_SHAPES))
@@ -516,6 +710,19 @@ def test_plan_strategy_on_card_matches_cpu(case, strategy):
     _eq(bufs[0], bufs[1])
 
 
+@pytest.mark.parametrize("strategy", [1, 2, 3])
+def test_plan_strategy_counts_launches(strategy):
+    """The per-group strategy route: K1 (scored for weighted and learned:
+    K6's score in the same launch), then K5 or K3; no K6."""
+    dev = _card()
+    shared, groups, carry, strat, L = _fused("nb1024", dev)
+    nodes, grp, sin = _strategy_nodes(shared, groups, carry, strategy)
+    sin = sin._replace(w1=strat.w1, b1=strat.b1, w2=strat.w2, b2=strat.b2)
+    fill = "packfill" if strategy == 1 else "waterfill"
+    assert _launched(lambda: K.plan_strategy_packed(
+        nodes, grp, sin, strategy)) == {"feasibility": 1, fill: 1}
+
+
 @pytest.mark.parametrize("case", sorted(FUSED_SHAPES))
 def test_fused_chunk_on_card_matches_cpu(case):
     dev = _card()
@@ -536,10 +743,11 @@ def test_fused_chunk_counts_launches():
     shared, groups, carry, strat, L = _fused("nb1024", dev)
     # slots: spread, binpack, weighted, learned; one slot entry (K1F) a
     # slot and one carry update a chunk, no standalone K1
+    # (scored for the weighted and learned slots, which launch no K6)
     assert _launched(lambda: K.plan_fused_packed(
         shared, groups, carry, L, strat, [0, 1, 2, 3])) == {
-        "fused_feasibility": 4, "fused_carry": 1, "seg_sum": 1,
-        "waterfill": 4, "packfill": 1, "strategy_score": 2}
+        "fused_feasibility": 2, "fused_feasibility_scored": 2,
+        "fused_carry": 1, "seg_sum": 1, "waterfill": 4, "packfill": 1}
 
 
 def test_fused_chunks_twice_without_a_sync():
@@ -966,21 +1174,6 @@ def test_shard_waterfill_twice_without_a_sync(L):
             torch.cat(K._shard_waterfill_plain(parts, L)))
 
 
-def test_seg_fold_kernel_matches_plain():
-    """K2's fold on one shard's [D, 2, L] exchange (capacity totals past
-    2^24) against its plain version on the same CUDA tensors."""
-    dev = _card()
-    rng = np.random.RandomState(12)
-    rows = torch.from_numpy(rng.randint(0, 1 << 23, (4, 2, 256))
-                            .astype(np.int64)).to(dev)
-    for k in (5, K.K_CLAMP - 1):
-        kt = torch.tensor(k, dtype=torch.int32, device=dev)
-        total = K.sum_shards(list(rows))
-        for g, w in zip(K.seg_fold(rows, kt),
-                        K._seg_clamp(total[0], total[1], kt)):
-            _eq(g, w)
-
-
 def test_shard_fill_kernels_count_launches():
     dev = _card()
     arrs = shard_fill_inputs(5, nb=4096, n_valid=4000, L=3)
@@ -997,9 +1190,10 @@ def test_shard_fill_kernels_count_launches():
 @pytest.mark.parametrize("case", ["headline", "headline_two_level",
                                   "small_flat", "filters_all"])
 def test_plan_group_sharded_on_card_matches_cpu(case, shards):
-    """The sharded spread plan (K1, K2 partials + seg_fold, K3 stage A,
-    K10) on a ``shards``-shard mesh of one card equals the CPU mesh's and
-    the unsharded plan's placements, fail counts and spill."""
+    """The sharded spread plan (K1 per shard; per stage-A level one K2
+    over the shard table and one K3 fill; K10) on a ``shards``-shard mesh
+    of one card equals the CPU mesh's and the unsharded plan's
+    placements, fail counts and spill (shard 0's)."""
     _card()
     from swarmkit_tpu_torch.parallel import sharded as S
     nodes, group, L, hier = plan_inputs(7, **SHAPES[case])
@@ -1014,14 +1208,20 @@ def test_plan_group_sharded_on_card_matches_cpu(case, shards):
                                   .numpy()[:n + K.N_FILTERS + 1])
     launched = _launched(lambda: S.ShardedPlanFn(card)(nodes, group, L,
                                                        hier))
+    levels = 2 if hier else 1
     assert launched["shard_waterfill"] == 1
-    assert launched["seg_fold"] == shards * (2 if hier else 1)
+    assert launched["shard_seg_sum"] == levels
+    assert "seg_sum" not in launched
+    # stage A's fills once a card: one K3 a level with several values
+    assert launched.get("waterfill", 0) == (0 if L == 1 and not hier
+                                            else levels)
 
 
 @pytest.mark.parametrize("strategy", [1, 2, 3])
 def test_plan_strategy_sharded_on_card_matches_cpu(strategy):
-    """The sharded strategy plan (K1, K6; K11 or K10) on four shards of
-    the card equals the CPU mesh's."""
+    """The sharded strategy plan (per shard K1, scored for weighted and
+    learned; K11 or K10) on four shards of the card equals the CPU
+    mesh's, with no K6 launch."""
     _card()
     from swarmkit_tpu_torch.parallel import sharded as S
     from swarmkit_tpu_torch.scheduler import strategy as strategy_mod
@@ -1035,6 +1235,10 @@ def test_plan_strategy_sharded_on_card_matches_cpu(strategy):
         hr_gen=np.full(4096, 1023, np.int32),
         weights=np.array([2, 3, 1, 1], np.int32), w1=w1, b1=b1, w2=w2,
         b2=np.asarray(b2, np.int32))
+    launched = _launched(lambda: S.plan_strategy_sharded(
+        nodes, group, sin, strategy, S.make_mesh(["cuda:0"] * 4)))
+    assert launched == {"feasibility": 4, "shard_packfill" if strategy == 1
+                        else "shard_waterfill": 1}
     on_card = S.plan_strategy_sharded(nodes, group, sin, strategy,
                                       S.make_mesh(["cuda:0"] * 4))
     on_cpu = S.plan_strategy_sharded(nodes, group, sin, strategy,

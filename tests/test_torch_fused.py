@@ -167,6 +167,36 @@ def test_plan_fused_matches_reference_jit(case):
     assert xs_r[0].sum() > 0
 
 
+@pytest.mark.parametrize("hidden", [1, 8, 64])
+def test_plan_fused_scored_slots_match_reference_jit(hidden):
+    """A chunk with every strategy id, whose weighted and learned slots
+    score in their slot entries (the scored K1F's plain version), against
+    ``plan_fused_jit`` for learned scorers of 1, 8 and 64 hidden units."""
+    shared, groups, carry, strat, L = fused_inputs(
+        40 + hidden, strategies=[SPREAD, BINPACK, WEIGHTED, LEARNED,
+                                 LEARNED, WEIGHTED])
+    rng = np.random.RandomState(hidden)
+    w, f = strategy_mod.MLP_W_CLAMP, len(strategy_mod.MLP_FEATURES)
+    strat = strat._replace(
+        w1=rng.randint(-w, w + 1, (f, hidden)).astype(np.int32),
+        b1=rng.randint(-w, w + 1, hidden).astype(np.int32),
+        w2=rng.randint(-w, w + 1, hidden).astype(np.int32),
+        b2=np.int32(rng.randint(-w, w + 1)))
+    xs_r, fcs_r, spills_r, carry_r = run_reference(shared, groups, carry,
+                                                   strat, L)
+    ps, pg, pc, pst = fused_to_device(shared, groups, carry, strat, "cpu")
+    xs, fcs, spills, out = port.plan_fused(ps, pg, pc, L, pst,
+                                           strat.sid.tolist())
+    np.testing.assert_array_equal(xs.numpy(), xs_r)
+    np.testing.assert_array_equal(fcs.numpy(), fcs_r)
+    np.testing.assert_array_equal(spills.numpy(), spills_r)
+    for name, got, want in zip(port.FusedCarry._fields, out, carry_r):
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
+    # the scored slots place (the last real one is quota-blocked)
+    for g in (2, 3, 4):
+        assert xs_r[g].sum() > 0
+
+
 @pytest.mark.parametrize("g,want", [(0, []), (1, [1]), (2, [1, 1]),
                                     (3, [2, 1]), (4, [2, 2]),
                                     (10, [4, 4, 2])])

@@ -336,3 +336,30 @@ def test_wrapper_refuses_mismatched_inputs():
     with pytest.raises(ValueError):
         port.seg_waterfill(pn.svc_tasks, pn.res_cap, pn.total_tasks,
                            torch.zeros(2, dtype=torch.int32), pn.leaf, 1)
+
+
+@pytest.mark.parametrize("L", [1, 16])
+def test_branch_sums_drop_out_of_range_segments(L):
+    """K2's plain version, unsharded and over CPU shards, drops a row whose
+    segment lies outside [0, L), as the reference's segment sums
+    (``jax.ops.segment_sum``) drop it; the kernel skips such rows too."""
+    rng = np.random.RandomState(L)
+    n = 256
+    seg = rng.randint(-3, L + 3, n).astype(np.int32)
+    svc = rng.randint(-2, 9, n).astype(np.int32)
+    valid = rng.rand(n) < 0.9
+    cap = rng.randint(0, 9, n).astype(np.int32)
+    load = jnp.where(valid, jnp.clip(svc, 0, ref.SVC_CLAMP), 0)
+    want_load = np.asarray(jax.ops.segment_sum(load, seg, num_segments=L))
+    want_cap = np.asarray(jax.ops.segment_sum(cap, seg, num_segments=L))
+    assert ((seg < 0) | (seg >= L)).any()
+    cols = [torch.from_numpy(a) for a in (svc, valid, cap, seg)]
+    k = torch.tensor(port.K_CLAMP - 1, dtype=torch.int32)
+    got = port.branch_sums(*cols, L, k)
+    np.testing.assert_array_equal(_np(got[0]), want_load)
+    np.testing.assert_array_equal(_np(got[2]), want_cap)
+    parts = [tuple(c[i * 64:(i + 1) * 64] for c in cols) + (k,)
+             for i in range(4)]
+    for shard in port.branch_sums_sharded(parts, L):
+        for a, b in zip(shard, got):
+            assert torch.equal(a, b)

@@ -5,7 +5,7 @@ On CPU shards the sharded compositions (``ops/kernel.py``
 cross-shard sum but the fail counts' goes through their ``reduce`` (the
 reference's ``psum``).  A counting ``reduce`` shows that only [2, L_d]
 branch sums and [L] (or [1]) search steps cross; the fail counts cross at
-the fetch (``merge_shard_rows``); ``seg_fold`` clamps only after the sum;
+the fetch (``merge_shard_rows``); stage A clamps only after the sum;
 and the CPU route never fills a concatenation of the shards with the
 unsharded fills.  Inputs and comparisons as in ``test_torch_mesh.py``.
 """
@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from swarmkit_tpu_torch.ops import kernel as K
-from swarmkit_tpu_torch.ops.convert import fused_to_device, shard_to_device
+from swarmkit_tpu_torch.ops.convert import (
+    fused_to_device, shard_to_device, to_device)
 from swarmkit_tpu_torch.ops.densify import l_bucket
 from swarmkit_tpu_torch.parallel import sharded as S
 from test_torch_mesh import (
@@ -143,13 +144,44 @@ def test_mesh_route_never_fills_a_concatenation(monkeypatch):
 
 
 def test_seg_fold_plain_sums_in_shard_order_then_clamps():
-    """seg_fold on CPU shards: the exchange rows summed in int64 before
-    the clamps (a per-shard clamp would give a smaller load)."""
+    """The fold of a split's stage-A sums on CPU shards
+    (``_seg_fold_plain``, the plain version of what one K2 launch over
+    the shard table sums on the card): the shards' rows summed in int64
+    before the clamps (a per-shard clamp would give a smaller load)."""
     rows = torch.zeros((4, 2, 3), dtype=torch.int64)
     rows[:, 0, 0] = K.LOAD_CLAMP // 2          # the sum passes LOAD_CLAMP
     rows[:, 1, 1] = 1 << 23                    # capacity past 2^24
     rows[2, 1, 2] = 7
-    load, bcap, raw, kk = K.seg_fold(rows, torch.tensor(9, dtype=torch.int32))
+    load, bcap, raw, kk = K._seg_fold_plain(
+        list(rows), torch.tensor(9, dtype=torch.int32))
     assert load.tolist() == [K.LOAD_CLAMP, 0, 0]
     assert raw.tolist() == [0, 1 << 25, 7] and bcap.tolist() == [0, 9, 7]
     assert kk.tolist() == [9]
+
+
+@pytest.mark.parametrize("d", [2, 4, 8])
+@pytest.mark.parametrize("levels", [1, 2])
+def test_mesh_stage_a_sums_equal_unsharded_branch_sums(d, levels):
+    """A stage-A level's branch sums over D CPU shards
+    (``branch_sums_sharded``: each shard's partials, summed in shard order,
+    then clamped; on the card one K2 launch over the shard table) equal
+    K2 on the unsplit columns, on every shard, with the level's capacity
+    past 2^24."""
+    nodes, group, L, hier = group_inputs(60 + d, n=256, L=16, levels=levels,
+                                         k=K.K_CLAMP - 1, big=True)
+    cn, cg, ch = to_device(nodes, group, hier, "cpu")
+    _, cap, _ = K._feasibility_plain(cn, cg)
+    levels_segs = [(seg, parent.shape[0]) for seg, parent in ch[0]] \
+        if ch else []
+    levels_segs.append((cn.leaf, L))
+    n = cap.shape[0] // d
+    for seg, L_d in levels_segs:
+        want = K.branch_sums(cn.svc_tasks, cn.valid, cap, seg, L_d, cg.k)
+        parts = [tuple(t[i * n:(i + 1) * n] for t in (
+            cn.svc_tasks, cn.valid, cap, seg)) + (cg.k,) for i in range(d)]
+        got = K.branch_sums_sharded(parts, L_d)
+        assert len(got) == d
+        for shard in got:
+            for a, b in zip(shard, want):
+                assert torch.equal(a, b)
+    assert int(want[2].sum()) > 1 << 24

@@ -113,6 +113,18 @@ def negative_scorer(seed):
             np.int32(rng.randint(-w, w + 1)))
 
 
+def hidden_scorer(seed, hidden):
+    """A seeded MLP of ``hidden`` units inside the artifact's clamps (the
+    score epilogue stages 1..64)."""
+    rng = np.random.RandomState(seed)
+    f = len(strategy_mod.MLP_FEATURES)
+    w = strategy_mod.MLP_W_CLAMP
+    return (rng.randint(-w, w + 1, (f, hidden)).astype(np.int32),
+            rng.randint(-w, w + 1, hidden).astype(np.int32),
+            rng.randint(-w, w + 1, hidden).astype(np.int32),
+            np.int32(rng.randint(-w, w + 1)))
+
+
 # ----------------------------------------------------------- seg_packfill
 
 def packfill_case(name):
@@ -229,6 +241,10 @@ PLAN_CASES = {
     "weighted_cpu_heavy": (WEIGHTED, dict(weights=(1, 9, 0, 2))),
     "learned": (LEARNED, dict()),
     "learned_negative": (LEARNED, dict(params=negative_scorer(9), k=900)),
+    # K1's score epilogue at the ends of its staged MLP
+    "learned_hidden1": (LEARNED, dict(params=hidden_scorer(5, 1))),
+    "learned_hidden64": (LEARNED, dict(params=hidden_scorer(6, 64), k=900)),
+    "spread_score": (strategy_mod.STRAT_SPREAD, dict()),
 }
 
 
