@@ -41,11 +41,15 @@ Phases, each of which exits non-zero on failure:
 9. many-service host oracle: at 1,000 nodes x 10,000 tasks, per-service
    per-node counts of the card's fused tick equal the host path's (the
    spread tree walk and ``scheduler/strategy.py``'s oracles);
-10. kernels K7 and K8 at node bucket 16384: the dirty-row scatter at 16,
-    256 and 4096 update slots (with pad slots) and the gang fit at G = 1
-    (with a quota column) and G = 8 (totals at k - 1, k, k + 1 and above
-    2^24), each bit-equal to its plain version on the card; K7 also timed
-    against ``index_copy_`` over the five columns;
+10. kernels K7 and K8: the dirty-row scatter at node bucket 16384 at
+    16, 256 and 4096 update slots (with pad slots), unsplit and over four
+    shards of the card (one launch over the shard table), and the gang
+    fit (one node a thread, the blocks of a gang meeting in self-counting
+    atomic words) at node buckets 512, 1,024 (the gang fleet's) and 16,384
+    with G = 1, 2 and 8 (a quota column at 16,384 and G = 1; totals at
+    k - 1, k, k + 1 and above 2^24), each bit-equal to its plain version
+    on the card; K7 also timed against ``index_copy_`` over the five
+    columns;
 11. steady-state churn: bench.py's config 10 (8,192 nodes, 12,000 base
     tasks, 12 seeded windows of Poisson arrivals and exits, plus a 13th in
     which three services arrive at once) through the store watch feed, in
@@ -54,14 +58,18 @@ Phases, each of which exits non-zero on failure:
     layout changes (four shards, no mesh from window 4, two shards from
     window 8, each a counted resync): equal placement digests after every
     window, at least 13 incremental refreshes and no fallback after the
-    cold tick, K7 launched (per shard on a mesh, on every window with
-    dirty rows), K10 launched on the mesh, the fused run seeded from the
+    cold tick, K7 launched once a scattering device sync (one launch over
+    every shard on a mesh) with one staged H2D, on every window with
+    dirty rows, K10 launched on the mesh, the fused run seeded from the
     resident columns, and the resident CUDA columns (or shards) equal to
     the host mirror after the last tick;
 12. gang fleet: bench.py's config 12 gangs (400 nodes, 72 gangs, 416
     members): every gang admitted whole in one tick with 80 verdicts from
-    K8 (64 per group, 16 fused rows), placements equal to the host path's
-    by creation index, and an added infeasible gang deferred whole;
+    K8 (64 per group, 16 fused rows; 72 launches), placements equal to
+    the host path's by creation index, and an added infeasible gang
+    deferred whole; one verdict through the planner's route (the packed
+    stage) timed warm at the fleet's shapes and at node bucket 16384, and
+    its device ops exactly one H2D, one K8 and one D2H;
 13. config 8: bench.py's priority bands (512 nodes, 1,800 priority-0
     tasks running, 584 higher-priority arrivals in one tick) through
     ``TorchPlanner()``: every arrival assigned with preemptions, K9
@@ -115,7 +123,10 @@ path, K1F, the scored K1F and K2-K6 from the many-service path (one K1F
 launch a group slot, one K4 carry update a chunk, no standalone K1 and
 no K6 there: K6, the port of the public ``strategy_score``, reports 0),
 K7 from the churn path, K8 from the gang path, K9 from the storm, and
-K10, K11 and K2 over the shard table from the mesh many-service path.  The last lines are that JSON
+K10, K11 and K2 over the shard table from the mesh many-service path.
+K8 has two rows: ``gang_fit`` at node bucket 16,384 (G = 1, the quota
+column), the shape earlier slices reported, and ``gang_fit@nb1024`` at
+the gang fleet's bucket.  The last lines are that JSON
 line, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.  The full record also goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -683,6 +694,15 @@ def scatter_inputs(seed, nb=16384, d=200, db=256):
     return cols, pack_scatter(idx, *upd)
 
 
+def split_columns(cols, shards, device):
+    """Numpy resident columns as five tuples of ``shards`` per-shard
+    tensors on ``device`` (copies): the mesh tier's layout."""
+    import torch
+    ln = cols[0].shape[0] // shards
+    return tuple(tuple(torch.from_numpy(c[s * ln:(s + 1) * ln].copy())
+                       .to(device) for s in range(shards)) for c in cols)
+
+
 SHARD_FILL_CASES = {
     # K10 over L = 20 segments (one infeasible, one whose capacity sums
     # pass 2^24) and over one segment; K11 over one segment, with k near
@@ -916,10 +936,20 @@ def gang_rows(seed, g_count, nb=16384, n_valid=10000, quota=False):
 def gang_bytes(rows):
     """The bytes K8 must move: per gang, the node columns its filters
     read (K1's count without K1's capacity and mask writes and fail
-    counts), plus each gang's 48-byte result row."""
+    counts; never total_tasks, failures or leaf, which the packed stage
+    leaves out), plus each gang's 44-byte result row."""
     n = rows[0][0].valid.shape[0]
-    return sum(feasibility_bytes(nodes, group) - 5 * n - 32 + 48
+    return sum(feasibility_bytes(nodes, group) - 5 * n - 32 + 44
                for nodes, group in rows)
+
+
+def gang_ops(rows):
+    """K8's integer operations: per node of each gang, the filters and
+    capacity (9), three per active constraint slot, six per used platform
+    row."""
+    return sum(nodes.valid.shape[0] * (9 + 3 * int(
+        ((grp.con_op == 0) | (grp.con_op == 1)).sum()) + 6 * int(
+        (grp.plat[:, 0] != -1).sum())) for nodes, grp in rows)
 
 
 VICTIM_CASES = ("full", "budget_stop", "infeasible_stop")
@@ -1670,91 +1700,125 @@ def phase_kernels_fused(torch, K, fused_to_device):
                           if k != "kernel"})
 
 
+#: K8's shapes in phase 10: (node bucket, gangs, quota column); the gang
+#: fleet's bucket is 1,024 (its main path: G = 1 and 2), the headline's
+#: 16,384
+GANG_KERNEL_SHAPES = ((512, 1, False), (512, 2, False), (512, 8, False),
+                      (1024, 1, False), (1024, 2, False), (1024, 8, False),
+                      (16384, 1, True), (16384, 2, False), (16384, 8, False))
+
+
 def phase_kernels_resident(torch, K, gang_to_device):
-    """K7 and K8 against their plain versions at node bucket 16384."""
+    """K7 (one launch over a table of 1 and 4 shards) and K8 (M blocks a
+    gang) against their plain versions."""
     dev = torch.device("cuda")
     rows = []
 
-    # ---- K7: the dirty-row scatter at each staging bucket
+    # ---- K7: the dirty-row scatter at each staging bucket, unsplit and
+    # over four shards of the card (global indices, one launch)
     per_bucket = {}
     for d, db in ((13, 16), (200, 256), (3000, 4096)):
         cols_np, packed_np = scatter_inputs(31 + db, d=d, db=db)
-        cols = [torch.from_numpy(c).to(dev) for c in cols_np]
         packed = torch.from_numpy(packed_np).to(dev)
-        got = [c.clone() for c in cols]
-        K.scatter_rows(got, packed)
-        want = [c.clone() for c in cols]
-        K._scatter_rows_plain(want, packed, db)
-        err = max_abs_err(torch, got, want)
-        check(all(not torch.equal(g, c) for g, c in zip(got, cols)),
-              f"scatter at d={d} wrote no row")
         idx, *upd = K.scatter_views(packed, db)
-        keep = idx < cols[0].shape[0]
+        keep = idx < cols_np[0].shape[0]
         rows_t = idx[keep].to(torch.int64)
         upd = [u[keep] for u in upd]
-        scratch = [c.clone() for c in cols]
+        for shards in (1, MESH_SHARDS):
+            cols = split_columns(cols_np, shards, dev)
+            got = tuple(tuple(p.clone() for p in c) for c in cols)
+            launched = K.SCATTER.launches
+            K.scatter_rows(got, packed)
+            check(K.SCATTER.launches == launched + 1,
+                  f"scatter over {shards} shards: not one launch")
+            want = tuple(tuple(p.clone() for p in c) for c in cols)
+            K._scatter_rows_plain(want, packed, db)
+            err = max_abs_err(torch, [torch.cat(g) for g in got],
+                              [torch.cat(w) for w in want])
+            check(all(not torch.equal(torch.cat(g), torch.cat(c))
+                      for g, c in zip(got, cols)),
+                  f"scatter at d={d} over {shards} shards wrote no row")
+            scratch = tuple(tuple(p.clone() for p in c) for c in cols)
+            flat = [torch.cat(c) for c in cols]
 
-        def library(scratch=scratch, rows_t=rows_t, upd=upd):
-            for c, u in zip(scratch, upd):
-                c.index_copy_(0, rows_t, u)
+            def library(flat=flat, rows_t=rows_t, upd=upd):
+                for c, u in zip(flat, upd):
+                    c.index_copy_(0, rows_t, u)
 
-        per_bucket[db] = dict(
-            kernel=K.SCATTER, err=err,
-            # the in-range slots read whole (26 B) and written (22 B); a
-            # pad slot's index read (4 B)
-            bytes=26 * d + 4 * (db - d) + 22 * d, ops=6 * db,
-            device_ms=device_ms(torch, lambda: K.scatter_rows(
-                scratch, packed), ("scatter_rows_kernel",)),
-            ms=time_ms(torch, lambda: K.scatter_rows(scratch, packed)),
-            plain_ms=time_ms(torch, lambda: K._scatter_rows_plain(
-                scratch, packed, db)),
-            library_ms=time_ms(torch, library), d=d, db=db)
-    rows.append(per_bucket[256])
+            def run(scratch=scratch, packed=packed):
+                K.scatter_rows(scratch, packed)
 
-    # ---- K8: the gang fit, one gang (with a quota column) and eight
+            per_bucket[(db, shards)] = dict(
+                kernel=K.SCATTER, err=err,
+                # the in-range slots read whole (26 B) and written (22 B);
+                # a pad slot's index read (4 B)
+                bytes=26 * d + 4 * (db - d) + 22 * d, ops=6 * db,
+                device_ms=device_ms(torch, run, ("scatter_rows_kernel",),
+                                    label=f"K7 db={db} x{shards}"),
+                ms=time_ms(torch, run),
+                plain_ms=time_ms(torch, lambda s=scratch, p=packed, b=db:
+                                 K._scatter_rows_plain(s, p, b)),
+                library_ms=time_ms(torch, library), d=d, db=db,
+                shards=shards)
+    rows.append(per_bucket[(256, 1)])
+
+    # ---- K8: the gang fit at the fleet's and the headline's buckets
     per_g = {}
-    for g_count, quota in ((1, True), (8, False)):
-        gang_np = gang_rows(500 + g_count, g_count, quota=quota)
+    for nb, g_count, quota in GANG_KERNEL_SHAPES:
+        gang_np = gang_rows(500 + g_count, g_count, nb=nb,
+                            n_valid=10000 if nb == 16384 else nb * 3 // 4,
+                            quota=quota)
         nodes, groups = gang_to_device(gang_np, dev)
         got = K.unpack_gang(K.gang_fit_packed(nodes, groups), g_count)
         want = K._gang_fit_plain(nodes, groups)
         err = max_abs_err(torch, got, want)
         fits = want[0].tolist()
-        if g_count > 1:
+        if g_count > 1 and nb == 16384:
             check(fits == [g % 3 != 2 for g in range(g_count - 1)] + [True]
                   and int(want[2][-1]) > 1 << 24,
                   f"the gang inputs must sit at the k boundary: {fits}")
-        per_g[g_count] = dict(
+
+        def run(nodes=nodes, groups=groups):
+            K.gang_fit_packed(nodes, groups)
+
+        per_g[(nb, g_count)] = dict(
             kernel=K.GANG_FIT, err=err, bytes=gang_bytes(gang_np),
-            ops=sum(nodes.valid.shape[1] * (9 + 3 * int(
-                ((grp.con_op == 0) | (grp.con_op == 1)).sum()) + 6 * int(
-                (grp.plat[:, 0] != -1).sum())) for _, grp in gang_np),
-            device_ms=device_ms(torch, lambda: K.gang_fit_packed(
-                nodes, groups), ("gang_fit_kernel",)),
-            ms=time_ms(torch, lambda: K.gang_fit_packed(nodes, groups)),
-            plain_ms=time_ms(torch, lambda: K._gang_fit_plain(nodes, groups),
+            ops=gang_ops(gang_np),
+            device_ms=device_ms(torch, run, ("gang_fit_kernel",),
+                                label=f"K8 nb={nb} G={g_count}"),
+            ms=time_ms(torch, run),
+            plain_ms=time_ms(torch, lambda nodes=nodes, groups=groups:
+                             K._gang_fit_plain(nodes, groups),
                              reps=10, warmup=2),
-            library_ms=None, fits=fits, g=g_count)
-    rows.append(per_g[1])
+            library_ms=None, fits=fits, g=g_count, nb=nb,
+            blocks=K.gang_fit_blocks(nb, g_count))
+    # the earlier slices' row (nb 16,384, G = 1, the quota column) keeps
+    # the kernel's name, so a line compares with its parent's at one
+    # shape; the gang fleet's (its node bucket, one gang a verdict) goes
+    # beside it under a name of its own
+    rows.append(per_g[(16384, 1)])
+    rows.append(dict(per_g[(1024, 1)], name=f"{K.GANG_FIT.name}@nb1024"))
     for r in list(per_bucket.values()) + list(per_g.values()):
         check(r["err"] == 0, f"{r['kernel'].name}: kernel differs from its "
               f"plain version (max abs err {r['err']})")
-        shape = (f"d={r['d']} of {r['db']} slots" if "db" in r
-                 else f"G={r['g']}, fits {r['fits']}")
+        shape = (f"d={r['d']} of {r['db']} slots, {r['shards']} shard(s)"
+                 if "db" in r else f"nb={r['nb']}, G={r['g']}, "
+                 f"{r['blocks']} block(s) a gang, fits {r['fits']}")
         print(f"kernels: {r['kernel'].name} ({shape}) == plain; "
               f"{r['ms']:.4f} ms per wrapper call (CUDA events), device "
-              f"{r['device_ms']:.4f} ms (torch.profiler), plain "
+              f"{r['device_ms']:.5f} ms (torch.profiler), plain "
               f"{r['plain_ms']:.4f} ms"
               + ("" if r["library_ms"] is None
                  else f", index_copy_ x5 {r['library_ms']:.4f} ms")
               + f", {r['bytes']} bytes, bound "
               f"{bound(r['bytes'], r['ops'])[0]:.7f} ms",
               flush=True)
-    extra = {f"scatter_db{db}": {k: v for k, v in r.items() if k != "kernel"}
-             for db, r in per_bucket.items()}
-    extra.update({f"gang_fit_g{g}": {k: v for k, v in r.items()
-                                     if k != "kernel"}
-                  for g, r in per_g.items()})
+    extra = {f"scatter_db{db}_x{shards}": {k: v for k, v in r.items()
+                                          if k != "kernel"}
+             for (db, shards), r in per_bucket.items()}
+    extra.update({f"gang_fit_nb{nb}_g{g}": {k: v for k, v in r.items()
+                                            if k != "kernel"}
+                  for (nb, g), r in per_g.items()})
     return rows, extra
 
 
@@ -1768,6 +1832,17 @@ CHURN_BURST = ({"cb": 40, "cd": 40, "cf": 40}, 18)
 CHURN_POSTURES = (("streaming", True, 0, {}), ("full", False, 0, {}),
                   ("mesh", True, MESH_SHARDS, {}),
                   ("layout", True, MESH_SHARDS, {4: 0, 8: 2}))
+
+
+def scatter_syncs(planner, K):
+    """(K7 launches, the resident state's scattering device syncs, the
+    scatter H2D copies noted by the device telemetry) so far."""
+    from swarmkit_tpu_torch.obs import devicetelemetry
+    st = planner._streaming
+    h2d = devicetelemetry.snapshot()["transfers"].get("h2d", {})
+    return (K.SCATTER.launches, st.stats["scatters"] if st else 0,
+            sum(h2d.get(r, {}).get("count", 0)
+                for r in ("dirty_scatter", "shard_scatter")))
 
 
 def phase_churn(torch, K, cuda, workload, TorchPlanner, make_mesh, card):
@@ -1793,12 +1868,13 @@ def phase_churn(torch, K, cuda, workload, TorchPlanner, make_mesh, card):
         torch.cuda.synchronize()
         cuda.reset_launch_counts(K.KERNELS)
         ticks, decisions, feed_s, digests = [], 0, 0.0, []
-        quiet_shard_windows = []
+        quiet_shard_windows, scatter_rows = [], []
         for w, (arrivals, exits) in enumerate(wl.script):
             if w in layout:
                 planner.set_mesh(make_mesh(["cuda:0"] * layout[w])
                                  if layout[w] else None)
             before = planner.streaming_snapshot()
+            sync0 = scatter_syncs(planner, K)
             t = time.perf_counter()
             wl.feed(arrivals, exits)
             t1 = time.perf_counter()
@@ -1807,6 +1883,14 @@ def phase_churn(torch, K, cuda, workload, TorchPlanner, make_mesh, card):
             ticks.append(time.perf_counter() - t1)
             feed_s += t1 - t
             after = planner.streaming_snapshot()
+            # K7 once a scattering device sync, with one staged H2D
+            delta = [b - a for a, b in zip(sync0,
+                                           scatter_syncs(planner, K))]
+            scatter_rows.append(delta)
+            check(delta[0] == delta[1] == delta[2],
+                  f"churn ({posture}), window {w}: scatter launches, "
+                  f"scattering syncs and scatter H2D copies differ: "
+                  f"{delta}")
             # a layout change re-uploads the split columns (a counted
             # resync); every other window with dirty rows scatters them
             if after.get("mesh_devices") and w not in layout \
@@ -1859,6 +1943,8 @@ def phase_churn(torch, K, cuda, workload, TorchPlanner, make_mesh, card):
         wl.close()
         seconds = sum(ticks)
         out[posture] = dict(
+            scatter_launches_syncs_h2d=[sum(d[i] for d in scatter_rows)
+                                        for i in range(3)],
             decisions=decisions, seconds=seconds,
             decisions_per_s=decisions / seconds,
             tick_ms_median=statistics.median(ticks) * 1e3,
@@ -1870,7 +1956,9 @@ def phase_churn(torch, K, cuda, workload, TorchPlanner, make_mesh, card):
                 "streaming_device_carries", 0),
             groups_fused=stats.get("groups_fused", 0))
         print(f"churn ({posture}): {decisions} decisions in {len(ticks)} "
-              f"ticks, {seconds:.3f} s ({decisions / seconds:.0f} "
+              f"ticks, K7 launches / scattering syncs / scatter H2D "
+              f"{out[posture]['scatter_launches_syncs_h2d']}, "
+              f"{seconds:.3f} s ({decisions / seconds:.0f} "
               f"decisions/s), tick median {out[posture]['tick_ms_median']:.1f}"
               f" ms, max {out[posture]['tick_ms_max']:.1f} ms (store writes "
               f"and watch feed {feed_s:.3f} s outside them) on {card}; "
@@ -1910,8 +1998,10 @@ def gang_fit_on_fleet(torch, K, workload, Scheduler, TorchPlanner,
                       gang_to_device):
     """K8 against its plain version on the gang fleet's own inputs, as the
     planner builds them: one single-service gang (G=1), one cross-service
-    pair (G=2) and the infeasible 17-CPU gang (G=1).  Fit, fail counts and
-    totals must be equal, and the verdicts those the fleet expects."""
+    pair (G=2) and the infeasible 17-CPU gang (G=1), on stacked tensors
+    and on the planner's packed stage.  Fit, fail counts and totals must
+    be equal, and the verdicts those the fleet expects."""
+    from swarmkit_tpu_torch.ops.convert import gang_stage
     store, services, _, tasks = workload.gang_fleet()
     planner = TorchPlanner()
     sched = Scheduler(store, batch_planner=planner)
@@ -1938,7 +2028,12 @@ def gang_fit_on_fleet(torch, K, workload, Scheduler, TorchPlanner,
         nodes, groups = gang_to_device(rows, torch.device("cuda"))
         got = K.unpack_gang(K.gang_fit_packed(nodes, groups), len(rows))
         want = K._gang_fit_plain(nodes, groups)
-        e = max_abs_err(torch, got, want)
+        # the planner's route: the packed stage, K8 on its views
+        stage = gang_stage(rows, "cuda", {})
+        staged = K.unpack_gang(torch.from_numpy(stage.fetch(
+            K.gang_fit_packed(*stage.dev_views)).copy()), len(rows))
+        e = max(max_abs_err(torch, got, want),
+                max_abs_err(torch, staged, [w.cpu() for w in want]))
         check(e == 0 and all(torch.equal(a.cpu(), b.cpu())
                              for a, b in zip(got, want)),
               f"K8 on the fleet ({label}): kernel {got} != plain {want}")
@@ -1953,6 +2048,64 @@ def gang_fit_on_fleet(torch, K, workload, Scheduler, TorchPlanner,
     return dict(err=err, nb=nb)
 
 
+#: verdicts timed through the planner's gang route: (label, node bucket,
+#: gangs), the gang fleet's shapes and the headline's bucket
+VERDICT_SHAPES = (("fleet_g1", 1024, 1), ("fleet_g2", 1024, 2),
+                  ("nb16384_g1", 16384, 1))
+VERDICT_REPS = 200
+
+
+def verdict_ops(names):
+    """The device ops of a verdict by kind: H2D and D2H copies, K8,
+    fills (``torch.zeros``, memsets) and anything else."""
+    kinds = Counter()
+    for name in names:
+        kinds["HtoD" if "HtoD" in name else "DtoH" if "DtoH" in name
+              else "gang_fit" if "gang_fit_kernel" in name
+              else "fill" if "Memset" in name or "Fill" in name
+              else "other"] += 1
+    return dict(kinds)
+
+
+def verdict_probe(torch, TorchPlanner, card):
+    """One gang verdict through ``TorchPlanner._gang_fit_rows`` (the
+    packed stage, its H2D, K8 and the D2H of the verdict), warm: its wall
+    time (host clock, the fetch waited for) and its device ops from
+    torch.profiler, which must be one H2D, one K8 and one D2H."""
+    planner = TorchPlanner()
+    out = {}
+    for label, nb, g in VERDICT_SHAPES:
+        rows = gang_rows(90 + g, g, nb=nb,
+                         n_valid=10000 if nb == 16384 else nb * 3 // 4)
+
+        def verdict(rows=rows, label=label):
+            return planner._gang_fit_rows(rows, label)
+
+        for _ in range(5):
+            verdict()
+        t0 = time.perf_counter()
+        for _ in range(VERDICT_REPS):
+            verdict()
+        wall_ms = (time.perf_counter() - t0) / VERDICT_REPS * 1e3
+        for _ in range(PROFILE_TRIES):
+            events, session = profiled(torch, verdict)
+            if session["missing"] == 0:
+                break
+        names = [name for name, _ in events]
+        ops = verdict_ops(names)
+        check(ops == {"HtoD": 1, "gang_fit": 1, "DtoH": 1}
+              and not any("Pageable" in n for n in names),
+              f"a verdict ({label}) ran {names} on the device; {session}")
+        out[label] = dict(wall_ms=wall_ms, device_ops=ops,
+                          device_ms=sum(us for _, us in events) / 1e3,
+                          nb=nb, g=g)
+        print(f"gang verdict ({label}, nb={nb}, G={g}): {wall_ms:.4f} ms "
+              f"wall through the planner's route on {card}; device ops "
+              f"{ops}, {out[label]['device_ms']:.5f} ms on the device",
+              flush=True)
+    return out
+
+
 def phase_gang(torch, K, cuda, workload, Task, Scheduler, TorchPlanner,
                gang_to_device, card):
     """bench.py's config 12 gang fleet: every gang admitted whole on K8's
@@ -1961,7 +2114,8 @@ def phase_gang(torch, K, cuda, workload, Task, Scheduler, TorchPlanner,
     card.  K8 is held against its plain version on the fleet's inputs."""
     from swarmkit_tpu_torch.state.events import Event
     out = {"k8_on_fleet": gang_fit_on_fleet(
-        torch, K, workload, Scheduler, TorchPlanner, gang_to_device)}
+        torch, K, workload, Scheduler, TorchPlanner, gang_to_device),
+        "verdict": verdict_probe(torch, TorchPlanner, card)}
     for label, planner in (("card", TorchPlanner()), ("host", None)):
         store, _, nodes, tasks = workload.gang_fleet()
         sched = Scheduler(store, batch_planner=planner)
@@ -3350,14 +3504,15 @@ def main():
         if k is K.GANG_FIT:
             r["err"] = max(r["err"], gang["k8_on_fleet"]["err"])
         kernels.append({
-            "name": k.name, "route": "cuda", "source": k.source,
+            "name": r.get("name", k.name), "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": path_launches[k.name],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": r["library_ms"]})
     record = {"card": card, "kind": kind, "build_s": build.seconds,
               "kernels": kernels,
-              "device_ms": {r["kernel"].name: r["device_ms"] for r in rows},
+              "device_ms": {r.get("name", r["kernel"].name): r["device_ms"]
+                            for r in rows},
               "plan_group": plan, "fused_chunk": chunk,
               "main_path": main_path, "traced_tick": traced,
               "many_service": many, "traced_many_service": many_traced,

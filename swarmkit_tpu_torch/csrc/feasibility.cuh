@@ -43,7 +43,9 @@
 //  4. the first-fail counts are packed four to a 32-bit word (8 bits
 //     each), folded per warp with __reduce_add_sync, summed over the
 //     block's warps in shared memory and added with ONE global integer
-//     atomic per counter and block (any order gives the same sum).
+//     atomic per counter and block (any order gives the same sum); K8
+//     keeps them in int counters a warp (warp_fails), sums them over the
+//     block in shared memory and adds them into its workspace words.
 // probes/feasibility_probe.cu times the block sizes; PERF.md keeps what it
 // measured of the shapes not taken (two or four nodes a thread with vector
 // loads, one staged copy a block behind a barrier, K1F's int64 division).
@@ -54,6 +56,7 @@
 namespace sk {
 
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int N_FILTERS = 8;           // first-fail counters, pipeline order
 constexpr long long kHrClamp = 1023;   // scheduler/strategy.py HR_CLAMP
 // constraint slots whose hash loads are issued together
 constexpr int kConChunk = 4;
@@ -642,6 +645,35 @@ __device__ __forceinline__ void feasible_node(
 
 // ------------------------------------------------------ the fail counts
 
+// a node's first fail as two packed words: filter j adds one to the 8-bit
+// field j & 3 of lo (filters 0-3) or hi (4-7); a node that passes adds 0
+__device__ __forceinline__ void pack_first_fail(unsigned fails, unsigned& lo,
+                                                unsigned& hi) {
+  lo = hi = 0;
+  if (fails != 0) {
+    const int j = __ffs(fails) - 1;
+    const unsigned one = 1u << (8 * (j & 3));
+    if (j < 4) lo = one;
+    else hi = one;
+  }
+}
+
+// Adds the first-fail counts of a warp's nodes (one a lane) into every
+// lane's ``acc``: the packed words folded by __reduce_add_sync (at most 32
+// a counter, so no field carries into the next), then unpacked into int
+// counters, which hold any number of such folds.  Every lane of the warp
+// must call it.
+__device__ __forceinline__ void warp_fails(unsigned fails,
+                                           int (&acc)[N_FILTERS]) {
+  unsigned lo, hi;
+  pack_first_fail(fails, lo, hi);
+  lo = __reduce_add_sync(kFull, lo);
+  hi = __reduce_add_sync(kFull, hi);
+#pragma unroll
+  for (int j = 0; j < N_FILTERS; ++j)
+    acc[j] += (int)(((j < 4 ? lo : hi) >> (8 * (j & 3))) & 0xffu);
+}
+
 // Adds the block's first-fail counts into fail_out[8]: each thread's first
 // fail packed into two words, 8 bits a counter (filters 0-3 in lo, 4-7 in
 // hi; a warp sums at most 32 a counter, so the fold cannot carry between
@@ -652,13 +684,8 @@ __device__ __forceinline__ void feasible_node(
 template <int kWarps>
 __device__ __forceinline__ void fold_fails(unsigned fails, unsigned* wsum,
                                            int32_t* fail_out) {
-  unsigned lo = 0, hi = 0;
-  if (fails != 0) {
-    const int j = __ffs(fails) - 1;
-    const unsigned one = 1u << (8 * (j & 3));
-    if (j < 4) lo = one;
-    else hi = one;
-  }
+  unsigned lo, hi;
+  pack_first_fail(fails, lo, hi);
   lo = __reduce_add_sync(kFull, lo);
   hi = __reduce_add_sync(kFull, hi);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;

@@ -1,5 +1,7 @@
 // The node-axis split's shard table (K10 shardfill.cu, K11 shardpack.cu,
-// K2's stage-A sums segsum.cu): what one shard hands a launch.
+// K2's stage-A sums segsum.cu): what one shard hands a launch.  K7
+// (scatter.cu) keeps a table of its own, the five resident columns a
+// shard, under the same MAX_LAUNCH_SHARDS.
 //
 // A mesh of D shards splits the node axis: shard d owns rows
 // [d * n, (d + 1) * n) of every node column, in tensors of its own.  The

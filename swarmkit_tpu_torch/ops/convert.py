@@ -22,7 +22,8 @@ import torch
 from ..obs import devicetelemetry as _devtel
 from .kernel import (
     FusedCarry, FusedGroups, FusedShared, FusedStrategy, GroupInputs,
-    NodeInputs, StrategyInputs, UploadStage,
+    NodeInputs, PendingFetch, StrategyInputs, UploadStage, _gang_layout,
+    finish_fetch, gang_stage_layout, gang_views,
 )
 from .preempt import VictimInputs
 
@@ -100,12 +101,10 @@ def to_device(nodes, group, hier=(), device=None):
             hier_to_device(hier, dev))
 
 
-def gang_to_device(rows: Sequence[Tuple], device) -> Tuple:
-    """Per-gang (NodeInputs, GroupInputs) pairs of numpy arrays (either
-    package's) stacked on a leading gang axis G, as this package's
-    (NodeInputs, GroupInputs) of tensors on ``device`` -- the inputs of
-    :func:`kernel.gang_fit_fused`.  ``quota_ok`` must be present in every
-    gang or in none."""
+def gang_stage_key(rows: Sequence[Tuple]) -> Tuple[int, int, int, int, bool]:
+    """(G, n, cc, np, quota) of per-gang (NodeInputs, GroupInputs) rows of
+    numpy arrays (either package's): the shape of their packed gang stage.
+    ``quota_ok`` must be present in every gang or in none."""
     if not rows:
         raise ValueError("no gang to stack")
     quota = [getattr(nodes, "quota_ok", None) is not None
@@ -113,17 +112,92 @@ def gang_to_device(rows: Sequence[Tuple], device) -> Tuple:
     if any(quota) and not all(quota):
         raise ValueError("quota_ok must be stacked for every gang or None "
                          "for all")
+    nodes, group = rows[0]
+    return (len(rows), np.shape(nodes.valid)[-1], np.shape(group.con_op)[-1],
+            np.shape(group.plat)[0], quota[0])
+
+
+def gang_to_device(rows: Sequence[Tuple], device) -> Tuple:
+    """Per-gang (NodeInputs, GroupInputs) pairs of numpy arrays (either
+    package's) stacked on a leading gang axis G, as this package's
+    (NodeInputs, GroupInputs) of tensors on ``device`` -- the inputs of
+    :func:`kernel.gang_fit_fused`.  ``quota_ok`` must be present in every
+    gang or in none."""
+    quota = gang_stage_key(rows)[4]
 
     def stack(name, i):
         return np.stack([np.asarray(getattr(r[i], name)) for r in rows])
 
-    nodes = NodeInputs(**{name: (None if name == "quota_ok" and not quota[0]
+    nodes = NodeInputs(**{name: (None if name == "quota_ok" and not quota
                                  else stack(name, 0))
                           for name in NodeInputs._fields})
     groups = GroupInputs(**{name: stack(name, 1)
                             for name in GroupInputs._fields})
     dev = torch.device(device)
     return nodes_to_device(nodes, dev), group_to_device(groups, dev)
+
+
+class GangStage(UploadStage):
+    """The packed staging buffer of one gang-verdict shape (``key``, see
+    :func:`gang_stage_key`): the columns K8 reads for every gang of a
+    verdict (``kernel.gang_stage_layout``), filled on the host and moved
+    with ONE H2D, K8 reading them in place (``dev_views``); and the pinned
+    buffer that takes the verdict back with ONE D2H."""
+
+    __slots__ = ("key", "host_views", "dev_views", "result")
+
+    def __init__(self, key: Tuple, device: torch.device):
+        super().__init__(gang_stage_layout(*key)[1], device)
+        self.key = key
+        self.host_views = gang_views(self.host.numpy(), *key)
+        self.dev_views = gang_views(self.dev, *key)
+        self.result = torch.empty(_gang_layout(key[0])[2], dtype=torch.uint8,
+                                  pin_memory=True) \
+            if device.type == "cuda" else None
+
+    def fill(self, rows: Sequence[Tuple]) -> None:
+        """Pack ``rows`` into the host half, once no copy reads it, and
+        move the stage to the device."""
+        self.host_view()
+        nodes, groups = self.host_views
+        for g, (row_nodes, row_group) in enumerate(rows):
+            for name, view in nodes._asdict().items():
+                if view is not None:
+                    view[g] = np.asarray(getattr(row_nodes, name))
+            for name, view in groups._asdict().items():
+                view[g] = np.asarray(getattr(row_group, name))
+        self.upload()
+
+    def fetch(self, out: torch.Tensor) -> np.ndarray:
+        """K8's result buffer ``out`` as a numpy array: on the card one
+        non-blocking copy into the stage's pinned buffer, waited for (the
+        array is that buffer: read it before the stage's next verdict)."""
+        if self.result is None:
+            return out.numpy()
+        self.result.copy_(out, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return finish_fetch(PendingFetch(self.result, event))
+
+
+#: the most gang stages a planner keeps pinned: the number of gangs in a
+#: verdict is not bounded, so the stage used longest ago goes
+GANG_STAGES_KEPT = 16
+
+
+def gang_stage(rows: Sequence[Tuple], device, stages: Dict) -> GangStage:
+    """The stage of ``rows``' shape from ``stages`` (made there on first
+    use, on ``device``; past :data:`GANG_STAGES_KEPT` stages the one used
+    longest ago is dropped), filled with ``rows`` and uploaded."""
+    key = gang_stage_key(rows)
+    stage = stages.pop(key, None)
+    if stage is None:
+        stage = GangStage(key, torch.device(device))
+        while len(stages) >= GANG_STAGES_KEPT:
+            stages.pop(next(iter(stages)))
+    stages[key] = stage
+    stage.fill(rows)
+    return stage
 
 
 def fused_to_device(shared, groups, carry, strat=None, device=None):

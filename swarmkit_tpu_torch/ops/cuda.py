@@ -34,8 +34,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("feasibility.cu", "segsum.cu", "waterfill.cu", "packfill.cu",
            "score.cu", "fused.cu", "scatter.cu", "gangfit.cu", "victims.cu",
            "shardfill.cu", "shardpack.cu")
-HEADERS = ("common.cuh", "feasibility.cuh", "packfill.cuh", "shard.cuh",
-           "waterfill.cuh")
+HEADERS = ("common.cuh", "feasibility.cuh", "packfill.cuh",
+           "shard.cuh", "waterfill.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -55,8 +55,10 @@ SIGNATURES = {
     "sk_strategy_score": ([_I] * 4 + [_P] * 14, _I),
     "sk_fused_feasibility": ([_I] * 5 + [_P] * 27, _I),
     "sk_fused_carry": ([_I, _I] + [_P] * 9, _I),
-    "sk_scatter_rows": ([_I, _I] + [_P] * 7, _I),
-    "sk_gang_fit": ([_I] * 4 + [_P] * 19, _I),
+    "sk_scatter_rows": ([_I, _I, _I] + [_P] * 3, _I),
+    "sk_gang_fit": ([_I] * 4 + [_P] * 20, _I),
+    "sk_gang_fit_blocks": ([_I, _I], _I),
+    "sk_gang_fit_work_bytes": ([_I, _I], ctypes.c_longlong),
     "sk_select_victims": ([_I] * 5 + [_L] * 3 + [_P] * 12, _I),
     "sk_select_victims_scratch_bytes": ([_I], ctypes.c_longlong),
     "sk_shard_waterfill": ([_I, _I, _P, _P, _I, _P, _P], _I),

@@ -27,10 +27,12 @@ kernels (``csrc/``) carry them on Hopper:
   (fixed-point MLP) scores, in exact int32, the public scoring stage; the
   plans score in K1's and K1F's epilogue (``csrc/feasibility.cuh``);
 * ``scatter_rows`` (K7, ``csrc/scatter.cu``): the streaming scheduler's
-  dirty-row scatter into its five resident node columns, in place;
+  dirty-row scatter into its five resident node columns, in place, one
+  launch a refresh over a table of the columns' shards (one unsplit);
 * ``gang_fit`` / ``gang_fit_fused`` (K8, ``csrc/gangfit.cu``): the gang
   all-or-nothing precheck, K1's per-node body summed per gang, for one
-  gang or a stack of them;
+  gang or a stack of them, the blocks of a gang meeting in five
+  self-counting atomic words;
 * ``shard_waterfill`` (K10, ``csrc/shardfill.cu``): the node-level
   water-fill over a node-axis split, K3's cluster kernel over every
   shard's rows in one launch a fill;
@@ -1437,11 +1439,21 @@ def unpack_fused(buf, n: int):
 # (valid, ready, cpu, mem, total) and refreshes only the rows its delta
 # tracker marked dirty.  A refresh packs its update slots into one byte
 # buffer -- one H2D copy, one launch -- laid out cpu i64 | mem i64 | idx i32
-# | total i32 | valid u8 | ready u8, each ``db`` long.  Pad slots carry
-# idx = nb and are dropped (the reference's ``mode="drop"``).
+# | total i32 | valid u8 | ready u8, each ``db`` long, with global row
+# indices.  On a node-axis split the columns are D shards of local_n rows
+# each; the same buffer and the same one launch serve them through a shard
+# table (global row i lives at row i % local_n of shard i // local_n).
+# Pad slots carry idx = nb and are dropped, as is any index outside
+# [0, nb) once a negative one is taken from the end (the reference's
+# ``.at[idx].set(mode="drop")``).
 
 #: bytes per update slot of a packed scatter buffer
 SCATTER_SLOT_BYTES = 26
+
+#: the resident columns a shard hands K7, in its table's order
+SCATTER_COLUMNS = (("valid", torch.bool), ("ready", torch.bool),
+                   ("cpu", torch.int64), ("mem", torch.int64),
+                   ("total", torch.int32))
 
 
 def scatter_views(buf, db: int):
@@ -1477,39 +1489,58 @@ def pack_scatter(idx, u_valid, u_ready, u_cpu, u_mem, u_total,
     return out
 
 
+def _scatter_shards(cols) -> List[Tuple[torch.Tensor, ...]]:
+    """The shard table of resident columns ``cols``: five tensors (one
+    shard) or, on a node-axis split, five tuples of D per-shard tensors;
+    as D (valid, ready, cpu, mem, total) rows."""
+    if isinstance(cols[0], torch.Tensor):
+        return [tuple(cols)]
+    return [tuple(col[s] for col in cols) for s in range(len(cols[0]))]
+
+
 def _scatter_rows_plain(cols, packed: torch.Tensor, db: int) -> None:
-    """Plain version of K7: five ``index_copy_`` writes of the in-range
-    slots."""
+    """Plain version of K7 over the shard table: per shard, five
+    ``index_copy_`` writes of the slots whose global index falls in its
+    rows (a negative index counts from the end, as jnp's does; every
+    other slot, pads included, is dropped)."""
+    shards = _scatter_shards(cols)
+    ln = shards[0][0].shape[0]
     idx, *updates = scatter_views(packed, db)
-    nb = cols[0].shape[0]
-    keep = (idx >= 0) & (idx < nb)
-    rows = idx[keep].to(torch.int64)
-    for col, upd in zip(cols, updates):
-        col.index_copy_(0, rows, upd[keep])
+    idx = idx.to(torch.int64)
+    idx = torch.where(idx < 0, idx + ln * len(shards), idx)
+    for s, shard in enumerate(shards):
+        keep = (idx >= s * ln) & (idx < (s + 1) * ln)
+        rows = idx[keep] - s * ln
+        for col, upd in zip(shard, updates):
+            col.index_copy_(0, rows, upd[keep])
 
 
-def scatter_rows(cols: Sequence[torch.Tensor],
-                 packed: torch.Tensor) -> None:
-    """Write the packed update slots into the resident columns ``cols`` =
-    (valid bool[nb], ready bool[nb], cpu i64[nb], mem i64[nb], total
-    i32[nb]) in place (reference ``_scatter_rows_jit``, whose buffers are
-    donated).  ``packed`` is a uint8 scatter buffer on the columns'
-    device; rows must be unique."""
-    valid, ready, cpu, mem, total = cols
-    nb = valid.shape[0]
-    dev = valid.device
+def scatter_rows(cols, packed: torch.Tensor) -> None:
+    """Write the packed update slots into the resident columns in place
+    (reference ``_scatter_rows_jit``, whose buffers are donated, and
+    ``parallel/sharded.py scatter_rows_sharded``).  ``cols`` = (valid
+    bool, ready bool, cpu i64, mem i64, total i32), each a tensor of nb
+    rows or a tuple of D shards of nb / D rows on one device
+    (:func:`_scatter_shards`); ``packed`` is a uint8 scatter buffer with
+    global row indices on that device; rows must be unique.  On the card:
+    ONE launch of K7 over the shard table, whatever D."""
+    shards = _scatter_shards(cols)
+    if len(shards) > MAX_LAUNCH_SHARDS:
+        raise ValueError(f"{len(shards)} shards: one scatter carries at "
+                         f"most {MAX_LAUNCH_SHARDS}")
+    ln = shards[0][0].shape[0]
+    dev = shards[0][0].device
+    for shard in shards:
+        for (name, dtype), col in zip(SCATTER_COLUMNS, shard):
+            _check(name, col, dtype, (ln,), dev)
     db = packed.shape[0] // SCATTER_SLOT_BYTES
-    _check("valid", valid, torch.bool, (nb,), dev)
-    _check("ready", ready, torch.bool, (nb,), dev)
-    _check("cpu", cpu, torch.int64, (nb,), dev)
-    _check("mem", mem, torch.int64, (nb,), dev)
-    _check("total", total, torch.int32, (nb,), dev)
     _check("packed", packed, torch.uint8, (SCATTER_SLOT_BYTES * db,), dev)
-    if not _on_cuda(valid):
+    if not _on_cuda(packed):
         _scatter_rows_plain(cols, packed, db)
         return
-    SCATTER(nb, db, *map(_cuda.ptr, (packed, valid, ready, cpu, mem,
-                                     total)))
+    table = (ctypes.c_void_p * (5 * len(shards)))(
+        *[_cuda.ptr(c) for shard in shards for c in shard])
+    SCATTER(len(shards), ln, db, _cuda.ptr(packed), ctypes.addressof(table))
 
 
 # ------------------------------------------------------- K8: gang fit
@@ -1518,27 +1549,98 @@ def scatter_rows(cols: Sequence[torch.Tensor],
 # K1's capacity column summed, compared with min(k, K_CLAMP).  The inputs
 # are the per-gang NodeInputs / GroupInputs stacked on a leading gang axis
 # G; every gang is judged against the same base state.  Results land in one
-# byte buffer ``[total i64 (G) | fail i32 (G, 8) | done u32 (G) | fit i32
-# (G)]`` so one D2H returns them all (``done`` is the kernel's own
-# bookkeeping).
+# byte buffer ``[total i64 (G) | fail i32 (G, 8) | fit i32 (G)]``, 44 bytes
+# a gang, which the kernel writes whole, so one D2H returns them all.
+# Past one block a gang, a gang's blocks meet in a workspace of five
+# accumulator words a gang that K8 puts back to zero (one a device and
+# stream, made zeroed once, as K2's scratch: :func:`_gang_work`).
+#
+# The planner's route packs only the columns K8 reads, for every gang of a
+# verdict, into ONE staging buffer (:func:`gang_stage_layout`, each column
+# at a 16-byte aligned offset) and moves it with one H2D; K8 reads the
+# columns where they lie in its device half (:func:`gang_views`).
 
-def _gang_layout(g: int) -> Tuple[int, int, int, int]:
-    """Byte offsets of (fail, done, fit, end) in a gang-fit buffer."""
-    return 8 * g, 40 * g, 44 * g, 48 * g
+def _gang_layout(g: int) -> Tuple[int, int, int]:
+    """Byte offsets of (fail, fit, end) in a gang-fit buffer."""
+    return 8 * g, 40 * g, 44 * g
 
 
 def unpack_gang(buf, g: int):
     """Split a gang-fit buffer (torch uint8 tensor or numpy array) into
     (fit bool[G], fail_counts i32[G, 8], total i64[G])."""
-    o_fail, _, o_fit, end = _gang_layout(g)
+    o_fail, o_fit, end = _gang_layout(g)
     if isinstance(buf, np.ndarray):
         i64, i32 = np.int64, np.int32
     else:
         i64, i32 = torch.int64, torch.int32
     total = buf[:o_fail].view(i64)
-    fail = buf[o_fail:o_fail + 32 * g].view(i32).reshape(g, N_FILTERS)
+    fail = buf[o_fail:o_fit].view(i32).reshape(g, N_FILTERS)
     fit = buf[o_fit:end].view(i32) != 0
     return fit, fail, total
+
+
+#: the columns K8 reads, in the packed gang stage's order: (field, True
+#: for a NodeInputs field, dtype, shape of one gang's slice given (n, cc,
+#: np)).  K8 never reads total_tasks, failures or leaf.
+_GANG_STAGE_FIELDS = (
+    ("con_hash", False, torch.int32, lambda n, cc, p: (cc, 2, n)),
+    ("os_hash", True, torch.int32, lambda n, cc, p: (2, n)),
+    ("arch_hash", True, torch.int32, lambda n, cc, p: (2, n)),
+    ("res_cap", True, torch.int32, lambda n, cc, p: (n,)),
+    ("svc_tasks", True, torch.int32, lambda n, cc, p: (n,)),
+    ("valid", True, torch.bool, lambda n, cc, p: (n,)),
+    ("ready", True, torch.bool, lambda n, cc, p: (n,)),
+    ("res_ok", True, torch.bool, lambda n, cc, p: (n,)),
+    ("extra_mask", True, torch.bool, lambda n, cc, p: (n,)),
+    ("port_conflict", True, torch.bool, lambda n, cc, p: (n,)),
+    ("quota_ok", True, torch.bool, lambda n, cc, p: (n,)),
+    ("con_op", False, torch.int32, lambda n, cc, p: (cc,)),
+    ("con_exp", False, torch.int32, lambda n, cc, p: (cc, 2)),
+    ("plat", False, torch.int32, lambda n, cc, p: (p, 4)),
+    ("k", False, torch.int32, lambda n, cc, p: ()),
+    ("maxrep", False, torch.int32, lambda n, cc, p: ()),
+    ("port_limited", False, torch.bool, lambda n, cc, p: ()),
+)
+
+_NP_DTYPE = {torch.int32: np.int32, torch.bool: np.bool_}
+
+
+@lru_cache(maxsize=64)
+def gang_stage_layout(g: int, n: int, cc: int, npl: int, quota: bool):
+    """The packed gang stage of ``g`` gangs of ``n`` nodes, ``cc``
+    constraint slots and ``npl`` platform rows (``quota``: with the quota
+    column): ((field, node field?, dtype, [G, ...] shape, byte offset),
+    ...) with every offset 16-byte aligned, and the stage's bytes."""
+    rows, off = [], 0
+    for name, node, dtype, shape in _GANG_STAGE_FIELDS:
+        if name == "quota_ok" and not quota:
+            continue
+        full = (g,) + shape(n, cc, npl)
+        rows.append((name, node, dtype, full, off))
+        nbytes = int(np.prod(full)) * (4 if dtype == torch.int32 else 1)
+        off += -(-nbytes // 16) * 16
+    return tuple(rows), off
+
+
+def gang_views(buf, g: int, n: int, cc: int, npl: int, quota: bool):
+    """(NodeInputs, GroupInputs) of [G, ...] views into a packed gang stage
+    ``buf`` (a torch uint8 tensor, whose views K8 reads in place, or a
+    numpy uint8 array, which the host fills); the fields K8 does not read
+    are None."""
+    layout, nbytes = gang_stage_layout(g, n, cc, npl, quota)
+    if buf.shape[0] != nbytes:
+        raise ValueError(f"gang stage of {buf.shape[0]} bytes, expected "
+                         f"{nbytes}")
+    numpy = isinstance(buf, np.ndarray)
+    fields = {}
+    for name, _node, dtype, shape, off in layout:
+        size = int(np.prod(shape)) * (4 if dtype == torch.int32 else 1)
+        part = buf[off:off + size]
+        fields[name] = (part.view(_NP_DTYPE[dtype]) if numpy
+                        else part.view(dtype)).reshape(shape)
+    nodes = NodeInputs(**{f: fields.get(f) for f in NodeInputs._fields})
+    groups = GroupInputs(**{f: fields[f] for f in GroupInputs._fields})
+    return nodes, groups
 
 
 def _check_gang_inputs(nodes: NodeInputs,
@@ -1583,25 +1685,50 @@ def _gang_fit_plain(nodes: NodeInputs, groups: GroupInputs):
     return torch.stack(fits), torch.stack(fails), torch.stack(totals)
 
 
+def gang_fit_blocks(n: int, g: int) -> int:
+    """The blocks a gang takes in K8 for ``g`` gangs of ``n`` nodes
+    (``csrc/gangfit.cu`` gang_shape)."""
+    return int(_cuda.library().sk_gang_fit_blocks(n, g))
+
+
+#: K8's workspace past one block a gang, one a (device, stream): made
+#: zeroed, and K8 leaves every word at zero, so it is filled only to grow
+_GANG_WORK: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _gang_work(n: int, g: int, dev) -> Optional[torch.Tensor]:
+    nbytes = int(_cuda.library().sk_gang_fit_work_bytes(n, g))
+    if not nbytes:
+        return None
+    key = (dev.index, _cuda.stream_handle())
+    work = _GANG_WORK.get(key)
+    if work is None or work.numel() < nbytes:
+        work = _GANG_WORK[key] = torch.zeros(nbytes, dtype=torch.uint8,
+                                             device=dev)
+    return work
+
+
 def gang_fit_packed(nodes: NodeInputs, groups: GroupInputs) -> torch.Tensor:
-    """K8 over stacked gang inputs into one byte buffer on the inputs'
-    device (see :func:`unpack_gang`)."""
+    """K8 over stacked gang inputs (tensors of their own, or
+    :func:`gang_views` of a packed stage) into one byte buffer on the
+    inputs' device (see :func:`unpack_gang`).  On the card the buffer is
+    ``torch.empty``: K8 writes every byte of it."""
     g, n, cc, npl = _check_gang_inputs(nodes, groups)
     dev = nodes.valid.device
-    buf = torch.zeros(_gang_layout(g)[3], dtype=torch.uint8, device=dev)
+    buf = torch.empty(_gang_layout(g)[2], dtype=torch.uint8, device=dev)
     if not _on_cuda(nodes.valid):
         _, fail, total = unpack_gang(buf, g)
         p_fit, p_fail, p_total = _gang_fit_plain(nodes, groups)
         total.copy_(p_total)
         fail.copy_(p_fail)
-        buf[_gang_layout(g)[2]:].view(torch.int32).copy_(p_fit)
+        buf[_gang_layout(g)[1]:].view(torch.int32).copy_(p_fit)
         return buf
     GANG_FIT(n, g, cc, npl, *map(_cuda.ptr, (
         nodes.valid, nodes.ready, nodes.res_ok, nodes.res_cap,
         nodes.svc_tasks, nodes.extra_mask, groups.con_hash, groups.con_op,
         groups.con_exp, groups.plat, nodes.os_hash, nodes.arch_hash,
         nodes.port_conflict, nodes.quota_ok, groups.k, groups.maxrep,
-        groups.port_limited, buf)))
+        groups.port_limited, buf, _gang_work(n, g, dev))))
     return buf
 
 

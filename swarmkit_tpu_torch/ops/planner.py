@@ -68,7 +68,7 @@ from ..scheduler.nodeinfo import NodeInfo
 from ..utils.metrics import registry as _metrics
 from . import densify, fusedbatch
 from .convert import (
-    gang_to_device, named_to_device, resolve_device, tensor, to_device,
+    gang_stage, named_to_device, resolve_device, tensor, to_device,
 )
 from .densify import (
     CC_BUCKETS as _CC_BUCKETS, P_BUCKETS as _P_BUCKETS,
@@ -173,6 +173,9 @@ class TorchPlanner:
         self._streaming = None
         # packed staging buffers of the victim selection, per shape
         self._victim_stages: Dict = {}
+        # packed staging buffers of the gang verdicts, per shape (G, n, cc,
+        # np, quota)
+        self._gang_stages: Dict = {}
 
         # device-plane saturation probe (obs/planes.py): dispatch-queue
         # depth read lazily at window-roll time; weakref so the probe never
@@ -983,19 +986,21 @@ class TorchPlanner:
         return self._gang_fit_rows([(nodes_np, group_np)], bucket)[0]
 
     def _gang_fit_rows(self, rows, bucket: str) -> List[bool]:
-        """K8 over the stacked (NodeInputs, GroupInputs) of ``rows``: one
-        H2D of the stack, one launch, one D2H of every gang's verdict.
-        One row counts ``gang_fit_device``, a stack ``gang_fit_fused``."""
+        """K8 over the (NodeInputs, GroupInputs) of ``rows``: the columns
+        it reads packed into the stage of their shape, one H2D of it, one
+        launch, one D2H of every gang's verdict into the stage's pinned
+        buffer.  One row counts ``gang_fit_device``, a stack
+        ``gang_fit_fused``."""
         g = len(rows)
-        _devtel.note_h2d("gang_inputs", _devtel.tree_nbytes(rows))
         t0 = time.perf_counter()
         span, args = ("plan.gang_fit", {"k": int(rows[0][1].k)}) if g == 1 \
             else ("plan.gang_fit_fused", {"gangs": g})
         with tracer.span(span, "plan", **args):
-            nodes, groups = gang_to_device(rows, self.device)
-            arr = finish_fetch(start_fetch(gang_fit_packed(nodes, groups)))
-            _devtel.note_d2h("fetch", int(arr.nbytes))
+            stage = gang_stage(rows, self.device, self._gang_stages)
+            arr = stage.fetch(gang_fit_packed(*stage.dev_views))
             fits, _fail, _total = unpack_gang(arr, g)
+        _devtel.note_h2d("gang_inputs", int(stage.host.nbytes))
+        _devtel.note_d2h("fetch", int(arr.nbytes))
         if g == 1:
             _devtel.note_kernel(bucket, "gang",
                                 dispatch_s=time.perf_counter() - t0,

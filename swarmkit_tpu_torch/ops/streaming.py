@@ -29,13 +29,13 @@ Two tiers of residency:
 On a planner mesh (``parallel/sharded.py``) the device tier is split on
 the node axis: each shard holds its nb/D rows of the five columns on its
 own device, an upload places each shard's slice directly
-(``put_resident``), and a refresh buckets its dirty rows by owning shard
-(``row // local_n``) into one pinned staging buffer per shard and
-scatters them with K7 per shard, local indices (``scatter_rows_sharded``):
-O(churn) bytes and no traffic between shards.  A fused run on the same
-mesh seeds its split node state from those shards.  A node bucket that
-the mesh does not divide keeps the single-device tier (counted
-``mesh_demotions``), as the reference does.
+(``put_resident``), and a refresh packs its dirty rows with their global
+indices into one pinned staging buffer, moves it with one H2D and
+scatters it with ONE K7 launch over the table of shards, each row landing
+in the shard that owns it (``row // local_n``): O(churn) bytes.  A fused
+run on the same mesh seeds its split node state from those shards.  A
+node bucket that the mesh does not divide keeps the single-device tier
+(counted ``mesh_demotions``), as the reference does.
 
 Fallback matrix (every full rebuild is counted; ``streaming_enabled =
 False`` on the planner turns the whole plane off):
@@ -181,8 +181,8 @@ class ResidentState:
         # mesh each column a tuple of per-shard tensors -- or None
         self.dev: Optional[tuple] = None
         self._dev_version = -1
-        self._stages: Dict[int, _ScatterStage] = {}
-        self._shard_stages: Dict[tuple, _ScatterStage] = {}
+        # the scatter's staging buffers, one a (bucket, device)
+        self._stages: Dict[tuple, _ScatterStage] = {}
         # rows recomputed by a HOST-ONLY absorb (mid-tick accessors): the
         # device tier has not seen them yet -- the next device sync must
         # scatter them too, or it would stamp itself fresh while silently
@@ -192,7 +192,8 @@ class ResidentState:
                       "incremental": 0, "full": 0, "rows": 0,
                       "dirty_frac": 0.0, "device_syncs": 0,
                       "svc_evictions": 0, "bytes_avoided": 0,
-                      "shard_syncs": 0, "mesh_demotions": 0}
+                      "shard_syncs": 0, "mesh_demotions": 0,
+                      "scatters": 0}
 
     # ------------------------------------------------------------ mesh tier
 
@@ -618,45 +619,32 @@ class ResidentState:
         if db is None:
             self._device_upload(reason="wide_reupload")
             return
-        if mesh is not None:
-            self._shard_sync(rows, db, mesh)
-            return
-        stage = self._stages.get(db)
+        # one stage a (bucket, card); on a mesh K7 writes each global row
+        # into the shard that owns it
+        key = (db, self.device if mesh is None else mesh.devices[0])
+        stage = self._stages.get(key)
         if stage is None:
-            stage = self._stages[db] = _ScatterStage(db, self.device)
+            stage = self._stages[key] = _ScatterStage(*key)
         t0 = time.perf_counter()
         stage.fill(rows, self.nb, self._host_cols())
         scatter_rows(self.dev, stage.upload())
         dt = time.perf_counter() - t0
+        if mesh is None:
+            reason, label = "dirty_scatter", f"stream_nb{self.nb}_d{db}"
+        else:
+            reason = "shard_scatter"
+            label = f"stream_nb{self.nb}_d{db}_x{mesh.size}"
+            self.stats["shard_syncs"] += 1
         staged = SCATTER_SLOT_BYTES * db
-        _devtel.note_h2d("dirty_scatter", staged)
+        _devtel.note_h2d(reason, staged)
         # what a non-streaming tick would have shipped instead: the full
         # five-column upload, minus what the scatter staged
         avoided = max(0, _devtel.tree_nbytes(self._host_cols()) - staged)
         _devtel.note_bytes_avoided(avoided)
         self.stats["bytes_avoided"] += avoided
-        _devtel.note_kernel(f"stream_nb{self.nb}_d{db}", "scatter",
-                            dispatch_s=dt, node_rows=len(rows))
-        self.stats["device_syncs"] += 1
-        self._stamp()
-
-    def _shard_sync(self, rows: List[int], db: int, mesh) -> None:
-        """The mesh form of the scatter: rows bucketed by owning shard,
-        staged per shard with local indices, K7 per shard."""
-        from ..parallel.sharded import (
-            put_scatter_updates, scatter_rows_sharded)
-        t0 = time.perf_counter()
-        packed, staged = put_scatter_updates(rows, self._host_cols(), mesh,
-                                             self._shard_stages, db)
-        scatter_rows_sharded(self.dev, packed)
-        dt = time.perf_counter() - t0
-        _devtel.note_h2d("shard_scatter", staged)
-        avoided = max(0, _devtel.tree_nbytes(self._host_cols()) - staged)
-        _devtel.note_bytes_avoided(avoided)
-        self.stats["bytes_avoided"] += avoided
-        _devtel.note_kernel(f"stream_nb{self.nb}_d{db}_x{mesh.size}",
-                            "scatter", dispatch_s=dt, node_rows=len(rows))
-        self.stats["shard_syncs"] += 1
+        _devtel.note_kernel(label, "scatter", dispatch_s=dt,
+                            node_rows=len(rows))
+        self.stats["scatters"] += 1
         self.stats["device_syncs"] += 1
         self._stamp()
 

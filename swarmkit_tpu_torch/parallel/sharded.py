@@ -103,10 +103,12 @@ def make_mesh(devices=None) -> NodeMesh:
 #
 # The streaming planner's device tier (ops/streaming.ResidentState) on a
 # mesh: each shard holds its nb/D rows of the five node-state columns on
-# its device, dirty rows are bucketed by owning shard on the host and
-# scattered by K7 per shard with local indices.  The node bucket must
-# divide evenly over the mesh; ResidentState demotes to the single-device
-# tier otherwise.
+# its device.  A refresh needs nothing of its own here: its dirty rows go
+# to the card in one buffer with their global indices, and one K7 launch
+# (``kernel.scatter_rows`` over the shard table, the counterpart of the
+# reference's ``scatter_rows_sharded``) writes each row into the shard
+# that owns it.  The node bucket must divide evenly over the mesh;
+# ResidentState demotes to the single-device tier otherwise.
 
 def put_resident(cols, mesh: NodeMesh) -> tuple:
     """Mesh placement of the five resident columns (valid, ready, cpu,
@@ -122,44 +124,6 @@ def put_resident(cols, mesh: NodeMesh) -> tuple:
                 col[i * ln:(i + 1) * ln])).to(dev, copy=True)
             for i, dev in enumerate(mesh.devices)))
     return tuple(out)
-
-
-def put_scatter_updates(rows: Sequence[int], cols, mesh: NodeMesh,
-                        stages: dict, db: int):
-    """Stage the dirty ``rows`` (global indices) of the host columns per
-    owning shard (``row // local_n``) with local indices, pad = local_n:
-    one packed pinned buffer per shard, refilled only after its last
-    copy's event, and one H2D each.  Returns (per-shard device buffers,
-    None for a shard without rows; the bytes staged)."""
-    from ..ops.streaming import _ScatterStage
-    d = mesh.size
-    ln = cols[0].shape[0] // d
-    local: List[List[int]] = [[] for _ in range(d)]
-    for i in rows:
-        s, r = divmod(int(i), ln)
-        local[s].append(r)
-    out, staged = [], 0
-    for s, rs in enumerate(local):
-        if not rs:
-            out.append(None)
-            continue
-        key = (s, mesh.devices[s], db)
-        stage = stages.get(key)
-        if stage is None:
-            stage = stages[key] = _ScatterStage(db, mesh.devices[s])
-        stage.fill(rs, ln, tuple(c[s * ln:(s + 1) * ln] for c in cols))
-        out.append(stage.upload())
-        staged += K.SCATTER_SLOT_BYTES * db
-    return out, staged
-
-
-def scatter_rows_sharded(dev_cols, packed: Sequence) -> None:
-    """The mesh twin of ``kernel.scatter_rows``: K7 once per shard that
-    has update rows, on its own columns with local indices (pad slots
-    carry local_n and drop).  No shard touches another's rows."""
-    for s, buf in enumerate(packed):
-        if buf is not None:
-            K.scatter_rows(tuple(col[s] for col in dev_cols), buf)
 
 
 # ---------------------------------------------------------- the plans

@@ -15,7 +15,12 @@
 //    (cp.async.bulk, the TMA engine, completing on a per-warp mbarrier)
 //    issued before the group's staging and waited for only before the
 //    score;
-//  * K8 at G = 1 on the headline's inputs;
+//  * K8 (M blocks a gang) at n = 512, 1,024 (the gang fleet's node
+//    bucket), 4,096, 8,192 and 16,384 nodes for G = 1, 2 and 8: the
+//    shipped shape (gangfit.cu gang_shape) and every other block size T
+//    of 64 to 1,024 with M = 1, 2, 4, ... 128 blocks a gang that leave no
+//    block without a node and a thread at most 8 nodes; past one block,
+//    every workspace word must be back at 0 after the timed launches;
 //  * an empty kernel, the floor of a launch;
 // each over threads a block (T), one node a thread.  Every variant's
 // outputs must equal the first variant's (the shipped shape).  Times are
@@ -24,18 +29,18 @@
 // clock; each time includes the gap between two kernels of the graph,
 // which the empty kernel's time measures.  Every variant runs twice, in
 // two passes over the list.  (The shapes the kernels no longer offer --
-// two or four nodes a thread, one staged copy a block, K1F's int64
-// division -- were timed by this probe before they were taken out; PERF.md
-// keeps those times.)  Build and run on the card, from the root of the
-// checkout (the binary goes to the git-ignored build directory of that
-// checkout):
+// two or four nodes a thread, one staged copy a block, K8's thread-block
+// clusters, K1F's int64 division -- were timed by this probe before they
+// were taken out; PERF.md keeps those times.)  Build and run on the
+// card, from the root of the checkout (the binary goes to the git-ignored
+// build directory of that checkout):
 //
 //   mkdir -p swarmkit_tpu_torch/_build
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 \
 //       -I swarmkit_tpu_torch/csrc \
 //       -o swarmkit_tpu_torch/_build/feasibility_probe \
 //       swarmkit_tpu_torch/probes/feasibility_probe.cu
-//   swarmkit_tpu_torch/_build/feasibility_probe
+//   swarmkit_tpu_torch/_build/feasibility_probe        # or: ... k8
 
 #include <cstdio>
 #include <cstdlib>
@@ -446,35 +451,120 @@ void k1f_variant(K1FCase c, const char* label, std::vector<long long>* want,
 
 // ---------------------------------------------------------------- K8
 
+// G gangs of n nodes (the headline's filters: four constraint slots of
+// which two are active, four platform rows with the wildcard), each gang
+// with its own columns and a k that some gangs' totals reach
+struct K8Case {
+  int n, g, cc, np;
+  GangArgs a;
+  uint8_t* out;
+};
+
+K8Case k8_case(int n, int g) {
+  const int cc = 4, np = 4;
+  const size_t gn = (size_t)g * n;
+  std::vector<uint8_t> valid(gn), ready(gn), res_ok(gn), extra(gn),
+      port(gn);
+  std::vector<int32_t> res_cap(gn), svc(gn), con_hash(gn * cc * 2),
+      os(2 * gn), arch(2 * gn);
+  for (size_t i = 0; i < gn; ++i) {
+    valid[i] = (int)(i % n) < n * 3 / 4;
+    ready[i] = rnd() % 100 < 97;
+    res_ok[i] = rnd() % 100 < 97;
+    extra[i] = rnd() % 100 < 99;
+    port[i] = rnd() % 100 < 5;
+    res_cap[i] = rnd() % 640;
+    svc[i] = rnd() % 8;
+  }
+  for (auto& h : con_hash) h = rnd() % 4;
+  for (auto& h : os) h = rnd() % 2;
+  for (auto& h : arch) h = rnd() % 2;
+  std::vector<int32_t> op, exp, plat, k, maxrep(g, 0);
+  for (int j = 0; j < g; ++j) {
+    for (int v : {1, 2, 0, 2}) op.push_back(v);
+    for (int v : {1, 1, 0, 0, 0, 0, 0, 0}) exp.push_back(v);
+    for (int v : {0, 0, 0, 0, 1, 1, 0, 0, -1, 0, 0, 0, -1, 0, 0, 0})
+      plat.push_back(v);
+    k.push_back((int)(rnd() % (unsigned)(n * 200)));
+  }
+  std::vector<uint8_t> limited(g, 0);
+  K8Case c{n, g, cc, np,
+           GangArgs{sk::NodeColumns{upload(valid), upload(ready),
+                                    upload(extra), upload(con_hash),
+                                    upload(os), upload(arch), upload(port),
+                                    nullptr},
+                    upload(res_ok), upload(res_cap), upload(svc), upload(op),
+                    upload(exp), upload(plat), upload(k), upload(maxrep),
+                    upload(limited)},
+           upload(std::vector<uint8_t>(44 * (size_t)g))};
+  return c;
+}
+
 template <int T>
-void k8_variant(const K1Case& c, uint8_t* out, std::vector<uint8_t>* want) {
+void k8_variant(const K8Case& c, int m, std::vector<uint8_t>* want) {
+  const size_t bytes = 44 * (size_t)c.g;
+  CK(cudaMemset(c.out, 0xab, bytes));   // every byte must be written
+  const size_t wbytes = work_bytes(c.g, m);
+  uint8_t* work = nullptr;
+  if (wbytes) {
+    CK(cudaMalloc(&work, wbytes));
+    CK(cudaMemset(work, 0, wbytes));
+  }
   auto run = [&] {
-    CK(cudaMemsetAsync(out, 0, 48, g_stream));
-    launch_gang_fit<T>(kN, 1, c.a.cc, c.a.np, c.a.cols.valid,
-                       c.a.cols.ready, c.a.res_ok, c.a.res_cap, c.a.svc_tasks,
-                       c.a.cols.extra_mask, c.a.cols.con_hash, c.a.con_op,
-                       c.a.con_exp, c.a.plat, c.a.cols.os_hash,
-                       c.a.cols.arch_hash, c.a.cols.port_conflict, nullptr,
-                       c.a.k, c.a.maxrep, c.a.port_limited, out, g_stream);
+    return launch_gang_fit<T>(c.n, c.g, m, c.cc, c.np, c.a, c.out, work,
+                              g_stream);
   };
-  run();
+  CK((cudaError_t)run());
   CK(cudaDeviceSynchronize());
-  auto got = download(out, 48);
-  std::fill(got.begin() + 40, got.begin() + 44, 0);  // done: blocks seen
+  auto got = download(c.out, bytes);
   bool same = true;
   if (want->empty()) *want = got;
   else same = got == *want;
-  const double us = time_us(run);
-  printf("K8  T=%3d (+ memset)                %7.3f us  %s\n", T, us,
-         same ? "== first" : "DIFFERS");
-  if (!same) exit(2);
+  const double us = time_us([&] { run(); });
+  // the add that completed each workspace word put it back to 0
+  bool words_zero = true;
+  if (work)
+    for (unsigned long long v : download((const unsigned long long*)work,
+                                         wbytes / 8))
+      words_zero = words_zero && v == 0;
+  printf("K8  n=%5d G=%d T=%4d M=%3d  %7.3f us  %s%s\n", c.n, c.g, T, m, us,
+         same ? "== first" : "DIFFERS",
+         words_zero ? "" : ", a workspace word left set");
+  if (work) CK(cudaFree(work));
+  if (!same || !words_zero) exit(2);
+}
+
+// the shipped shape of G gangs of n nodes first, then every other block
+// size T and blocks a gang M (a power of two up to kMaxBlocks) that leave
+// no block without a node and give a thread at most 8 nodes
+void k8_shapes(int n, int g) {
+  const K8Case c = k8_case(n, g);
+  std::vector<uint8_t> want;
+  const GangShape s = gang_shape(n, g);
+  auto one = [&](int t, int m) {
+    if (t == 64) k8_variant<64>(c, m, &want);
+    else if (t == 128) k8_variant<128>(c, m, &want);
+    else if (t == 256) k8_variant<256>(c, m, &want);
+    else if (t == 512) k8_variant<512>(c, m, &want);
+    else k8_variant<1024>(c, m, &want);
+  };
+  one(s.threads, s.blocks);
+  for (int t : {64, 128, 256, 512, 1024})
+    for (int m = 1; m <= kMaxBlocks; m *= 2) {
+      if ((m - 1) * t >= n || m * t * 8 < n) continue;
+      if (t == s.threads && m == s.blocks) continue;
+      one(t, m);
+    }
 }
 
 }  // namespace
 
-void pass(const char* label);
+void pass(const char* label, bool k8_only);
+void other_kernels();
 
-int main() {
+// ``feasibility_probe k8`` runs the K8 shapes alone
+int main(int argc, char** argv) {
+  const bool k8_only = argc > 1 && strcmp(argv[1], "k8") == 0;
   CK(cudaEventCreate(&ev_a));
   CK(cudaEventCreate(&ev_b));
   CK(cudaStreamCreateWithFlags(&g_stream, cudaStreamNonBlocking));
@@ -486,18 +576,27 @@ int main() {
   CK(cudaDeviceGetAttribute(&clock_khz, cudaDevAttrClockRate, 0));
   spin_kernel<<<132, 32, 0, g_stream>>>(200LL * clock_khz);  // ~0.2 s
   CK(cudaStreamSynchronize(g_stream));
-  pass("pass 1");
-  pass("pass 2");
+  pass("pass 1", k8_only);
+  pass("pass 2", k8_only);
   return 0;
 }
 
-void pass(const char* label) {
+void pass(const char* label, bool k8_only) {
   printf("---- %s\n", label);
   printf("empty kernel                         %7.3f us\n",
          time_us([] { empty_kernel<<<1, 32, 0, g_stream>>>(); }));
   printf("empty kernel, 128 blocks of 128      %7.3f us\n",
          time_us([] { empty_kernel<<<128, 128, 0, g_stream>>>(); }));
+  if (!k8_only) other_kernels();
 
+  // K8: M blocks a gang, at 512, the gang fleet's node bucket (1,024),
+  // 4,096, 8,192 and the headline's 16,384, for G = 1, 2 and 8
+  for (int n : {512, 1024, 4096, 8192, kN})
+    for (int g : {1, 2, 8}) k8_shapes(n, g);
+}
+
+// K1 and K1F, plain and scored
+void other_kernels() {
   K1Case k1 = k1_case();
   std::vector<int32_t> want1;
   k1_variant<128, false>(k1, "", &want1);   // shipped
@@ -534,12 +633,4 @@ void pass(const char* label) {
     k1f_variant<64, true>(f, lw, &want, sk::kStratLearned, m);
     k1f_variant<64, true>(f, lb, &want, sk::kStratLearned, m, 1);
   }
-
-  uint8_t* out = upload(std::vector<uint8_t>(48));
-  std::vector<uint8_t> want8;
-  k8_variant<256>(k1, out, &want8);   // shipped
-  k8_variant<128>(k1, out, &want8);
-  k8_variant<64>(k1, out, &want8);
-  printf("memset of 48 bytes alone             %7.3f us\n",
-         time_us([&] { cudaMemsetAsync(out, 0, 48, g_stream); }));
 }

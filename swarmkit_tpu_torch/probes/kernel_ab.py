@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Time K1, the fused chunk and its scored slot entry, a split's stage A,
-K5 and K9-K11 of two trees of this repository on one CUDA card, in turns.
+K5 and K7-K11, a gang verdict and the ticks K7 and K8 serve, of two trees
+of this repository on one CUDA card, in turns.
 
     python3 swarmkit_tpu_torch/probes/kernel_ab.py OLD_TREE NEW_TREE
     python3 swarmkit_tpu_torch/probes/kernel_ab.py --fills TREE
+    python3 swarmkit_tpu_torch/probes/kernel_ab.py --gang OLD_TREE NEW_TREE
 
 Each tree is a checkout of the repository (for example the parent commit
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists).
@@ -38,6 +40,21 @@ inputs and the profiler of the ``chip_smoke.py`` beside it):
   card) with the device time of its stage-A kernels (per shard K2's
   partials, ``seg_fold`` and K3 in a tree before one K2 launch over the
   shard table; that launch and one K3 after);
+* K8 at the gang fleet's node bucket (1024, G = 1 and 2), at 4096 and
+  8192 (G = 1: one and two clusters a gang) and at nb 16384 with G = 2, and one verdict through the planner's ``_gang_fit_rows``
+  (from the numpy rows to the fetched verdict, whatever the tree's route)
+  at nb 1024 (G = 1, 2) and 16384 (G = 1): its wall time over 200 warm
+  verdicts and its device ops by kind (H2D, K8, D2H, fills) from one
+  profiled verdict;
+* K7 on a refresh's rows at 16, 256 and 4096 slots (``scatter_inputs``,
+  nb 16384) through the tree's streaming route, unsplit and over four
+  shards of the card: launches a refresh, device ms of every K7 row, the
+  wrapper's ms (the stage fill, its H2D and the launches);
+* the ticks: the gang fleet's on the card (twice) and on the host path,
+  and the churn's tick median (config 10 with its burst window),
+  streaming unsplit and over four shards of the card;
+* ``--gang`` measures K8, the verdicts and the gang fleet's ticks alone,
+  in the same turns;
 * the fills (``--fills`` measures these alone, in one process): K5 on
   config 7's binpack slot (``chip_smoke.binpack_slot`` of a cfg7 chunk,
   nb 16384), K10 at the mesh headline's leaf fill (four shards, L = 256)
@@ -180,11 +197,34 @@ def _launch_deltas(K, fn):
             if k.launches != before[k.name]}
 
 
+def k8_rows(torch, cs, K, dev):
+    """K8 at nb 16384, G = 1 and chip_smoke.py's gang-fleet stack of
+    G = 8, checked against the CPU's plain path first."""
+    from swarmkit_tpu_torch.ops.convert import gang_to_device
+    out = {}
+    for label, seed, g_count in (("k8_g1", 41, 1), ("k8_g8", 508, 8)):
+        rows = cs.gang_rows(seed, g_count=g_count)
+        gnodes, ggroups = gang_to_device(rows, dev)
+
+        def gang():
+            return K.gang_fit_packed(gnodes, ggroups)
+
+        got = K.unpack_gang(gang().cpu(), g_count)
+        want = K.unpack_gang(K.gang_fit_packed(
+            *gang_to_device(rows, "cpu")), g_count)
+        cs.check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                 f"{label}: K8 differs from its plain version")
+        (dev_ms,) = cs.device_ms_each(torch, gang, (("gang_fit_kernel",),),
+                                      label=label)
+        out[label] = dict(ms=cs.time_ms(torch, gang, reps=20, warmup=3),
+                          device_ms=dev_ms, clocks=_clocks())
+    return out
+
+
 def entry_rows(torch, cs, K, to_device, fused_to_device, dev):
     """K1 at the headline plan's shape and at nb 2^20, K8 at G = 1 and 8,
     and a cfg7 fused chunk, each checked against the CPU's plain path
     first."""
-    from swarmkit_tpu_torch.ops.convert import gang_to_device
     out = {}
     for label, nb, n_valid in (("k1_headline", 16384, 10000),
                                ("k1_nb2p20", 1 << 20, 1000000)):
@@ -208,23 +248,7 @@ def entry_rows(torch, cs, K, to_device, fused_to_device, dev):
                           device_ms=dev_ms, launches=launches,
                           clocks=_clocks())
 
-    # K8 at G = 1 and at chip_smoke.py's gang-fleet stack of G = 8
-    for label, seed, g_count in (("k8_g1", 41, 1), ("k8_g8", 508, 8)):
-        rows = cs.gang_rows(seed, g_count=g_count)
-        gnodes, ggroups = gang_to_device(rows, dev)
-
-        def gang():
-            return K.gang_fit_packed(gnodes, ggroups)
-
-        got = K.unpack_gang(gang().cpu(), g_count)
-        want = K.unpack_gang(K.gang_fit_packed(
-            *gang_to_device(rows, "cpu")), g_count)
-        cs.check(all(torch.equal(a, b) for a, b in zip(got, want)),
-                 f"{label}: K8 differs from its plain version")
-        (dev_ms,) = cs.device_ms_each(torch, gang, (("gang_fit_kernel",),),
-                                      label=label)
-        out[label] = dict(ms=cs.time_ms(torch, gang, reps=20, warmup=3),
-                          device_ms=dev_ms, clocks=_clocks())
+    out.update(k8_rows(torch, cs, K, dev))
 
     inputs = cs.fused_inputs(seed=77)
     L, sids = inputs[4], inputs[3].sid.tolist()
@@ -394,8 +418,172 @@ def b13_row(torch, cs, K, dev, shards=4):
                 by_kernel=by_kernel(torch, cs, run), clocks=_clocks())
 
 
-def measure(tree, fills_only=False):
-    """One tree's numbers (run in a process of its own)."""
+#: K8 in either tree at the gang fleet's bucket and the headline's:
+#: (label, seed, node bucket, gangs)
+GANG_AB_SHAPES = (("k8_nb1024_g1", 41, 1024, 1),
+                  ("k8_nb1024_g2", 42, 1024, 2),
+                  ("k8_nb4096_g1", 45, 4096, 1),
+                  ("k8_nb8192_g1", 44, 8192, 1),
+                  ("k8_nb16384_g2", 43, 16384, 2))
+
+
+def gang_rows_ab(torch, cs, K, dev):
+    """K8 at further shapes, and one verdict through the planner's
+    ``_gang_fit_rows`` (whatever route the tree takes from numpy rows to
+    the verdict): its wall time (host clock, 200 warm verdicts) and its
+    device ops by kind from one profiled verdict."""
+    from swarmkit_tpu_torch.ops import TorchPlanner
+    from swarmkit_tpu_torch.ops.convert import gang_to_device
+    import time
+    out = {}
+    for label, seed, nb, g_count in GANG_AB_SHAPES:
+        rows = cs.gang_rows(seed, g_count=g_count, nb=nb,
+                            n_valid=10000 if nb == 16384 else nb * 3 // 4)
+        gnodes, ggroups = gang_to_device(rows, dev)
+
+        def gang():
+            return K.gang_fit_packed(gnodes, ggroups)
+
+        got = K.unpack_gang(gang().cpu(), g_count)
+        want = K.unpack_gang(K.gang_fit_packed(
+            *gang_to_device(rows, "cpu")), g_count)
+        cs.check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                 f"{label}: K8 differs from its plain version")
+        (dev_ms,) = cs.device_ms_each(torch, gang, (("gang_fit_kernel",),),
+                                      label=label)
+        out[label] = dict(ms=cs.time_ms(torch, gang, reps=20, warmup=3),
+                          device_ms=dev_ms, clocks=_clocks())
+    planner = TorchPlanner()
+    for label, nb, g_count in (("verdict_nb1024_g1", 1024, 1),
+                               ("verdict_nb1024_g2", 1024, 2),
+                               ("verdict_nb16384_g1", 16384, 1)):
+        rows = cs.gang_rows(90 + g_count, g_count=g_count, nb=nb,
+                            n_valid=10000 if nb == 16384 else nb * 3 // 4)
+
+        def verdict(rows=rows, label=label):
+            return planner._gang_fit_rows(rows, label)
+
+        for _ in range(5):
+            verdict()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            verdict()
+        wall_ms = (time.perf_counter() - t0) / 200 * 1e3
+        events, session = cs.profiled(torch, verdict)
+        out[label] = dict(wall_ms=wall_ms,
+                          device_ops=cs.verdict_ops(n for n, _ in events),
+                          device_ms=sum(us for _, us in events) / 1e3,
+                          missing=session["missing"])
+    return out
+
+
+def scatter_rows_ab(torch, cs, K, dev, shards_list=(1, 4)):
+    """A refresh's scatter through the tree's streaming route at the
+    staging buckets, unsplit and over four shards of the card (one staged
+    buffer and ``scatter_rows`` over the shard table, or, in a tree that
+    has them, ``parallel.sharded``'s per-shard ``put_scatter_updates`` +
+    ``scatter_rows_sharded``): == the host's columns, K7 launches a
+    refresh, device ms of every K7 row and the wrapper's ms (the stage
+    fill, its H2D and the launches)."""
+    import numpy as np
+    from swarmkit_tpu_torch.parallel import sharded as S
+    out = {}
+    for d, db in ((13, 16), (200, 256), (3000, 4096)):
+        cols_np, packed_np = cs.scatter_inputs(31 + db, d=d, db=db)
+        idx = K.scatter_views(packed_np, db)[0]
+        rows = sorted(int(i) for i in idx[:d])
+        for shards in shards_list:
+            host = tuple(c.copy() for c in cols_np)
+            for c in host:   # the values the refresh must write
+                c[rows] = c[rows][::-1]
+            mesh = S.make_mesh(["cuda:0"] * shards)
+            dev_cols = S.put_resident(cols_np, mesh)
+            if shards == 1:
+                dev_cols = tuple(c[0] for c in dev_cols)
+            stages = {}
+
+            def refresh(dev_cols=dev_cols, mesh=mesh, stages=stages,
+                        shards=shards, host=host):
+                if shards > 1 and hasattr(S, "put_scatter_updates"):
+                    # a tree whose split stages and scatters per shard
+                    packed, _ = S.put_scatter_updates(rows, host, mesh,
+                                                      stages, db)
+                    S.scatter_rows_sharded(dev_cols, packed)
+                    return
+                stage = stages.get(db)
+                if stage is None:
+                    from swarmkit_tpu_torch.ops.streaming import (
+                        _ScatterStage)
+                    stage = stages[db] = _ScatterStage(db, dev)
+                stage.fill(rows, host[0].shape[0], host)
+                K.scatter_rows(dev_cols, stage.upload())
+
+            refresh()
+            torch.cuda.synchronize()
+            cols = dev_cols if shards > 1 else tuple((c,) for c in dev_cols)
+            cs.check(all(np.array_equal(torch.cat(c).cpu().numpy(), h)
+                         for c, h in zip(cols, host)),
+                     f"scatter db={db} x{shards}: columns differ from the "
+                     "host's")
+            launches = _launch_deltas(K, refresh)["scatter_rows"]
+            (dev_ms,) = cs.device_ms_each(
+                torch, refresh, (("scatter_rows_kernel",),),
+                per_call=[launches], label=f"K7 db={db} x{shards}")
+            out[f"k7_db{db}_x{shards}"] = dict(
+                ms=cs.time_ms(torch, refresh, reps=20, warmup=3),
+                device_ms=dev_ms, launches_per_refresh=launches,
+                clocks=_clocks())
+    return out
+
+
+def tick_rows(torch, cs, churn=True):
+    """The end-to-end ticks this slice could move, in the tree under
+    test: the gang fleet's tick on the card (twice; the second warm) and
+    on the host path, and the churn's tick median (config 10 with its
+    burst window), streaming unsplit and over four shards of the card."""
+    import statistics
+    import time
+    from swarmkit_tpu_torch import workload
+    from swarmkit_tpu_torch.ops import TorchPlanner
+    from swarmkit_tpu_torch.parallel import make_mesh
+    from swarmkit_tpu_torch.scheduler import Scheduler
+    out = {}
+    for label in ("gang_card", "gang_card_warm", "gang_host"):
+        planner = None if label == "gang_host" else TorchPlanner()
+        store, _, _, _ = workload.gang_fleet()
+        sched = Scheduler(store, batch_planner=planner)
+        store.view(sched._setup_tasks_list)
+        t0 = time.perf_counter()
+        decisions = sched.tick()
+        torch.cuda.synchronize()
+        out[label] = dict(tick_s=time.perf_counter() - t0,
+                          decisions=decisions)
+    for label, shards in ((("churn", 0), ("churn_mesh", cs.MESH_SHARDS))
+                          if churn else ()):
+        wl = workload.steady_state_churn()
+        wl.script.append(cs.CHURN_BURST)
+        planner = TorchPlanner(mesh=make_mesh(["cuda:0"] * shards)
+                               if shards else None)
+        sched = wl.attach(planner)
+        sched.tick()
+        torch.cuda.synchronize()
+        ticks = []
+        for arrivals, exits in wl.script:
+            wl.feed(arrivals, exits)
+            t1 = time.perf_counter()
+            sched.tick()
+            torch.cuda.synchronize()
+            ticks.append(time.perf_counter() - t1)
+        wl.close()
+        out[label] = dict(tick_ms_median=statistics.median(ticks) * 1e3,
+                          tick_ms=[t * 1e3 for t in ticks])
+    return out
+
+
+def measure(tree, part="all"):
+    """One tree's numbers (run in a process of its own): ``part`` "all",
+    "fills" (the fills alone) or "gang" (K8, the verdicts and the gang
+    fleet's ticks alone)."""
     tree = os.path.realpath(tree)
     sys.path.insert(0, tree)
     import torch
@@ -411,12 +599,20 @@ def measure(tree, fills_only=False):
     cuda.library()
     dev = torch.device("cuda")
     out = dict(tree=tree, build_s=build.seconds, card=cs.card_uuid(torch))
-    if not fills_only:
+    if part == "gang":
+        out["entry"] = k8_rows(torch, cs, K, dev)
+        out["gang"] = gang_rows_ab(torch, cs, K, dev)
+        out["ticks"] = tick_rows(torch, cs, churn=False)
+        return out
+    if part == "all":
         out["entry"] = entry_rows(torch, cs, K, to_device, fused_to_device,
                                   dev)
         out["stage_a_d4"] = stage_a_row(torch, cs, K, dev)
         out["b13_weighted_d4"] = b13_row(torch, cs, K, dev)
         out.update(_k9_rows(torch, cs, dev))
+        out["gang"] = gang_rows_ab(torch, cs, K, dev)
+        out["scatter"] = scatter_rows_ab(torch, cs, K, dev)
+        out["ticks"] = tick_rows(torch, cs)
     out["fills"] = fill_rows(torch, cs, K, fused_to_device, dev)
     return out
 
@@ -451,13 +647,15 @@ def _k9_rows(torch, cs, dev):
 
 
 def main():
-    if len(sys.argv) == 3 and sys.argv[1] in ("--one", "--fills"):
-        print(json.dumps(measure(sys.argv[2], sys.argv[1] == "--fills")),
+    parts = {"--one": "all", "--fills": "fills", "--one-gang": "gang"}
+    if len(sys.argv) == 3 and sys.argv[1] in parts:
+        print(json.dumps(measure(sys.argv[2], parts[sys.argv[1]])),
               flush=True)
         return
-    if len(sys.argv) != 3:
+    gang = len(sys.argv) == 4 and sys.argv[1] == "--gang"
+    if len(sys.argv) != 3 and not gang:
         sys.exit(__doc__)
-    old, new = sys.argv[1:]
+    old, new = sys.argv[-2:]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -465,7 +663,8 @@ def main():
     runs = []
     for label, tree in (("old", old), ("new", new), ("new", new),
                         ("old", old)):
-        proc = subprocess.run([sys.executable, HERE, "--one", tree],
+        proc = subprocess.run([sys.executable, HERE,
+                               "--one-gang" if gang else "--one", tree],
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             sys.exit(f"{label} run on {tree} failed:\n{proc.stderr[-4000:]}")

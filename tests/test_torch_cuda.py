@@ -17,7 +17,8 @@ from chip_smoke import (
     VICTIM_EDGE_CASES, WATERFILL_MODES, edge_fill_inputs, fill_parts,
     fused_entry_inputs, fused_inputs, gang_rows, headline_fill_parts,
     pack_edge_inputs, plan_inputs, scatter_inputs, shard_fill_inputs,
-    victim_edge_inputs, victim_inputs, waterfill_call, waterfill_inputs)
+    split_columns, victim_edge_inputs, victim_inputs, waterfill_call,
+    waterfill_inputs)
 from swarmkit_tpu_torch.ops import kernel as K
 from swarmkit_tpu_torch.ops import preempt as P
 from swarmkit_tpu_torch.ops.convert import (
@@ -842,22 +843,93 @@ def test_scatter_rows_kernel_matches_plain(case):
         _eq(g, w)
 
 
-GANG_SHAPES = {"g1_quota": dict(g_count=1, quota=True),
-               "g1": dict(g_count=1), "g3_small": dict(g_count=3, nb=1024,
-                                                       n_valid=1000),
-               "g8": dict(g_count=8)}
-
-
-@pytest.mark.parametrize("case", sorted(GANG_SHAPES))
-def test_gang_fit_kernel_matches_plain(case):
+@pytest.mark.parametrize("shards", [1, 2, 4])
+@pytest.mark.parametrize("case", sorted(SCATTER_SHAPES))
+def test_scatter_table_kernel_matches_plain(case, shards):
+    """K7 over a table of ``shards`` shards on the card (global indices,
+    pads at nb) equals its plain version on CPU shards, in ONE launch."""
     dev = _card()
-    rows = gang_rows(41, **GANG_SHAPES[case])
+    nb, d, db = SCATTER_SHAPES[case]
+    cols_np, packed_np = scatter_inputs(9 + shards, nb=nb, d=d, db=db)
+    got = split_columns(cols_np, shards, dev)
+    packed = torch.from_numpy(packed_np).to(dev)
+    assert _launched(lambda: K.scatter_rows(got, packed)) \
+        == {"scatter_rows": 1}
+    want = split_columns(cols_np, shards, "cpu")
+    K.scatter_rows(want, torch.from_numpy(packed_np))
+    for g, w in zip(got, want):
+        _eq(torch.cat(g), torch.cat(w))
+
+
+# K8 at the shapes the paths give it: 512, the gang fleet's node bucket
+# (1,024) and the headline's 16,384; G = 1, 2 and 8, with and without the
+# quota column
+GANG_SHAPES = {f"n{nb}_g{g}{'_quota' if q else ''}":
+               dict(g_count=g, nb=nb, n_valid=nb * 3 // 4, quota=q)
+               for nb in (512, 1024, 16384) for g in (1, 2, 8)
+               for q in (False, True)}
+GANG_SHAPES.update({"g1_quota": dict(g_count=1, quota=True),
+                    "g1": dict(g_count=1),
+                    "g3_small": dict(g_count=3, nb=1024, n_valid=1000),
+                    "g8": dict(g_count=8)})
+
+
+def _gang_matches_plain(rows):
+    dev = torch.device("cuda")
     g = len(rows)
     got = K.unpack_gang(K.gang_fit_packed(*gang_to_device(rows, dev)), g)
     torch.cuda.synchronize()
     want = K.unpack_gang(K.gang_fit_packed(*gang_to_device(rows, "cpu")), g)
     for a, b in zip(got, want):
         _eq(a, b)
+
+
+@pytest.mark.parametrize("case", sorted(GANG_SHAPES))
+def test_gang_fit_kernel_matches_plain(case):
+    _card()
+    _gang_matches_plain(gang_rows(41, **GANG_SHAPES[case]))
+
+
+@pytest.mark.parametrize("end", ["least", "most"])
+@pytest.mark.parametrize("g", [1, 3, 8, 300])
+def test_gang_fit_kernel_at_every_block_count(g, end):
+    """Every count of blocks a gang the launch picks for G gangs, at the
+    least and the most node count (up to 2^17) that picks it, twice: the
+    workspace words that join a gang's blocks are back at zero for the next
+    launch.  G = 300 takes one block a gang and loops over its nodes."""
+    _card()
+    sizes = range(32, (1 << 17) + 1, 32)
+    counts = {}
+    for n in sizes:
+        counts.setdefault(K.gang_fit_blocks(n, g), []).append(n)
+    for blocks, picks in sorted(counts.items()):
+        n = picks[0] if end == "least" else picks[-1]
+        n = min(n, 1024) if g == 300 else n
+        rows = gang_rows(60 + blocks, g, nb=n, n_valid=n - 5,
+                         quota=blocks % 2 == 1)
+        for _ in range(2):
+            _gang_matches_plain(rows)
+
+
+def test_gang_verdict_is_one_copy_each_way_and_one_kernel():
+    """A planner verdict on the packed stage is one H2D, one K8 and one
+    D2H on the device: no fill, no other copy, at the gang fleet's bucket
+    and at the headline's (a gang's blocks meeting in the workspace, made
+    zeroed once and left at zero)."""
+    _card()
+    from chip_smoke import profiled
+    from swarmkit_tpu_torch.ops import TorchPlanner
+    planner = TorchPlanner()
+    for g, nb in ((1, 1024), (2, 1024), (1, 16384), (8, 16384)):
+        rows = gang_rows(70 + g, g, nb=nb, n_valid=400)
+        planner._gang_fit_rows(rows, "warm")
+        rows_dev, _ = profiled(torch, lambda: planner._gang_fit_rows(
+            rows, "probe"))
+        names = sorted(name for name, _ in rows_dev)
+        assert len(names) == 3, names
+        assert sum("HtoD" in x for x in names) == 1, names
+        assert sum("DtoH" in x for x in names) == 1, names
+        assert sum("gang_fit_kernel" in x for x in names) == 1, names
 
 
 def test_resident_kernels_count_launches():

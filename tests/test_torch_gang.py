@@ -5,7 +5,9 @@ plain version and an int64 capacity sum per gang) against the reference's
 ``gang_fit_jit`` / ``gang_fit_fused_jit`` and its numpy oracle
 ``gang_fit_host`` over a seeded fuzz, the exact-fit boundary (totals at
 k - 1, k and k + 1) and totals around 2^24, where the reference's float32
-sum stops being exact.
+sum stops being exact.  The planner's packed gang stage (only the columns
+K8 reads, one buffer a verdict) through the same plain K8 against the
+same reference kernels, its layout and the 44-byte result.
 
 Planner level: ``TorchPlanner(device="cpu").gang_feasible`` and
 ``gang_feasible_many`` give the verdicts ``TPUPlanner``'s do, and a small
@@ -24,11 +26,13 @@ if not hasattr(jax.experimental, "enable_x64"):
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
+import torch  # noqa: E402
 
 from swarmkit_tpu.ops import kernel as ref  # noqa: E402
 from swarmkit_tpu.scheduler import gang as ref_gang  # noqa: E402
 from swarmkit_tpu_torch.ops import kernel as port  # noqa: E402
-from swarmkit_tpu_torch.ops.convert import gang_to_device  # noqa: E402
+from swarmkit_tpu_torch.ops.convert import (  # noqa: E402
+    gang_stage, gang_to_device)
 
 REF, PORT = "swarmkit_tpu", "swarmkit_tpu_torch"
 K_CLAMP = port.K_CLAMP
@@ -180,6 +184,150 @@ def test_gang_to_device_refuses_mixed_quota():
                                                           quota=False)]
     with pytest.raises(ValueError, match="quota_ok"):
         gang_to_device(rows, "cpu")
+
+
+# ------------------------------------------------ the packed gang stage
+#
+# The planner's route: only the columns K8 reads, every gang of a verdict
+# packed into one staging buffer (``convert.gang_stage``); on the CPU K8's
+# plain version reads the stage's views in place, and the verdict comes
+# back through the stage's fetch as the 44-byte-a-gang result buffer.
+
+def _staged(rows, stages=None):
+    """(fit, fail, total) numpy arrays of the port's packed-stage route."""
+    stage = gang_stage(rows, "cpu", {} if stages is None else stages)
+    arr = stage.fetch(port.gang_fit_packed(*stage.dev_views))
+    assert arr.dtype == np.uint8 and arr.shape == (44 * len(rows),)
+    return port.unpack_gang(arr, len(rows))
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_gang_stage_matches_reference_fuzz(seed):
+    rng = np.random.default_rng(seed)
+    nb = int(rng.choice([64, 1024]))
+    nodes, group = gang_inputs(rng, nb)
+    fit_r, fc_r = ref.gang_fit_jit(nodes, group)
+    fit, fail, total = _staged([(nodes, group)])
+    assert bool(fit[0]) == bool(fit_r)
+    np.testing.assert_array_equal(fail[0], np.asarray(fc_r))
+    pn, pg = gang_to_device([(nodes, group)], "cpu")
+    assert int(total[0]) == int(port._gang_fit_plain(pn, pg)[2][0])
+
+
+@pytest.mark.parametrize("quota", [False, True])
+@pytest.mark.parametrize("seed", range(4))
+def test_gang_stage_fused_matches_reference_fuzz(seed, quota):
+    rng = np.random.default_rng(100 + seed)
+    rows = [gang_inputs(rng, 256, quota=quota) for _ in range(5)]
+    stacked_nodes = ref.NodeInputs(*[
+        None if f == "quota_ok" and not quota
+        else np.stack([getattr(n, f) for n, _ in rows])
+        for f in ref.NodeInputs._fields])
+    stacked_groups = ref.GroupInputs(*[
+        np.stack([getattr(g, f) for _, g in rows])
+        for f in ref.GroupInputs._fields])
+    fits_r, fcs_r = ref.gang_fit_fused_jit(stacked_nodes, stacked_groups)
+    fits, fcs, _ = _staged(rows)
+    np.testing.assert_array_equal(fits, np.asarray(fits_r))
+    np.testing.assert_array_equal(fcs, np.asarray(fcs_r))
+    assert fits.any() and not fits.all(), "the fuzz must decide both ways"
+
+
+@pytest.mark.parametrize("case", sorted(BOUNDARY))
+def test_gang_stage_boundary_matches_reference(case):
+    caps, ks, want = BOUNDARY[case]
+    rows = _boundary_rows(caps, ks)
+    fits, _, total = _staged(rows)
+    assert fits.tolist() == want
+    assert [bool(ref.gang_fit_fused_jit(
+        ref.NodeInputs(*[None if v is None else np.stack([v] * len(rows))
+                         for v in rows[0][0]]),
+        ref.GroupInputs(*[np.stack([getattr(g, f) for _, g in rows])
+                          for f in ref.GroupInputs._fields]))[0][i])
+        for i in range(len(rows))] == want
+    assert total.tolist() == [sum(min(c, min(k, K_CLAMP)) for c in caps)
+                              for k in ks]
+
+
+@pytest.mark.parametrize("quota", [False, True])
+def test_gang_stage_layout_and_result(quota):
+    """The stage holds the columns K8 reads and no other, each at a
+    16-byte aligned offset; the result buffer is 44 bytes a gang, total
+    i64 | fail i32[8] | fit i32, and unpacks alike from numpy and torch."""
+    g, n, cc, npl = 3, 100, 4, 4
+    layout, nbytes = port.gang_stage_layout(g, n, cc, npl, quota)
+    names = [row[0] for row in layout]
+    assert not {"total_tasks", "failures", "leaf"} & set(names)
+    assert ("quota_ok" in names) is quota
+    assert all(off % 16 == 0 for *_, off in layout)
+    ends = [off + int(np.prod(shape)) * (4 if dt == torch.int32 else 1)
+            for _, _, dt, shape, off in layout]
+    assert ends == sorted(ends) and nbytes == -(-ends[-1] // 16) * 16
+    assert all(b <= a for b, (*_, a) in zip(ends, layout[1:]))
+    rng = np.random.default_rng(9)
+    rows = [gang_inputs(rng, n, quota=quota) for _ in range(g)]
+    for r in rows:
+        r[1].con_op[:] = rng.integers(0, 3, cc)
+    fit, fail, total = _staged(rows)
+    arr = np.zeros(44 * g, np.uint8)
+    arr[:8 * g].view(np.int64)[:] = total
+    arr[8 * g:40 * g].view(np.int32)[:] = fail.reshape(-1)
+    arr[40 * g:].view(np.int32)[:] = fit
+    for buf in (arr, torch.from_numpy(arr)):
+        f2, fc2, t2 = port.unpack_gang(buf, g)
+        np.testing.assert_array_equal(np.asarray(f2), fit)
+        np.testing.assert_array_equal(np.asarray(fc2), fail)
+        np.testing.assert_array_equal(np.asarray(t2), total)
+    want = _port_fit(rows)
+    np.testing.assert_array_equal(fit, want[0])
+    np.testing.assert_array_equal(fail, want[1])
+
+
+def test_gang_stage_reused_per_shape():
+    """One stage a (G, n, cc, np, quota) key, refilled verdict after
+    verdict with other gangs; every verdict equals the stacked route's."""
+    rng = np.random.default_rng(21)
+    stages = {}
+    for step in range(6):
+        g = 1 + step % 2
+        rows = [gang_inputs(rng, 64, quota=bool(step % 3 == 0))
+                for _ in range(g)]
+        fit, fail, _ = _staged(rows, stages)
+        want = _port_fit(rows)
+        np.testing.assert_array_equal(fit, want[0], err_msg=str(step))
+        np.testing.assert_array_equal(fail, want[1], err_msg=str(step))
+    assert sorted(stages) == [(1, 64, 4, 4, False), (1, 64, 4, 4, True),
+                              (2, 64, 4, 4, False), (2, 64, 4, 4, True)]
+
+
+def test_gang_stages_kept_are_bounded():
+    """Stacks of every size from 1 to GANG_STAGES_KEPT + 4 gangs: the
+    planner keeps at most GANG_STAGES_KEPT stages, drops the one used
+    longest ago, and every verdict equals the stacked route's."""
+    from swarmkit_tpu_torch.ops.convert import GANG_STAGES_KEPT
+    rng = np.random.default_rng(23)
+    stages = {}
+    one = [gang_inputs(rng, 32, quota=False)]
+    last = GANG_STAGES_KEPT + 4
+    for g in range(1, last + 1):
+        rows = [gang_inputs(rng, 32, quota=False) for _ in range(g)]
+        fit, fail, _ = _staged(rows, stages)
+        want = _port_fit(rows)
+        np.testing.assert_array_equal(fit, want[0], err_msg=str(g))
+        np.testing.assert_array_equal(fail, want[1], err_msg=str(g))
+        _staged(one, stages)   # the single gang's stage stays in use
+        assert len(stages) <= GANG_STAGES_KEPT
+    # the single gang's and the last GANG_STAGES_KEPT - 1 stacks'
+    kept = sorted(key[0] for key in stages)
+    assert kept == [1] + list(range(last - GANG_STAGES_KEPT + 2, last + 1))
+
+
+def test_gang_stage_refuses_mixed_quota():
+    rng = np.random.default_rng(5)
+    rows = [gang_inputs(rng, 64, quota=True), gang_inputs(rng, 64,
+                                                          quota=False)]
+    with pytest.raises(ValueError, match="quota_ok"):
+        gang_stage(rows, "cpu", {})
 
 
 # ----------------------------------------------------------- planner level
