@@ -115,7 +115,35 @@ Phases, each of which exits non-zero on failure:
     tasks, 16,384 leaf segments): the fused tick on the card places
     exactly as the CPU plain path, both groups fused, none on the host;
     the same tick over four shards of the card places as the unsharded
-    one.
+    one;
+20. native plane: the headline tick and the config-7 tick twice each,
+    with the native C commit plane (``swarmkit_tpu_torch/native``) on and
+    off (``SWARMKIT_TPU_NO_NATIVE``): equal store rows (id, node, state,
+    version), equal events published and equal per-task events when the
+    blocks are expanded; the tick wall, ``sched.commit`` and
+    ``plan.apply`` both ways;
+21. breaker: a planner whose plan path raises ``KernelLaunchError`` on
+    its first three dispatches places a 1,000-node many-service tick
+    through the host path exactly as the host path alone, its breaker
+    open (gauge 2); after a 0.5 s cooldown the half-open probe runs the
+    kernels and closes it.  Then the small-group router's inputs: the
+    host path's cost a task (three host-only ticks of that cluster), the
+    launch overhead (five measurements, each the median of the planner's
+    own timed plans) and the break-even they give; and a trickle of small
+    groups (the churn cluster, every window a few arrivals for each of
+    five services) with the router off, on, on and off: equal store rows,
+    groups below the break-even on the host path when it is on, and the
+    churn's wall time both ways.
+
+The native plane is on for the whole run (it is built first, and the
+script fails without it); ``swarm_native_commit_fallbacks`` must stay 0.
+The small-group router is off by default, so every phase but the
+router's own trickle puts every supported group on the card, and fails
+if a group went to the host path (``groups_small_to_host``,
+``groups_breaker_to_host``, ``groups_device_error``, ``groups_fallback``).
+Over the whole run, the breaker's own phase aside, no counter of
+``ops.planner.DEVICE_FAULT_COUNTERS`` (a device error or an open breaker
+on any route: groups, gang verdicts, victim picks) may move.
 
 The counts of kernel launches are set to 0 just before each main path and
 read just after it; the kernels' JSON line reports K1 from the headline
@@ -131,6 +159,7 @@ line, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.  The full record also goes to ``chiprun_out/chip_smoke.json``.
 """
 
+import gc
 import hashlib
 import json
 import os
@@ -145,6 +174,18 @@ SCALAR_OPS_PER_S = 67e12       # H100 SXM 32-bit rate outside tensor cores
 REPS = 50
 #: shards of the mesh phases, all on the one card
 MESH_SHARDS = 4
+#: the planner's routes to the host path: none may take a group on a phase
+#: that runs with the small-group router off
+HOST_ROUTES = ("groups_device_error", "groups_breaker_to_host",
+               "groups_small_to_host", "groups_fallback")
+#: the router's trickle: windows, seed and mean arrivals a service a window
+TRICKLE_WINDOWS = 12
+TRICKLE_SEED = 3
+TRICKLE_LAM = 3.0
+#: host-only ticks and launch-overhead measurements the router's inputs
+#: take the median of
+HOST_COST_RUNS = 3
+OVERHEAD_RUNS = 5
 #: integer operations a row of K5 and K11 needs: the binpack key (6), its
 #: histogram bin and sum (3), the placement (3)
 PACK_OPS = 12
@@ -218,6 +259,8 @@ PROFILE_DEAD_WAIT_S = 2.0
 #: made, the warm-up rows that came back, the launches without a row, and
 #: the device clock's offset
 PROFILE_LOG = []
+#: seconds a phase of this run took
+PHASE_S = {}
 
 
 def profiled(torch, body):
@@ -2606,7 +2649,7 @@ def phase_mesh_headline(torch, K, cuda, workload, Task, Scheduler,
     stats = dict(planner.stats)
     check(n_dec == workload.HEADLINE_TASKS,
           f"mesh headline: decisions {n_dec} != {workload.HEADLINE_TASKS}")
-    for key in ("groups_spill_to_host", "groups_fallback"):
+    for key in ("groups_spill_to_host",) + HOST_ROUTES:
         check(stats.get(key, 0) == 0, f"mesh headline: {key} = "
               f"{stats.get(key)}")
     for k in (K.FEASIBILITY, K.SHARD_SEG_SUM, K.WATERFILL,
@@ -2662,8 +2705,8 @@ def phase_mesh_many_service(torch, K, cuda, workload, Task, Scheduler,
     check(stats.get("groups_fused") == len(workload.MANY_SERVICE_MIX)
           and stats.get("fused_chunks") == 3,
           f"mesh many-service: not every group fused: {stats}")
-    for key in ("groups_fallback", "groups_planned", "groups_spill_to_host",
-                "fused_overflows", "fused_mesh_indivisible"):
+    for key in ("groups_planned", "groups_spill_to_host", "fused_overflows",
+                "fused_mesh_indivisible") + HOST_ROUTES:
         check(stats.get(key, 0) == 0, f"mesh many-service: {key} = "
               f"{stats.get(key)}")
     for k in (K.SHARD_SEG_SUM, K.WATERFILL, K.SHARD_WATERFILL,
@@ -3068,8 +3111,8 @@ def phase_wide_spread(torch, K, cuda, workload, Task, Scheduler,
               "from the CPU plain path's")
         check(stats.get("groups_fused") == 2, f"per-host spread "
               f"({posture}): groups_fused {stats.get('groups_fused')}")
-        for key in ("groups_fallback", "groups_planned",
-                    "groups_spill_to_host"):
+        for key in ("groups_planned", "groups_spill_to_host") \
+                + HOST_ROUTES:
             check(stats.get(key, 0) == 0, f"per-host spread ({posture}): "
                   f"{key} = {stats.get(key)}")
         fills = (K.SHARD_SEG_SUM, K.SHARD_WATERFILL) if posture == "mesh" \
@@ -3118,9 +3161,8 @@ def phase_main_path(torch, K, cuda, workload, Task, Scheduler,
           f"decisions {n_dec} != {workload.HEADLINE_TASKS}")
     check(stats["tasks_planned"] == workload.HEADLINE_TASKS,
           f"tasks_planned {stats['tasks_planned']}")
-    for key in ("groups_device_error", "groups_spill_to_host",
-                "groups_strategy_host", "groups_breaker_to_host",
-                "groups_fallback"):
+    for key in ("groups_spill_to_host", "groups_strategy_host") \
+            + HOST_ROUTES:
         check(stats.get(key, 0) == 0, f"{key} = {stats.get(key)}")
     for k in (K.FEASIBILITY, K.SEG_SUM, K.WATERFILL):
         check(launches[k.name] > 0, f"{k.name} never launched on the "
@@ -3164,6 +3206,40 @@ def phase_traced_tick(torch, build, Scheduler, TorchPlanner, tracer, card,
     return traced(torch, tracer, tick, card, label)
 
 
+class GcClock:
+    """The cyclic garbage collector's collections while ``on`` is set:
+    (generation, seconds) each.  Registered as a ``gc.callbacks`` entry
+    while it is entered."""
+
+    def __init__(self):
+        self.on = False
+        self.runs = []
+        self._t0 = None
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter() if self.on else None
+        elif self._t0 is not None:
+            self.runs.append((info["generation"],
+                              time.perf_counter() - self._t0))
+            self._t0 = None
+
+    def __enter__(self):
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self)
+
+    def by_generation(self):
+        """{generation: (collections, seconds)}."""
+        out = {}
+        for gen, sec in self.runs:
+            n, s = out.get(gen, (0, 0.0))
+            out[gen] = (n + 1, s + sec)
+        return dict(sorted(out.items()))
+
+
 def traced(torch, tracer, fn, card, label):
     """Run ``fn`` under the span tracer and torch.profiler (a
     :func:`profiled` session, whose warm-up is kept out of the wall time
@@ -3172,17 +3248,22 @@ def traced(torch, tracer, fn, card, label):
     no device row (a tick cannot be run again: where it is not 0, the busy
     time is short by their rows)."""
     wall = []
+    clock = GcClock()
 
     def body():
         tracer.reset()
         tracer.enable()
+        clock.on = True
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall.append(time.perf_counter() - t0)
+        clock.on = False
         tracer.disable()
 
-    events, session = profiled(torch, body)
+    with clock:
+        events, session = profiled(torch, body)
+    collections = clock.by_generation()
     PROFILE_LOG.append(dict(label=label, session=session))
     wall = wall[0]
     spans = Counter()
@@ -3201,8 +3282,13 @@ def traced(torch, tracer, fn, card, label):
           + (f"{device_s * 1e3:.3f} ms ({busy:.4%} of the wall time)"
              if busy is not None else "not measured")
           + f" ({session['missing']} launches without a device row) on "
-          f"{card}; spans: {top}; device rows: {ops}", flush=True)
+          f"{card}; spans: {top}; device rows: {ops}; garbage collections "
+          "in it: " + (", ".join(f"gen {g} x{n} {sec * 1e3:.1f} ms"
+                                 for g, (n, sec) in collections.items())
+                       or "none"), flush=True)
     return dict(wall_s=wall, device_busy_s=device_s or None,
+                gc_by_generation={str(g): dict(collections=n, seconds=sec)
+                                  for g, (n, sec) in collections.items()},
                 device_busy_share=busy, launches_without_row=session[
                     "missing"],
                 spans_s={k: v for k, v in spans.most_common()},
@@ -3342,9 +3428,8 @@ def phase_many_service(torch, K, cuda, workload, Task, Scheduler,
           f"groups_fused {stats.get('groups_fused')} != {n_groups}")
     check(stats.get("fused_chunks") == 3,
           f"fused_chunks {stats.get('fused_chunks')} != 3")
-    for key in ("groups_strategy_host", "groups_fallback", "groups_planned",
-                "groups_spill_to_host", "groups_device_error",
-                "fused_overflows"):
+    for key in ("groups_strategy_host", "groups_planned",
+                "groups_spill_to_host", "fused_overflows") + HOST_ROUTES:
         check(stats.get(key, 0) == 0, f"{key} = {stats.get(key)}")
     for k in K.KERNELS:
         if k in (K.FEASIBILITY, K.SCATTER, K.GANG_FIT, K.SHARD_SEG_SUM,
@@ -3410,6 +3495,319 @@ def phase_many_service_oracle(workload, Task, Scheduler, TorchPlanner):
     return placed
 
 
+def set_native(on):
+    """The native plane on (both switches cleared), or off through
+    ``SWARMKIT_TPU_NO_NATIVE`` with the commit plane's own switch pulled
+    too (``SWARM_NATIVE_COMMIT=0``), so an off run is the Python oracle
+    and not a counted fallback."""
+    if on:
+        os.environ.pop("SWARMKIT_TPU_NO_NATIVE", None)
+        os.environ.pop("SWARM_NATIVE_COMMIT", None)
+    else:
+        os.environ["SWARMKIT_TPU_NO_NATIVE"] = "1"
+        os.environ["SWARM_NATIVE_COMMIT"] = "0"
+
+
+def fixed_ids(identity):
+    """Mint ids from a counter (``None`` to stop), so two builds of one
+    cluster carry the same ids."""
+    import itertools
+    n = itertools.count()
+    identity.set_id_source(lambda: f"{next(n):025d}")
+
+
+def store_rows(store, Task):
+    """(id, node, state, version) of every task, sorted."""
+    return sorted((t.id, t.node_id, int(t.status.state),
+                   t.meta.version.index)
+                  for t in store.view(lambda tx: tx.find(Task)))
+
+
+def phase_native(torch, native, identity, EventTaskBlock, workload, Task,
+                 Scheduler, TorchPlanner, tracer, card):
+    """The headline tick and the config-7 tick twice each, with the native
+    C commit plane on and off: the same store rows (id, node, state,
+    version), the same events published (and the same per-task events
+    when each block is expanded), and the tick's wall time with its
+    ``sched.commit`` and ``plan.apply`` spans both ways."""
+    out = {}
+    for label, build in (("headline", workload.headline_cluster),
+                         ("config 7", workload.many_service_cluster)):
+        runs = {}
+        for on in (True, False):
+            set_native(on)
+            hp = native.get()
+            check((hp is not None) == on, f"native {label}: native.get() "
+                  f"is {hp} with the plane {'on' if on else 'off'}")
+            fixed_ids(identity)
+            try:
+                store = build()[0]
+            finally:
+                identity.set_id_source(None)
+            planner = TorchPlanner()
+            sched = Scheduler(store, batch_planner=planner)
+            store.view(sched._setup_tasks_list)
+            sub = store.queue.subscribe(accepts_blocks=True)
+            tracer.reset()
+            tracer.enable()
+            t0 = time.perf_counter()
+            sched._process_preassigned_tasks()
+            n_dec = sched.tick()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            tracer.disable()
+            spans = Counter()
+            for sp in tracer.spans():
+                spans[sp.name] += sp.duration
+            events = sub.drain()
+            store.queue.unsubscribe(sub)
+            published = sum(len(e) if isinstance(e, EventTaskBlock) else 1
+                            for e in events)
+            blocks = [e for e in events if isinstance(e, EventTaskBlock)]
+            t0 = time.perf_counter()
+            expanded = [e.expand_events() for e in blocks]
+            expand_s = time.perf_counter() - t0
+            fan = hashlib.sha256()
+            for evs in expanded:
+                for ev in evs:
+                    fan.update(f"{ev.obj.id}:{ev.obj.node_id}:"
+                               f"{ev.obj.meta.version.index};".encode())
+            del expanded
+            rows = store_rows(store, Task)
+            runs[on] = dict(
+                decisions=n_dec, wall_s=wall,
+                commit_s=spans.get("sched.commit", 0.0),
+                apply_s=spans.get("plan.apply", 0.0),
+                events=published, expand_s=expand_s,
+                fanout_digest=fan.hexdigest(),
+                rows_digest=hashlib.sha256(repr(rows).encode()).hexdigest(),
+                placed=sum(1 for r in rows if r[1]),
+                stats={k: v for k, v in planner.stats.items()
+                       if k != "plan_seconds"})
+            check(not any(planner.stats.get(k, 0) for k in HOST_ROUTES),
+                  f"native {label}: a group left the card: "
+                  f"{planner.stats}")
+        set_native(True)
+        a, b = runs[True], runs[False]
+        for key in ("decisions", "rows_digest", "events", "fanout_digest",
+                    "placed", "stats"):
+            check(a[key] == b[key], f"native {label}: {key} differs with "
+                  f"the plane on ({a[key]}) and off ({b[key]})")
+        print(f"native plane, {label}: {a['decisions']} decisions, "
+              f"{a['placed']} tasks placed, {a['events']} events, rows "
+              f"equal on and off ({a['rows_digest'][:16]}); tick "
+              f"{a['wall_s']:.3f} s native / {b['wall_s']:.3f} s Python, "
+              f"sched.commit {a['commit_s']:.3f} / {b['commit_s']:.3f} s, "
+              f"plan.apply {a['apply_s']:.3f} / {b['apply_s']:.3f} s, "
+              f"fan-out {a['expand_s']:.3f} / {b['expand_s']:.3f} s, on "
+              f"{card}", flush=True)
+        out[label] = {"native": a, "python": b}
+    return out
+
+
+def trickle_script(workload, windows=TRICKLE_WINDOWS, seed=TRICKLE_SEED):
+    """The churn's windows as a trickle of small groups: every window a few
+    arrivals (Poisson(3), at least one) for each of the five arriving
+    services, as restarts and one-replica updates send them, and the
+    churn's exits.  Seeded."""
+    import random
+    rng = random.Random(seed)
+    return [({sid: max(1, workload.poisson(rng, TRICKLE_LAM))
+              for sid in workload.CHURN_ARRIVE},
+             workload.poisson(rng, workload.CHURN_LAM_EXIT))
+            for _ in range(windows)]
+
+
+def run_trickle(torch, workload, Task, planner, script):
+    """One churn run over ``script`` with ``planner`` (None: the host path
+    alone): (decisions, wall seconds of the windows' ticks, store rows,
+    planner stats)."""
+    wl = workload.steady_state_churn()
+    wl.script = list(script)
+    sched = wl.attach(planner)
+    sched.tick()
+    decisions, t0 = 0, time.perf_counter()
+    for arrivals, exits in wl.script:
+        wl.feed(arrivals, exits)
+        decisions += sched.tick()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = store_rows(wl.store, Task)
+    wl.close()
+    stats = {} if planner is None else planner.stats
+    return decisions, wall, rows, {k: v for k, v in stats.items()
+                                   if k != "plan_seconds"}
+
+
+def phase_breaker(torch, K, cuda, workload, Task, Scheduler, TorchPlanner,
+                  planner_mod, registry, card):
+    """The breaker on the card: a planner whose plan path raises
+    ``KernelLaunchError`` on its first three dispatches (a stub in front
+    of the real kernels) places a 1,000-node many-service tick through the
+    host path exactly as a run without a planner, its breaker open (gauge
+    2); after the cooldown the half-open probe runs the real kernels and
+    closes it.  Then the small-group router: the host path's cost a task,
+    the launch overhead, the break-even, and a trickle of small groups
+    with the router off and on."""
+    from swarmkit_tpu_torch.ops.cuda import KernelLaunchError
+    cooldown = 0.5
+
+    class Flaky(TorchPlanner):
+        injected = 0
+
+        def _enqueue_plan(self, *args, **kw):
+            if self.injected < 3:
+                self.injected += 1
+                raise KernelLaunchError("injected launch failure")
+            return super()._enqueue_plan(*args, **kw)
+
+    planner = Flaky(breaker=planner_mod.PlannerBreaker(threshold=3,
+                                                       cooldown=cooldown))
+    planner.fused_enabled = False
+
+    def run(p):
+        store, services, nodes, _ = workload.many_service_cluster(1000,
+                                                                   10000)
+        sched = Scheduler(store, batch_planner=p)
+        store.view(sched._setup_tasks_list)
+        t0 = time.perf_counter()
+        n_dec = sched.tick()
+        torch.cuda.synchronize()
+        tick_s = time.perf_counter() - t0
+        return n_dec, service_counts(store, Task, services, nodes), tick_s
+
+    n_dec, tripped, _ = run(planner)
+    gauge = registry.get_gauge("swarm_planner_breaker_state")
+    stats = dict(planner.stats)
+    host_runs = [run(None) for _ in range(HOST_COST_RUNS)]
+    n_host, host, _ = host_runs[0]
+    check(all(r[0] == n_host and r[1] == host for r in host_runs),
+          "breaker: the host-only ticks differ")
+    check(n_dec == n_host == 10000 and tripped == host,
+          "breaker: the tripped tick differs from the host path's")
+    check(planner.injected == 3 and stats.get("groups_device_error") == 3,
+          f"breaker: {planner.injected} injected, stats {stats}")
+    check(stats.get("groups_breaker_to_host") == 7
+          and stats.get("groups_planned", 0) == 0,
+          f"breaker: groups not routed to the host: {stats}")
+    check(planner.breaker.state == planner_mod.BREAKER_OPEN and gauge == 2,
+          f"breaker: state {planner.breaker.state_name}, gauge {gauge}")
+    time.sleep(cooldown * 1.5)
+    cuda.reset_launch_counts(K.KERNELS)
+    n_probe, probed, _ = run(planner)
+    launches = cuda.launch_counts(K.KERNELS)
+    gauge_after = registry.get_gauge("swarm_planner_breaker_state")
+    check(planner.breaker.state == planner_mod.BREAKER_CLOSED
+          and gauge_after == 0 and planner.breaker.stats["probes"] == 1,
+          f"breaker: the half-open probe did not close it "
+          f"({planner.breaker.state_name}, {planner.breaker.stats})")
+    check(planner.stats["groups_planned"] == 10 and probed == host,
+          f"breaker: after the probe {planner.stats}")
+    for k in (K.FEASIBILITY, K.SEG_SUM, K.WATERFILL):
+        check(launches[k.name] > 0, f"breaker: {k.name} not launched "
+              "after the probe")
+    print(f"breaker: 3 injected launch errors tripped it open (gauge "
+          f"{gauge:.0f}), 10,000 tasks placed by the host path as without a "
+          f"planner; after {cooldown} s the half-open probe ran the kernels "
+          f"and closed it (gauge {gauge_after:.0f}) on {card}", flush=True)
+
+    # the router's inputs: the host path's cost a task, and the launch
+    # overhead, each over repeated samples
+    host_task_s = sorted(r[2] / n_host for r in host_runs)
+    host_cost = statistics.median(host_task_s)
+    overheads = []
+    for _ in range(OVERHEAD_RUNS):
+        TorchPlanner._launch_overhead_shared.clear()
+        probe = TorchPlanner()
+        probe._measure_launch_overhead()
+        check(probe._launch_overhead > 0.0,
+              "breaker: the launch-overhead probe failed")
+        overheads.append(probe._launch_overhead)
+    overhead = statistics.median(overheads)
+    break_even = int(0.8 * overhead / host_cost) + 1
+    print(f"router: host path {host_cost * 1e6:.2f} us a task (median of "
+          f"{HOST_COST_RUNS} host-only 10,000-task ticks: "
+          f"{', '.join(f'{x * 1e6:.2f}' for x in host_task_s)}); launch "
+          f"overhead {overhead * 1e3:.4f} ms (median of {OVERHEAD_RUNS} "
+          f"measurements, each the median of "
+          f"{TorchPlanner.LAUNCH_PROBE_SAMPLES} plans: "
+          f"{', '.join(f'{x * 1e3:.4f}' for x in sorted(overheads))}); so "
+          f"groups below {break_even} tasks go to the host with the router "
+          f"on (the planner's constant: "
+          f"{planner_mod.HOST_COST_PER_TASK * 1e6:.2f} us a task) on {card}",
+          flush=True)
+
+    # a trickle of small groups: the host path alone, then the router
+    # off / on / on / off.  The kernels and the host path break ties
+    # between equal nodes differently, so the runs compare within a
+    # setting, and the router's against the host path's where it sent
+    # every group there
+    script = trickle_script(workload)
+    arrived = sum(sum(a.values()) for a, _ in script)
+    n_groups = sum(len(a) for a, _ in script)
+    _, host_s, host_rows, _ = run_trickle(torch, workload, Task, None,
+                                          script)
+    trickle = []
+    for on in (False, True, True, False):
+        p = TorchPlanner()
+        if on:
+            p.enable_small_group_routing = True
+            p._launch_overhead = overhead
+            p.host_cost_per_task = host_cost
+        decisions, wall, rows, rstats = run_trickle(torch, workload, Task,
+                                                    p, script)
+        label = "on" if on else "off"
+        check(decisions == arrived, f"trickle (router {label}): "
+              f"{decisions} decisions for {arrived} arrivals")
+        for key in ("groups_device_error", "groups_breaker_to_host"):
+            check(rstats.get(key, 0) == 0, f"trickle: {key} = "
+                  f"{rstats.get(key)}")
+        small = rstats.get("groups_small_to_host", 0)
+        check((small > 0) == on, f"trickle (router {label}): "
+              f"groups_small_to_host {small}")
+        if small == n_groups:
+            check(rows == host_rows, "trickle: the router sent every group "
+                  "to the host path, which placed them otherwise")
+        trickle.append(dict(router=on, decisions=decisions, seconds=wall,
+                            rows=rows, stats=rstats))
+    for on in (False, True):
+        same = [r.pop("rows") for r in trickle if r["router"] == on]
+        check(same[0] == same[1], f"trickle: two runs with the router "
+              f"{'on' if on else 'off'} placed otherwise")
+    walls = {on: [r["seconds"] for r in trickle if r["router"] == on]
+             for on in (False, True)}
+    on_stats = trickle[1]["stats"]
+    print(f"router trickle: {arrived} arrivals in {n_groups} groups of "
+          f"1-{max(max(a.values()) for a, _ in script)} tasks over "
+          f"{len(script)} windows; router on: groups_small_to_host "
+          f"{on_stats.get('groups_small_to_host', 0)}, groups_planned "
+          f"{on_stats.get('groups_planned', 0)}, groups_fused "
+          f"{on_stats.get('groups_fused', 0)}, "
+          f"{', '.join(f'{x:.4f}' for x in walls[True])} s; router off: "
+          f"{', '.join(f'{x:.4f}' for x in walls[False])} s (off, on, on, "
+          f"off); host path alone {host_s:.4f} s, on {card}", flush=True)
+    return dict(injected=planner.injected, tripped_stats=stats,
+                gauge_open=gauge, gauge_after_probe=gauge_after,
+                probe_launches=launches, host_cost_per_task_s=host_cost,
+                host_task_samples_s=host_task_s, launch_overhead_s=overhead,
+                launch_overhead_samples_s=overheads,
+                break_even_tasks=break_even, trickle=trickle,
+                trickle_host_s=host_s)
+
+
+def phase(name, fn, *args, **kw):
+    """``fn(*args, **kw)``, its seconds kept in ``PHASE_S[name]``."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    PHASE_S[name] = PHASE_S.get(name, 0.0) + time.perf_counter() - t0
+    return out
+
+
+def device_faults(registry, planner_mod):
+    return {name: registry.get_counter(name)
+            for name in planner_mod.DEVICE_FAULT_COUNTERS}
+
+
 def main():
     try:
         import torch
@@ -3418,16 +3816,20 @@ def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: torch.cuda.is_available() is False")
     try:
-        from swarmkit_tpu_torch import workload
+        from swarmkit_tpu_torch import native, workload
         from swarmkit_tpu_torch.models import Platform, Task
         from swarmkit_tpu_torch.obs import tracer
         from swarmkit_tpu_torch.ops import TorchPlanner, cuda
         from swarmkit_tpu_torch.ops import kernel as K
+        from swarmkit_tpu_torch.ops import planner as planner_mod
         from swarmkit_tpu_torch.ops import preempt as P
         from swarmkit_tpu_torch.ops.convert import (
             fused_to_device, gang_to_device, to_device, victims_to_device)
         from swarmkit_tpu_torch.parallel import make_mesh
         from swarmkit_tpu_torch.scheduler import Scheduler
+        from swarmkit_tpu_torch.state.events import EventTaskBlock
+        from swarmkit_tpu_torch.utils import identity
+        from swarmkit_tpu_torch.utils.metrics import registry
     except ImportError as exc:
         fail(f"the swarmkit_tpu_torch package is not importable: {exc}")
 
@@ -3438,55 +3840,98 @@ def main():
     print(f"card: {card} (torch sees {kind} x{count}; torch "
           f"{torch.__version__}, CUDA {torch.version.cuda})", flush=True)
 
-    build = phase_build(cuda)
-    rows, plan = phase_kernels(torch, K, to_device)
-    fused_rows, chunk = phase_kernels_fused(torch, K, fused_to_device)
+    # the native C commit plane runs under every phase; a run without it
+    # (no C compiler) fails here
+    set_native(True)
+    t0 = time.perf_counter()
+    check(native.get() is not None, "the native C commit plane did not "
+          "build (native.get() is None)")
+    print(f"native plane: {native.loaded_path()} "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    fallbacks0 = registry.get_counter("swarm_native_commit_fallbacks")
+    faults0 = device_faults(registry, planner_mod)
+
+    build = phase("build", phase_build, cuda)
+    rows, plan = phase("kernels", phase_kernels, torch, K, to_device)
+    fused_rows, chunk = phase("kernels_fused", phase_kernels_fused, torch, K,
+                              fused_to_device)
     rows += fused_rows
-    main_path, headline_plans = phase_main_path(
-        torch, K, cuda, workload, Task, Scheduler, TorchPlanner, card)
-    traced = phase_traced_tick(torch, workload.headline_cluster, Scheduler,
-                               TorchPlanner, tracer, card)
-    oracle = phase_host_oracle(workload, Task, Platform, TorchPlanner)
-    many, many_plans, many_counts = phase_many_service(
-        torch, K, cuda, workload, Task, Scheduler, TorchPlanner, card)
-    many_traced = phase_traced_tick(
-        torch, workload.many_service_cluster, Scheduler, TorchPlanner, tracer,
+    main_path, headline_plans = phase(
+        "main_path", phase_main_path, torch, K, cuda, workload, Task,
+        Scheduler, TorchPlanner, card)
+    traced = phase("traced_tick", phase_traced_tick, torch,
+                   workload.headline_cluster, Scheduler, TorchPlanner,
+                   tracer, card)
+    oracle = phase("host_oracle", phase_host_oracle, workload, Task,
+                   Platform, TorchPlanner)
+    many, many_plans, many_counts = phase(
+        "many_service", phase_many_service, torch, K, cuda, workload, Task,
+        Scheduler, TorchPlanner, card)
+    many_traced = phase(
+        "traced_many_service", phase_traced_tick, torch,
+        workload.many_service_cluster, Scheduler, TorchPlanner, tracer,
         card, label="traced many-service tick")
-    oracle["many_service_1k"] = phase_many_service_oracle(
-        workload, Task, Scheduler, TorchPlanner)
-    resident_rows, resident_kernels = phase_kernels_resident(torch, K,
-                                                             gang_to_device)
+    oracle["many_service_1k"] = phase(
+        "many_service_oracle", phase_many_service_oracle, workload, Task,
+        Scheduler, TorchPlanner)
+    native_run = phase("native", phase_native, torch, native, identity,
+                       EventTaskBlock, workload, Task, Scheduler,
+                       TorchPlanner, tracer, card)
+    # the breaker's phase injects launch errors: its counts are its own
+    faults1 = device_faults(registry, planner_mod)
+    breaker = phase("breaker", phase_breaker, torch, K, cuda, workload,
+                    Task, Scheduler, TorchPlanner, planner_mod, registry,
+                    card)
+    faults2 = device_faults(registry, planner_mod)
+    resident_rows, resident_kernels = phase(
+        "kernels_resident", phase_kernels_resident, torch, K,
+        gang_to_device)
     rows += resident_rows
-    churn = phase_churn(torch, K, cuda, workload, TorchPlanner, make_mesh,
-                        card)
-    churn["traced"] = phase_traced_churn(torch, workload, TorchPlanner,
-                                         tracer, card)
-    gang = phase_gang(torch, K, cuda, workload, Task, Scheduler,
-                      TorchPlanner, gang_to_device, card)
-    jobs, config8_calls = phase_priority_jobs(
-        torch, K, P, cuda, workload, Task, Scheduler, TorchPlanner, card)
-    victim_rows, victim_kernels = phase_kernels_victims(
-        torch, P, victims_to_device, config8_calls)
+    churn = phase("churn", phase_churn, torch, K, cuda, workload,
+                  TorchPlanner, make_mesh, card)
+    churn["traced"] = phase("traced_churn", phase_traced_churn, torch,
+                            workload, TorchPlanner, tracer, card)
+    gang = phase("gang", phase_gang, torch, K, cuda, workload, Task,
+                 Scheduler, TorchPlanner, gang_to_device, card)
+    jobs, config8_calls = phase(
+        "priority_jobs", phase_priority_jobs, torch, K, P, cuda, workload,
+        Task, Scheduler, TorchPlanner, card)
+    victim_rows, victim_kernels = phase(
+        "kernels_victims", phase_kernels_victims, torch, P,
+        victims_to_device, config8_calls)
     rows += victim_rows
-    storm = phase_storm(torch, K, P, cuda, workload, Task, Scheduler,
-                        TorchPlanner, victims_to_device, tracer, card)
-    mesh_rows, mesh_cases = phase_kernels_mesh(torch, K)
+    storm = phase("storm", phase_storm, torch, K, P, cuda, workload, Task,
+                  Scheduler, TorchPlanner, victims_to_device, tracer, card)
+    mesh_rows, mesh_cases = phase("kernels_mesh", phase_kernels_mesh, torch,
+                                  K)
     rows += mesh_rows
     mesh = {"kernel_cases": mesh_cases}
-    mesh["compositions"] = phase_mesh_compositions(torch, K, to_device,
-                                                   fused_to_device)
-    mesh["headline"] = phase_mesh_headline(
-        torch, K, cuda, workload, Task, Scheduler, TorchPlanner, make_mesh,
-        card, headline_plans, main_path["rack_counts"])
-    mesh["many_service"] = phase_mesh_many_service(
-        torch, K, cuda, workload, Task, Scheduler, TorchPlanner, make_mesh,
-        card, many_plans, many_counts)
-    mesh["traced_many_service"] = phase_traced_tick(
-        torch, workload.many_service_cluster, Scheduler,
+    mesh["compositions"] = phase(
+        "mesh_compositions", phase_mesh_compositions, torch, K, to_device,
+        fused_to_device)
+    mesh["headline"] = phase(
+        "mesh_headline", phase_mesh_headline, torch, K, cuda, workload,
+        Task, Scheduler, TorchPlanner, make_mesh, card, headline_plans,
+        main_path["rack_counts"])
+    mesh["many_service"] = phase(
+        "mesh_many_service", phase_mesh_many_service, torch, K, cuda,
+        workload, Task, Scheduler, TorchPlanner, make_mesh, card,
+        many_plans, many_counts)
+    mesh["traced_many_service"] = phase(
+        "traced_mesh_many_service", phase_traced_tick, torch,
+        workload.many_service_cluster, Scheduler,
         lambda: mesh_planner(TorchPlanner, make_mesh), tracer, card,
         label="traced mesh many-service tick")
-    wide = phase_wide_spread(torch, K, cuda, workload, Task, Scheduler,
-                             TorchPlanner, make_mesh, card)
+    wide = phase("wide_spread", phase_wide_spread, torch, K, cuda, workload,
+                 Task, Scheduler, TorchPlanner, make_mesh, card)
+    faults3 = device_faults(registry, planner_mod)
+    moved = {k: faults1[k] - faults0[k] + faults3[k] - faults2[k]
+             for k in faults0}
+    check(not any(moved.values()), f"work left the card for a device "
+          f"fault or an open breaker: {moved}")
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                        for k, v in PHASE_S.items()),
+          flush=True)
 
     # each kernel's launches from the main path that runs it
     path_launches = dict(many["launches"])
@@ -3509,6 +3954,10 @@ def main():
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": r["library_ms"]})
+    fallbacks = registry.get_counter("swarm_native_commit_fallbacks") \
+        - fallbacks0
+    check(fallbacks == 0 and native.get() is not None,
+          f"the native plane fell back {fallbacks} times during the run")
     record = {"card": card, "kind": kind, "build_s": build.seconds,
               "kernels": kernels,
               "device_ms": {r.get("name", r["kernel"].name): r["device_ms"]
@@ -3520,6 +3969,9 @@ def main():
               "churn": churn, "gang": gang,
               "victim_kernels": victim_kernels, "priority_jobs": jobs,
               "storm": storm, "mesh": mesh, "per_host_spread": wide,
+              "native": native_run, "native_fallbacks": fallbacks,
+              "breaker": breaker, "device_faults": moved,
+              "phase_seconds": PHASE_S,
               "profiler_sessions": PROFILE_LOG,
               "seconds": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)

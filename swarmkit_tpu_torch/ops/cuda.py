@@ -8,10 +8,15 @@ at first use, into ``swarmkit_tpu_torch/_build/`` (listed in
 source is never served by a stale library.
 
 Every entry point takes its pointers and the CUDA stream as ``c_void_p``
-and returns ``cudaGetLastError()``; :class:`CudaKernel` raises when that is
-not 0 and counts the launch otherwise.  Nothing here runs at import time:
-the CPU tests import every module of the package on a machine without a
-card or ``nvcc``.
+and returns ``cudaGetLastError()``; :class:`CudaKernel` raises
+:class:`KernelLaunchError` when that is not 0 and counts the launch
+otherwise.  A library that cannot be built or loaded (no ``nvcc``, a
+failed compile or link, a missing symbol) raises :class:`KernelBuildError`.
+Both subclass ``RuntimeError``; the planner's breaker sends a group to the
+host path on a launch error (:data:`DEVICE_ERRORS`), never on a build
+error.  Nothing here runs at
+import time: the CPU tests import every module of the package on a machine
+without a card or ``nvcc``.
 """
 
 from __future__ import annotations
@@ -67,6 +72,23 @@ SIGNATURES = {
 }
 
 
+class KernelBuildError(RuntimeError):
+    """The kernel library cannot be built or loaded: no ``nvcc``, a failed
+    compile or link, a missing symbol.  Never routed around."""
+
+
+class KernelLaunchError(RuntimeError):
+    """The CUDA runtime refused a kernel launch."""
+
+
+#: the errors the planner's breaker routes to the host path: a refused
+#: launch, and the CUDA runtime's own error, which torch raises where an
+#: asynchronous fault surfaces (a copy, an event's synchronize).  Anything
+#: else a plan path raises is a fault of the program and propagates.
+DEVICE_ERRORS = (KernelLaunchError,) + tuple(
+    e for e in (getattr(torch, "AcceleratorError", None),) if e is not None)
+
+
 class BuildResult:
     """Where the library is, how long its build took (0 when it was
     already built for these sources) and what ``ptxas -v`` reported."""
@@ -91,8 +113,8 @@ def nvcc_path() -> str:
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
-                       "(set CUDA_HOME or put nvcc on the PATH)")
+    raise KernelBuildError("nvcc not found: the CUDA kernels cannot be "
+                           "built (set CUDA_HOME or put nvcc on the PATH)")
 
 
 def source_digest() -> str:
@@ -118,7 +140,8 @@ def _run_all(cmds: Sequence[List[str]]) -> List[str]:
         if p.returncode != 0:
             failed.append(f"$ {' '.join(cmd)}\n{out}{err}")
     if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        raise KernelBuildError("CUDA kernel build failed:\n"
+                               + "\n".join(failed))
     return outs
 
 
@@ -154,23 +177,40 @@ def build() -> BuildResult:
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_mu = threading.Lock()
+# seconds of this process's library build not yet charged to a launch
+_unclaimed_build_s = 0.0
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use (the lock is taken
     only until it is loaded)."""
-    global _lib
+    global _lib, _unclaimed_build_s
     if _lib is not None:
         return _lib
     with _lib_mu:
         if _lib is None:
-            lib = ctypes.CDLL(str(build().path))
-            for sym, (argtypes, restype) in SIGNATURES.items():
-                fn = getattr(lib, sym)
-                fn.argtypes = argtypes
-                fn.restype = restype
+            built = build()
+            try:
+                lib = ctypes.CDLL(str(built.path))
+                for sym, (argtypes, restype) in SIGNATURES.items():
+                    fn = getattr(lib, sym)
+                    fn.argtypes = argtypes
+                    fn.restype = restype
+            except (OSError, AttributeError) as e:
+                raise KernelBuildError(
+                    f"CUDA kernel library {built.path} unusable: {e}") from e
+            _unclaimed_build_s = built.seconds
             _lib = lib
         return _lib
+
+
+def take_build_seconds() -> float:
+    """The seconds this process spent building the kernel library, once:
+    the first caller after the build gets them, every later one 0.0 (the
+    planner charges them to the first launch of a bucket)."""
+    global _unclaimed_build_s
+    s, _unclaimed_build_s = _unclaimed_build_s, 0.0
+    return s
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -220,8 +260,8 @@ class CudaKernel:
         code = fn(*args, stream_handle() if stream is None else stream)
         if code != 0:
             msg = library().sk_error_string(code).decode(errors="replace")
-            raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
-                               f"error {code} ({msg})")
+            raise KernelLaunchError(f"{self.name} kernel launch failed: "
+                                    f"CUDA error {code} ({msg})")
         self.launches += 1
 
 

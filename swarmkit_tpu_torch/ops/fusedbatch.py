@@ -197,7 +197,7 @@ class FusedRun:
     __slots__ = ("sched", "specs", "cols", "shared", "carry", "chunks",
                  "next_dispatch", "next_fetch", "last_fetch_end", "L",
                  "nb", "cc", "pb", "sb", "has_quota", "has_strat",
-                 "aborted")
+                 "aborted", "dispatch_dead")
 
     def __init__(self, sched, specs, cols, shared, carry, chunks,
                  L, nb, cc, pb, sb, has_quota=False, has_strat=False):
@@ -218,6 +218,7 @@ class FusedRun:
         self.has_quota = has_quota
         self.has_strat = has_strat
         self.aborted = False
+        self.dispatch_dead = False   # a chunk's dispatch failed
 
     @property
     def n_groups(self) -> int:

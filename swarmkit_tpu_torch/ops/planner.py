@@ -18,14 +18,30 @@ the chunk), and one D2H of the chunk's result rows.  Gang
 admission asks ``gang_feasible`` / ``gang_feasible_many`` for its
 all-or-nothing precheck, which K8 decides on the card, and the preemption
 pass asks ``select_victims`` for its victim picks, which K9 makes on the
-card.  The breaker and small-group router are not part of this planner.
+card.
 
 Groups go to the host path for the features the device path does not
 model: CSI volume mounts, non-discrete generic resources, spread trees
 deeper than 4 levels, and static buckets that overflow (``groups_fallback``).
-Nothing on the device path is caught: a kernel build, launch or fetch error
-propagates and fails the tick.  Only a fused run that cannot be built (no
-node, a bucket overflow) is routing: its groups take the per-group route.
+With the small-group router on (``enable_small_group_routing``, off by
+default), small groups go to the host path too (``groups_small_to_host``):
+a plan on the card costs a fixed round trip (``_measure_launch_overhead``
+takes the median of several warm minimal plans through the per-group
+route), while the host oracle costs ``host_cost_per_task`` a task, so below
+the break-even the group stays on the host.
+
+A launch or fetch error on the device (``ops.cuda.DEVICE_ERRORS``: a
+refused launch, or the CUDA runtime's own error) never fails the tick: it
+is logged, counted (``groups_device_error``, ``preempt_device_error``,
+``gang_device_error``), fed to the :class:`PlannerBreaker`, and the group
+goes to the host oracle, whose placements the kernels equal bit for bit.
+Three failures in a row trip the breaker open: every route then takes the
+host path (``groups_breaker_to_host``, ``preempt_breaker_to_host``) until a
+cooldown has passed and one half-open probe group succeeds on the card.
+Anything else a route raises -- a kernel that does not build
+(``ops.cuda.KernelBuildError``), a fault of the program -- is never routed
+around: it raises out of the route and leaves the breaker as it was.  The
+plain versions on the CPU never raise a device error.
 
 Densification builds SoA arrays from the scheduler's NodeSet mirror.  The
 group-independent node columns are built once per tick (begin_tick), kept
@@ -47,6 +63,7 @@ the mesh's first device, as in the reference.
 
 from __future__ import annotations
 
+import logging
 import time
 from collections import deque
 from typing import Dict, List, Optional
@@ -81,9 +98,34 @@ from .kernel import (
     plan_fused_packed, plan_group_packed, plan_strategy_packed, start_fetch,
     unpack_feasibility, unpack_fused, unpack_gang,
 )
+from . import cuda as _cuda
+from .cuda import DEVICE_ERRORS
 from .preempt import plan_victims
 
+log = logging.getLogger("torch-planner")
+
+#: the host oracle's cost a task, which the small-group router weighs
+#: against the launch overhead: the median of three host-only ticks of
+#: 10,000 tasks on 1,000 nodes (``chip_smoke.py``'s breaker phase) on the
+#: host of an NVIDIA H100 80GB HBM3 machine.  The model has no term for
+#: the host path's pass over every node a group, which the same phase's
+#: trickle of small groups shows to dominate: hence the router is off by
+#: default
+HOST_COST_PER_TASK = 29.4e-6
+
+#: the registry's counters of work that left the card for a device error
+#: or an open breaker, on every route (groups, gang verdicts, victim
+#: picks), and of the breaker's trips: a run on a healthy card moves none
+DEVICE_FAULT_COUNTERS = (
+    "swarm_planner_groups_device_error",
+    'swarm_planner_groups{route="breaker"}',
+    "swarm_planner_gang_device_error",
+    "swarm_planner_preempt_device_error",
+    "swarm_planner_preempt_breaker_to_host",
+    "swarm_planner_breaker_trips")
+
 _PLAN_TIMER = _metrics.timer("swarm_planner_plan_latency")
+_COMPILE_TIMER = _metrics.timer("swarm_planner_compile_latency")
 
 
 def _bucket_label(nodes_in, group_in, L: int, hier) -> str:
@@ -113,6 +155,139 @@ def _fast_assign(task: Task, node_id: str, status) -> Task:
     return new
 
 
+def _probe_inputs():
+    """The launch-overhead probe's minimal plan: 1,024 ready nodes, 8
+    tasks, no constraint, one flat segment."""
+    nb = 1024
+    valid = np.ones(nb, bool)
+    nodes = NodeInputs(
+        valid=valid, ready=valid.copy(),
+        res_ok=valid.copy(), res_cap=np.full(nb, 8, np.int32),
+        svc_tasks=np.zeros(nb, np.int32), total_tasks=np.zeros(nb, np.int32),
+        failures=np.zeros(nb, np.int32), leaf=np.zeros(nb, np.int32),
+        os_hash=np.zeros((2, nb), np.int32),
+        arch_hash=np.zeros((2, nb), np.int32),
+        port_conflict=np.zeros(nb, bool), extra_mask=np.ones(nb, bool))
+    group = GroupInputs(
+        k=np.int32(8), con_hash=np.zeros((1, 2, nb), np.int32),
+        con_op=np.full(1, 2, np.int32), con_exp=np.zeros((1, 2), np.int32),
+        plat=np.full((1, 4), -1, np.int32), maxrep=np.int32(0),
+        port_limited=np.bool_(False))
+    return nodes, group
+
+
+BREAKER_CLOSED, BREAKER_HALF_OPEN, BREAKER_OPEN = 0, 1, 2
+_BREAKER_NAMES = {BREAKER_CLOSED: "closed", BREAKER_HALF_OPEN: "half-open",
+                  BREAKER_OPEN: "open"}
+
+
+class PlannerBreaker:
+    """Degraded-mode circuit breaker for the device path.
+
+    ``threshold`` consecutive device launch or fetch failures trip the
+    breaker OPEN: every group routes to the host oracle (placements stay
+    valid, the tick never fails) until the cooldown elapses.  The breaker
+    then goes HALF-OPEN and admits a single probe group; a successful probe
+    closes it, a failed probe re-opens it with a doubled (capped) cooldown.
+    Successful closes decay the accumulated cooldown back toward the base,
+    so a device that recovers cleanly is re-trusted quickly while a
+    flapping one backs off geometrically.
+
+    State is exported as the ``swarm_planner_breaker_state`` gauge
+    (0=closed, 1=half-open, 2=open), every trip counts
+    ``swarm_planner_breaker_trips`` and lands in the flight recorder, and
+    every admitted probe counts ``swarm_planner_breaker_probes``.  Time is
+    read through ``models.types.now()`` so a virtual clock drives the
+    cooldown deterministically.
+    """
+
+    def __init__(self, threshold: int = 3, cooldown: float = 30.0,
+                 max_cooldown: float = 480.0):
+        self.threshold = max(1, threshold)
+        self.base_cooldown = cooldown
+        self.max_cooldown = max_cooldown
+        self._state = BREAKER_CLOSED
+        self._failures = 0          # consecutive, resets on success
+        self._cooldown = cooldown
+        self._open_until = 0.0
+        self._probe_inflight = False
+        self.stats = {"trips": 0, "probes": 0, "failures": 0}
+        self._export()
+
+    def _export(self) -> None:
+        _metrics.gauge("swarm_planner_breaker_state", self._state)
+
+    @property
+    def state(self) -> int:
+        return self._state
+
+    @property
+    def state_name(self) -> str:
+        return _BREAKER_NAMES[self._state]
+
+    def allow_device(self) -> bool:
+        """Gate one group's device dispatch.  OPEN past its cooldown flips
+        to HALF-OPEN and admits exactly one probe; every other caller stays
+        on the host until the probe resolves."""
+        if self._state == BREAKER_CLOSED:
+            return True
+        if self._state == BREAKER_OPEN:
+            if now() < self._open_until:
+                return False
+            self._state = BREAKER_HALF_OPEN
+            self._probe_inflight = False
+            self._export()
+        # HALF_OPEN: single probe at a time
+        if self._probe_inflight:
+            return False
+        self._probe_inflight = True
+        self.stats["probes"] += 1
+        _metrics.counter("swarm_planner_breaker_probes")
+        return True
+
+    def abort_probe(self) -> None:
+        """The admitted group never reached the device (routed to host for
+        an unrelated reason): release the probe slot unchanged."""
+        self._probe_inflight = False
+
+    def record_success(self) -> None:
+        self._failures = 0
+        if self._state == BREAKER_HALF_OPEN:
+            self._probe_inflight = False
+            self._state = BREAKER_CLOSED
+            # decay the accumulated backoff toward the base: a clean
+            # recovery is re-trusted, a flapper keeps most of its penalty
+            self._cooldown = max(self.base_cooldown, self._cooldown / 2.0)
+            self._export()
+            log.info("planner breaker closed (device recovered)")
+
+    def record_failure(self) -> None:
+        self.stats["failures"] += 1
+        if self._state == BREAKER_HALF_OPEN:
+            # failed probe: back off harder
+            self._cooldown = min(self._cooldown * 2.0, self.max_cooldown)
+            self._trip()
+            return
+        self._failures += 1
+        if self._state == BREAKER_CLOSED \
+                and self._failures >= self.threshold:
+            self._trip()
+
+    def _trip(self) -> None:
+        self._state = BREAKER_OPEN
+        self._probe_inflight = False
+        self._failures = 0
+        self._open_until = now() + self._cooldown
+        self.stats["trips"] += 1
+        _metrics.counter("swarm_planner_breaker_trips")
+        self._export()
+        log.warning("planner breaker OPEN for %.1fs: device path "
+                    "degraded to host fallback", self._cooldown)
+        from ..obs.flightrec import flightrec
+        flightrec.note(f"planner breaker tripped open "
+                       f"(cooldown {self._cooldown:.1f}s)")
+
+
 class _InFlightPlan:
     """One dispatched-but-unfetched device plan: everything fetch_group
     needs to finish the group once the result lands."""
@@ -140,9 +315,10 @@ class TorchPlanner:
     ``device="cpu"`` runs the kernels' plain PyTorch versions.  ``mesh``
     (a ``parallel.NodeMesh``) splits the plans and the resident columns
     over its shards; ``device`` then defaults to the mesh's first
-    device, where the unsharded work runs."""
+    device, where the unsharded work runs.  ``breaker`` replaces the
+    default :class:`PlannerBreaker` (threshold 3, cooldown 30 s)."""
 
-    def __init__(self, device=None, mesh=None):
+    def __init__(self, device=None, mesh=None, breaker=None):
         self.device = resolve_device(
             mesh.devices[0] if device is None and mesh is not None
             else device)
@@ -153,7 +329,22 @@ class TorchPlanner:
         self._in_tick = False
         self.last_explanation = ""
         self.stats = {"groups_planned": 0, "groups_fallback": 0,
+                      "groups_small_to_host": 0,
                       "tasks_planned": 0, "plan_seconds": 0.0}
+        # the small-group router: with it on, a group too small to
+        # amortize the measured launch overhead (dispatch + D2H round trip
+        # of a minimal plan) against the host oracle's per-task cost stays
+        # on the host path.  Off by default: every supported group goes to
+        # the device
+        self.enable_small_group_routing = False
+        self._launch_overhead = None
+        self.host_cost_per_task = HOST_COST_PER_TASK
+        # degraded-mode circuit breaker: consecutive device failures trip
+        # the whole planner to the host path instead of failing ticks
+        self.breaker = breaker if breaker is not None else PlannerBreaker()
+        self._fused_dead = False     # set on fused errors: the rest of the
+        #                              tick rides the per-group route
+        self._fused_active = None    # in-flight FusedRun (tick aborts)
         # per-tick cache of group-independent node columns; built on
         # begin_tick, updated incrementally by the apply phase, invalidated
         # by host-path fallbacks (which mutate NodeInfos behind our back)
@@ -205,7 +396,9 @@ class TorchPlanner:
     _ROUTE = {"groups_planned": "device",
               "groups_fused": "fused",
               "groups_fallback": "fallback",
-              "groups_spill_to_host": "spill"}
+              "groups_small_to_host": "host_small",
+              "groups_spill_to_host": "spill",
+              "groups_breaker_to_host": "breaker"}
 
     def _count(self, key: str, delta: int = 1) -> None:
         self.stats[key] = self.stats.get(key, 0) + delta
@@ -228,15 +421,37 @@ class TorchPlanner:
         tracer.record_complete("plan.inflight", "plan",
                                0.0 if time_source_installed() else dt)
 
-    def _to_device(self, nodes_np, group_np, hier_np):
-        _devtel.note_h2d("group_inputs",
+    def _to_device(self, nodes_np, group_np, hier_np, h2d="group_inputs"):
+        _devtel.note_h2d(h2d,
                          _devtel.tree_nbytes((nodes_np, group_np, hier_np)))
         return to_device(nodes_np, group_np, hier_np, self.device)
+
+    def _observe_compile(self, bucket: str) -> float:
+        """The port's compile accounting: the kernels are built once, at
+        the first launch in the process (``ops/cuda.py``), so the build's
+        seconds are charged to the bucket whose launch paid them -- a
+        ``swarm_planner_compiles{bucket=...}`` tick, a compile timer
+        observation, a ``plan.compile`` span and the ledger's ``compile_s``
+        -- and every other launch is a cache hit.  Returns the seconds."""
+        dt = _cuda.take_build_seconds() if self.device.type == "cuda" \
+            else 0.0
+        if dt <= 0.0:
+            _devtel.note_cache_hit(bucket)
+            return 0.0
+        _metrics.counter(f'swarm_planner_compiles{{bucket="{bucket}"}}')
+        _COMPILE_TIMER.observe(dt)
+        _devtel.note_compile(bucket, dt)
+        from ..models.types import time_source_installed
+        tracer.record_complete("plan.compile", "plan",
+                               0.0 if time_source_installed() else dt,
+                               bucket=bucket)
+        return dt
 
     # ------------------------------------------------------- per-tick caching
 
     def begin_tick(self, sched) -> None:
         self._in_tick = True
+        self._fused_dead = False
         # one failure-window timestamp for the whole tick
         self._tick_ts = now()
         st = self._streaming_for(sched)
@@ -284,6 +499,8 @@ class TorchPlanner:
     def end_tick(self) -> None:
         self._in_tick = False
         self._tick_ts = None
+        if self._fused_active is not None:   # abandoned run (aborted tick)
+            self.abort_fused_run(self._fused_active)
         self._cache = None
 
     def fail_ts(self):
@@ -402,6 +619,65 @@ class TorchPlanner:
             return ""
         return None  # unknown key
 
+    # per-process launch overhead by device type (the link to the card,
+    # whatever the planner's mesh): only a successful measurement is
+    # shared, so every planner of a process routes the same groups
+    _launch_overhead_shared: Dict[str, float] = {}
+    # timed plans a measurement takes the median of
+    LAUNCH_PROBE_SAMPLES = 7
+
+    def _measure_launch_overhead(self) -> None:
+        """Time warm minimal plans through the planner's own per-group
+        route (``_probe_inputs``' shape, node bucket 1,024): the dispatch,
+        the event and the pinned D2H, after one untimed call; the overhead
+        is the median of ``LAUNCH_PROBE_SAMPLES`` of them.  On
+        ``device="cpu"`` this times the plain path.  Measured once per
+        process and device kind and shared across planners; a device error
+        leaves 0.0 here and shares nothing, and anything else raises."""
+        key = self.device.type
+        shared = TorchPlanner._launch_overhead_shared.get(key)
+        if shared is not None:
+            self._launch_overhead = shared
+            return
+        nodes_np, group_np = _probe_inputs()
+        nb = nodes_np.valid.shape[0]
+
+        def plan():
+            fetch_plan(self._enqueue_plan(nodes_np, group_np, 1, (), None,
+                                          None, h2d="launch_probe"), nb)
+        try:
+            plan()
+            samples = []
+            for _ in range(self.LAUNCH_PROBE_SAMPLES):
+                t0 = time.perf_counter()
+                plan()
+                samples.append(time.perf_counter() - t0)
+        except DEVICE_ERRORS:
+            log.exception("launch-overhead probe failed")
+            self._launch_overhead = 0.0
+            return
+        self._launch_overhead = float(np.median(samples))
+        TorchPlanner._launch_overhead_shared[key] = self._launch_overhead
+
+    def _below_break_even(self, n_tasks: int) -> bool:
+        """True when a group is too small to amortize the device launch
+        overhead.  The single predicate every routing site shares
+        (dispatch_group, the preassigned validation and the fused-run
+        probe), so fused and per-group routing cannot drift apart."""
+        if not self.enable_small_group_routing:
+            return False
+        if self._launch_overhead is None:
+            self._measure_launch_overhead()
+        return (n_tasks * self.host_cost_per_task
+                < 0.8 * self._launch_overhead)
+
+    def _device_failed(self, what: str, key: str) -> None:
+        """A launch or fetch error: logged with its traceback, counted
+        under ``key`` and fed to the breaker."""
+        log.exception("device %s failed; host path", what)
+        self._count(key)
+        self.breaker.record_failure()
+
     def _fallback(self) -> bool:
         # the host path will mutate NodeInfos the cached columns mirror
         self._count("groups_fallback")
@@ -428,7 +704,8 @@ class TorchPlanner:
         result buffer to pinned host memory and an event.  Nothing waits
         on the device here.  Returns an in-flight handle to finish with
         ``fetch_group``, or None when the group is not device-planned (the
-        caller runs the host path)."""
+        caller runs the host path: an unsupported feature, an open
+        breaker, a group below the break-even, or a launch error)."""
         t = next(iter(task_group.values()))
         if not self._supported(t):
             self._fallback()
@@ -438,14 +715,27 @@ class TorchPlanner:
             # unknown strategy name: the host path serves it
             self._fallback()
             return None
+        if not self.breaker.allow_device():
+            # degraded mode: a sick device routes every group to the host
+            # oracle until the breaker's cooldown and probe admit it
+            self._count("groups_breaker_to_host")
+            self._cache = None   # host path mutates NodeInfos
+            return None
+        if self._below_break_even(len(task_group)):
+            self._count("groups_small_to_host")
+            self.breaker.abort_probe()   # never reached the device
+            self._cache = None   # host path mutates NodeInfos
+            return None
         flat = sinfo.sid != strategy_mod.STRAT_SPREAD
 
         plan_t0 = time.perf_counter()
         k = len(task_group)
         if k > K_CLAMP:  # beyond the kernels' 32-bit budget
+            self.breaker.abort_probe()
             self._fallback()
             return None
         if self._inflight:
+            self.breaker.abort_probe()
             raise RuntimeError(
                 "dispatch_group with a plan already in flight: fetch it "
                 "first (its apply feeds this group's input columns)")
@@ -454,9 +744,11 @@ class TorchPlanner:
             sin_np = self._build_strategy_inputs(built, t, sinfo) \
                 if flat and built is not None and built[1] else None
         if built is None:
+            self.breaker.abort_probe()
             self._fallback()
             return None
         if built[1] == 0:   # no valid nodes densified
+            self.breaker.abort_probe()
             return None
         nodes_np, group_np, L, hier_np = built[7], built[8], built[9], \
             built[10]
@@ -466,40 +758,58 @@ class TorchPlanner:
             bucket += f"_st{sinfo.sid}"
         if self._sharded is not None:
             bucket += f"_x{self.mesh.size}"
-        with tracer.span("plan.dispatch", "plan", tasks=k):
-            t0 = time.perf_counter()
-            if self._sharded is not None:
-                # the node-axis split: each shard's slice goes to its
-                # device, the result rows come back in one pinned buffer
-                _devtel.note_h2d("group_inputs", _devtel.tree_nbytes(
-                    (nodes_np, group_np, hier_np, sin_np)))
-                pending = self._sharded.strategy(
-                    nodes_np, group_np, sin_np, sinfo.sid) if flat \
-                    else self._sharded(nodes_np, group_np, L, hier_np)
-            else:
-                nodes_in, group_in, hier = self._to_device(
-                    nodes_np, group_np, hier_np)
-                if flat:
-                    _devtel.note_h2d("strategy_inputs",
-                                     _devtel.tree_nbytes(sin_np))
-                    sin = named_to_device(StrategyInputs, sin_np,
-                                          self.device)
-                    buf = plan_strategy_packed(nodes_in, group_in, sin,
-                                               sinfo.sid)
-                else:
-                    buf = plan_group_packed(nodes_in, group_in, L, hier)
-                pending = start_fetch(buf)
-            _devtel.note_kernel(bucket, route,
-                                dispatch_s=time.perf_counter() - t0,
-                                task_rows=k,
-                                node_rows=nodes_np.valid.shape[0],
-                                strategy_id=sinfo.sid if flat else -1)
+        try:
+            with tracer.span("plan.dispatch", "plan", tasks=k):
+                t0 = time.perf_counter()
+                pending = self._enqueue_plan(nodes_np, group_np, L, hier_np,
+                                             sin_np, sinfo.sid if flat
+                                             else None)
+                dt = time.perf_counter() - t0
+        except DEVICE_ERRORS:
+            # a launch failure degrades THIS group to the host path and
+            # feeds the breaker: a sick device trips to wholesale host
+            # routing instead of failing the tick
+            self._device_failed("dispatch", "groups_device_error")
+            self._cache = None
+            return None
+        except BaseException:
+            self.breaker.abort_probe()
+            raise
+        _devtel.note_kernel(bucket, route, dispatch_s=dt,
+                            compile_s=self._observe_compile(bucket),
+                            task_rows=k, node_rows=nodes_np.valid.shape[0],
+                            strategy_id=sinfo.sid if flat else -1)
         if flat:
             strategy_mod.count_group(sinfo.name, "device")
         handle = _InFlightPlan(sched, t, task_group, decisions, built,
                                plan_t0, pending, bucket, route)
         self._inflight.append(handle)
         return handle
+
+    def _enqueue_plan(self, nodes_np, group_np, L, hier_np, sin_np, sid,
+                      h2d="group_inputs"):
+        """Upload one group's numpy inputs and enqueue its plan -- the
+        spread plan, or with ``sid`` set the strategy plan -- and the D2H
+        of its result rows; returns the ``PendingFetch``.  On a mesh each
+        shard's slice goes to its device and the rows come back in one
+        pinned buffer.  The uploads are noted in the H2D ledger under
+        ``h2d`` (the strategy columns under ``strategy_inputs``)."""
+        if self._sharded is not None:
+            _devtel.note_h2d(h2d, _devtel.tree_nbytes(
+                (nodes_np, group_np, hier_np, sin_np)))
+            if sid is not None:
+                return self._sharded.strategy(nodes_np, group_np, sin_np,
+                                              sid)
+            return self._sharded(nodes_np, group_np, L, hier_np)
+        nodes_in, group_in, hier = self._to_device(nodes_np, group_np,
+                                                   hier_np, h2d)
+        if sid is not None:
+            _devtel.note_h2d("strategy_inputs", _devtel.tree_nbytes(sin_np))
+            sin = named_to_device(StrategyInputs, sin_np, self.device)
+            buf = plan_strategy_packed(nodes_in, group_in, sin, sid)
+        else:
+            buf = plan_group_packed(nodes_in, group_in, L, hier)
+        return start_fetch(buf)
 
     def _build_strategy_inputs(self, built, t, sinfo):
         """The strategy columns of one group, as numpy ``StrategyInputs``
@@ -743,23 +1053,50 @@ class TorchPlanner:
                            cpu, mem, total,
                            message="scheduler assigned task to node"
                            ) -> None:
-        """Shared apply: clone+register the assigned tasks and do the
-        per-NODE mirror arithmetic in batch.  ``counts``: i32[nb] tasks
-        placed per node column."""
+        """Shared apply: clone+register the assigned tasks (the native C
+        loops when available, ``native/hotpath.c``) and do the per-NODE
+        mirror arithmetic in batch.  ``counts``: i32[nb] tasks placed per
+        node column."""
         from ..scheduler.scheduler import SchedulingDecision
 
+        from .. import native
+        hp = native.get()
         all_tasks = sched.all_tasks
+        # resident row lists when the streaming plane owns these infos
+        # (identity-guarded): no O(cluster) list builds per group
+        st = self._streaming
+        if st is not None and st.infos is not infos:
+            st = None
         if getattr(sched, "block_mode", False):
             # columnar end-to-end: each group stages one (olds, nids,
             # message) column triple and commits as one array-shaped store
-            # call (store.commit_task_block)
-            olds, nids = [], []
-            for (task_id, task), i in zip(items, slots):
-                olds.append(task)
-                nids.append(infos[i].node.id)
-                infos[i].tasks[task_id] = task
+            # call (store.commit_task_block); mirrors keep the
+            # pre-assignment object
+            node_id_by_i = st.node_ids if st is not None \
+                else [info.node.id for info in infos]
+            if hp is not None:
+                task_dict_by_i = st.task_dicts if st is not None \
+                    else [info.tasks for info in infos]
+                olds, nids = hp.block_stage(items, slots, node_id_by_i,
+                                            task_dict_by_i)
+            else:
+                olds, nids = [], []
+                for (task_id, task), i in zip(items, slots):
+                    olds.append(task)
+                    nids.append(node_id_by_i[i])
+                    infos[i].tasks[task_id] = task
             if olds:
                 sched.block_draft.append((olds, nids, message))
+        elif hp is not None:
+            shared_status = TaskStatus(
+                state=TaskState.ASSIGNED, timestamp=now(), message=message)
+            node_id_by_i = st.node_ids if st is not None \
+                else [info.node.id for info in infos]
+            task_dict_by_i = st.task_dicts if st is not None \
+                else [info.tasks for info in infos]
+            hp.plan_apply(items, slots, node_id_by_i, task_dict_by_i,
+                          shared_status, all_tasks, decisions,
+                          SchedulingDecision)
         else:
             shared_status = TaskStatus(
                 state=TaskState.ASSIGNED, timestamp=now(), message=message)
@@ -809,26 +1146,47 @@ class TorchPlanner:
             # toward active totals -- shutdown-marked stragglers take the
             # host path
             return tasks
+        if not self.breaker.allow_device():
+            # breaker open: the host loop validates; counted like
+            # dispatch_group so route breakdowns stay honest
+            self._count("groups_breaker_to_host")
+            return tasks
+        if self._below_break_even(len(tasks)):
+            self.breaker.abort_probe()
+            return tasks   # below device break-even: host loop
         plan_t0 = time.perf_counter()
         with tracer.span("plan.build_inputs", "plan", tasks=len(tasks)):
             built = self._build_device_inputs(sched, t, len(tasks))
         if built is None or built[1] == 0:
+            self.breaker.abort_probe()
             return tasks
         (infos, n, nb, valid, cpu, mem, total, nodes_np, group_np, L,
          hier, cpu_d, mem_d, gen_wanted, port_limited) = built
         if gen_wanted or port_limited:
+            self.breaker.abort_probe()
             return tasks   # per-task claim bookkeeping: host path
 
-        with tracer.span("plan.feasibility", "plan", tasks=len(tasks)):
-            bucket = "feas_" + _bucket_label(nodes_np, group_np, 1, ())
-            t0 = time.perf_counter()
-            nodes_in, group_in, _ = self._to_device(nodes_np, group_np, ())
-            buf = finish_fetch(start_fetch(feasibility_packed(nodes_in,
-                                                              group_in)))
-            _devtel.note_d2h("feasibility", int(buf.nbytes))
-            _devtel.note_kernel(bucket, "feasibility",
-                                dispatch_s=time.perf_counter() - t0,
-                                task_rows=len(tasks), node_rows=nb)
+        try:
+            with tracer.span("plan.feasibility", "plan", tasks=len(tasks)):
+                bucket = "feas_" + _bucket_label(nodes_np, group_np, 1, ())
+                t0 = time.perf_counter()
+                nodes_in, group_in, _ = self._to_device(nodes_np, group_np,
+                                                        ())
+                buf = finish_fetch(start_fetch(feasibility_packed(
+                    nodes_in, group_in)))
+                _devtel.note_d2h("feasibility", int(buf.nbytes))
+                _devtel.note_kernel(bucket, "feasibility",
+                                    dispatch_s=time.perf_counter() - t0,
+                                    compile_s=self._observe_compile(bucket),
+                                    task_rows=len(tasks), node_rows=nb)
+        except DEVICE_ERRORS:
+            self._device_failed("feasibility", "groups_device_error")
+            self._cache = None
+            return tasks
+        except BaseException:
+            self.breaker.abort_probe()
+            raise
+        self.breaker.record_success()
         mask, cap, _ = unpack_feasibility(buf, nb)
         col = {info.node.id: i for i, info in enumerate(infos)}
 
@@ -859,9 +1217,16 @@ class TorchPlanner:
 
     def discard_inflight(self) -> None:
         """Drop dispatched-but-unfetched plans (aborted tick): their
-        results are never applied, and the column cache is invalidated."""
+        results are never applied, and the column cache is invalidated.  A
+        discarded plan may have been the breaker's half-open probe: its
+        slot is released (no outcome observed), or the breaker would stay
+        wedged in half-open with no path back to the device."""
+        self.breaker.abort_probe()
         if self._inflight:
             self._inflight.clear()
+            self._cache = None
+        if self._fused_active is not None:
+            self.abort_fused_run(self._fused_active)
             self._cache = None
 
     def fetch_group(self, handle: _InFlightPlan) -> bool:
@@ -880,13 +1245,27 @@ class TorchPlanner:
         (infos, n, nb, valid, cpu, mem, total, nodes_in, group_in, L,
          hier, cpu_d, mem_d, gen_wanted, port_limited) = handle.built
         d2h_t0 = time.perf_counter()
-        with tracer.span("plan.d2h", "plan"):
-            x, fail_counts, spill = fetch_plan(handle.pending, nb)
+        try:
+            with tracer.span("plan.d2h", "plan"):
+                x, fail_counts, spill = fetch_plan(handle.pending, nb)
+        except DEVICE_ERRORS:
+            # the plan is lost but the group is not: it re-runs through
+            # the host oracle (return False), and the breaker counts the
+            # device failure
+            handle.pending = None
+            self._observe_plan(time.perf_counter() - plan_t0)
+            self._device_failed("fetch", "groups_device_error")
+            self._cache = None
+            return False
+        except BaseException:
+            self.breaker.abort_probe()
+            raise
         handle.pending = None
         # the d2h wait IS the device plane's busy window
         d2h_dt = time.perf_counter() - d2h_t0
         _planes.plane(_planes.DEVICE).note_busy(d2h_dt)
         _devtel.note_kernel(handle.bucket, handle.route, d2h_s=d2h_dt)
+        self.breaker.record_success()
         self._note_inflight(time.perf_counter() - plan_t0)
         if spill:
             # a spread branch saturated: the host oracle's convergence
@@ -951,17 +1330,30 @@ class TorchPlanner:
         """The preemption pass's victim picks for one pending group
         (reference ``select_victims``): [(node index, prefix length)],
         the integers ``select_victims_host`` gives, from K9 on the card.
-        There is no breaker and no host fallback: a build, launch or fetch
-        error propagates and fails the tick."""
-        t0 = time.perf_counter()
-        with tracer.span("plan.preempt", "plan", picks=n_picks):
-            picks, bucket = plan_victims(cand, cpu_d, mem_d, gen_d, n_picks,
-                                         budget, self.device,
-                                         self._victim_stages)
-        _devtel.note_kernel(bucket, "preempt",
-                            dispatch_s=time.perf_counter() - t0,
+        Routed through the same breaker as planning: an open breaker or a
+        launch or fetch error returns None and the scheduler runs the host
+        oracle instead; a kernel that does not build raises."""
+        if not self.breaker.allow_device():
+            self._count("preempt_breaker_to_host")
+            return None
+        try:
+            t0 = time.perf_counter()
+            with tracer.span("plan.preempt", "plan", picks=n_picks):
+                picks, bucket = plan_victims(cand, cpu_d, mem_d, gen_d,
+                                             n_picks, budget, self.device,
+                                             self._victim_stages)
+            dt = time.perf_counter() - t0
+        except DEVICE_ERRORS:
+            self._device_failed("victim selection", "preempt_device_error")
+            return None
+        except BaseException:
+            self.breaker.abort_probe()
+            raise
+        _devtel.note_kernel(bucket, "preempt", dispatch_s=dt,
+                            compile_s=self._observe_compile(bucket),
                             task_rows=n_picks,
                             node_rows=int(cand.ok.shape[0]))
+        self.breaker.record_success()
         return picks
 
     # ------------------------------------------------- gang feasibility
@@ -970,8 +1362,10 @@ class TorchPlanner:
         """Group-level all-members-feasible verdict for a gang member
         group (reference ``gang_feasible``): True/False from K8, None when
         no verdict is available (a static bucket overflow), and the caller
-        then decides by a placement attempt and rollback.  A build, launch
-        or fetch error propagates: there is no host-oracle fallback."""
+        then decides by a placement attempt and rollback.  Behind the
+        breaker, with the bit-equal host oracle (``gang_fit_host``) serving
+        an open breaker or a launch error: a breaker flip never changes a
+        verdict."""
         built = self._build_device_inputs(sched, t, k)
         if built is None:
             return None
@@ -982,8 +1376,27 @@ class TorchPlanner:
         return self._gang_fit_one(nodes_np, group_np, bucket + "_gf")
 
     def _gang_fit_one(self, nodes_np, group_np, bucket: str) -> bool:
-        """One gang's verdict from K8 (counted ``gang_fit_device``)."""
-        return self._gang_fit_rows([(nodes_np, group_np)], bucket)[0]
+        """One gang's verdict: K8 behind the breaker (counted
+        ``gang_fit_device``), the host oracle on an open breaker or a
+        launch error (``gang_fit_host``)."""
+        if self.breaker.allow_device():
+            try:
+                fit = self._gang_fit_rows([(nodes_np, group_np)], bucket)[0]
+            except DEVICE_ERRORS:
+                self._device_failed("gang_fit", "gang_device_error")
+            except BaseException:
+                self.breaker.abort_probe()
+                raise
+            else:
+                self.breaker.record_success()
+                return fit
+        return self._gang_fit_host(nodes_np, group_np)
+
+    def _gang_fit_host(self, nodes_np, group_np):
+        from ..scheduler import gang as gang_mod
+        self._count("gang_fit_host")
+        fit, _fc = gang_mod.gang_fit_host(nodes_np, group_np)
+        return fit
 
     def _gang_fit_rows(self, rows, bucket: str) -> List[bool]:
         """K8 over the (NodeInputs, GroupInputs) of ``rows``: the columns
@@ -1004,12 +1417,14 @@ class TorchPlanner:
         if g == 1:
             _devtel.note_kernel(bucket, "gang",
                                 dispatch_s=time.perf_counter() - t0,
+                                compile_s=self._observe_compile(bucket),
                                 task_rows=int(rows[0][1].k),
                                 node_rows=rows[0][0].valid.shape[0])
             self._count("gang_fit_device")
         else:
             _devtel.note_kernel(bucket, "gang_fused",
                                 dispatch_s=time.perf_counter() - t0,
+                                compile_s=self._observe_compile(bucket),
                                 groups=g)
             self._count("gang_fit_fused", g)
         return [bool(f) for f in fits]
@@ -1018,9 +1433,10 @@ class TorchPlanner:
         """Fused gang route: verdicts for ``wants`` = [(t, k), ...].
         Groups of one input-shape bucket (the same label, quota-mask
         presence included) stack on a leading gang axis and are judged in
-        ONE K8 launch (bucket suffix ``_gfF``); a bucket with one group
-        takes the per-group route (``_gf``).  Returns [Optional[bool]]
-        aligned with ``wants``."""
+        ONE K8 launch (bucket suffix ``_gfF``); a bucket with one group,
+        or an open breaker, takes the per-group route (``_gf``), and a
+        launch error the host oracle.  Returns [Optional[bool]] aligned
+        with ``wants``."""
         results: list = [None] * len(wants)
         by_bucket: Dict[str, list] = {}
         for i, (t, k) in enumerate(wants):
@@ -1034,13 +1450,23 @@ class TorchPlanner:
             label = _bucket_label(nodes_np, group_np, built[9], built[10])
             by_bucket.setdefault(label, []).append((i, nodes_np, group_np))
         for label, rows in by_bucket.items():
-            if len(rows) < 2:
+            if len(rows) < 2 or not self.breaker.allow_device():
                 for i, nodes_np, group_np in rows:
                     results[i] = self._gang_fit_one(nodes_np, group_np,
                                                     label + "_gf")
                 continue
-            fits = self._gang_fit_rows([(n, g) for _, n, g in rows],
-                                       label + "_gfF")
+            try:
+                fits = self._gang_fit_rows([(n, g) for _, n, g in rows],
+                                           label + "_gfF")
+            except DEVICE_ERRORS:
+                self._device_failed("fused gang_fit", "gang_device_error")
+                for i, nodes_np, group_np in rows:
+                    results[i] = self._gang_fit_host(nodes_np, group_np)
+                continue
+            except BaseException:
+                self.breaker.abort_probe()
+                raise
+            self.breaker.record_success()
             for (i, _n, _g), fit in zip(rows, fits):
                 results[i] = fit
         return results
@@ -1049,13 +1475,19 @@ class TorchPlanner:
 
     def probe_fused_run(self, sched, glist, start: int) -> list:
         """Maximal run of consecutive fusable groups from ``glist[start:]``,
-        as parsed GroupSpecs.  Empty when fusion is off or the first group
-        is not fusable: the scheduler then takes the per-group route for
+        as parsed GroupSpecs.  Empty when fusion is off or dead for this
+        tick, the breaker is not closed (per-group routing owns the probe
+        accounting), or the first group is not fusable or below the
+        break-even: the scheduler then takes the per-group route for
         exactly the groups a per-group tick would route the same way."""
-        if not self.fused_enabled:
+        if not self.fused_enabled or self._fused_dead:
+            return []
+        if self.breaker.state != BREAKER_CLOSED:
             return []
         specs = []
         for group in glist[start:]:
+            if self._below_break_even(len(group)):
+                break   # below device break-even: host path
             spec = fusedbatch.probe_group(self, sched, group)
             if spec is None:
                 break
@@ -1065,9 +1497,10 @@ class TorchPlanner:
     def dispatch_fused_run(self, sched, specs):
         """Densify one fused run (>= 2 groups), move its node state to the
         device and enqueue its first chunks.  Returns the FusedRun, or None
-        when the run cannot be built (no node, a bucket overflow): the
-        caller then takes its groups one by one, and no mirror state was
-        touched.  A device error propagates and fails the tick."""
+        when the run cannot be built (no node, a bucket overflow) or its
+        first dispatch fails: the caller then takes its groups one by one,
+        and no mirror state was touched.  A launch error also feeds the
+        breaker and ends fusion for the rest of the tick."""
         run = fusedbatch.build_run(self, sched, specs)
         if run is None:
             self._count("fused_overflows")
@@ -1078,8 +1511,16 @@ class TorchPlanner:
             # which pads, takes the groups
             self._count("fused_mesh_indivisible")
             return None
-        self._prepare_fused(run)
-        self._dispatch_fused_chunks(run)
+        try:
+            self._prepare_fused(run)
+            self._dispatch_fused_chunks(run)
+        except DEVICE_ERRORS:
+            self._device_failed("fused dispatch", "groups_device_error")
+            self._fused_dead = True
+            return None
+        if run.dispatch_dead and run.next_dispatch == 0:
+            return None
+        self._fused_active = run
         return run
 
     def _prepare_fused(self, run) -> None:
@@ -1155,29 +1596,42 @@ class TorchPlanner:
         commits chunk i.  Each chunk writes its own result rows and copies
         them into its own pinned buffer, so a later chunk's launches never
         touch what an earlier chunk's copy reads; the carry they share is
-        ordered by the stream."""
-        while (not run.aborted and run.next_dispatch < len(run.chunks)
+        ordered by the stream.  A launch error marks the run dispatch-dead:
+        the chunks already dispatched still apply, and the rest of the
+        tick rides the per-group route."""
+        while (not run.dispatch_dead and not run.aborted
+               and run.next_dispatch < len(run.chunks)
                and run.next_dispatch - run.next_fetch < 2):
             c = run.chunks[run.next_dispatch]
             _devtel.note_h2d("fused_inputs",
                              _devtel.tree_nbytes((c.groups, c.strat)))
             c.t0 = time.perf_counter()
-            with tracer.span("plan.dispatch", "plan", tasks=c.tasks,
-                             fused_groups=c.count):
-                if self._sharded is not None:
-                    c.pending = self._sharded.fused(
-                        run.shared, c.groups, run.carry, run.L, c.strat,
-                        sids=c.sids)
-                else:
-                    groups = named_to_device(FusedGroups, c.groups,
-                                             self.device)
-                    strat = None if c.strat is None else named_to_device(
-                        FusedStrategy, c.strat, self.device)
-                    c.pending = start_fetch(plan_fused_packed(
-                        run.shared, groups, run.carry, run.L, strat,
-                        sids=c.sids))
-            _devtel.note_kernel(run.bucket_label(c), "fused",
+            try:
+                with tracer.span("plan.dispatch", "plan", tasks=c.tasks,
+                                 fused_groups=c.count):
+                    if self._sharded is not None:
+                        c.pending = self._sharded.fused(
+                            run.shared, c.groups, run.carry, run.L, c.strat,
+                            sids=c.sids)
+                    else:
+                        groups = named_to_device(FusedGroups, c.groups,
+                                                 self.device)
+                        strat = None if c.strat is None \
+                            else named_to_device(FusedStrategy, c.strat,
+                                                 self.device)
+                        c.pending = start_fetch(plan_fused_packed(
+                            run.shared, groups, run.carry, run.L, strat,
+                            sids=c.sids))
+            except DEVICE_ERRORS:
+                self._device_failed("fused chunk dispatch",
+                                    "groups_device_error")
+                self._fused_dead = True
+                run.dispatch_dead = True
+                return
+            bucket = run.bucket_label(c)
+            _devtel.note_kernel(bucket, "fused",
                                 dispatch_s=time.perf_counter() - c.t0,
+                                compile_s=self._observe_compile(bucket),
                                 groups=c.count, task_rows=c.tasks)
             c.groups = None   # release the numpy staging buffers
             c.strat = None
@@ -1187,16 +1641,25 @@ class TorchPlanner:
     def fetch_fused_chunk(self, run):
         """Wait for the next chunk's D2H and keep two chunks in flight.
         Returns (x [G, N], fail_counts [G, 8], spill [G], start, count) as
-        numpy, or None when the run is exhausted or aborted."""
+        numpy, or None when the run is exhausted, aborted or its fetch
+        failed (the remaining groups take the per-group route)."""
         if run.aborted or run.next_fetch >= run.next_dispatch:
             return None
         c = run.chunks[run.next_fetch]
         d2h_t0 = time.perf_counter()
-        with tracer.span("plan.d2h", "plan"):
-            rows = finish_fetch(c.pending)
-            _devtel.note_d2h("fetch", int(rows.nbytes))
+        try:
+            with tracer.span("plan.d2h", "plan"):
+                rows = finish_fetch(c.pending)
+                _devtel.note_d2h("fetch", int(rows.nbytes))
+        except DEVICE_ERRORS:
+            self._device_failed("fused fetch", "groups_device_error")
+            self._fused_dead = True
+            self._cache = None
+            self.abort_fused_run(run)
+            return None
         c.pending = None
         run.next_fetch += 1
+        self.breaker.record_success()
         end = time.perf_counter()
         _planes.plane(_planes.DEVICE).note_busy(end - d2h_t0)
         _devtel.note_kernel(run.bucket_label(c), "fused", d2h_s=end - d2h_t0)
@@ -1262,3 +1725,5 @@ class TorchPlanner:
             c.strat = None
         run.carry = None
         run.shared = None
+        if self._fused_active is run:
+            self._fused_active = None

@@ -167,6 +167,10 @@ class ResidentState:
         # platform hashes are maintained LAZILY: workloads without
         # platform requirements never pay the 2x str_hash per row
         self._want_platforms = False
+        #: per-row node ids and task dicts, in row order: the planner's
+        #: apply reads them instead of building both lists per group
+        self.node_ids: List[str] = []
+        self.task_dicts: List[dict] = []
         #: rows whose NodeInfo has a (possibly expired) failure record --
         #: mirrors the ``if info.recent_failures`` guard of the per-group
         #: failure loop, so the fill visits the same rows it would
@@ -320,6 +324,8 @@ class ResidentState:
             self.n += 1
             self.row_of[nid] = i
             self.infos.append(info)
+            self.node_ids.append(nid)
+            self.task_dicts.append(info.tasks)
             self.valid[i] = True
             self._recompute_row(i, info, append=True)
             rows.append(i)
@@ -449,6 +455,8 @@ class ResidentState:
         self.n = n
         self.nb = nb
         self.row_of = {info.node.id: i for i, info in enumerate(infos)}
+        self.node_ids = [info.node.id for info in infos]
+        self.task_dicts = [info.tasks for info in infos]
         self.valid = np.zeros(nb, bool)
         self.valid[:n] = True
         self.ready = np.zeros(nb, bool)

@@ -24,8 +24,27 @@ from swarmkit_tpu_torch.ops import preempt as P
 from swarmkit_tpu_torch.ops.convert import (
     fused_to_device, gang_to_device, to_device, victims_to_device)
 from swarmkit_tpu_torch.ops.densify import n_bucket
+from swarmkit_tpu_torch.ops.planner import DEVICE_FAULT_COUNTERS
+from swarmkit_tpu_torch.utils.metrics import registry
 
 pytestmark = pytest.mark.gpu
+
+#: the registry counters no test here may move: work that left the card
+#: for a device error, an open breaker or the small-group router
+OFF_CARD = DEVICE_FAULT_COUNTERS + (
+    'swarm_planner_groups{route="host_small"}',)
+
+
+@pytest.fixture(autouse=True)
+def _stays_on_the_card():
+    """Every test here holds the card's results, so none may pass through
+    the host path that the breaker or the router would take: that path
+    places as the kernels do, and would hide a kernel that fails."""
+    before = {k: registry.get_counter(k) for k in OFF_CARD}
+    yield
+    moved = {k: registry.get_counter(k) - v for k, v in before.items()
+             if registry.get_counter(k) != v}
+    assert not moved, f"work left the card: {moved}"
 
 SHAPES = {
     "small_flat": dict(nb=1024, n_valid=1000, n_leaves=1, k=700),
