@@ -116,11 +116,12 @@ Phases, each of which exits non-zero on failure:
     exactly as the CPU plain path, both groups fused, none on the host;
     the same tick over four shards of the card places as the unsharded
     one;
-20. native plane: the headline tick and the config-7 tick twice each,
-    with the native C commit plane (``swarmkit_tpu_torch/native``) on and
-    off (``SWARMKIT_TPU_NO_NATIVE``): equal store rows (id, node, state,
-    version), equal events published and equal per-task events when the
-    blocks are expanded; the tick wall, ``sched.commit`` and
+20. native plane: the headline tick and the config-7 tick (cut to
+    ``NATIVE_CFG7_TASKS``, 100,000 tasks over the ten services) twice
+    each, with the native C commit plane (``swarmkit_tpu_torch/native``)
+    on and off (``SWARMKIT_TPU_NO_NATIVE``): equal store rows (id, node,
+    state, version), equal events published and equal per-task events
+    when the blocks are expanded; the tick wall, ``sched.commit`` and
     ``plan.apply`` both ways;
 21. breaker: a planner whose plan path raises ``KernelLaunchError`` on
     its first three dispatches places a 1,000-node many-service tick
@@ -133,7 +134,34 @@ Phases, each of which exits non-zero on failure:
     groups (the churn cluster, every window a few arrivals for each of
     five services) with the router off, on, on and off: equal store rows,
     groups below the break-even on the host path when it is on, and the
-    churn's wall time both ways.
+    churn's wall time both ways;
+22. a service's life through the port's control loops
+    (``workload.ControlLoops``: the scheduler, the task allocator, the
+    orchestrators and their supervisors, threadless) at bench.py's config
+    5 width: 10,000 nodes, and services with no task in the store --
+    ``web`` (500,000 replicas spread over the racks), ``agent`` (global)
+    and ``api`` (10,000 replicas, rolled out 2,500 at a time).  Create:
+    520,000 tasks made, allocated NEW -> PENDING and placed on the card
+    (the preassigned pass through K1, every group on the device, racks
+    within 1); drain 1,000 nodes: every replacement placed in one tick,
+    off the drained nodes (the drained nodes' agents confirm their stops
+    after the restart supervisor's old-task timeout), every ``web`` and
+    ``api`` slot with one running task and ``agent`` on each active
+    node; roll ``api`` out to a
+    new image: four batches of 2,500, one device plan (one K1) each,
+    every slot on the new spec.  Each stage's seconds split into the
+    loops' parts and the spans (``orchestrator.reconcile``,
+    ``sched.preassigned``, ``sched.tick``, ``sched.commit``), its
+    decisions/s and the process's memory.  The same script at 1,000
+    nodes (``LIFE_PARITY``) through the card and through the host path,
+    with fixed ids: equal live tasks per (service, node) after each
+    stage;
+23. bench.py's config 9 (256 nodes, a high band, a tenant bursting past
+    its quota, a service of the spent tenant) through the autoscaler's
+    threadless supervisor and ``TorchPlanner()``: the high band placed,
+    the burst at or under its quota with clamps, the blocked service
+    refused "over tenant quota", an autoscale decision; the same build on
+    the host path places the same counts with the same clamps.
 
 The native plane is on for the whole run (it is built first, and the
 script fails without it); ``swarm_native_commit_fallbacks`` must stay 0.
@@ -141,7 +169,8 @@ The small-group router is off by default, so every phase but the
 router's own trickle puts every supported group on the card, and fails
 if a group went to the host path (``groups_small_to_host``,
 ``groups_breaker_to_host``, ``groups_device_error``, ``groups_fallback``).
-Over the whole run, the breaker's own phase aside, no counter of
+Phases 22-23 run last.  Over the whole run, the breaker's own phase
+aside, no counter of
 ``ops.planner.DEVICE_FAULT_COUNTERS`` (a device error or an open breaker
 on any route: groups, gang verdicts, victim picks) may move.
 
@@ -178,6 +207,10 @@ MESH_SHARDS = 4
 #: that runs with the small-group router off
 HOST_ROUTES = ("groups_device_error", "groups_breaker_to_host",
                "groups_small_to_host", "groups_fallback")
+#: phase 20's config-7 cell: its ten services at a fifth of config 7's
+#: tasks, so the two builds and block fan-outs leave the run room for
+#: phases 22-23
+NATIVE_CFG7_TASKS = 100_000
 #: the router's trickle: windows, seed and mean arrivals a service a window
 TRICKLE_WINDOWS = 12
 TRICKLE_SEED = 3
@@ -3525,14 +3558,16 @@ def store_rows(store, Task):
 
 def phase_native(torch, native, identity, EventTaskBlock, workload, Task,
                  Scheduler, TorchPlanner, tracer, card):
-    """The headline tick and the config-7 tick twice each, with the native
-    C commit plane on and off: the same store rows (id, node, state,
-    version), the same events published (and the same per-task events
-    when each block is expanded), and the tick's wall time with its
-    ``sched.commit`` and ``plan.apply`` spans both ways."""
+    """The headline tick and the config-7 tick (at ``NATIVE_CFG7_TASKS``
+    tasks) twice each, with the native C commit plane on and off: the
+    same store rows (id, node, state, version), the same events published
+    (and the same per-task events when each block is expanded), and the
+    tick's wall time with its ``sched.commit`` and ``plan.apply`` spans
+    both ways."""
     out = {}
     for label, build in (("headline", workload.headline_cluster),
-                         ("config 7", workload.many_service_cluster)):
+                         ("config 7", lambda: workload.many_service_cluster(
+                             n_tasks=NATIVE_CFG7_TASKS))):
         runs = {}
         for on in (True, False):
             set_native(on)
@@ -3795,6 +3830,410 @@ def phase_breaker(torch, K, cuda, workload, Task, Scheduler, TorchPlanner,
                 trickle_host_s=host_s)
 
 
+#: phase 22's script at config 5's full width, and the shape it runs at
+#: against the host path: 1,000 nodes, a drain of a tenth of them and a
+#: rollout whose every count divides the nodes it spreads over (45 web
+#: tasks a node, 5 more after the drain; 9 api tasks a node, batches of
+#: 4,500 over 900 active nodes), so no tie among equally loaded nodes is
+#: left to a tie-break order.  ``stop_timeout``: the drained nodes' agents
+#: confirm their stops only after the restart supervisor's old-task
+#: timeout, so the replacements start through it (the path of an agent
+#: that does not answer); at full width its stop intake, a scan of every
+#: waiting restart for each stop (``orchestrator/restart.py``
+#: ``_handle_stop_event``), would take minutes.  The parity run takes the
+#: users' path: the stops reported, then the replacements started.
+LIFE_FULL = dict(n_nodes=10_000, web=500_000, api=10_000, parallelism=2_500,
+                 drained=1_000, stop_timeout=True)
+LIFE_PARITY = dict(n_nodes=1_000, web=45_000, api=9_000, parallelism=4_500,
+                   drained=100, stop_timeout=False)
+LIFE_STAGES = ("create", "drain", "rollout")
+#: the spans each stage's seconds are split into
+LIFE_SPANS = ("orchestrator.reconcile", "sched.preassigned", "sched.tick",
+              "sched.commit", "sched.host_fallback")
+#: the clock jump past the rollout's monitor window (30 s: ``monitor`` 0
+#: means the default window, ``update.py``)
+MONITOR_JUMP_S = 31.0
+
+
+def rss_gib():
+    """This process's resident memory, GiB."""
+    with open("/proc/self/statm") as f:
+        pages = int(f.read().split()[1])
+    return pages * os.sysconf("SC_PAGE_SIZE") / 2**30
+
+
+def service_life(workload, types, Task, TaskState, Service, planner, tracer,
+                 shape, K=None, cuda=None, sync=None):
+    """A service's life through the port's control loops
+    (``workload.ControlLoops`` over ``planner``, None: the host path) on
+    ``workload.orchestrated_cluster(...)`` at ``shape``: create the
+    services and settle (``workload.settle``), drain the first
+    ``shape["drained"]`` nodes, step until the replacements are placed,
+    and settle (with ``shape["stop_timeout"]``, after moving the clock
+    past the restart supervisor's old-task timeout), roll
+    ``api`` out to ``api:2``
+    and settle until its update completes (the clock jumps past the
+    monitor window while it waits).  The model clock is the wall clock
+    plus those jumps.  Returns (store, services, nodes, {stage: record}):
+    each record holds the stage's wall seconds, its control steps, the
+    scheduler's decisions each step (``assigned``), the loops' parts and
+    the spans (``LIFE_SPANS``) in seconds, the planner's counters moved,
+    the tasks it created, the kernels launched (with ``K`` and ``cuda``),
+    the live tasks per (service, node) after it, the tasks desired
+    RUNNING a slot, the nodes running ``agent``, the garbage collections
+    and the process's memory."""
+    skew = [0.0]
+    types.set_time_source(lambda: time.time() + skew[0])
+    try:
+        t0 = time.perf_counter()
+        store, services, nodes = workload.orchestrated_cluster(
+            shape["n_nodes"], shape["web"], shape["api"],
+            shape["parallelism"])
+        build_s = time.perf_counter() - t0
+        loops = workload.ControlLoops(store, planner)
+        names = {s.id: name for name, s in services.items()}
+        host = {n.id: n.description.hostname for n in nodes}
+        api = services["api"].id
+
+        def create():
+            loops.cold_start()
+            return workload.settle(loops)
+
+        def drain():
+            workload.drain_nodes(store, nodes[:shape["drained"]])
+            records = []
+            # the replacements made, allocated and placed
+            for _ in range(workload.SETTLE_STEPS):
+                decided, wrote = loops.step()
+                records.append((decided, wrote, dict(loops.last)))
+                if not wrote:
+                    break
+            else:
+                fail(f"service life: the drain's loops still wrote after "
+                     f"{len(records)} steps")
+            if shape["stop_timeout"]:
+                skew[0] += loops.restarts.task_timeout + 1.0
+            return records + workload.settle(loops)
+
+        def rollout():
+            from swarmkit_tpu_torch.models import UpdateState
+            workload.roll_out(store, api, "api:2")
+            records = []
+            for _ in range(4):
+                records += workload.settle(loops)
+                st = store.view(lambda tx: tx.get(Service, api)) \
+                    .update_status
+                if st is not None and st.state == UpdateState.COMPLETED:
+                    return records
+                skew[0] += MONITOR_JUMP_S
+            fail(f"service life: the api rollout did not complete ({st})")
+
+        out = {}
+        for label, run in zip(LIFE_STAGES, (create, drain, rollout)):
+            before = {t.id for t in store.view(lambda tx: tx.find(Task))}
+            stats0 = dict(planner.stats) if planner is not None else {}
+            if cuda is not None:
+                cuda.reset_launch_counts(K.KERNELS)
+            tracer.reset()
+            tracer.enable()
+            with GcClock() as collections:
+                collections.on = True
+                t0 = time.perf_counter()
+                records = run()
+                if sync is not None:
+                    sync()
+                wall = time.perf_counter() - t0
+                collections.on = False
+            tracer.disable()
+            spans, n_spans = Counter(), Counter()
+            for sp in tracer.spans():
+                spans[sp.name] += sp.duration
+                n_spans[sp.name] += 1
+            parts = Counter()
+            for _, _, p in records:
+                parts.update(p)
+            tasks = store.view(lambda tx: tx.find(Task))
+            slots, agents, not_running = Counter(), set(), 0
+            for t in tasks:
+                if t.desired_state != TaskState.RUNNING:
+                    continue
+                not_running += t.status.state != TaskState.RUNNING
+                if t.slot:
+                    slots[(names[t.service_id], t.slot)] += 1
+                else:
+                    agents.add(t.node_id)
+            out[label] = dict(
+                seconds=wall, steps=len(records),
+                assigned=[a for a, _, _ in records],
+                parts_s=dict(parts),
+                spans_s={k: spans.get(k, 0.0) for k in LIFE_SPANS},
+                span_counts={k: n_spans.get(k, 0) for k in LIFE_SPANS},
+                planner={k: v - stats0.get(k, 0)
+                         for k, v in planner.stats.items()
+                         if k != "plan_seconds" and v != stats0.get(k, 0)}
+                if planner is not None else {},
+                created=[t for t in tasks if t.id not in before],
+                launches=cuda.launch_counts(K.KERNELS)
+                if cuda is not None else {},
+                counts=Counter(
+                    (names[t.service_id], host[t.node_id]) for t in tasks
+                    if t.node_id and t.desired_state <= TaskState.RUNNING),
+                slots={name: Counter(c for (n, _), c in slots.items()
+                                     if n == name)
+                       for name in ("web", "api")},
+                agents=agents, not_running=not_running, rss_gib=rss_gib(),
+                gc_by_generation={
+                    str(g): dict(collections=n, seconds=sec)
+                    for g, (n, sec) in collections.by_generation().items()})
+        out["create"]["build_s"] = build_s
+        return store, services, nodes, out
+    finally:
+        tracer.disable()
+        types.set_time_source(None)
+
+
+def check_life(label, store, services, nodes, stages, shape, Task,
+               TaskState, K=None):
+    """The checks of phase 22 on one run of :func:`service_life`."""
+    n_nodes, drained_n = shape["n_nodes"], shape["drained"]
+    web, api, par = shape["web"], shape["api"], shape["parallelism"]
+    names = {s.id: name for name, s in services.items()}
+    by_id = {n.id: n for n in nodes}
+    drained = {n.id for n in nodes[:drained_n]}
+    tasks = store.view(lambda tx: tx.find(Task))
+    for stage, rec in stages.items():
+        for key in ("groups_spill_to_host", "groups_strategy_host",
+                    "fused_overflows") + HOST_ROUTES:
+            check(rec["planner"].get(key, 0) == 0,
+                  f"{label} {stage}: {key} = {rec['planner'].get(key)}")
+        if rec["planner"] or K is not None:
+            check(rec["span_counts"]["sched.host_fallback"] == 0,
+                  f"{label} {stage}: a group took the host path")
+    create, drain, rollout = (stages[s] for s in LIFE_STAGES)
+
+    # create: every task made, allocated and placed
+    made = Counter(names[t.service_id] for t in create["created"])
+    check(made == Counter(web=web, api=api, agent=n_nodes),
+          f"{label} create: tasks made {dict(made)}")
+    check(sum(create["assigned"]) == web + api + n_nodes,
+          f"{label} create: decisions {sum(create['assigned'])}")
+    racks = Counter(rack_of(by_id[t.node_id]) for t in create["created"]
+                    if names[t.service_id] == "web")
+    check(len(racks) == 20 and max(racks.values()) - min(racks.values())
+          <= 1, f"{label} create: web racks unbalanced: "
+          f"{sorted(racks.values())}")
+    if create["planner"] or K is not None:
+        check(create["planner"].get("tasks_planned") == web + api + n_nodes,
+              f"{label} create: tasks_planned "
+              f"{create['planner'].get('tasks_planned')}")
+    if K is not None:
+        got = create["launches"]
+        check(got[K.FEASIBILITY.name] >= 1, f"{label} create: the "
+              "preassigned batch did not go through K1")
+        for k in (K.SEG_SUM, K.WATERFILL):
+            check(got[k.name] > 0, f"{label} create: {k.name} never "
+                  "launched")
+        check(got[K.FUSED_FEASIBILITY.name] + got[K.FEASIBILITY.name] > 1,
+              f"{label} create: no plan's feasibility kernel launched")
+
+    # drain: replacements placed in one tick, off the drained nodes
+    repl = [t for t in drain["created"] if names[t.service_id] != "agent"]
+    want = Counter(web=web // n_nodes * drained_n,
+                   api=api // n_nodes * drained_n)
+    check(Counter(names[t.service_id] for t in repl) == want,
+          f"{label} drain: replacements "
+          f"{dict(Counter(names[t.service_id] for t in repl))}, want "
+          f"{dict(want)}")
+    placed = [a for a in drain["assigned"] if a]
+    check(placed == [len(repl)], f"{label} drain: ticks assigned {placed}, "
+          f"not all {len(repl)} replacements in one tick")
+    cur = {t.id: t for t in tasks}
+    check(all(cur[t.id].node_id and cur[t.id].node_id not in drained
+              for t in repl), f"{label} drain: a replacement is unplaced or "
+          "on a drained node")
+    if K is not None:
+        check(drain["launches"][K.WATERFILL.name] > 0,
+              f"{label} drain: K3 never launched")
+    active = {n.id for n in nodes} - drained
+    for stage, rec in stages.items():
+        check(rec["not_running"] == 0, f"{label} {stage}: "
+              f"{rec['not_running']} tasks desired RUNNING are not running")
+        for name, n in (("web", web), ("api", api)):
+            check(rec["slots"][name] == Counter({1: n}),
+                  f"{label} {stage}: {name}'s slots hold "
+                  f"{dict(rec['slots'][name])} tasks desired RUNNING, not "
+                  f"one in each of {n}")
+        want_agents = active if stage != "create" else {n.id for n in nodes}
+        check(rec["agents"] == want_agents, f"{label} {stage}: agent runs "
+              f"on {len(rec['agents'])} nodes, {len(rec['agents'] & drained)}"
+              " of them drained")
+
+    # rollout: batches of ``parallelism`` placed by the device, all slots
+    # on the new spec
+    batches = [a for a in rollout["assigned"] if a]
+    check(batches == [par] * (api // par),
+          f"{label} rollout: batches placed {batches}")
+    if rollout["planner"] or K is not None:
+        check(rollout["planner"].get("groups_planned") == api // par,
+              f"{label} rollout: groups_planned "
+              f"{rollout['planner'].get('groups_planned')}")
+    if K is not None:
+        check(rollout["launches"][K.FEASIBILITY.name] == api // par,
+              f"{label} rollout: K1 launched "
+              f"{rollout['launches'][K.FEASIBILITY.name]} times for "
+              f"{api // par} batches")
+    svc = store.view(lambda tx: tx.get(type(services["api"]),
+                                       services["api"].id))
+    check(svc.spec_version.index == 2, f"{label}: api spec version")
+    new = [t for t in tasks if names[t.service_id] == "api"
+           and t.desired_state == TaskState.RUNNING]
+    check(len(new) == api and all(
+        t.spec_version.index == 2 and t.spec.container.image == "api:2"
+        for t in new), f"{label} rollout: not every api slot runs the new "
+          "spec")
+
+
+def phase_service_life(torch, K, cuda, workload, types, identity, Task,
+                       TaskState, Service, TorchPlanner, tracer, card):
+    """A service's life at config 5's full width through the port's
+    control loops, then the same script at 1,000 nodes through the card
+    and through the host path (fixed ids): equal live tasks per (service,
+    node) after every stage."""
+    planner = TorchPlanner()
+    store, services, nodes, stages = service_life(
+        workload, types, Task, TaskState, Service, planner, tracer,
+        LIFE_FULL, K=K, cuda=cuda, sync=torch.cuda.synchronize)
+    check_life("service life", store, services, nodes, stages, LIFE_FULL,
+               Task, TaskState, K=K)
+    out = {}
+    for label in LIFE_STAGES:
+        rec = stages[label]
+        parts = rec["parts_s"]
+        tick_s = parts.get("preassigned", 0.0) + parts.get("tick", 0.0)
+        decided = sum(rec["assigned"])
+        rate = decided / tick_s if tick_s > 0 else None
+        out[label] = dict(
+            {k: v for k, v in rec.items()
+             if k not in ("created", "counts", "agents")},
+            created=len(rec["created"]), agents=len(rec["agents"]),
+            decisions_per_s=rate)
+        spans = rec["spans_s"]
+        print(f"service life, {label}: {rec['seconds']:.1f} s in "
+              f"{rec['steps']} steps (" + ", ".join(
+                  f"{k} {spans[k]:.2f}" for k in LIFE_SPANS if spans[k])
+              + "; loops: " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in parts.items() if v >= 0.005)
+              + f"); {len(rec['created'])} tasks made, decisions a step "
+              f"{[a for a in rec['assigned'] if a]} "
+              + (f"({rate:.0f} decisions/s of the preassigned passes and "
+                 "ticks)" if rate else "")
+              + "; launches "
+              f"{ {k: v for k, v in rec['launches'].items() if v} }"
+              f"; planner {rec['planner']}; RSS {rec['rss_gib']:.1f} GiB; "
+              "garbage collections: " + (", ".join(
+                  f"gen {g} x{c['collections']} {c['seconds']:.1f} s"
+                  for g, c in rec["gc_by_generation"].items()) or "none")
+              + f"; on {card}", flush=True)
+    out["create"]["cluster_build_s"] = stages["create"]["build_s"]
+    del store, services, nodes, stages
+    gc.collect()
+
+    counts, walls = [], []
+    for planner in (TorchPlanner(), None):
+        fixed_ids(identity)
+        try:
+            t0 = time.perf_counter()
+            store, services, nodes, stages = service_life(
+                workload, types, Task, TaskState, Service, planner, tracer,
+                LIFE_PARITY)
+            walls.append(time.perf_counter() - t0)
+        finally:
+            identity.set_id_source(None)
+        check_life("service life 1k" + (" host" if planner is None
+                                         else ""), store, services, nodes,
+                   stages, LIFE_PARITY, Task, TaskState)
+        counts.append({s: stages[s]["counts"] for s in LIFE_STAGES})
+    for label in LIFE_STAGES:
+        check(counts[0][label] == counts[1][label],
+              f"service life 1k {label}: card placements differ from the "
+              "host path")
+    print(f"service life 1k: card == host after create, drain and rollout "
+          f"({sum(counts[0]['rollout'].values())} live tasks; "
+          f"{walls[0]:.1f} s card, {walls[1]:.1f} s host path)", flush=True)
+    out["parity_1k"] = dict(card_s=walls[0], host_s=walls[1],
+                            live_tasks=sum(counts[0]["rollout"].values()))
+    return out
+
+
+def phase_tenant_storm(torch, K, cuda, workload, Task, TaskState,
+                       TorchPlanner, card):
+    """bench.py's config 9 through ``orchestrator.autoscaler.Supervisor``
+    and ``TorchPlanner()``: the high band all placed, the burst tenant at
+    or under its quota with clamps, the blocked service refused on quota,
+    an autoscale decision; the same build on the host path places the
+    same counts a service with the same clamps."""
+    n_hi, quota, _, _ = workload.tenant_bands()
+    out = {}
+    for planner in (TorchPlanner(), None):
+        store, services = workload.tenant_storm()
+        cuda.reset_launch_counts(K.KERNELS)
+        sched, scaler, n_dec, dt = workload.tenant_storm_pass(
+            store, services, planner)
+        if planner is not None:
+            torch.cuda.synchronize()
+        launches = cuda.launch_counts(K.KERNELS)
+        tasks = store.view(lambda tx: tx.find(Task))
+        placed = Counter()
+        for t in tasks:
+            if t.node_id and t.status.state >= TaskState.ASSIGNED:
+                placed[t.service_id] += 1
+        by = {name: placed[s.id] for name, s in services.items()}
+        clamps = sched.stats.get("quota_clamps", 0)
+        label = "card" if planner is not None else "host"
+        check(by["hi"] == n_hi, f"config 9 {label}: high band placed "
+              f"{by['hi']} of {n_hi}")
+        check(by["burst"] <= quota, f"config 9 {label}: the burst tenant "
+              f"placed {by['burst']} over its quota {quota}")
+        check(clamps > 0, f"config 9 {label}: no quota clamp")
+        check(by["blocked"] == 0, f"config 9 {label}: the blocked service "
+              f"placed {by['blocked']}")
+        err = next((t.status.err for t in tasks
+                    if t.service_id == services["blocked"].id), "")
+        check("over tenant quota" in (err or ""),
+              f"config 9 {label}: blocked service's error {err!r}")
+        check(scaler.stats["decisions"] > 0,
+              f"config 9 {label}: no autoscale decision")
+        stats = dict(planner.stats) if planner is not None else {}
+        if planner is not None:
+            for key in ("groups_spill_to_host", "groups_strategy_host",
+                        "fused_overflows") + HOST_ROUTES:
+                check(stats.get(key, 0) == 0, f"config 9: {key} = "
+                      f"{stats.get(key)}")
+            check(sum(launches.values()) > 0,
+                  "config 9: no kernel launched")
+        out[label] = dict(placed=by, quota_clamps=clamps, decisions=n_dec,
+                          tick_s=dt, decisions_per_s=n_dec / dt,
+                          autoscale_decisions=scaler.stats["decisions"],
+                          launches=launches,
+                          stats={k: v for k, v in stats.items()
+                                 if k != "plan_seconds"})
+    card_run, host_run = out["card"], out["host"]
+    check(card_run["placed"] == host_run["placed"]
+          and card_run["quota_clamps"] == host_run["quota_clamps"],
+          f"config 9: card {card_run['placed']} / {card_run['quota_clamps']}"
+          f" clamps, host path {host_run['placed']} / "
+          f"{host_run['quota_clamps']}")
+    print(f"config 9: placed {card_run['placed']} (quota "
+          f"{quota}), {card_run['quota_clamps']} quota clamps, "
+          f"{card_run['autoscale_decisions']} autoscale decisions, tick "
+          f"{card_run['tick_s']:.4f} s ({card_run['decisions_per_s']:.0f} "
+          f"decisions/s; host path {host_run['tick_s']:.4f} s), equal to "
+          f"the host path; launches "
+          f"{ {k: v for k, v in card_run['launches'].items() if v} }; "
+          f"stats {card_run['stats']}; on {card}", flush=True)
+    return out
+
+
 def phase(name, fn, *args, **kw):
     """``fn(*args, **kw)``, its seconds kept in ``PHASE_S[name]``."""
     t0 = time.perf_counter()
@@ -3817,7 +4256,10 @@ def main():
         fail("no CUDA device: torch.cuda.is_available() is False")
     try:
         from swarmkit_tpu_torch import native, workload
-        from swarmkit_tpu_torch.models import Platform, Task
+        from swarmkit_tpu_torch.models import (
+            Platform, Service, Task, TaskState,
+        )
+        from swarmkit_tpu_torch.models import types
         from swarmkit_tpu_torch.obs import tracer
         from swarmkit_tpu_torch.ops import TorchPlanner, cuda
         from swarmkit_tpu_torch.ops import kernel as K
@@ -3924,6 +4366,11 @@ def main():
         label="traced mesh many-service tick")
     wide = phase("wide_spread", phase_wide_spread, torch, K, cuda, workload,
                  Task, Scheduler, TorchPlanner, make_mesh, card)
+    life = phase("service_life", phase_service_life, torch, K, cuda,
+                 workload, types, identity, Task, TaskState, Service,
+                 TorchPlanner, tracer, card)
+    tenant = phase("tenant_storm", phase_tenant_storm, torch, K, cuda,
+                   workload, Task, TaskState, TorchPlanner, card)
     faults3 = device_faults(registry, planner_mod)
     moved = {k: faults1[k] - faults0[k] + faults3[k] - faults2[k]
              for k in faults0}
@@ -3970,7 +4417,8 @@ def main():
               "victim_kernels": victim_kernels, "priority_jobs": jobs,
               "storm": storm, "mesh": mesh, "per_host_spread": wide,
               "native": native_run, "native_fallbacks": fallbacks,
-              "breaker": breaker, "device_faults": moved,
+              "breaker": breaker, "service_life": life,
+              "tenant_storm": tenant, "device_faults": moved,
               "phase_seconds": PHASE_S,
               "profiler_sessions": PROFILE_LOG,
               "seconds": time.perf_counter() - t_start}

@@ -43,6 +43,23 @@ services of 8,200 tasks (0.1 CPU + 64 MiB) spread over
 ``node.labels.host``, all pending in one tick.  Its value count rounds up
 to 16,384 leaf segments.  Ids are fixed (``n00000``, ``svc0-t00000``), so
 two builds place task by task alike.
+
+The builders run with the cyclic garbage collector paused
+(``utils.gctune.paused_gc``): a store of half a million tasks is a tree
+of small objects, and the collections its growth triggers would take
+near half of a build's time.
+
+``ControlLoops`` steps the leader's control loops over a store without
+threads: the scheduler, the task allocator, the orchestrators and their
+supervisors; ``advance_tasks`` is a stub agent on every node and
+``settle`` steps both until quiet.  ``orchestrated_cluster`` is bench.py's
+config 5 as users reach it: the headline's 10,000 nodes and services with
+no task in the store (``web``, 500,000 replicas spread over the racks;
+``agent``, global; ``api``, 10,000 replicas rolled out 2,500 at a time),
+driven through a create, a drain of 1,000 nodes (``drain_nodes``) and a
+rollout (``roll_out``).  ``tenant_storm`` is bench.py's config 9: the
+autoscaler and the tenant quotas under a burst, its window one autoscaler
+drive and one tick (``tenant_storm_pass``).
 """
 
 from __future__ import annotations
@@ -59,6 +76,7 @@ from .models import (
 from .models.types import now
 from .state import MemoryStore
 from .utils import new_id
+from .utils.gctune import paused_gc
 from .utils.sampling import poisson
 
 HEADLINE_NODES = 10_000
@@ -83,27 +101,34 @@ def rack_spread():
         spread=SpreadOver(spread_descriptor="node.labels.rack"))]
 
 
+def rack_nodes(n_nodes, node_labels=None, node_platform=None):
+    """``n_nodes`` READY nodes of 64 CPUs / 256 GiB: labelled
+    ``node_labels(i)`` (default: ``rack`` r0..r19) on the platform
+    ``node_platform(i)`` (default: linux/amd64)."""
+    return [Node(
+        id=new_id(),
+        spec=NodeSpec(annotations=Annotations(
+            name=f"node-{i:05d}",
+            labels=dict(node_labels(i)) if node_labels
+            else {"rack": f"r{i % 20}"})),
+        status=NodeStatus(state=NodeState.READY),
+        description=NodeDescription(
+            hostname=f"node-{i:05d}",
+            platform=Platform(**node_platform(i)) if node_platform
+            else Platform(os="linux", architecture="amd64"),
+            resources=Resources(nano_cpus=64 * 10**9,
+                                memory_bytes=256 << 30)))
+        for i in range(n_nodes)]
+
+
+@paused_gc()
 def build_cluster(n_nodes, n_tasks, node_labels=None, constraints=None,
                   platforms=None, prefs=None, node_platform=None,
                   global_share=0.0):
     """(store, service, nodes, tasks) for a synthetic cluster of one
     replicated service whose tasks reserve 0.1 CPU and 64 MiB each."""
     store = MemoryStore()
-    nodes = []
-    for i in range(n_nodes):
-        labels = dict(node_labels(i)) if node_labels else \
-            {"rack": f"r{i % 20}"}
-        platform = Platform(**node_platform(i)) if node_platform else \
-            Platform(os="linux", architecture="amd64")
-        nodes.append(Node(
-            id=new_id(),
-            spec=NodeSpec(annotations=Annotations(
-                name=f"node-{i:05d}", labels=labels)),
-            status=NodeStatus(state=NodeState.READY),
-            description=NodeDescription(
-                hostname=f"node-{i:05d}", platform=platform,
-                resources=Resources(nano_cpus=64 * 10**9,
-                                    memory_bytes=256 << 30))))
+    nodes = rack_nodes(n_nodes, node_labels, node_platform)
     shared_spec = TaskSpec(
         placement=Placement(constraints=constraints or [],
                             platforms=platforms or [],
@@ -167,6 +192,7 @@ def one_tick(store, planner):
     return sched, n_dec, time.perf_counter() - t0
 
 
+@paused_gc()
 def many_service_cluster(n_nodes=MANY_SERVICE_NODES,
                          n_tasks=MANY_SERVICE_TASKS, mix=MANY_SERVICE_MIX):
     """(store, services, nodes, tasks): ``n_nodes`` nodes as
@@ -174,17 +200,7 @@ def many_service_cluster(n_nodes=MANY_SERVICE_NODES,
     evenly over one replicated service per entry of ``mix``, each task
     reserving 0.1 CPU and 64 MiB."""
     store = MemoryStore()
-    nodes = [Node(
-        id=new_id(),
-        spec=NodeSpec(annotations=Annotations(
-            name=f"node-{i:05d}", labels={"rack": f"r{i % 20}"})),
-        status=NodeStatus(state=NodeState.READY),
-        description=NodeDescription(
-            hostname=f"node-{i:05d}",
-            platform=Platform(os="linux", architecture="amd64"),
-            resources=Resources(nano_cpus=64 * 10**9,
-                                memory_bytes=256 << 30)))
-        for i in range(n_nodes)]
+    nodes = rack_nodes(n_nodes)
     services, tasks = [], []
     per = n_tasks // len(mix)
     for si, (strategy, spread, weights) in enumerate(mix):
@@ -231,6 +247,7 @@ PER_HOST_NODES = 8200
 PER_HOST_SERVICES = (8200, 8200)
 
 
+@paused_gc()
 def per_host_spread(n_nodes=PER_HOST_NODES, services=PER_HOST_SERVICES):
     """(store, services, nodes): ``n_nodes`` READY nodes (16 CPUs, 64
     GiB), each with its own ``host`` label, and one replicated service per
@@ -499,6 +516,7 @@ def gang_service(name, cpus, count, min_size, gang_id=""):
     return svc, tasks
 
 
+@paused_gc()
 def gang_fleet(n_nodes=GANG_NODES):
     """(store, services, nodes, tasks) of the gang fleet, ``tasks`` in
     creation order: 72 gangs, 416 members, all pending.  Ids are fixed."""
@@ -595,6 +613,7 @@ def _create_all(nodes, services, tasks):
     return store
 
 
+@paused_gc()
 def priority_jobs(n_nodes=PRIORITY_JOBS_NODES):
     """(store, services, nodes, tasks) of config 8: the bands' counts are
     fixed and ``n_nodes`` scales only the cluster, as bench.py's
@@ -629,6 +648,7 @@ def priority_jobs(n_nodes=PRIORITY_JOBS_NODES):
     return _create_all(nodes, services, tasks), services, nodes, tasks
 
 
+@paused_gc()
 def priority_storm(n_nodes=STORM_NODES, seed=1):
     """(store, services, nodes, tasks) of the priority storm.  Node i runs
     ``STORM_RESIDENTS`` tasks, of which a seeded uniform 0..15 are priority
@@ -677,3 +697,391 @@ def preempt_tick(store, planner, budget):
     t0 = time.perf_counter()
     n_dec = sched.tick()
     return sched, n_dec, time.perf_counter() - t0
+
+
+# ------------------------------------------------------- the control loops
+
+class ControlLoops:
+    """The leader's control loops over ``store``, minus the dispatcher and
+    minus threads, stepped by the caller in the order of the reference
+    simulator's control step: a ``Scheduler`` over ``planner`` (None: the
+    host path), then the task allocator, the replicated, global and jobs
+    orchestrators (each on its own block-accepting subscription), their
+    rolling-update supervisors, the autoscaler, the pipeline supervisor
+    and the restart supervisor.  The scheduler's mirror is fed as its
+    own event loop feeds it (``_handle_event`` a store event, ``_resync``
+    on a snapshot restore) where the simulator rebuilds it every step:
+    at half a million tasks a rebuild costs seconds a step.
+    ``sampler`` is the autoscaler's load seam.  ``last`` holds each
+    part's wall time in the latest step."""
+
+    PARTS = ("intake", "preassigned", "tick", "allocator", "replicated",
+             "global", "jobs", "updates", "autoscaler", "pipeline",
+             "restarts")
+
+    def __init__(self, store, planner=None, sampler=None):
+        from .manager.allocator import Allocator
+        from .orchestrator.autoscaler import (
+            Supervisor as AutoscaleSupervisor,
+        )
+        from .orchestrator.global_ import Orchestrator as GlobalOrchestrator
+        from .orchestrator.jobs import Orchestrator as JobsOrchestrator
+        from .orchestrator.pipeline import PipelineSupervisor
+        from .orchestrator.replicated import (
+            Orchestrator as ReplicatedOrchestrator,
+        )
+        from .orchestrator.restart import Supervisor as RestartSupervisor
+        from .orchestrator.update import Supervisor as UpdateSupervisor
+        from .scheduler import Scheduler
+        from .scheduler.filters import VolumesFilter
+
+        self.store = store
+        self.allocator = Allocator(store)
+        self.restarts = RestartSupervisor(store, start_worker=False)
+        self.scheduler = Scheduler(store, batch_planner=planner,
+                                   pipeline_depth=1)
+        self.scheduler.pipeline.add_filter(
+            VolumesFilter(self.scheduler.volumes))
+        self.autoscaler = AutoscaleSupervisor(store, sampler=sampler,
+                                              start_worker=False)
+        self.pipeline = PipelineSupervisor(store, start_worker=False)
+        self.jobs = JobsOrchestrator(store, restarts=self.restarts)
+        self.replicated = ReplicatedOrchestrator(
+            store, restarts=self.restarts,
+            updater=UpdateSupervisor(store, self.restarts,
+                                     start_worker=False))
+        self.global_ = GlobalOrchestrator(
+            store, restarts=self.restarts,
+            updater=UpdateSupervisor(store, self.restarts,
+                                     start_worker=False))
+        self._drivers = []
+        self.last = dict.fromkeys(self.PARTS, 0.0)
+
+    def _timed(self, part, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        self.last[part] += time.perf_counter() - t0
+        return out
+
+    def cold_start(self):
+        """Mirror the store into the scheduler and subscribe it, subscribe
+        the allocator (it moves NEW tasks to PENDING), then each orchestrator,
+        each after the startup consistency pass and a resync."""
+        from .orchestrator import taskinit
+
+        store = self.store
+        _, self._sched_sub = store.view_and_watch(
+            self.scheduler._setup_tasks_list, accepts_blocks=True)
+        sub = store.queue.subscribe(accepts_blocks=True)
+        self._drivers.append(("allocator", self.allocator, sub,
+                              self.allocator._tick))
+        self.allocator._resync()
+        for part, orch, tick in (
+                ("replicated", self.replicated, self.replicated._tick),
+                ("global", self.global_, self.global_._tick_tasks),
+                ("jobs", self.jobs, self.jobs._tick)):
+            sub = store.queue.subscribe(accepts_blocks=True)
+            self._drivers.append((part, orch, sub, tick))
+            taskinit.check_tasks(store, store.view(), orch, self.restarts)
+            orch._resync()
+
+    def _intake(self, orch, sub, tick):
+        from .state.events import Event, EventSnapshotRestore
+
+        while True:
+            ev = sub.poll()
+            if ev is None:
+                break
+            if isinstance(ev, EventSnapshotRestore):
+                orch._resync()
+            elif isinstance(ev, Event):
+                orch._handle_event(ev)
+        tick()
+
+    def step(self):
+        """One control step; returns the scheduler's decisions (tasks the
+        tick assigned and preassigned tasks confirmed) and the store
+        versions the whole step wrote (0: the loops are quiet)."""
+        version = self.store.version
+        self.last = dict.fromkeys(self.PARTS, 0.0)
+        sched = self.scheduler
+        self._timed("intake", self._intake, sched, self._sched_sub,
+                    lambda: None)
+        n_pre = len(sched.pending_preassigned_tasks)
+        if n_pre:
+            self._timed("preassigned", sched._process_preassigned_tasks)
+        decided = n_pre - len(sched.pending_preassigned_tasks)
+        decided += self._timed("tick", sched.tick)
+        for part, orch, sub, tick in self._drivers:
+            self._timed(part, self._intake, orch, sub, tick)
+        for orch in (self.replicated, self.global_):
+            self._timed("updates", orch.updater.drive)
+        self._timed("autoscaler", self.autoscaler.drive)
+        self._timed("pipeline", self.pipeline.drive)
+        self._timed("restarts", self.restarts.drive)
+        return decided, self.store.version - version
+
+
+def advance_tasks(store):
+    """A stub agent on every node, in one store batch: an assigned task
+    that is desired RUNNING starts (RUNNING), and a live task desired
+    SHUTDOWN or beyond stops (SHUTDOWN), as the reference's test agent
+    does.  Returns how many tasks moved."""
+    def moves(tx):
+        out = []
+        for t in tx.find(Task):
+            state = t.status.state
+            if t.desired_state == TaskState.RUNNING and \
+                    TaskState.ASSIGNED <= state < TaskState.RUNNING:
+                out.append((t.id, TaskState.RUNNING, "started"))
+            elif t.desired_state >= TaskState.SHUTDOWN and \
+                    TaskState.ASSIGNED <= state <= TaskState.RUNNING:
+                out.append((t.id, TaskState.SHUTDOWN, "shutdown"))
+        return out
+
+    todo = store.view(moves)
+
+    def cb(batch):
+        for tid, state, message in todo:
+            def one(tx, tid=tid, state=state, message=message):
+                t = tx.get(Task, tid).copy()
+                t.status = TaskStatus(state=state, timestamp=now(),
+                                      message=message)
+                tx.update(t)
+            batch.update(one)
+
+    store.batch(cb)
+    return len(todo)
+
+
+# ------------------------------------------- a service's life, orchestrated
+
+def orchestrated_cluster(n_nodes, web, api, parallelism):
+    """(store, services, nodes) of bench.py's config 5 as users reach it
+    (10,000 nodes, 500,000 ``web`` and 10,000 ``api`` replicas, ``api``
+    rolled out 2,500 at a time):
+    ``n_nodes`` nodes as ``build_cluster`` makes them, the ``default``
+    Cluster, and services with no task in the store -- ``web``
+    (replicated, ``web`` replicas spread over the rack label), ``agent``
+    (global, one task a node) and ``api``
+    (replicated, ``api`` replicas, rolled out ``parallelism`` at a time
+    with no delay, no monitor window and a pause on failure).  Every task
+    reserves 0.1 CPU and 64 MiB and restarts on any exit with no delay;
+    ``services`` maps each name to its Service."""
+    from .models import (
+        Cluster, ClusterSpec, ContainerSpec, RestartCondition,
+        RestartPolicy, UpdateConfig, UpdateFailureAction,
+    )
+
+    store = MemoryStore()
+    nodes = rack_nodes(n_nodes)
+
+    def spec(image, prefs=None):
+        return TaskSpec(
+            container=ContainerSpec(image=image),
+            placement=Placement(preferences=prefs or []),
+            restart=RestartPolicy(condition=RestartCondition.ANY, delay=0.0),
+            resources=ResourceRequirements(reservations=Resources(
+                nano_cpus=10**8, memory_bytes=64 << 20)))
+
+    def service(name, mode, task, replicas=None, update=None):
+        return Service(
+            id=new_id(),
+            spec=ServiceSpec(
+                annotations=Annotations(name=name), task=task, mode=mode,
+                replicated=ReplicatedService(replicas=replicas)
+                if replicas is not None else None,
+                update=update),
+            spec_version=Version(index=1))
+
+    services = {
+        "web": service("web", ServiceMode.REPLICATED,
+                       spec("web:1", rack_spread()), web),
+        "agent": service("agent", ServiceMode.GLOBAL, spec("agent:1")),
+        "api": service(
+            "api", ServiceMode.REPLICATED, spec("api:1"), api,
+            UpdateConfig(parallelism=parallelism, delay=0.0, monitor=0.0,
+                         failure_action=UpdateFailureAction.PAUSE))}
+
+    def create(tx):
+        tx.create(Cluster(id=new_id(), spec=ClusterSpec(
+            annotations=Annotations(name="default"))))
+        for n in nodes:
+            tx.create(n)
+        for svc in services.values():
+            tx.create(svc)
+
+    store.update(create)
+    return store, services, nodes
+
+
+def drain_nodes(store, nodes):
+    """Set each of ``nodes`` to DRAIN in one transaction."""
+    from .models import NodeAvailability
+
+    def cb(tx):
+        for n in nodes:
+            cur = tx.get(Node, n.id).copy()
+            cur.spec.availability = NodeAvailability.DRAIN
+            tx.update(cur)
+
+    store.update(cb)
+
+
+def roll_out(store, service_id, image):
+    """A new image for ``service_id``'s tasks: the previous spec kept and
+    the spec version bumped, as the control API's service update does."""
+    def cb(tx):
+        cur = tx.get(Service, service_id).copy()
+        cur.previous_spec = cur.spec
+        cur.previous_spec_version = cur.spec_version
+        cur.spec = cur.spec.copy()
+        cur.spec.task.container.image = image
+        cur.spec_version = Version(index=cur.spec_version.index + 1)
+        cur.update_status = None
+        tx.update(cur)
+
+    store.update(cb)
+
+
+# ------------------------------------------------ tenant burst (config 9)
+
+TENANT_NODES = 256
+TENANT_CPU = 2 * 10**9
+
+
+def tenant_bands(n_nodes=TENANT_NODES):
+    """(high band, burst quota, burst, blocked) task counts of config 9
+    at ``n_nodes`` nodes of four 2-CPU slots: the high band and the burst
+    tenant's quota together stay near 70% of the slots, so the blocked
+    service fails on quota, not on capacity."""
+    slots = n_nodes * 4
+    quota = slots * 3 // 10
+    return (slots * 2 // 5, quota, quota + max(slots // 5, 50),
+            max(slots // 8, 16))
+
+
+def tenant_storm(n_nodes=TENANT_NODES):
+    """(store, services) of bench.py's config 9, the autoscaler and the
+    tenant quotas under a burst: ``n_nodes`` nodes of 8 CPUs / 32 GiB, a
+    ``default`` Cluster with quotas for the tenants ``burst`` and ``hi``,
+    and three replicated services of 2-CPU tasks, all PENDING: ``hi``
+    (priority 2, the high band), ``burst`` (an autoscaled service at 2
+    replicas whose tasks outnumber the tenant's quota) and ``blocked``
+    (the same tenant, arriving with the quota spent)."""
+    from .models import (
+        AutoscaleConfig, Cluster, ClusterSpec, TenantQuota,
+    )
+    from .scheduler.quota import TENANT_LABEL
+
+    n_hi, quota, n_burst, n_blocked = tenant_bands(n_nodes)
+    store = MemoryStore()
+    store.update(lambda tx: tx.create(Cluster(
+        id=new_id(),
+        spec=ClusterSpec(
+            annotations=Annotations(name="default"),
+            tenants={"burst": TenantQuota(nano_cpus=quota * TENANT_CPU),
+                     "hi": TenantQuota(nano_cpus=1000 * TENANT_CPU)}))))
+
+    def mk_nodes(tx):
+        for i in range(n_nodes):
+            tx.create(Node(
+                id=new_id(),
+                spec=NodeSpec(annotations=Annotations(name=f"q{i:04d}")),
+                status=NodeStatus(state=NodeState.READY),
+                description=NodeDescription(
+                    hostname=f"q{i:04d}",
+                    resources=Resources(nano_cpus=8 * 10**9,
+                                        memory_bytes=32 << 30))))
+
+    store.update(mk_nodes)
+    res = ResourceRequirements(
+        reservations=Resources(nano_cpus=TENANT_CPU, memory_bytes=1 << 30))
+    plan = (("hi", "hi", 2, n_hi, None),
+            ("burst", "burst", 0, n_burst,
+             AutoscaleConfig(min_replicas=2, max_replicas=n_burst,
+                             target_utilization=1.0,
+                             stabilization_window=0.0)),
+            ("blocked", "burst", 0, n_blocked, None))
+    services = {}
+
+    def mk_services(tx):
+        for name, tenant, prio, count, autoscale in plan:
+            svc = Service(
+                id=new_id(),
+                spec=ServiceSpec(
+                    annotations=Annotations(name=f"t-{name}",
+                                            labels={TENANT_LABEL: tenant}),
+                    mode=ServiceMode.REPLICATED,
+                    # the burst service starts small, so the autoscaler's
+                    # drive commits a real scale-up decision
+                    replicated=ReplicatedService(
+                        replicas=2 if autoscale else count),
+                    task=TaskSpec(resources=res, priority=prio),
+                    autoscale=autoscale),
+                spec_version=Version(index=1))
+            services[name] = svc
+            tx.create(svc)
+
+    store.update(mk_services)
+
+    def mk_tasks(tx):
+        for name, _tenant, _prio, count, _auto in plan:
+            svc = services[name]
+            for s in range(count):
+                tx.create(Task(
+                    id=new_id(), service_id=svc.id, slot=s + 1,
+                    desired_state=TaskState.RUNNING, spec=svc.spec.task,
+                    spec_version=Version(index=1),
+                    service_annotations=svc.spec.annotations,
+                    status=TaskStatus(state=TaskState.PENDING)))
+
+    store.update(mk_tasks)
+    return store, services
+
+
+def tenant_storm_pass(store, services, planner):
+    """Config 9's timed window on ``store``: one threadless autoscaler
+    drive, its sampler reporting the burst service's load as its whole
+    task count, then one tick of a ``Scheduler`` over ``planner`` (None:
+    the host path).  Returns (scheduler, autoscaler, decisions,
+    seconds)."""
+    from .orchestrator.autoscaler import Supervisor as AutoscaleSupervisor
+    from .scheduler import Scheduler
+
+    burst = services["burst"]
+    load = float(burst.spec.autoscale.max_replicas)
+    sched = Scheduler(store, batch_planner=planner)
+    store.view(sched._setup_tasks_list)
+    scaler = AutoscaleSupervisor(
+        store, sampler=lambda sid: {"load": load} if sid == burst.id
+        else None, start_worker=False)
+    t0 = time.perf_counter()
+    scaler.drive()
+    n_dec = sched.tick()
+    return sched, scaler, n_dec, time.perf_counter() - t0
+
+
+#: the control steps :func:`settle` takes before it gives up
+SETTLE_STEPS = 400
+
+
+def settle(loops):
+    """Step ``loops`` until a step writes nothing, let the stub agent
+    (:func:`advance_tasks`) move tasks, and repeat until it has none to
+    move.  Returns one record a step: (the scheduler's decisions, store
+    versions written, {part: seconds}), the agent's seconds under
+    ``"agent"`` in the record of the step before it."""
+    records = []
+    while len(records) < SETTLE_STEPS:
+        assigned, wrote = loops.step()
+        records.append((assigned, wrote, dict(loops.last)))
+        if wrote:
+            continue
+        t0 = time.perf_counter()
+        moved = advance_tasks(loops.store)
+        records[-1][2]["agent"] = time.perf_counter() - t0
+        if not moved:
+            return records
+    raise RuntimeError(f"the control loops did not settle in {SETTLE_STEPS} "
+                       "steps")

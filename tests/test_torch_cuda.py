@@ -1383,3 +1383,39 @@ def test_mesh_churn_on_card_matches_unsharded():
     snap = planner.streaming_snapshot()
     assert snap["mesh_devices"] == 4 and snap["shard_syncs"] >= 1, snap
     assert planner.stats["streaming_device_carries"] >= 1
+
+
+def test_service_life_on_card_matches_cpu():
+    """Phase 22's script at 1,000 nodes (``chip_smoke.LIFE_PARITY``:
+    create, drain, rollout through ``workload.ControlLoops``) on the card
+    and through the CPU plain path, with fixed ids: every task on the same
+    node in the same state after each stage, and the card's planner took
+    every group (the autouse fixture holds the device-fault counters)."""
+    _card()
+    import chip_smoke as cs
+    from swarmkit_tpu_torch import workload
+    from swarmkit_tpu_torch.models import Service, Task, TaskState, types
+    from swarmkit_tpu_torch.obs import tracer
+    from swarmkit_tpu_torch.ops import TorchPlanner
+    from swarmkit_tpu_torch.utils import identity
+
+    def run(device):
+        planner = TorchPlanner(device=device)
+        cs.fixed_ids(identity)
+        try:
+            store, services, nodes, stages = cs.service_life(
+                workload, types, Task, TaskState, Service, planner, tracer,
+                cs.LIFE_PARITY, sync=torch.cuda.synchronize)
+        finally:
+            identity.set_id_source(None)
+        cs.check_life(device, store, services, nodes, stages,
+                      cs.LIFE_PARITY, Task, TaskState)
+        return {s: sorted((t.id, t.node_id, int(t.status.state))
+                          for t in stages[s]["created"])
+                for s in cs.LIFE_STAGES}, stages
+
+    card, stages = run("cuda")
+    cpu, _ = run("cpu")
+    for s in cs.LIFE_STAGES:
+        assert card[s] == cpu[s], f"{s}: the card places unlike the CPU"
+        assert stages[s]["span_counts"]["sched.host_fallback"] == 0

@@ -14,6 +14,9 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "swarmkit_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "swarmkit_tpu")
+ORCHESTRATOR_MODULES = ("__init__", "autoscaler", "common", "enforcers",
+                        "global_", "jobs", "pipeline", "replicated",
+                        "restart", "taskinit", "taskreaper", "update")
 
 
 def _imported(path):
@@ -46,7 +49,12 @@ def test_port_files_exist():
                  "swarmkit_tpu_torch/parallel/sharded.py",
                  "swarmkit_tpu_torch/utils/sampling.py",
                  "swarmkit_tpu_torch/scheduler/scheduler.py",
-                 "chip_smoke.py"):
+                 "swarmkit_tpu_torch/manager/__init__.py",
+                 "swarmkit_tpu_torch/manager/allocator.py",
+                 "swarmkit_tpu_torch/manager/netdriver.py",
+                 "chip_smoke.py") + tuple(
+                     f"swarmkit_tpu_torch/orchestrator/{name}.py"
+                     for name in ORCHESTRATOR_MODULES):
         assert must in names
 
 
@@ -61,7 +69,8 @@ def test_no_jax_or_reference_import(path):
 @pytest.mark.parametrize("module", [
     "swarmkit_tpu_torch.ops.streaming", "swarmkit_tpu_torch.ops.planner",
     "swarmkit_tpu_torch.ops.preempt", "swarmkit_tpu_torch.parallel.sharded",
-    "swarmkit_tpu_torch.workload", "swarmkit_tpu_torch.utils.sampling"])
+    "swarmkit_tpu_torch.workload", "swarmkit_tpu_torch.utils.sampling",
+    "swarmkit_tpu_torch.orchestrator", "swarmkit_tpu_torch.manager"])
 def test_import_loads_no_jax(module):
     """Importing a port module (and everything it imports) in a fresh
     interpreter loads neither jax nor the reference package."""
@@ -133,3 +142,24 @@ def test_device_helpers_default_to_cuda(helper):
             fn(*args)
     tensors = [t for part in fn(*args, device="cpu")[:2] for t in part]
     assert all(t.device.type == "cpu" for t in tensors)
+
+
+def test_manager_exports_only_what_is_ported():
+    """The port's ``manager`` package carries the task allocator alone so
+    far: it exports exactly ``Allocator`` and ``PortAllocator``, and no
+    ``Manager``."""
+    import swarmkit_tpu_torch.manager as manager
+    assert manager.__all__ == ["Allocator", "PortAllocator"]
+    assert not hasattr(manager, "Manager")
+    assert not hasattr(manager, "Dispatcher")
+
+
+@pytest.mark.parametrize("name", ORCHESTRATOR_MODULES[1:] + (
+    "../manager/allocator", "../manager/netdriver"))
+def test_orchestrator_modules_are_the_reference_text(name):
+    """Each orchestrator module, the allocator and the network driver
+    registry are the reference's text (their imports are relative, so the
+    package name appears nowhere to change)."""
+    port = ROOT / "swarmkit_tpu_torch" / "orchestrator" / f"{name}.py"
+    ref = ROOT / "swarmkit_tpu" / "orchestrator" / f"{name}.py"
+    assert port.resolve().read_text() == ref.resolve().read_text()
