@@ -4,7 +4,8 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Phases, each of which exits non-zero on failure:
 
-1. card: name and power limit (``nvidia-smi``) and the device torch sees;
+1. card: name and power limit (``nvidia-smi``) and the device torch sees,
+   and whether the ``cryptography`` package imports (no phase needs it);
 2. build: compile the CUDA kernels of ``swarmkit_tpu_torch/csrc`` with
    ``nvcc`` for sm_90a (``-Xptxas -v``: registers and shared memory), all
    sources in parallel;
@@ -139,9 +140,10 @@ Phases, each of which exits non-zero on failure:
     (``workload.ControlLoops``: the scheduler, the task allocator, the
     orchestrators and their supervisors, threadless) at bench.py's config
     5 width: 10,000 nodes, and services with no task in the store --
-    ``web`` (500,000 replicas spread over the racks), ``agent`` (global)
+    ``web`` (150,000 replicas spread over the racks, cut from bench.py's
+    500,000 to keep the script in its time limit), ``agent`` (global)
     and ``api`` (10,000 replicas, rolled out 2,500 at a time).  Create:
-    520,000 tasks made, allocated NEW -> PENDING and placed on the card
+    170,000 tasks made, allocated NEW -> PENDING and placed on the card
     (the preassigned pass through K1, every group on the device, racks
     within 1); drain 1,000 nodes: every replacement placed in one tick,
     off the drained nodes (the drained nodes' agents confirm their stops
@@ -161,7 +163,32 @@ Phases, each of which exits non-zero on failure:
     threadless supervisor and ``TorchPlanner()``: the high band placed,
     the burst at or under its quota with clamps, the blocked service
     refused "over tenant quota", an autoscale decision; the same build on
-    the host path places the same counts with the same clamps.
+    the host path places the same counts with the same clamps;
+24. the live manager (``workload.live_manager``, bench.py's
+    ``run_live_manager``): config 6 (10,000 nodes, two services of
+    100,000 tasks) and config 7 (``NATIVE_CFG7_TASKS``) each one pipelined
+    tick through a single-voter ``RaftNode`` with a sealed WAL and the
+    live manager's subscribers, against the same tick with a nil proposer
+    (config 6 also a traced twin): every task assigned, equal placements
+    by creation index, every group fused (2 and 10), the fused route's
+    launches, no
+    native fallback, the WAL made of block entries; raft's added seconds,
+    ``swarm_raft_propose_latency`` and ``swarm_raft_apply_latency``, the
+    device busy share and the spans ``sched.commit``, ``plan.dispatch``,
+    ``plan.d2h`` and ``plan.apply``;
+25. the replicated control plane (``control_script``): three raft members
+    over one ``LocalNetwork``, each with its own store and sealed WAL, at
+    ``CONTROL``'s width (200 racked nodes): services made through the
+    leader's ``ControlAPI`` and driven by ``workload.ControlLoops`` over
+    ``TorchPlanner()``; followers byte-equal to the leader, a
+    linearizable follower read, a watch resumed on a follower with no
+    gap and no duplicate; the leader cut off and the successor's new
+    loops scaling ``web`` up; a leader deposed inside a pipelined tick
+    (later drafts failed, no fenced row in any store, nothing in flight,
+    the breaker closed); every member restarted from its WAL and
+    snapshot, byte-equal, the new leader's loops placing a new service;
+    card memory after each leadership change; the same script on the
+    host path places the same live tasks per (service, node).
 
 The native plane is on for the whole run (it is built first, and the
 script fails without it); ``swarm_native_commit_fallbacks`` must stay 0.
@@ -169,7 +196,7 @@ The small-group router is off by default, so every phase but the
 router's own trickle puts every supported group on the card, and fails
 if a group went to the host path (``groups_small_to_host``,
 ``groups_breaker_to_host``, ``groups_device_error``, ``groups_fallback``).
-Phases 22-23 run last.  Over the whole run, the breaker's own phase
+Phases 22-25 run last.  Over the whole run, the breaker's own phase
 aside, no counter of
 ``ops.planner.DEVICE_FAULT_COUNTERS`` (a device error or an open breaker
 on any route: groups, gang verdicts, victim picks) may move.
@@ -3830,21 +3857,23 @@ def phase_breaker(torch, K, cuda, workload, Task, Scheduler, TorchPlanner,
                 trickle_host_s=host_s)
 
 
-#: phase 22's script at config 5's full width, and the shape it runs at
-#: against the host path: 1,000 nodes, a drain of a tenth of them and a
-#: rollout whose every count divides the nodes it spreads over (45 web
-#: tasks a node, 5 more after the drain; 9 api tasks a node, batches of
-#: 4,500 over 900 active nodes), so no tie among equally loaded nodes is
-#: left to a tie-break order.  ``stop_timeout``: the drained nodes' agents
-#: confirm their stops only after the restart supervisor's old-task
-#: timeout, so the replacements start through it (the path of an agent
-#: that does not answer); at full width its stop intake, a scan of every
-#: waiting restart for each stop (``orchestrator/restart.py``
-#: ``_handle_stop_event``), would take minutes.  The parity run takes the
-#: users' path: the stops reported, then the replacements started.
-LIFE_FULL = dict(n_nodes=10_000, web=500_000, api=10_000, parallelism=2_500,
+#: phase 22's script at config 5's width (10,000 nodes; ``web`` cut from
+#: bench.py's 500,000 replicas to 150,000 to keep the script in its time
+#: limit), and the shape it runs at against the host path: 1,000 nodes, a
+#: drain of a tenth of them and a rollout whose every count divides the
+#: nodes it spreads over (9 web tasks a node, 1 more after the drain; 9
+#: api tasks a node, batches of 4,500 over 900 active nodes), so no tie
+#: among equally loaded nodes is left to a tie-break order.
+#: ``stop_timeout``: the drained nodes' agents confirm their stops only
+#: after the restart supervisor's old-task timeout, so the replacements
+#: start through it (the path of an agent that does not answer); at full
+#: width its stop intake, a scan of every waiting restart for each stop
+#: (``orchestrator/restart.py`` ``_handle_stop_event``), would take
+#: minutes.  The parity run takes the users' path: the stops reported,
+#: then the replacements started.
+LIFE_FULL = dict(n_nodes=10_000, web=150_000, api=10_000, parallelism=2_500,
                  drained=1_000, stop_timeout=True)
-LIFE_PARITY = dict(n_nodes=1_000, web=45_000, api=9_000, parallelism=4_500,
+LIFE_PARITY = dict(n_nodes=1_000, web=9_000, api=9_000, parallelism=4_500,
                    drained=100, stop_timeout=False)
 LIFE_STAGES = ("create", "drain", "rollout")
 #: the spans each stage's seconds are split into
@@ -4234,6 +4263,741 @@ def phase_tenant_storm(torch, K, cuda, workload, Task, TaskState,
     return out
 
 
+# ----------------------------------------------- phase 24: the live manager
+
+#: the spans phase 24 prints from each traced twin
+LIVE_SPANS = ("sched.commit", "plan.dispatch", "plan.d2h", "plan.apply")
+#: a WAL holding whole task objects takes ~2 KB a task (the host path);
+#: block entries take ~52 bytes (bench.py's config 6 on the reference)
+LIVE_WAL_BYTES_PER_TASK = 200
+
+
+def placements(store, Task, tasks, nodes):
+    """Each of ``tasks``' hostname in ``store``, in creation order: ids
+    are minted afresh by each build, creation order is not."""
+    host = {n.id: n.description.hostname for n in nodes}
+    rows = {t.id: t.node_id for t in store.view(lambda tx: tx.find(Task))}
+    return [host.get(rows.get(t.id)) for t in tasks]
+
+
+def wal_entries(path, serde):
+    """(entries, block entries) of a member's WAL under ``path``, unsealed
+    with the live manager's key."""
+    from swarmkit_tpu_torch.state.raft import KeyEncoder, RaftLogger
+    from swarmkit_tpu_torch.workload import LIVE_WAL_KEY
+    logger = RaftLogger(path, encoder=KeyEncoder(LIVE_WAL_KEY))
+    try:
+        _, entries, _ = logger.bootstrap()
+    finally:
+        logger.close()
+    return len(entries), sum(e.data[:4] == serde.BLOCK_ENTRY_MAGIC
+                             for e in entries)
+
+
+def live_run(torch, K, cuda, workload, Task, TorchPlanner, build, proposer,
+             around=None, wal_dir=None):
+    """One live-manager tick (``workload.live_manager``) of the cluster
+    ``build()`` makes, on the card: its record, launches by kernel,
+    placements in creation order and the planner's stats."""
+    t0 = time.perf_counter()
+    store, _, nodes, tasks = build()
+    build_s = time.perf_counter() - t0
+    planner = TorchPlanner()
+    cuda.reset_launch_counts(K.KERNELS)
+    out = workload.live_manager(store, planner, proposer=proposer,
+                                nodes=nodes, wal_dir=wal_dir, around=around)
+    torch.cuda.synchronize()
+    out["launches"] = cuda.launch_counts(K.KERNELS)
+    out["placements"] = placements(store, Task, tasks, nodes)
+    out["stats"] = {k: v for k, v in planner.stats.items()
+                    if k != "plan_seconds"}
+    out["build_s"] = build_s
+    out.pop("sched")
+    del store, nodes, tasks, planner
+    gc.collect()
+    return out
+
+
+def phase_live_manager(torch, K, cuda, workload, Task, TorchPlanner, serde,
+                       tracer, card):
+    """Configs 6 and 7 as bench.py's ``run_live_manager`` runs them: one
+    tick through a single-voter ``RaftNode`` with its sealed WAL and the
+    live manager's subscribers, against the same tick with a nil proposer
+    (and, for config 6, a traced twin); equal placements, every group
+    fused, the WAL made of block entries."""
+    import shutil
+    import tempfile
+    from swarmkit_tpu_torch.ops.fusedbatch import chunk_sizes
+    cells = (
+        ("config6", workload.live_cluster, workload.LIVE_SERVICES, None,
+         True),
+        ("config7", lambda: workload.many_service_cluster(
+            workload.MANY_SERVICE_NODES, NATIVE_CFG7_TASKS),
+         len(workload.MANY_SERVICE_MIX), workload.MANY_SERVICE_MIX, False))
+    out = {}
+    for label, build, n_groups, mix, with_twin in cells:
+        chunks = len(chunk_sizes(n_groups))
+        wal = tempfile.mkdtemp(prefix=f"live-{label}-")
+        try:
+            raft = live_run(torch, K, cuda, workload, Task, TorchPlanner,
+                            build, "raft", wal_dir=wal)
+            entries, blocks = wal_entries(os.path.join(wal, "b0"), serde)
+        finally:
+            shutil.rmtree(wal, ignore_errors=True)
+        runs = {"raft": raft, "nil": live_run(
+            torch, K, cuda, workload, Task, TorchPlanner, build, None)}
+        traced_rec = {}
+        if with_twin:
+            def around(tick):
+                got = []
+                traced_rec.update(traced(
+                    torch, tracer, lambda: got.append(tick()), card,
+                    f"traced live manager, {label}"))
+                return got[0]
+
+            runs["traced"] = live_run(torch, K, cuda, workload, Task,
+                                      TorchPlanner, build, "raft",
+                                      around=around)
+        nil = runs["nil"]
+        n_tasks = raft["tasks"]
+        for name, run in runs.items():
+            lab = f"live manager {label} ({name})"
+            check(run["decisions"] == n_tasks,
+                  f"{lab}: {run['decisions']} decisions for {n_tasks} tasks")
+            check(run["groups_fused"] == n_groups,
+                  f"{lab}: groups_fused {run['groups_fused']} != {n_groups}")
+            check(run["native_commit"]["active"]
+                  and run["native_commit"]["fallbacks"] == 0,
+                  f"{lab}: native commit {run['native_commit']}")
+            for key in ("groups_spill_to_host",) + HOST_ROUTES:
+                check(run["stats"].get(key, 0) == 0,
+                      f"{lab}: {key} = {run['stats'].get(key)}")
+            check_fused_launches(K, run["launches"], n_groups, chunks, lab,
+                                 mix=mix)
+            check(run["placements"] == nil["placements"],
+                  f"{lab}: placements differ from the nil proposer's")
+        check(raft["raft_entries_applied"] >= 2 and blocks >= 1,
+              f"live manager {label}: {raft['raft_entries_applied']} entries "
+              f"applied, {blocks} block entries in the WAL")
+        check(raft["wal_bytes"] < LIVE_WAL_BYTES_PER_TASK * n_tasks,
+              f"live manager {label}: {raft['wal_bytes']} WAL bytes for "
+              f"{n_tasks} tasks: not block entries")
+        rec = dict(
+            tasks=n_tasks, groups_fused=raft["groups_fused"],
+            raft_tick_s=raft["tick_s"], nil_tick_s=nil["tick_s"],
+            raft_added_s=raft["tick_s"] - nil["tick_s"],
+            commit_s=dict(raft=raft["commit_s"], nil=nil["commit_s"]),
+            plan_s=dict(raft=raft["plan_s"], nil=nil["plan_s"]),
+            fanout_s=dict(raft=raft["fanout_s"], nil=nil["fanout_s"]),
+            propose_s=raft["propose_s"], apply_s=raft["apply_s"],
+            raft_entries_applied=raft["raft_entries_applied"],
+            raft_stats=raft["raft_stats"], wal_bytes=raft["wal_bytes"],
+            wal_entries=entries, wal_block_entries=blocks,
+            native_commit=raft["native_commit"],
+            launches={k: v for k, v in raft["launches"].items() if v},
+            events_delivered=raft["events_delivered"],
+            cluster_build_s=raft["build_s"])
+        twin_line = ""
+        if with_twin:
+            spans = traced_rec["spans_s"]
+            rec.update(
+                traced_tick_s=runs["traced"]["tick_s"],
+                device_busy_share=traced_rec["device_busy_share"],
+                device_busy_s=traced_rec["device_busy_s"],
+                traced_wall_s=traced_rec["wall_s"],
+                spans_s={k: spans.get(k, 0.0) for k in LIVE_SPANS},
+                launches_without_row=traced_rec["launches_without_row"])
+            twin_line = (
+                f"; traced twin {rec['traced_tick_s']:.3f} s, device busy "
+                + (f"{rec['device_busy_share']:.4%}"
+                   if rec["device_busy_share"] is not None
+                   else "not measured")
+                + ", spans " + ", ".join(
+                    f"{k} {v * 1e3:.1f} ms"
+                    for k, v in rec["spans_s"].items()))
+        print(f"live manager, {label}: {n_tasks} tasks, raft tick "
+              f"{raft['tick_s']:.3f} s, nil proposer {nil['tick_s']:.3f} s "
+              f"(raft added {rec['raft_added_s']:.3f} s; sched.commit "
+              f"{raft['commit_s']:.3f} / {nil['commit_s']:.3f} s); "
+              f"swarm_raft_propose_latency {raft['propose_s']:.3f} s, "
+              f"swarm_raft_apply_latency {raft['apply_s']:.3f} s; "
+              f"{raft['raft_entries_applied']} entries applied, WAL "
+              f"{raft['wal_bytes']} bytes ({blocks} block entries of "
+              f"{entries}); groups_fused {raft['groups_fused']}; native "
+              f"fallbacks {raft['native_commit']['fallbacks']}; launches "
+              f"{rec['launches']}; cluster build {raft['build_s']:.1f} s"
+              + twin_line + f"; placements equal; on {card}", flush=True)
+        out[label] = rec
+    return out
+
+
+# ------------------------------------- phase 25: the replicated control plane
+
+#: phase 25's shape: racked nodes (10 a rack), ``web`` tasks a node at
+#: the create and after the successor's scale-up, ``batch`` tasks a node
+#: after the restart, raft entries between snapshots, the fence stage's
+#: services and tasks each, and raft's tick in seconds.  Every object a
+#: member writes through three sealed members costs ~4 ms of the one
+#: interpreter they share, so the width is cut from 1,000 nodes and
+#: 12,000 tasks to fit the script's time limit; elections take 10-20
+#: ticks of silence, and a member whose thread a sealed snapshot holds
+#: for seconds is not taken for dead
+CONTROL = dict(n_nodes=200, web=2, scaled=3, batch=1, snapshot_interval=12,
+               fence_services=3, fence_tasks=200, tick_interval=0.3)
+#: the key each member's WAL is sealed with
+CONTROL_KEY = b"swarmkit-replicated-control-key"
+#: changes each store keeps for watch resumes: the whole script's
+CONTROL_CHANGELOG = 1 << 20
+#: seconds a member may take to catch up with the leader
+CONTROL_CATCH_UP_S = 60.0
+#: leadership changes nobody asked for that a run of the script survives
+CONTROL_UNPLANNED = 3
+CONTROL_STAGES = ("create", "scale", "restart")
+
+
+def control_service(m, name, replicas=None, spread=False):
+    """A ``ServiceSpec`` as a user sends it: replicated (``replicas``),
+    else global; 0.1 CPU + 64 MiB a task; spread over the racks."""
+    return m.ServiceSpec(
+        annotations=m.Annotations(name=name),
+        task=m.TaskSpec(
+            container=m.ContainerSpec(image=f"{name}:1"),
+            placement=m.Placement(preferences=[m.PlacementPreference(
+                spread=m.SpreadOver(spread_descriptor="node.labels.rack"))]
+                if spread else []),
+            resources=m.ResourceRequirements(reservations=m.Resources(
+                nano_cpus=10**8, memory_bytes=64 << 20))),
+        mode=m.ServiceMode.REPLICATED if replicas is not None
+        else m.ServiceMode.GLOBAL,
+        replicated=m.ReplicatedService(replicas=replicas)
+        if replicas is not None else None)
+
+
+def control_rows(store, m):
+    """Live tasks by (service name, slot) -- by hostname for a global
+    service's -- to (hostname, state): a key two runs share where ids
+    differ."""
+    def cb(tx):
+        host = {n.id: n.description.hostname for n in tx.find(m.Node)}
+        name = {s.id: s.spec.annotations.name for s in tx.find(m.Service)}
+        out = {}
+        for t in tx.find(m.Task):
+            if t.desired_state > m.TaskState.RUNNING:
+                continue
+            key = (name.get(t.service_id), t.slot or host.get(t.node_id))
+            out[key] = (host.get(t.node_id), int(t.status.state))
+        return out
+    return store.view(cb)
+
+
+def control_counts(rows):
+    """Live tasks per (service name, hostname) of :func:`control_rows`:
+    the host path's spread walk and the water-fill give equally loaded
+    nodes their tasks in different orders, so the card and the host path
+    agree on these counts where the loads are tie-free, not task for
+    task."""
+    return Counter((key[0], host) for key, (host, _) in rows.items())
+
+
+def converge(members, leader, timeout=CONTROL_CATCH_UP_S):
+    """Wait until every member has applied all that ``leader`` committed
+    and holds a store byte-equal to ``leader``'s (a member installing a
+    snapshot has applied it before its store is restored); returns those
+    bytes."""
+    members = list(members)
+    deadline = time.monotonic() + timeout
+    while True:
+        if all(rn.core.applied_index >= leader.core.commit_index
+               for rn in members):
+            want = leader.store.save_bytes()
+            if all(rn is leader or rn.store.save_bytes() == want
+                   for rn in members):
+                return want
+        if time.monotonic() > deadline:
+            fail(f"replicated control: the members' stores did not "
+                 f"converge on {leader.id}'s in {timeout} s")
+        time.sleep(0.2)
+
+
+def drain_stream(stream):
+    out = []
+    while True:
+        ev = stream.poll()
+        if ev is None:
+            return out
+        out.append(ev)
+
+
+def watch_resume(m, leader_stream, follower_store):
+    """The leader's watch stream resumed on a follower at the middle
+    event's version: the follower's tail must be the leader's, with no
+    gap and no duplicate."""
+    from swarmkit_tpu_torch.manager import WatchRequest, WatchServer
+    events = drain_stream(leader_stream)
+    leader_stream.close()
+    check(len(events) >= 2, f"replicated control: the leader's watch "
+          f"stream saw {len(events)} events")
+    token = events[len(events) // 2].version
+    resumed = WatchServer(follower_store).watch(
+        WatchRequest(kinds=[m.Task], resume_from_version=token))
+    tail = drain_stream(resumed)
+    resumed.close()
+
+    def key(ev):
+        return (ev.version, ev.action, ev.obj.id)
+
+    want = [key(e) for e in events if e.version > token]
+    got = [key(e) for e in tail]
+    versions = [e.version for e in tail]
+    check(got == want and versions == sorted(set(versions))
+          and versions and versions[0] == want[0][0],
+          f"replicated control: the watch resumed on a follower at "
+          f"{token} differs from the leader's stream ({len(got)} events, "
+          f"{len(want)} expected)")
+    return dict(events=len(events), token=token, resumed=len(tail))
+
+
+def fence_tick(workload, m, rn, planner, shape):
+    """Depose ``rn`` while a pipelined tick's chunk proposals are in
+    flight: services of PENDING tasks (ids of their own, so the rest of
+    the script mints the ids it would without them) ticked by a
+    ``Scheduler`` at the default pipeline depth, whose first block
+    proposal steps the leader down.  Returns the fence's ids and what the
+    tick saw."""
+    from swarmkit_tpu_torch.scheduler import Scheduler
+    store = rn.store
+    spec = m.TaskSpec(resources=m.ResourceRequirements(
+        reservations=m.Resources(nano_cpus=10**8, memory_bytes=64 << 20)))
+    services, tasks = [], []
+    for i in range(shape["fence_services"]):
+        svc = m.Service(
+            id=f"fence-{i}", spec=m.ServiceSpec(
+                annotations=m.Annotations(name=f"fence-{i}"), task=spec,
+                mode=m.ServiceMode.REPLICATED,
+                replicated=m.ReplicatedService(
+                    replicas=shape["fence_tasks"])),
+            spec_version=m.Version(index=1))
+        services.append(svc)
+        for s in range(1, shape["fence_tasks"] + 1):
+            tasks.append(m.Task(
+                id=f"fence-{i}-{s:05d}", service_id=svc.id, slot=s,
+                desired_state=m.TaskState.RUNNING, spec=spec,
+                spec_version=m.Version(index=1),
+                status=m.TaskStatus(state=m.TaskState.PENDING)))
+
+    def create(tx):
+        for obj in services + tasks:
+            tx.create(obj)
+
+    store.update(create)
+    sched = Scheduler(store, batch_planner=planner)
+    check(sched.pipeline_depth >= 2, "the fence tick is not pipelined")
+    store.view(sched._setup_tasks_list)
+    calls = []
+    propose_async = rn.propose_async
+
+    def deposing(actions, commit_cb=None, epoch=None):
+        waiter = propose_async(actions, commit_cb, epoch=epoch)
+        calls.append([getattr(a, "ids", ()) for a in actions])
+        if len(calls) == 1:
+            epoch0 = rn.leadership_epoch
+            rn.step_down()
+            deadline = time.monotonic() + 10.0
+            while rn.leadership_epoch == epoch0:
+                check(time.monotonic() < deadline, "step_down() did not "
+                      "move the leadership epoch in 10 s")
+                time.sleep(0.001)
+        return waiter
+
+    rn.propose_async = deposing
+    try:
+        sched.tick()
+    finally:
+        del rn.propose_async
+    check(len(calls) >= 1, "the fence tick proposed nothing")
+    first = {tid for ids in calls[0] for tid in ids}
+    return dict(services=[s.id for s in services],
+                tasks=[t.id for t in tasks], first=first,
+                proposals=len(calls), requeued=len(sched.unassigned_tasks))
+
+
+def resident_bytes(planner):
+    """Bytes of the planner's resident node columns on its device, each
+    tensor rounded up to the caching allocator's 512-byte blocks."""
+    st = getattr(planner, "_streaming", None)
+    dev = getattr(st, "dev", None) or ()
+    out = []
+    stack = list(dev)
+    while stack:
+        x = stack.pop()
+        if isinstance(x, (tuple, list)):
+            stack.extend(x)
+        elif x is not None and hasattr(x, "element_size"):
+            out.append(-(-x.numel() * x.element_size() // 512) * 512)
+    return sum(out)
+
+
+def control_script(workload, m, planner_factory, root, shape, fence=True,
+                   memory=None):
+    """Phase 25's script: three members over one ``LocalNetwork``, each
+    with its own store and sealed WAL under ``root``; the users' services
+    created through the leader's ``ControlAPI`` and driven by
+    ``workload.ControlLoops`` over ``planner_factory()`` (None: the host
+    path); the leader paused and the successor's new loops scaling
+    ``web`` up; with ``fence``, a leader deposed inside a pipelined tick;
+    every member stopped and restarted from its WAL and snapshots, the new
+    leader's loops placing a new service.  ``memory()`` reads the card's
+    allocated bytes after each leadership change.
+
+    A leader can also lose the lead unasked: the three members share one
+    interpreter, and a member whose thread is held up long enough (a
+    snapshot of the whole store, sealed) is taken for dead.  The script
+    then does what a manager does: the successor's new loops take over
+    and finish the stage (counted in ``unplanned``).  Returns the rows
+    after each stage (:func:`control_rows`) and what each check saw."""
+    import gc as _gc
+
+    from swarmkit_tpu_torch.manager import (
+        ControlAPI, WatchRequest, WatchServer,
+    )
+    from swarmkit_tpu_torch.ops.planner import DEVICE_FAULT_COUNTERS
+    from swarmkit_tpu_torch.state.raft import (
+        KeyEncoder, NotLeader, ProposalDropped,
+    )
+    from swarmkit_tpu_torch.utils.metrics import registry
+
+    lost = (NotLeader, ProposalDropped)
+
+    def key():
+        return KeyEncoder(CONTROL_KEY)
+
+    n = shape["n_nodes"]
+    rec = {"rows": {}, "seconds": {}, "memory": [], "settled_memory": {},
+           "checks": {}, "changes": [], "unplanned": 0}
+    net, members = workload.raft_group(
+        3, root, key, snapshot_interval=shape["snapshot_interval"],
+        tick_interval=shape["tick_interval"])
+    for rn in members.values():
+        rn.store.changelog_limit = CONTROL_CHANGELOG
+    voters = dict(members)
+    loops = planner = cur = None
+
+    def lead(rn, why):
+        """``rn``'s loops take over: the old loops and planner dropped and
+        the card's memory read (with the dropped planner's resident
+        bytes), then a new planner and cold-started loops."""
+        nonlocal loops, planner, cur
+        resident = resident_bytes(planner)
+        if loops is not None:
+            loops.close()
+        loops = planner = None
+        _gc.collect()
+        if memory:
+            rec["memory"].append(dict(change=why, member=rn.id,
+                                      allocated=memory(),
+                                      resident=resident))
+        rec["changes"].append((why, rn.id))
+        cur = rn
+        planner = planner_factory()
+        loops = workload.ControlLoops(rn.store, planner)
+        loops.cold_start()
+
+    def unplanned():
+        rec["unplanned"] += 1
+        check(rec["unplanned"] <= CONTROL_UNPLANNED,
+              f"replicated control: {rec['unplanned']} leadership changes "
+              "nobody asked for")
+        lead(workload.wait_leader(voters), "unplanned")
+
+    def on_leader(fn):
+        """``fn(leader)``, called again on the successor if the lead moves
+        under it; ``fn`` must be safe to repeat."""
+        while True:
+            rn = workload.wait_leader(voters)
+            if rn is not cur:
+                unplanned()
+                rn = cur
+            try:
+                return fn(rn)
+            except lost:
+                pass
+
+    def settled(label, t0):
+        while True:
+            rn, epoch = cur, cur.leadership_epoch
+            try:
+                workload.settle(loops)
+            except lost:
+                pass
+            if rn.is_leader and rn.leadership_epoch == epoch:
+                break
+            unplanned()
+        rec["seconds"][label] = time.perf_counter() - t0
+        if memory:
+            rec["settled_memory"][label] = memory()
+
+    def service(spec):
+        """The named service, created through the leader's API unless an
+        earlier try already committed it."""
+        def make(rn):
+            api = ControlAPI(rn.store)
+            have = [s for s in api.list_services(spec.annotations.name)
+                    if s.spec.annotations.name == spec.annotations.name]
+            return have[0] if have else api.create_service(spec)
+        return on_leader(make)
+
+    try:
+        t0 = time.perf_counter()
+        lead(workload.wait_leader(voters), "elected")
+        nodes = workload.rack_nodes(n)
+
+        def setup(rn):
+            store = rn.store
+            if not store.view(lambda tx: tx.find(m.Cluster)):
+                store.update(lambda tx: tx.create(m.Cluster(
+                    id="cluster-default", spec=m.ClusterSpec(
+                        annotations=m.Annotations(name="default")))))
+            have = {x.id for x in store.view(lambda tx: tx.find(m.Node))}
+
+            def register(batch):
+                # one write a node, as nodes join; the batch cuts proposals
+                for node in nodes:
+                    if node.id not in have:
+                        batch.update(lambda tx, node=node: tx.create(node))
+
+            store.batch(register)
+
+        on_leader(setup)
+        streamed = cur
+        stream = WatchServer(cur.store).watch(WatchRequest(kinds=[m.Task]))
+        web = service(control_service(m, "web", shape["web"] * n, True))
+        service(control_service(m, "agent"))
+        settled("create", t0)
+        rec["rows"]["create"] = control_rows(cur.store, m)
+        leader = cur
+        followers = [rn for rn in members.values() if rn is not leader]
+        converge(members.values(), leader)
+        assigned = (lambda tx: sorted(
+            (t.id, t.node_id) for t in tx.find(m.Task)
+            if t.node_id and t.status.state >= m.TaskState.ASSIGNED))
+        want = leader.store.view(assigned)
+        got = followers[0].store.read_view(assigned, linearizable=True,
+                                           timeout=10.0)
+        check(got == want and len(want) >= (shape["web"] + 1) * n,
+              f"replicated control: a linearizable read on "
+              f"{followers[0].id} saw {len(got)} assigned rows, the leader "
+              f"{len(want)}")
+        rec["checks"]["linearizable_read_rows"] = len(got)
+        watcher = next(rn for rn in members.values() if rn is not streamed)
+        rec["checks"]["watch"] = watch_resume(m, stream, watcher.store)
+
+        # failover: the leader is cut off; the successor's new loops
+        t0 = time.perf_counter()
+        net.pause(leader.id)
+        voters = {rn.id: rn for rn in followers}
+        lead(workload.wait_leader(voters), "failover")
+
+        def scale(rn):
+            api = ControlAPI(rn.store)
+            cur_svc = api.get_service(web.id)
+            if cur_svc.spec.replicated.replicas != shape["scaled"] * n:
+                spec = cur_svc.spec.copy()
+                spec.replicated.replicas = shape["scaled"] * n
+                api.update_service(web.id, cur_svc.meta.version.index, spec)
+
+        on_leader(scale)
+        settled("scale", t0)
+        rec["rows"]["scale"] = control_rows(cur.store, m)
+        net.resume(leader.id)
+        voters = dict(members)
+        converge(members.values(), cur)
+        rec["failover"] = dict(deposed=leader.id, successor=cur.id)
+
+        if fence:
+            faults0 = {k: registry.get_counter(k)
+                       for k in DEVICE_FAULT_COUNTERS}
+            fplanner = planner_factory()
+            f = on_leader(lambda rn: fence_tick(workload, m, rn, fplanner,
+                                                shape))
+            fenced = set(f["tasks"]) - f["first"]
+            check(f["first"] and fenced, f"the fence tick's first block "
+                  f"proposal held {len(f['first'])} of {len(f['tasks'])} "
+                  "tasks: no draft was behind it")
+            check(not fplanner._inflight and fplanner._fused_active is None,
+                  "the deposed tick left plans in flight")
+            check(fplanner.breaker.state == 0, f"the breaker is "
+                  f"{fplanner.breaker.state} after a lost leadership")
+            moved = {k: registry.get_counter(k) - v
+                     for k, v in faults0.items() if registry.get_counter(k)
+                     != v}
+            check(not moved, f"a lost leadership moved {moved}")
+            check(f["requeued"] >= len(fenced), f"the deposed tick "
+                  f"requeued {f['requeued']} tasks, {len(fenced)} fenced")
+            del fplanner
+            third = workload.wait_leader(voters)
+            after = converge(members.values(), third)
+
+            def landed(tx):
+                return {t.id for t in tx.find(m.Task)
+                        if t.id.startswith("fence-") and t.node_id}
+
+            for rn in members.values():
+                got = rn.store.view(landed)
+                check(not got & fenced and got in (set(), f["first"]),
+                      f"replicated control: {len(got & fenced)} rows "
+                      f"proposed under the deposed epoch landed on {rn.id}")
+            rec["fence"] = dict(
+                proposals=f["proposals"], first_chunk=len(f["first"]),
+                first_chunk_landed=bool(third.store.view(landed)),
+                requeued=f["requeued"], leader=third.id,
+                store_bytes=len(after))
+            lead(third, "fence")
+
+            def remove(rn):
+                def cb(tx):
+                    for tid in f["tasks"]:
+                        if tx.get(m.Task, tid) is not None:
+                            tx.delete(m.Task, tid)
+                    for sid in f["services"]:
+                        if tx.get(m.Service, sid) is not None:
+                            tx.delete(m.Service, sid)
+                rn.store.update(cb)
+
+            t0 = time.perf_counter()
+            on_leader(remove)
+            settled("fence", t0)
+        converge(members.values(), cur)
+        before = {rn.id: rn.store.save_bytes() for rn in members.values()}
+        snaps = {rn.id: rn.stats["snapshots"] for rn in members.values()}
+        check(all(snaps.values()), f"replicated control: a member took no "
+              f"snapshot ({snaps})")
+
+        # restart: every member stops and boots from its WAL and snapshot
+        t0 = time.perf_counter()
+        loops.close()
+        loops = None
+        for rn in members.values():
+            rn.stop()
+        net, members = workload.raft_group(
+            3, root, key, snapshot_interval=shape["snapshot_interval"],
+            tick_interval=shape["tick_interval"], start=False)
+        voters = dict(members)
+        for rn in members.values():
+            check(rn.store.save_bytes() == before[rn.id],
+                  f"replicated control: {rn.id} restarted unlike it "
+                  "stopped")
+            rn.start()
+        lead(workload.wait_leader(voters), "restart")
+        service(control_service(m, "batch", shape["batch"] * n, True))
+        settled("restart", t0)
+        rec["rows"]["restart"] = control_rows(cur.store, m)
+        converge(members.values(), cur)
+        rec["snapshots"] = snaps
+        rec["raft_applied"] = {rn.id: rn.stats["applied"]
+                               for rn in members.values()}
+        return rec
+    finally:
+        if loops is not None:
+            loops.close()
+        for rn in members.values():
+            rn.stop()
+
+
+def control_models():
+    """The port's model classes and ``new_id``, as one namespace."""
+    import types as _types
+
+    from swarmkit_tpu_torch import models
+    from swarmkit_tpu_torch.utils import new_id
+    names = {k: getattr(models, k) for k in dir(models)
+             if not k.startswith("_")}
+    return _types.SimpleNamespace(new_id=new_id, **names)
+
+
+def run_control(workload, identity, planner_factory, shape, fence=True,
+                memory=None):
+    """:func:`control_script` in a temporary directory, with fixed ids."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="replicated-control-")
+    fixed_ids(identity)
+    try:
+        t0 = time.perf_counter()
+        rec = control_script(workload, control_models(), planner_factory,
+                             root, shape, fence=fence, memory=memory)
+        rec["wall_s"] = time.perf_counter() - t0
+    finally:
+        identity.set_id_source(None)
+        shutil.rmtree(root, ignore_errors=True)
+    return rec
+
+
+def check_control_memory(rec, label):
+    """Card memory after each leadership change, the old planner dropped
+    and collected: from the first change on (before it no planner has
+    run, so the kernels' per-device workspaces are not yet made) it may
+    grow by at most one resident state a change."""
+    mem = rec["memory"]
+    for prev, cur in zip(mem[1:], mem[2:]):
+        grew = cur["allocated"] - prev["allocated"]
+        check(grew <= max(cur["resident"], prev["resident"]),
+              f"{label}: card memory grew {grew} bytes from the "
+              f"{prev['change']} change to the {cur['change']} change, "
+              f"above one resident state ({cur['resident']} bytes)")
+
+
+def phase_replicated_control(torch, K, cuda, workload, identity,
+                             TorchPlanner, card):
+    """Phase 25: :func:`control_script` at ``CONTROL``'s width on the card
+    (its fence stage included) and through the host path; equal rows after
+    the create, the successor's scale-up and the restart's new service."""
+    cuda.reset_launch_counts(K.KERNELS)
+    run = run_control(workload, identity, TorchPlanner, CONTROL,
+                      memory=torch.cuda.memory_allocated)
+    torch.cuda.synchronize()
+    launches = cuda.launch_counts(K.KERNELS)
+    print("replicated control: card memory after each leadership change "
+          "(allocated bytes, the dropped planner's resident bytes): "
+          + ", ".join(f"{m['change']} {m['allocated']} ({m['resident']})"
+                      for m in run["memory"])
+          + f"; after each stage {run['settled_memory']}", flush=True)
+    check_control_memory(run, "replicated control")
+    for k in (K.FEASIBILITY, K.SEG_SUM, K.WATERFILL, K.FUSED_FEASIBILITY,
+              K.FUSED_CARRY):
+        check(launches[k.name] > 0, f"replicated control: {k.name} never "
+              "launched")
+    host = run_control(workload, identity, lambda: None, CONTROL,
+                       fence=False)
+    for stage in CONTROL_STAGES:
+        check(control_counts(run["rows"][stage])
+              == control_counts(host["rows"][stage]),
+              f"replicated control, {stage}: the card's live tasks per "
+              "(service, node) differ from the host path's")
+    out = dict(
+        seconds=run["seconds"], host_seconds=host["seconds"],
+        wall_s=run["wall_s"], host_wall_s=host["wall_s"],
+        rows={s: len(run["rows"][s]) for s in CONTROL_STAGES},
+        checks=run["checks"], failover=run["failover"],
+        fence=run["fence"], snapshots=run["snapshots"],
+        raft_applied=run["raft_applied"], memory=run["memory"],
+        settled_memory=run["settled_memory"], changes=run["changes"],
+        unplanned=run["unplanned"],
+        launches={k: v for k, v in launches.items() if v})
+    print(f"replicated control: {CONTROL['n_nodes']} nodes, 3 members; "
+          "stages " + ", ".join(f"{k} {v:.1f} s"
+                                for k, v in run["seconds"].items())
+          + f" (host path: " + ", ".join(
+              f"{k} {v:.1f} s" for k, v in host["seconds"].items())
+          + f"); {out['rows']} live tasks, per (service, node) equal "
+          "to the host path's; "
+          f"follower read {run['checks']['linearizable_read_rows']} rows; "
+          f"watch resumed {run['checks']['watch']}; fence {run['fence']}; "
+          f"snapshots {run['snapshots']}; leadership changes "
+          f"{run['changes']} ({run['unplanned']} unasked); launches "
+          f"{out['launches']}; on {card}", flush=True)
+    return out
+
+
 def phase(name, fn, *args, **kw):
     """``fn(*args, **kw)``, its seconds kept in ``PHASE_S[name]``."""
     t0 = time.perf_counter()
@@ -4269,6 +5033,7 @@ def main():
             fused_to_device, gang_to_device, to_device, victims_to_device)
         from swarmkit_tpu_torch.parallel import make_mesh
         from swarmkit_tpu_torch.scheduler import Scheduler
+        from swarmkit_tpu_torch.state import serde
         from swarmkit_tpu_torch.state.events import EventTaskBlock
         from swarmkit_tpu_torch.utils import identity
         from swarmkit_tpu_torch.utils.metrics import registry
@@ -4281,6 +5046,14 @@ def main():
     count = torch.cuda.device_count()
     print(f"card: {card} (torch sees {kind} x{count}; torch "
           f"{torch.__version__}, CUDA {torch.version.cuda})", flush=True)
+    # the manager's CA needs the cryptography package; no phase does
+    try:
+        import cryptography
+        crypto = cryptography.__version__
+        print(f"cryptography: {crypto} imports", flush=True)
+    except ImportError as exc:
+        crypto = None
+        print(f"cryptography: does not import ({exc})", flush=True)
 
     # the native C commit plane runs under every phase; a run without it
     # (no C compiler) fails here
@@ -4371,6 +5144,10 @@ def main():
                  TorchPlanner, tracer, card)
     tenant = phase("tenant_storm", phase_tenant_storm, torch, K, cuda,
                    workload, Task, TaskState, TorchPlanner, card)
+    live = phase("live_manager", phase_live_manager, torch, K, cuda,
+                 workload, Task, TorchPlanner, serde, tracer, card)
+    control = phase("replicated_control", phase_replicated_control, torch,
+                    K, cuda, workload, identity, TorchPlanner, card)
     faults3 = device_faults(registry, planner_mod)
     moved = {k: faults1[k] - faults0[k] + faults3[k] - faults2[k]
              for k in faults0}
@@ -4418,7 +5195,9 @@ def main():
               "storm": storm, "mesh": mesh, "per_host_spread": wide,
               "native": native_run, "native_fallbacks": fallbacks,
               "breaker": breaker, "service_life": life,
-              "tenant_storm": tenant, "device_faults": moved,
+              "tenant_storm": tenant, "live_manager": live,
+              "replicated_control": control, "cryptography": crypto,
+              "device_faults": moved,
               "phase_seconds": PHASE_S,
               "profiler_sessions": PROFILE_LOG,
               "seconds": time.perf_counter() - t_start}

@@ -60,10 +60,19 @@ driven through a create, a drain of 1,000 nodes (``drain_nodes``) and a
 rollout (``roll_out``).  ``tenant_storm`` is bench.py's config 9: the
 autoscaler and the tenant quotas under a burst, its window one autoscaler
 drive and one tick (``tenant_storm_pass``).
+
+``live_manager`` is bench.py's ``run_live_manager`` (configs 6 and 7):
+one tick of a store the caller built (``live_cluster`` is config 6:
+10,000 nodes, two services of 100,000 tasks) through a single-voter
+``RaftNode`` with a sealed WAL, under the live manager's subscribers.
+``raft_group`` makes in-process raft members over one ``LocalNetwork``,
+each with its own store and WAL, and ``wait_leader`` waits, bounded, for
+one of them to lead.
 """
 
 from __future__ import annotations
 
+import os
 import random
 import time
 
@@ -124,9 +133,11 @@ def rack_nodes(n_nodes, node_labels=None, node_platform=None):
 @paused_gc()
 def build_cluster(n_nodes, n_tasks, node_labels=None, constraints=None,
                   platforms=None, prefs=None, node_platform=None,
-                  global_share=0.0):
-    """(store, service, nodes, tasks) for a synthetic cluster of one
-    replicated service whose tasks reserve 0.1 CPU and 64 MiB each."""
+                  global_share=0.0, n_services=1):
+    """(store, service, nodes, tasks) for a synthetic cluster whose tasks
+    reserve 0.1 CPU and 64 MiB each.  ``n_services`` replicated services
+    (``bench-0``, ...) split ``n_tasks`` evenly, the last taking the
+    remainder; ``service`` is the first of them."""
     store = MemoryStore()
     nodes = rack_nodes(n_nodes, node_labels, node_platform)
     shared_spec = TaskSpec(
@@ -136,29 +147,35 @@ def build_cluster(n_nodes, n_tasks, node_labels=None, constraints=None,
         resources=ResourceRequirements(
             reservations=Resources(nano_cpus=10**8, memory_bytes=64 << 20)))
 
-    svc = Service(
-        id=new_id(),
-        spec=ServiceSpec(annotations=Annotations(name="bench-0"),
-                         mode=ServiceMode.REPLICATED,
-                         replicated=ReplicatedService(replicas=n_tasks)),
-        spec_version=Version(index=1))
-    n_global = int(n_tasks * global_share)
+    services = []
     tasks = []
-    for s in range(1, n_tasks + 1):
-        t = Task(id=new_id(), service_id=svc.id, slot=s,
-                 desired_state=TaskState.RUNNING, spec=shared_spec,
-                 spec_version=Version(index=1),
-                 status=TaskStatus(state=TaskState.PENDING))
-        if s <= n_global:
-            # global-service style: preassigned to a node
-            t.slot = 0
-            t.node_id = nodes[s % n_nodes].id
-        tasks.append(t)
+    per = n_tasks // n_services
+    for si in range(n_services):
+        count = per if si < n_services - 1 else n_tasks - per * si
+        svc = Service(
+            id=new_id(),
+            spec=ServiceSpec(annotations=Annotations(name=f"bench-{si}"),
+                             mode=ServiceMode.REPLICATED,
+                             replicated=ReplicatedService(replicas=count)),
+            spec_version=Version(index=1))
+        services.append(svc)
+        n_global = int(count * global_share)
+        for s in range(1, count + 1):
+            t = Task(id=new_id(), service_id=svc.id, slot=s,
+                     desired_state=TaskState.RUNNING, spec=shared_spec,
+                     spec_version=Version(index=1),
+                     status=TaskStatus(state=TaskState.PENDING))
+            if s <= n_global:
+                # global-service style: preassigned to a node
+                t.slot = 0
+                t.node_id = nodes[s % n_nodes].id
+            tasks.append(t)
 
     def create_nodes(tx):
         for n in nodes:
             tx.create(n)
-        tx.create(svc)
+        for svc in services:
+            tx.create(svc)
 
     store.update(create_nodes)
 
@@ -167,7 +184,7 @@ def build_cluster(n_nodes, n_tasks, node_labels=None, constraints=None,
             tx.create(t)
 
     store.update(create_tasks)
-    return store, svc, nodes, tasks
+    return store, services[0], nodes, tasks
 
 
 def headline_cluster(n_nodes=HEADLINE_NODES, n_tasks=HEADLINE_TASKS):
@@ -821,6 +838,15 @@ class ControlLoops:
         self._timed("restarts", self.restarts.drive)
         return decided, self.store.version - version
 
+    def close(self):
+        """Unsubscribe every loop from the store, as a leader's loops stop
+        when it loses the lead: the store keeps no queue for them."""
+        subs = [self._sched_sub] if hasattr(self, "_sched_sub") else []
+        subs += [sub for _, _, sub, _ in self._drivers]
+        for sub in subs:
+            self.store.queue.unsubscribe(sub)
+        self._drivers = []
+
 
 def advance_tasks(store):
     """A stub agent on every node, in one store batch: an assigned task
@@ -942,6 +968,249 @@ def roll_out(store, service_id, image):
         tx.update(cur)
 
     store.update(cb)
+
+
+# --------------------------------------- the live manager and raft groups
+
+#: config 6's services (bench.py ``BENCH_CFG6_SERVICES``)
+LIVE_SERVICES = 2
+#: the key the live manager's WAL is sealed with; production seals its WAL
+#: with a key the certificate authority keeps
+LIVE_WAL_KEY = b"swarmkit-live-manager-wal-key"
+#: seconds to wait for a raft member to lead (bench.py's bound)
+LEADER_TIMEOUT = 15.0
+#: the live manager's dispatcher sessions (bench.py's eight)
+LIVE_SESSIONS = 8
+
+
+def live_cluster(n_nodes=HEADLINE_NODES,
+                 n_tasks=HEADLINE_TASKS * LIVE_SERVICES,
+                 n_services=LIVE_SERVICES):
+    """(store, service, nodes, tasks) of bench.py's config 6: ``n_nodes``
+    racked nodes and ``n_services`` replicated services with no placement
+    preference splitting ``n_tasks`` PENDING tasks (0.1 CPU + 64 MiB each),
+    all planned in one tick."""
+    return build_cluster(n_nodes, n_tasks, n_services=n_services)
+
+
+def raft_group(n, root, encoder=None, snapshot_interval=1000,
+               tick_interval=None, start=True):
+    """(network, {id: RaftNode}) of ``n`` members ``m0``.. over one
+    ``LocalNetwork``, each with its own ``MemoryStore`` (its proposer the
+    member) and its WAL and snapshots under ``root/<id>``, sealed by
+    ``encoder()`` when one is given.  A member whose directory holds a WAL
+    boots from it.  ``start=False`` leaves the raft threads to the
+    caller."""
+    from .state.raft import LocalNetwork, RaftLogger, RaftNode
+
+    net = LocalNetwork()
+    ids = [f"m{i}" for i in range(n)]
+    members = {}
+    for node_id in ids:
+        store = MemoryStore()
+        logger = RaftLogger(os.path.join(root, node_id),
+                            encoder=encoder() if encoder else None)
+        rn = RaftNode(node_id, ids, store, logger, net,
+                      snapshot_interval=snapshot_interval,
+                      tick_interval=tick_interval)
+        store._proposer = rn
+        members[node_id] = rn
+    if start:
+        for rn in members.values():
+            rn.start()
+    return net, members
+
+
+def wait_leader(members, timeout=LEADER_TIMEOUT):
+    """The one member of ``members`` (a dict or a list) that leads and has
+    applied its election's no-op, so it takes proposals; RuntimeError
+    after ``timeout`` seconds."""
+    members = list(members.values()) if isinstance(members, dict) \
+        else list(members)
+    deadline = time.monotonic() + timeout
+    while True:
+        leaders = [rn for rn in members
+                   if rn.is_leader and rn.core.leader_ready]
+        if len(leaders) == 1:
+            return leaders[0]
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"no single raft leader in {timeout} s "
+                               f"among {[rn.id for rn in members]}")
+        time.sleep(0.01)
+
+
+def wal_bytes(path):
+    """Bytes of every file under ``path`` (a member's WAL and snapshots)."""
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def live_manager(store, planner, proposer="raft", nodes=None, wal_dir=None,
+                 around=None):
+    """bench.py's ``run_live_manager`` on a store the caller built: one
+    tick of a ``Scheduler`` over ``planner`` at the default pipeline depth
+    with a single-voter ``RaftNode`` under the store (its WAL in
+    ``wal_dir``, else a temporary directory removed afterwards, sealed
+    by a ``KeyEncoder`` over ``LIVE_WAL_KEY``) and the live manager's
+    subscribers on threads of their own: two control-loop subscriptions,
+    a dispatcher session on each of the first eight of ``nodes`` (the
+    store's nodes when None) and the metrics consumer.
+    ``proposer=None`` runs the same tick with a nil proposer.  ``around``
+    wraps the tick: ``around(tick)`` calls ``tick()`` and returns what it
+    returns (a tracer, for one).  Kernels build at first use, before any
+    tick, so no warm-up tick runs here.
+
+    Fails, as bench.py does, unless every task of the store is ASSIGNED
+    and the metrics histogram balances.  Returns the tick's decisions,
+    seconds (``tick_s``, ``plan_s``, ``commit_s``, ``fanout_s``), raft's
+    ``raft_entries_applied``, ``raft_stats`` and ``wal_bytes``, the
+    seconds the propose and apply timers added (``propose_s``,
+    ``apply_s``), ``native_commit``, the planner's ``groups_fused``, the
+    events each subscriber took, and the scheduler (``sched``)."""
+    import shutil
+    import tempfile
+    import threading
+
+    from . import native
+    from .state.events import EventTaskBlock
+    from .state.raft import KeyEncoder, LocalNetwork, RaftLogger, RaftNode
+    from .utils.metrics import registry
+
+    assert proposer in ("raft", None), proposer
+    if nodes is None:
+        nodes = store.view(lambda tx: tx.find(Node))
+    n_tasks = store.view(lambda tx: len(tx.find(Task)))
+    own_dir = wal_dir is None
+    tmp = tempfile.mkdtemp(prefix="live-raft-") if own_dir else wal_dir
+    rn = None
+    stop = threading.Event()
+    try:
+        if proposer == "raft":
+            rn = RaftNode("b0", ["b0"], store,
+                          RaftLogger(os.path.join(tmp, "b0"),
+                                     encoder=KeyEncoder(LIVE_WAL_KEY)),
+                          LocalNetwork())
+            store._proposer = rn
+            rn.start()
+            wait_leader([rn])
+
+        counts, hist = {}, {}
+        subs = {"orchestrator": store.queue.subscribe(accepts_blocks=True),
+                "reaper": store.queue.subscribe(accepts_blocks=True)}
+        session_nodes = [n.id for n in nodes[:LIVE_SESSIONS]]
+        for i, nid in enumerate(session_nodes):
+            def pred(ev, nid=nid):
+                if isinstance(ev, EventTaskBlock):
+                    return True   # the per-node probe runs in the consumer
+                return getattr(getattr(ev, "obj", None), "node_id",
+                               None) == nid
+            subs[f"session{i}"] = store.queue.subscribe(
+                pred, accepts_blocks=True)
+        metrics_sub = store.queue.subscribe(accepts_blocks=True)
+
+        def items(sub):
+            try:
+                head = sub.get(timeout=0.1)
+            except TimeoutError:
+                return []
+            return [head] + sub.drain()
+
+        def consume(name, sub):
+            got = 0
+            while not stop.is_set():
+                for it in items(sub):
+                    if isinstance(it, EventTaskBlock):
+                        if name.startswith("session"):
+                            nid = session_nodes[int(name[7:])]
+                            got += len(it.per_node().get(nid, ()))
+                        else:
+                            got += len(it)   # a control loop skips it
+                    else:
+                        got += 1
+            for it in sub.drain():
+                got += len(it) if isinstance(it, EventTaskBlock) else 1
+            counts[name] = got
+
+        def consume_metrics(sub):
+            got = 0
+
+            def absorb(batch):
+                nonlocal got
+                for it in batch:
+                    if isinstance(it, EventTaskBlock):
+                        for old in it.olds:
+                            k = int(old.status.state)
+                            hist[k] = hist.get(k, 0) - 1
+                        hist[it.state] = hist.get(it.state, 0) + len(it)
+                        got += len(it)
+                    else:
+                        got += 1
+
+            while not stop.is_set():
+                absorb(items(sub))
+            absorb(sub.drain())
+            counts["metrics"] = got
+
+        threads = [threading.Thread(target=consume, args=(k, s),
+                                    daemon=True) for k, s in subs.items()]
+        threads.append(threading.Thread(target=consume_metrics,
+                                        args=(metrics_sub,), daemon=True))
+        for t in threads:
+            t.start()
+
+        timers = {name: registry.timer(name) for name in (
+            "swarm_watch_fanout_latency", "swarm_raft_propose_latency",
+            "swarm_raft_apply_latency")}
+        totals0 = {name: t.total for name, t in timers.items()}
+        fallbacks0 = registry.get_counter("swarm_native_commit_fallbacks")
+        stats0 = dict(getattr(planner, "stats", {}))
+        tick = (lambda: one_tick(store, planner))
+        sched, n_dec, dt = around(tick) if around else tick()
+        time.sleep(0.2)   # let the consumers drain the tail
+        stop.set()
+        for t in threads:
+            t.join(timeout=5)
+        for sub in list(subs.values()) + [metrics_sub]:
+            store.queue.unsubscribe(sub)
+        n_assigned = sum(
+            1 for t in store.view(lambda tx: tx.find(Task))
+            if t.status.state >= TaskState.ASSIGNED and t.node_id)
+        if n_assigned < n_tasks:
+            raise RuntimeError(f"live manager: only {n_assigned}/{n_tasks} "
+                               "tasks ASSIGNED")
+        if counts.get("metrics", 0) < n_dec or \
+                hist.get(int(TaskState.ASSIGNED), 0) < n_dec:
+            raise RuntimeError(f"live manager: the metrics histogram does "
+                               f"not balance: {counts} {hist}")
+        added = {name: t.total - totals0[name] for name, t in timers.items()}
+        stats = getattr(planner, "stats", {})
+        return {
+            "tasks": n_tasks, "decisions": n_dec, "tick_s": dt,
+            "pipeline_depth": sched.pipeline_depth,
+            "plan_s": stats.get("plan_seconds", 0.0)
+            - stats0.get("plan_seconds", 0.0),
+            "commit_s": sched.stats["commit_seconds"],
+            "fanout_s": added["swarm_watch_fanout_latency"],
+            "propose_s": added["swarm_raft_propose_latency"],
+            "apply_s": added["swarm_raft_apply_latency"],
+            "native_commit": {
+                "enabled": native.commit_enabled(),
+                "active": native.get() is not None,
+                "fallbacks": int(registry.get_counter(
+                    "swarm_native_commit_fallbacks") - fallbacks0)},
+            "groups_fused": stats.get("groups_fused", 0)
+            - stats0.get("groups_fused", 0),
+            "raft_entries_applied": rn.stats["applied"] if rn else 0,
+            "raft_stats": dict(rn.stats) if rn else {},
+            "wal_bytes": wal_bytes(tmp) if rn else 0,
+            "events_delivered": dict(counts), "sched": sched}
+    finally:
+        stop.set()
+        if rn is not None:
+            rn.stop()
+            store._proposer = None
+        if own_dir:
+            shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ------------------------------------------------ tenant burst (config 9)

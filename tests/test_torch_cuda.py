@@ -1419,3 +1419,61 @@ def test_service_life_on_card_matches_cpu():
     for s in cs.LIFE_STAGES:
         assert card[s] == cpu[s], f"{s}: the card places unlike the CPU"
         assert stages[s]["span_counts"]["sched.host_fallback"] == 0
+
+
+def test_live_manager_on_card_matches_cpu():
+    """Config 6's shape at 1,024 nodes x 2 services x 8,192 tasks through
+    ``workload.live_manager`` (one pipelined tick through a single-voter
+    ``RaftNode`` with a sealed WAL) on the card and through the CPU plain
+    path: equal placements by creation index, both groups fused, raft
+    entries applied, and K1F and K4's carry launched on the card."""
+    _card()
+    import chip_smoke as cs
+    from swarmkit_tpu_torch import workload
+    from swarmkit_tpu_torch.models import Task
+    from swarmkit_tpu_torch.ops import TorchPlanner, cuda
+
+    def run(device):
+        store, _, nodes, tasks = workload.live_cluster(1024, 16384)
+        cuda.reset_launch_counts(K.KERNELS)
+        out = workload.live_manager(store, TorchPlanner(device=device),
+                                    nodes=nodes)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = cuda.launch_counts(K.KERNELS)
+        return cs.placements(store, Task, tasks, nodes), out, launches
+
+    card, out, launches = run("cuda")
+    cpu, cpu_out, _ = run("cpu")
+    assert card == cpu
+    assert out["groups_fused"] == cpu_out["groups_fused"] == 2
+    assert out["raft_entries_applied"] >= 2
+    assert out["native_commit"]["fallbacks"] == 0
+    assert launches[K.FUSED_FEASIBILITY.name] > 0
+    assert launches[K.FUSED_CARRY.name] > 0
+
+
+def test_replicated_control_on_card_matches_cpu():
+    """Phase 25's script (``chip_smoke.control_script``: three raft
+    members, services made through the leader's ``ControlAPI``, a
+    failover, a leader deposed inside a pipelined tick, a restart from
+    WALs and snapshots) at 40 nodes on the card and through the CPU plain
+    path, with fixed ids: every live task on the same node in the same
+    state after the create, the scale-up and the restart, and card memory
+    grown by at most one resident state a leadership change."""
+    _card()
+    import chip_smoke as cs
+    from swarmkit_tpu_torch import workload
+    from swarmkit_tpu_torch.ops import TorchPlanner
+    from swarmkit_tpu_torch.utils import identity
+
+    shape = dict(cs.CONTROL, n_nodes=40, snapshot_interval=8,
+                 fence_tasks=200)
+    card = cs.run_control(workload, identity,
+                          lambda: TorchPlanner(device="cuda"), shape,
+                          memory=torch.cuda.memory_allocated)
+    cpu = cs.run_control(workload, identity,
+                         lambda: TorchPlanner(device="cpu"), shape)
+    cs.check_control_memory(card, "replicated control, 40 nodes")
+    for stage in cs.CONTROL_STAGES:
+        assert card["rows"][stage] == cpu["rows"][stage], stage

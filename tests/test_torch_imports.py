@@ -1,5 +1,7 @@
 """The port stands alone: no module of ``swarmkit_tpu_torch`` and not
-``chip_smoke.py`` imports ``jax`` or anything of ``swarmkit_tpu``, and the
+``chip_smoke.py`` imports ``jax`` or anything of ``swarmkit_tpu`` (each
+module of the consensus layer, the security package and the manager's API
+surfaces is also imported alone in a fresh interpreter), and the
 planner's entry point defaults to the card."""
 
 import ast
@@ -17,6 +19,15 @@ FORBIDDEN = ("jax", "jaxlib", "swarmkit_tpu")
 ORCHESTRATOR_MODULES = ("__init__", "autoscaler", "common", "enforcers",
                         "global_", "jobs", "pipeline", "replicated",
                         "restart", "taskinit", "taskreaper", "update")
+#: the consensus layer, the security package and the manager's API
+#: surfaces (the reference's text; tests/test_torch_raft.py pins that)
+CONSENSUS_MODULES = (
+    "state.raft", "state.raft.core", "state.raft.node",
+    "state.raft.storage", "state.raft.transport", "security",
+    "security.ca", "security.tls", "security.external",
+    "manager.watchapi", "manager.controlapi", "manager.resourceapi",
+    "manager.logbroker", "manager.keymanager", "manager.rolemanager",
+    "manager.metrics")
 
 
 def _imported(path):
@@ -54,7 +65,11 @@ def test_port_files_exist():
                  "swarmkit_tpu_torch/manager/netdriver.py",
                  "chip_smoke.py") + tuple(
                      f"swarmkit_tpu_torch/orchestrator/{name}.py"
-                     for name in ORCHESTRATOR_MODULES):
+                     for name in ORCHESTRATOR_MODULES) + tuple(
+                     "swarmkit_tpu_torch/" + name.replace(".", "/")
+                     + ("/__init__.py" if name in ("state.raft", "security")
+                        else ".py")
+                     for name in CONSENSUS_MODULES):
         assert must in names
 
 
@@ -70,7 +85,8 @@ def test_no_jax_or_reference_import(path):
     "swarmkit_tpu_torch.ops.streaming", "swarmkit_tpu_torch.ops.planner",
     "swarmkit_tpu_torch.ops.preempt", "swarmkit_tpu_torch.parallel.sharded",
     "swarmkit_tpu_torch.workload", "swarmkit_tpu_torch.utils.sampling",
-    "swarmkit_tpu_torch.orchestrator", "swarmkit_tpu_torch.manager"])
+    "swarmkit_tpu_torch.orchestrator", "swarmkit_tpu_torch.manager"] + [
+        f"swarmkit_tpu_torch.{name}" for name in CONSENSUS_MODULES])
 def test_import_loads_no_jax(module):
     """Importing a port module (and everything it imports) in a fresh
     interpreter loads neither jax nor the reference package."""
@@ -145,13 +161,17 @@ def test_device_helpers_default_to_cuda(helper):
 
 
 def test_manager_exports_only_what_is_ported():
-    """The port's ``manager`` package carries the task allocator alone so
-    far: it exports exactly ``Allocator`` and ``PortAllocator``, and no
-    ``Manager``."""
+    """The port's ``manager`` package carries the task allocator and the
+    API surfaces every raft member serves: it exports exactly their
+    reference names, and no ``Manager``, dispatcher or CSI manager, which
+    are not ported yet."""
     import swarmkit_tpu_torch.manager as manager
-    assert manager.__all__ == ["Allocator", "PortAllocator"]
-    assert not hasattr(manager, "Manager")
-    assert not hasattr(manager, "Dispatcher")
+    assert manager.__all__ == [
+        "Allocator", "Collector", "ControlAPI", "KeyManager", "LogBroker",
+        "LogMessage", "LogSelector", "PortAllocator", "ResourceAPI",
+        "WatchRequest", "WatchServer"]
+    for name in ("Manager", "Dispatcher", "CSIManager"):
+        assert not hasattr(manager, name)
 
 
 @pytest.mark.parametrize("name", ORCHESTRATOR_MODULES[1:] + (
