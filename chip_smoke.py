@@ -189,6 +189,27 @@ Phases, each of which exits non-zero on failure:
     snapshot, byte-equal, the new leader's loops placing a new service;
     card memory after each leadership change; the same script on the
     host path places the same live tasks per (service, node).
+26. bench.py's config 13 (``workload.million_swarm``): 1,000 real
+    dispatcher sessions over one threadless ``Dispatcher`` with the
+    batched fan-out, 10 services, the pending cap 65,536 and report
+    batches of 1,024, at ``CFG13_REPLICAS`` replicas (100,000; config 13
+    has 1,000,000, which ``probes/million_swarm_probe.py`` runs): one
+    tick places them through ``TorchPlanner()`` (K1F and K4's carry
+    launched, no kernel build inside the timed tick), the fan-out
+    delivers every replica, and the status write-back storm is shed at
+    the admission edge (at least once; the dispatcher's count equal to
+    the clients', none lost) until every replica is RUNNING, the
+    heartbeat stretched and no session expired early; at 100 sessions
+    (``CFG13_PARITY``) the card and the host path give equal replicas per
+    (service, node), shed ledgers, rounds and fan-out counts;
+27. bench.py's ``run_e2e`` (``workload.e2e``): a ``Manager()`` whose
+    leader schedules on a ``TorchPlanner`` on the card (K1 launched),
+    five agents with a ``TestExecutor`` on its dispatcher and a service
+    of 500 replicas made through its control API, every replica RUNNING
+    within 1 of even; one agent stopped, its node DOWN and its replicas
+    RUNNING on the four others (the heal); the same over a single-voter
+    raft with a sealed WAL; the card's allocated memory after each
+    manager stops no higher than before it was built.
 
 The native plane is on for the whole run (it is built first, and the
 script fails without it); ``swarm_native_commit_fallbacks`` must stay 0.
@@ -196,7 +217,7 @@ The small-group router is off by default, so every phase but the
 router's own trickle puts every supported group on the card, and fails
 if a group went to the host path (``groups_small_to_host``,
 ``groups_breaker_to_host``, ``groups_device_error``, ``groups_fallback``).
-Phases 22-25 run last.  Over the whole run, the breaker's own phase
+Phases 22-27 run last.  Over the whole run, the breaker's own phase
 aside, no counter of
 ``ops.planner.DEVICE_FAULT_COUNTERS`` (a device error or an open breaker
 on any route: groups, gang verdicts, victim picks) may move.
@@ -4998,6 +5019,193 @@ def phase_replicated_control(torch, K, cuda, workload, identity,
     return out
 
 
+# ------------------------------------------ phase 26: the million swarm
+
+#: phase 26's replicas: bench.py's config 13 carries 1,000,000; the
+#: script's time limit cuts them (the sessions, services, pending cap and
+#: report batch stay config 13's): at 250,000 the whole script took
+#: 911-948 s on an H100 80GB HBM3 at 700 W, too near the limit on a
+#: slower host, so 100,000 (each 100,000 replicas cost ~17 s of fan-out
+#: and write-back there);
+#: ``probes/million_swarm_probe.py`` runs the full depth
+CFG13_REPLICAS = 100_000
+#: the parity run: 100 sessions and a replica count whose every service
+#: is a multiple of the sessions (no tie for the spread to break), under
+#: an admission bound the write-back overflows
+CFG13_PARITY = dict(n_agents=100, n_replicas=10_000, pending_cap=1024,
+                    report_batch=64)
+
+
+def swarm_counts(run):
+    """Live replicas per (service, hostname) of a ``million_swarm`` run:
+    its tasks are made service by service, in equal runs."""
+    per = run["replicas"] // run["services"]
+    return Counter((min(i // per, run["services"] - 1), host)
+                   for i, host in enumerate(run["placements"]))
+
+
+def phase_million_swarm(torch, K, cuda, workload, TorchPlanner, card):
+    """Phase 26: bench.py's config 13 through ``workload.million_swarm``
+    on the card at 1,000 sessions and ``CFG13_REPLICAS``; then the parity
+    run on the card and through the host path."""
+    cuda.reset_launch_counts(K.KERNELS)
+    run = workload.million_swarm(TorchPlanner,
+                                 n_replicas=CFG13_REPLICAS)
+    torch.cuda.synchronize()
+    launches = cuda.launch_counts(K.KERNELS)
+    lab = "million swarm"
+    n = run["replicas"]
+    sheds = run["sheds"]
+    check(run["time_to_running"]["running"] == n,
+          f"{lab}: {run['time_to_running']['running']} of {n} RUNNING")
+    check(run["sessions"] == workload.SWARM_AGENTS,
+          f"{lab}: {run['sessions']} sessions")
+    check(sheds["dispatcher"] == sheds["client_observed"]
+          and sheds["uncounted"] == 0 and sheds["unrecovered"] == 0,
+          f"{lab}: the shed ledger does not reconcile: {sheds}")
+    check(sheds["dispatcher"] >= 1, f"{lab}: nothing shed, the admission "
+          "edge was never reached")
+    check(run["premature_expirations"] == 0,
+          f"{lab}: {run['premature_expirations']} premature expirations")
+    check(run["hb_stretch_factor"] > 1.0,
+          f"{lab}: the heartbeat did not stretch "
+          f"({run['hb_stretch_factor']})")
+    check(run["fanout_changes"] == n,
+          f"{lab}: {run['fanout_changes']} fan-out changes for {n} replicas")
+    check(not any(run["compiles"].values()) and run["build_s"] == 0.0,
+          f"{lab}: a kernel build inside the timed tick: "
+          f"{run['compiles']}, {run['build_s']} s")
+    for k in (K.FUSED_FEASIBILITY, K.FUSED_CARRY):
+        check(run["launches"][k.name] > 0 and launches[k.name] > 0,
+              f"{lab}: {k.name} never launched in the tick")
+    for key in ("groups_spill_to_host",) + HOST_ROUTES:
+        check(run["planner_stats"].get(key, 0) == 0,
+              f"{lab}: {key} = {run['planner_stats'].get(key)}")
+    ttr = run["time_to_running"]
+    print(f"million swarm: {run['sessions']} sessions, {n} replicas of "
+          f"{run['services']} services (config 13 has "
+          f"{workload.SWARM_REPLICAS}); tick {run['tick_s']:.3f} s "
+          f"({run['decisions_per_sec']:.0f} decisions/s), register "
+          f"{run['register_s']:.3f} s, stream open "
+          f"{run['stream_open_s']:.3f} s, fan-out {run['fanout_s']:.3f} s "
+          f"({run['fanout_messages']} messages, {run['fanout_changes']} "
+          f"changes), write-back {run['writeback_s']:.3f} s in "
+          f"{run['writeback_rounds']} rounds (peak depth "
+          f"{run['peak_update_depth']}); sheds {sheds}; heartbeat stretch "
+          f"x{run['hb_stretch_factor']:.3f} ({run['hb_stretches']} "
+          f"stretched), premature expirations "
+          f"{run['premature_expirations']}; time to running p50 "
+          f"{ttr['p50_s']:.3f} s, p90 {ttr['p90_s']:.3f}, p99 "
+          f"{ttr['p99_s']:.3f}, max {ttr['max_s']:.3f}; compiles in the "
+          f"tick {run['compiles']}; launches "
+          f"{ {k: v for k, v in run['launches'].items() if v} }; groups "
+          f"fused {run['planner_stats'].get('groups_fused', 0)}; on {card}",
+          flush=True)
+    print("million swarm planes: " + json.dumps(run["planes"]), flush=True)
+
+    dev = workload.million_swarm(TorchPlanner, **CFG13_PARITY)
+    host = workload.million_swarm(lambda: None, **CFG13_PARITY)
+    plab = f"million swarm parity ({CFG13_PARITY['n_agents']} sessions)"
+    check(swarm_counts(dev) == swarm_counts(host),
+          f"{plab}: replicas per (service, node) differ from the host "
+          "path's")
+    for key in ("sheds", "writeback_rounds", "fanout_messages",
+                "fanout_changes"):
+        check(dev[key] == host[key],
+              f"{plab}: {key} {dev[key]} on the card, {host[key]} on the "
+              "host path")
+    print(f"{plab}: {CFG13_PARITY['n_replicas']} replicas, per (service, "
+          f"node) equal to the host path's; sheds {dev['sheds']['dispatcher']}"
+          f" in {dev['writeback_rounds']} rounds and "
+          f"{dev['fanout_changes']} fan-out changes both ways", flush=True)
+    keep = ("agents", "replicas", "services", "sessions", "decisions",
+            "decisions_per_sec", "tick_s", "register_s", "stream_open_s",
+            "fanout_s", "fanout_messages", "fanout_changes",
+            "fanout_compactions", "writeback_s", "writeback_rounds",
+            "peak_update_depth", "heartbeats", "hb_stretch_factor",
+            "hb_stretches", "premature_expirations", "expirations", "sheds",
+            "time_to_running", "planes", "compiles", "build_s")
+    out = {k: run[k] for k in keep}
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    out["parity"] = {"sessions": CFG13_PARITY["n_agents"],
+                     "replicas": CFG13_PARITY["n_replicas"],
+                     "sheds": dev["sheds"],
+                     "writeback_rounds": dev["writeback_rounds"],
+                     "tick_s": dev["tick_s"], "host_tick_s": host["tick_s"]}
+    return out
+
+
+# ------------------------------------------------- phase 27: the end to end
+
+def phase_e2e(torch, K, cuda, workload, card):
+    """Phase 27: bench.py's ``run_e2e`` through ``workload.e2e`` with
+    ``Manager()`` (the card): standalone, then the heal on the same
+    manager, then over a single-voter raft with a sealed WAL; the card's
+    memory after each manager stops."""
+    import shutil
+    import tempfile
+
+    def allocated():
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    out = {}
+    for label in ("standalone", "raft"):
+        root = tempfile.mkdtemp(prefix="e2e-raft-") if label == "raft" \
+            else None
+        before = allocated()
+        cuda.reset_launch_counts(K.KERNELS)
+        try:
+            run = workload.e2e(raft_root=root, heal=label == "standalone")
+        finally:
+            if root is not None:
+                shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.synchronize()
+        launches = cuda.launch_counts(K.KERNELS)
+        after = allocated()
+        lab = f"e2e ({label})"
+        check(run["planner"] == "TorchPlanner"
+              and run["planner_device"].startswith("cuda"),
+              f"{lab}: the leader planned on {run['planner']} "
+              f"({run['planner_device']})")
+        check(launches[K.FEASIBILITY.name] > 0,
+              f"{lab}: {K.FEASIBILITY.name} never launched")
+        counts = list(run["per_host"].values())
+        check(sum(counts) == run["replicas"]
+              and len(counts) == run["agents"]
+              and max(counts) - min(counts) <= 1,
+              f"{lab}: replicas per node {run['per_host']}")
+        check(after <= before, f"{lab}: card memory {after} bytes after "
+              f"the manager stopped, {before} before it was built")
+        crit = run["journey_attribution"]
+        line = (f"e2e ({label}): {run['agents']} agents, {run['replicas']} "
+                f"replicas RUNNING through Manager(); time to running p50 "
+                f"{run['p50_s']:.3f} s, p90 {run['p90_s']:.3f}, p99 "
+                f"{run['p99_s']:.3f}, max {run['max_s']:.3f}; critical path "
+                f"at p99 " + json.dumps(crit.get("planes", crit))
+                + f"; per node {run['per_host']}; launches "
+                f"{ {k: v for k, v in launches.items() if v} } (K7 "
+                f"{'launched' if launches[K.SCATTER.name] else 'not launched'}"
+                f"); card memory {before} -> {after} bytes")
+        if "heal" in run:
+            heal = run["heal"]
+            check(heal["nodes"] == run["agents"] - 1,
+                  f"{lab}: healed onto {heal['nodes']} nodes")
+            line += (f"; heal: node DOWN {heal['down_s']:.2f} s after its "
+                     f"agent stopped, every replica RUNNING on the "
+                     f"{heal['nodes']} others {heal['running_s']:.2f} s "
+                     "after")
+        if "wal_bytes" in run:
+            line += (f"; raft: {run['raft_entries_applied']} entries "
+                     f"applied, WAL {run['wal_bytes']} bytes")
+        print(line + f"; on {card}", flush=True)
+        run["launches"] = {k: v for k, v in launches.items() if v}
+        run["memory"] = {"before": before, "after": after}
+        out[label] = run
+    return out
+
+
 def phase(name, fn, *args, **kw):
     """``fn(*args, **kw)``, its seconds kept in ``PHASE_S[name]``."""
     t0 = time.perf_counter()
@@ -5148,6 +5356,9 @@ def main():
                  workload, Task, TorchPlanner, serde, tracer, card)
     control = phase("replicated_control", phase_replicated_control, torch,
                     K, cuda, workload, identity, TorchPlanner, card)
+    swarm = phase("million_swarm", phase_million_swarm, torch, K, cuda,
+                  workload, TorchPlanner, card)
+    e2e = phase("e2e", phase_e2e, torch, K, cuda, workload, card)
     faults3 = device_faults(registry, planner_mod)
     moved = {k: faults1[k] - faults0[k] + faults3[k] - faults2[k]
              for k in faults0}
@@ -5196,7 +5407,8 @@ def main():
               "native": native_run, "native_fallbacks": fallbacks,
               "breaker": breaker, "service_life": life,
               "tenant_storm": tenant, "live_manager": live,
-              "replicated_control": control, "cryptography": crypto,
+              "replicated_control": control, "million_swarm": swarm,
+              "e2e": e2e, "cryptography": crypto,
               "device_faults": moved,
               "phase_seconds": PHASE_S,
               "profiler_sessions": PROFILE_LOG,

@@ -1,24 +1,18 @@
-"""The manager's components that the port carries so far.
-
-The task allocator (``allocator.py`` with the network driver registry it
-reads, ``netdriver.py``) moves orchestrator-made tasks from NEW to PENDING,
-so the scheduler sees them.  The API surfaces every raft member serves come
-next to it: the users' write and read surface (``controlapi.py``), the
-agents' resource calls (``resourceapi.py``), resumable watches
-(``watchapi.py``), the log broker, the key and role managers and the
-metrics collector.  The reference package's ``manager.py`` (``Manager``),
-``dispatcher.py``, ``csi.py``, ``deallocator.py`` and ``drivers.py`` are not
-ported yet; this package exports only what is.
-"""
-
 from .allocator import Allocator, PortAllocator
 from .controlapi import ControlAPI
+from .csi import CSIPlugin, InMemoryCSIPlugin, Manager as CSIManager
+from .dispatcher import (
+    AssignmentsMessage, AssignmentStream, DefaultConfig, Dispatcher,
+)
 from .keymanager import KeyManager
 from .logbroker import LogBroker, LogMessage, LogSelector
+from .manager import Manager
 from .metrics import Collector
 from .resourceapi import ResourceAPI
 from .watchapi import WatchRequest, WatchServer
 
-__all__ = ["Allocator", "Collector", "ControlAPI", "KeyManager",
-           "LogBroker", "LogMessage", "LogSelector", "PortAllocator",
-           "ResourceAPI", "WatchRequest", "WatchServer"]
+__all__ = ["Allocator", "AssignmentsMessage", "AssignmentStream",
+           "CSIManager", "CSIPlugin", "Collector", "ControlAPI",
+           "InMemoryCSIPlugin", "DefaultConfig", "Dispatcher",
+           "KeyManager", "LogBroker", "LogMessage", "LogSelector",
+           "Manager", "PortAllocator", "ResourceAPI", "WatchRequest", "WatchServer"]

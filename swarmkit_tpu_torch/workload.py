@@ -68,6 +68,15 @@ one tick of a store the caller built (``live_cluster`` is config 6:
 ``raft_group`` makes in-process raft members over one ``LocalNetwork``,
 each with its own store and WAL, and ``wait_leader`` waits, bounded, for
 one of them to lead.
+
+``million_swarm`` is bench.py's config 13: a thousand real dispatcher
+sessions over one threadless ``Dispatcher`` with the batched fan-out
+carry a million replicas from one tick through the fan-out and the
+status write-back shed at the bounded admission edge until every replica
+is RUNNING.  ``e2e`` is bench.py's ``run_e2e`` (swarm-bench): a
+``Manager``, agents with a ``TestExecutor`` on its dispatcher and a
+service created through its control API, timed to RUNNING, optionally
+over a single-voter raft and through a heal after an agent stops.
 """
 
 from __future__ import annotations
@@ -133,9 +142,10 @@ def rack_nodes(n_nodes, node_labels=None, node_platform=None):
 @paused_gc()
 def build_cluster(n_nodes, n_tasks, node_labels=None, constraints=None,
                   platforms=None, prefs=None, node_platform=None,
-                  global_share=0.0, n_services=1):
+                  global_share=0.0, n_services=1, reservations=None):
     """(store, service, nodes, tasks) for a synthetic cluster whose tasks
-    reserve 0.1 CPU and 64 MiB each.  ``n_services`` replicated services
+    reserve ``reservations`` each (None: 0.1 CPU and 64 MiB).
+    ``n_services`` replicated services
     (``bench-0``, ...) split ``n_tasks`` evenly, the last taking the
     remainder; ``service`` is the first of them."""
     store = MemoryStore()
@@ -145,7 +155,8 @@ def build_cluster(n_nodes, n_tasks, node_labels=None, constraints=None,
                             platforms=platforms or [],
                             preferences=prefs or []),
         resources=ResourceRequirements(
-            reservations=Resources(nano_cpus=10**8, memory_bytes=64 << 20)))
+            reservations=reservations
+            or Resources(nano_cpus=10**8, memory_bytes=64 << 20)))
 
     services = []
     tasks = []
@@ -1354,3 +1365,450 @@ def settle(loops):
             return records
     raise RuntimeError(f"the control loops did not settle in {SETTLE_STEPS} "
                        "steps")
+
+
+# ------------------------------------------- the million swarm (config 13)
+
+#: config 13's fleet (bench.py's ``run_million_swarm`` defaults): dispatcher
+#: sessions, replicas, services, the bound on buffered status updates and
+#: the updates an agent reports in one batch
+SWARM_AGENTS = 1000
+SWARM_REPLICAS = 1_000_000
+SWARM_SERVICES = 10
+SWARM_PENDING_CAP = 65_536
+SWARM_REPORT_BATCH = 1024
+
+
+def trim_heap():
+    """Collect and hand freed arenas back to the system, as bench.py does
+    between configs: a multi-GB object graph left behind slows the next
+    build's allocations and collections."""
+    import ctypes
+    import gc
+    gc.collect()
+    try:
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except (OSError, AttributeError):
+        pass
+
+
+def million_swarm(planner_factory, n_agents=SWARM_AGENTS,
+                  n_replicas=SWARM_REPLICAS, n_services=SWARM_SERVICES,
+                  pending_cap=SWARM_PENDING_CAP,
+                  report_batch=SWARM_REPORT_BATCH):
+    """bench.py's config 13 (``run_million_swarm``): ``n_agents`` real
+    dispatcher sessions over one threadless ``Dispatcher`` with the
+    batched assignment fan-out carry ``n_replicas`` replicas of
+    ``n_services`` services end to end.  The fleet registers (the
+    heartbeat stretches past its threshold), every assignment stream
+    opens, one timed tick over ``planner_factory()`` (None: the host
+    path) places every replica, the fan-out delivers them, and the status
+    write-back storm runs against the bounded admission edge
+    (``pending_cap`` buffered updates, ``report_batch`` a batch): a batch
+    that would overflow it is shed whole with ``ErrOverloaded``, counted
+    on both sides and sent again next round until every replica is
+    RUNNING.
+
+    Fails unless the shed ledger reconciles exactly, no session expired
+    early and every replica is RUNNING.  Returns bench.py's fields, with
+    ``compiles`` (kernel builds charged inside the timed tick, by bucket;
+    all 0 on a warm process), ``build_s`` (build seconds left unclaimed
+    across it), ``launches`` (the tick's kernel launches, by kernel),
+    ``planner_stats`` and ``placements`` (creation index -> hostname)."""
+    import gc
+
+    from .manager.dispatcher import Config_, Dispatcher, ErrOverloaded
+    from .obs import tracer
+    from .obs.planes import plane
+    from .ops import cuda
+    from .ops import kernel as K
+    from .ops import preempt as P
+    from .utils.metrics import registry
+
+    compile_key = 'swarm_planner_compiles{bucket="'
+    kernels = K.KERNELS + P.KERNELS
+    # light replicas, as bench.py's config: the default 0.1 CPU caps a
+    # 64-CPU node at 640 tasks, short of a million over 1,000 nodes
+    rsv = Resources(nano_cpus=2 * 10**7, memory_bytes=16 << 20)
+
+    # a warm-up tick at this config's shapes (node bucket and service
+    # count), so no kernel build lands in the timed tick (the small-group
+    # router is off by default: one pass takes every route the tick does)
+    was_tracing = tracer.enabled
+    tracer.disable()
+    try:
+        warm_store, *_ = build_cluster(n_agents, 16 * n_services,
+                                       reservations=rsv,
+                                       n_services=n_services)
+        one_tick(warm_store, planner_factory())
+        del warm_store
+        trim_heap()
+    finally:
+        tracer.enabled = was_tracing
+
+    store, _, nodes, tasks = build_cluster(n_agents, n_replicas,
+                                           reservations=rsv,
+                                           n_services=n_services)
+    host_of = {n.id: n.description.hostname for n in nodes}
+    order = [t.id for t in tasks]
+    del tasks
+    # the session cap just above the fleet, the stretch threshold well
+    # under it, the update buffer far under the storm; max_batch_items
+    # above the admission bound, so the buffer drains on this driver's
+    # flush turns
+    d = Dispatcher(store, Config_(
+        heartbeat_period=30.0,
+        max_batch_items=pending_cap * 2,
+        max_sessions=n_agents + 64,
+        hb_stretch_start=max(8, n_agents // 16),
+        hb_stretch_max=4.0,
+        max_pending_updates=pending_cap,
+        max_terminal_tasks=max(1024, n_replicas // 64)))
+    d.run(start_worker=False)
+    fan = d.enable_batched_fanout()
+    try:
+        t0 = time.perf_counter()
+        sessions = {n.id: d.register(n.id)[0] for n in nodes}
+        register_s = time.perf_counter() - t0
+        stretch = d._stretch_factor()
+
+        t0 = time.perf_counter()
+        streams = {n.id: fan.open(n.id, sessions[n.id]) for n in nodes}
+        open_s = time.perf_counter() - t0
+
+        def drain_streams():
+            msgs = changes = 0
+            for s in streams.values():
+                while True:
+                    try:
+                        m = s.get(timeout=0)
+                    except Exception:   # TimeoutError / Closed: drained
+                        break
+                    msgs += 1
+                    changes += len(m.changes)
+            return msgs, changes
+
+        # the timed tick: no kernel build may land in it
+        planner = planner_factory()
+        cuda.take_build_seconds()
+        compiles0 = registry.counters_snapshot(compile_key)
+        launches0 = cuda.launch_counts(kernels)
+        plane("scheduler").roll()
+        t_create = time.time()
+        gc.collect()
+        gc.freeze()
+        try:
+            sched, n_dec, dt = one_tick(store, planner)
+        finally:
+            gc.unfreeze()
+        plane("scheduler").note_busy(dt)
+        compiles = {k[len(compile_key):-2]: int(v - compiles0.get(k, 0.0))
+                    for k, v in registry.counters_snapshot(
+                        compile_key).items()}
+        build_s = cuda.take_build_seconds()
+        launches = {k: v - launches0[k]
+                    for k, v in cuda.launch_counts(kernels).items()}
+        planner_stats = dict(getattr(planner, "stats", {}))
+        del sched, planner
+
+        # the fan-out: one subscription drains into the per-node sets,
+        # each flush sends the incremental batches
+        t0 = time.perf_counter()
+        fan_msgs = fan_changes = 0
+        while True:
+            fan.flush()
+            m, c = drain_streams()
+            fan_msgs += m
+            fan_changes += c
+            if not m:
+                break
+        fanout_s = time.perf_counter() - t0
+
+        # the write-back storm against the bounded admission edge
+        backlog = {}
+        placements = {}
+        for t in store.view(lambda tx: tx.find(Task)):
+            if t.node_id:
+                backlog.setdefault(t.node_id, []).append(t.id)
+                placements[t.id] = host_of[t.node_id]
+        node_ids = [n.id for n in nodes]
+        client = {"shed_batches": 0, "shed_updates": 0, "rounds": 0,
+                  "heartbeats": 0}
+        sheds0 = d.stats["sheds"]
+        plane("dispatcher").roll()
+        peak_depth = 0
+        t0 = time.perf_counter()
+        rr = 0
+        while backlog:
+            client["rounds"] += 1
+            for nid in node_ids:   # keep the sessions' TTL wheel hot
+                d.heartbeat(nid, sessions[nid])
+                client["heartbeats"] += 1
+            shed_this_round = 0
+            for _ in range(len(node_ids)):
+                nid = node_ids[rr % len(node_ids)]
+                rr += 1
+                ids = backlog.get(nid)
+                if not ids:
+                    continue
+                chunk = ids[:report_batch]
+                ts = time.time()
+                ups = [(tid, TaskStatus(state=TaskState.RUNNING,
+                                        message="started", timestamp=ts))
+                       for tid in chunk]
+                try:
+                    d.update_task_status(nid, sessions[nid], ups)
+                except ErrOverloaded:
+                    client["shed_batches"] += 1
+                    client["shed_updates"] += len(ups)
+                    shed_this_round += 1
+                    if shed_this_round >= 4:
+                        break   # the edge is saturated: drain first
+                    continue
+                del ids[:len(chunk)]
+                if not ids:
+                    del backlog[nid]
+            peak_depth = max(peak_depth, len(d._task_updates))
+            plane("dispatcher").set_depth(peak_depth)
+            with plane("dispatcher").busy():
+                d._flush_updates()      # the worker's process turn
+                d.process_deadlines()   # the TTL wheel and fan-out flush
+            m, c = drain_streams()
+            fan_msgs += m
+            fan_changes += c
+        writeback_s = time.perf_counter() - t0
+        shed_count = d.stats["sheds"] - sheds0
+
+        # every shed the dispatcher counted is one a client saw and sent
+        # again
+        if shed_count != client["shed_updates"]:
+            raise RuntimeError(f"config 13: the dispatcher shed {shed_count}"
+                               f" updates, the clients saw {client}")
+        if d.stats["premature_expirations"]:
+            raise RuntimeError(f"config 13: sessions expired early: "
+                               f"{d.stats}")
+        lat = sorted(
+            (t.status.applied_at or t.status.timestamp) - t_create
+            for t in store.view(lambda tx: tx.find(Task))
+            if t.status.state == TaskState.RUNNING)
+        if len(lat) < n_replicas:
+            raise RuntimeError(f"config 13: only {len(lat)}/{n_replicas} "
+                               "RUNNING")
+
+        def pct(p):
+            return lat[min(len(lat) - 1, int(p * len(lat)))]
+
+        plane("dispatcher").roll()
+        plane("scheduler").roll()
+        return {
+            "agents": n_agents, "replicas": n_replicas,
+            "services": n_services, "sessions": len(sessions),
+            "decisions": n_dec, "decisions_per_sec": n_dec / dt,
+            "tick_s": dt, "register_s": register_s,
+            "stream_open_s": open_s, "fanout_s": fanout_s,
+            "fanout_messages": fan_msgs, "fanout_changes": fan_changes,
+            "fanout_compactions": fan.stats["compactions"],
+            "writeback_s": writeback_s,
+            "writeback_rounds": client["rounds"],
+            "peak_update_depth": peak_depth,
+            "heartbeats": client["heartbeats"],
+            "hb_stretch_factor": stretch,
+            "hb_stretches": d.stats["hb_stretches"],
+            "premature_expirations": d.stats["premature_expirations"],
+            "expirations": d.stats["expirations"],
+            "sheds": {
+                "dispatcher": shed_count,
+                "client_observed": client["shed_updates"],
+                "shed_batches": client["shed_batches"],
+                "uncounted": shed_count - client["shed_updates"],
+                "unrecovered": n_replicas - len(lat)},
+            "time_to_running": {
+                "p50_s": pct(0.50), "p90_s": pct(0.90),
+                "p99_s": pct(0.99), "max_s": lat[-1], "running": len(lat)},
+            "planes": {"dispatcher": plane("dispatcher").report(),
+                       "scheduler": plane("scheduler").report()},
+            "path": "dispatcher+fanout+writeback",
+            "compiles": dict(sorted(compiles.items())),
+            "build_s": build_s,
+            "launches": launches,
+            "planner_stats": planner_stats,
+            "placements": [placements.get(tid) for tid in order],
+        }
+    finally:
+        d.stop()
+        trim_heap()
+
+
+# ----------------------------------------------- swarm-bench's end to end
+
+#: bench.py's ``run_e2e``: agents, replicas, and the bound in seconds on
+#: each wait
+E2E_AGENTS = 5
+E2E_REPLICAS = 500
+E2E_TIMEOUT = 120.0
+#: the manager's dispatcher for the end to end (bench.py's)
+E2E_DISPATCHER = dict(heartbeat_period=2.0, process_updates_interval=0.05,
+                      assignment_batching_wait=0.05)
+
+
+def _wait(cond, what):
+    """Poll ``cond()`` every 0.1 s until it returns something true and
+    return that; RuntimeError after ``E2E_TIMEOUT`` seconds."""
+    deadline = time.monotonic() + E2E_TIMEOUT
+    while True:
+        got = cond()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"{what}: not within {E2E_TIMEOUT} s")
+        time.sleep(0.1)
+
+
+def e2e(n_agents=E2E_AGENTS, n_replicas=E2E_REPLICAS, device=None,
+        raft_root=None, heal=False):
+    """bench.py's ``run_e2e`` (swarm-bench): a ``Manager`` whose leader
+    schedules on ``TorchPlanner(device=device)`` (None: the card),
+    ``n_agents`` agents with a ``TestExecutor`` on its dispatcher, and one
+    replicated service of ``n_replicas`` made through
+    ``control_api.create_service``; the seconds from the create to each
+    replica's RUNNING, as committed.
+
+    With ``raft_root`` a single-voter ``RaftNode`` (its WAL under that
+    directory, sealed) sits under the manager's store, and leadership
+    reaches the manager through its leadership worker, as in production.
+    With ``heal`` one agent then stops: its node must go DOWN when its
+    heartbeat expires, and its tasks must come back RUNNING on the
+    others.  Every wait is bounded by ``E2E_TIMEOUT`` seconds and
+    raises.  The agents and the manager (and raft) stop before it
+    returns.
+
+    Returns the time-to-running percentiles, the journey attribution at
+    p99, the replicas a hostname, the leader planner's class and device,
+    and with raft the WAL's bytes and the entries applied; with ``heal``
+    the seconds from the stop to DOWN and to the last replica RUNNING."""
+    from .agent import Agent
+    from .agent.testutils import TestExecutor
+    from .manager import Manager
+    from .manager.dispatcher import Config_
+    from .models.specs import ContainerSpec
+    from .obs import flightrec
+    from .obs.journey import journeys
+
+    # a fresh journey ledger for this window
+    journeys.reset(sample_rate=1.0)
+    rn = None
+    if raft_root is not None:
+        from .state.raft import KeyEncoder
+        _, members = raft_group(1, raft_root,
+                                encoder=lambda: KeyEncoder(LIVE_WAL_KEY))
+        rn = members["m0"]
+        wait_leader([rn], timeout=E2E_TIMEOUT)
+    mgr = None
+    agents = []
+    try:
+        mgr = Manager(raft_node=rn, device=device,
+                      dispatcher_config=Config_(**E2E_DISPATCHER))
+        mgr.run()
+
+        def leading():
+            with mgr._mu:   # held by _become_leader until every loop runs
+                return mgr.dispatcher
+
+        dispatcher = _wait(leading, "the manager's leader loops")
+        planner = mgr.scheduler.batch_planner
+        nodes = []
+        for i in range(n_agents):
+            node = Node(
+                id=new_id(),
+                spec=NodeSpec(annotations=Annotations(name=f"bench-w{i}")),
+                status=NodeStatus(state=NodeState.READY),
+                description=NodeDescription(
+                    hostname=f"bench-w{i}",
+                    resources=Resources(nano_cpus=64 * 10**9,
+                                        memory_bytes=256 << 30)))
+            mgr.store.update(lambda tx, node=node: tx.create(node))
+            nodes.append(node)
+            a = Agent(node.id, TestExecutor(hostname=f"bench-w{i}"),
+                      dispatcher)
+            a.start()
+            agents.append(a)
+        host_of = {n.id: n.description.hostname for n in nodes}
+
+        spec = ServiceSpec(
+            annotations=Annotations(name="e2e-bench"),
+            task=TaskSpec(container=ContainerSpec(image="bench")),
+            mode=ServiceMode.REPLICATED,
+            replicated=ReplicatedService(replicas=n_replicas))
+        t_create = time.time()
+        svc = mgr.control_api.create_service(spec)
+
+        def running():
+            done = [t for t in mgr.control_api.list_tasks(
+                        service_id=svc.id)
+                    if t.status.state == TaskState.RUNNING
+                    and t.desired_state == TaskState.RUNNING]
+            return done if len(done) >= n_replicas else None
+
+        done = _wait(running, f"{n_replicas} replicas RUNNING")
+        lat = sorted((t.status.applied_at or t.status.timestamp) - t_create
+                     for t in done)
+
+        def pct(p):
+            return lat[min(len(lat) - 1, int(p * len(lat)))]
+
+        flightrec.poll_store()
+        per_host = {}
+        for t in done:
+            per_host[host_of[t.node_id]] = \
+                per_host.get(host_of[t.node_id], 0) + 1
+        out = {
+            "agents": n_agents, "replicas": n_replicas,
+            "p50_s": pct(0.50), "p90_s": pct(0.90), "p99_s": pct(0.99),
+            "max_s": lat[-1],
+            "journey_attribution": journeys.critical_path(0.99),
+            "journey_summary": journeys.summary(),
+            "per_host": dict(sorted(per_host.items())),
+            "planner": type(planner).__name__,
+            "planner_device": str(planner.device),
+        }
+        if heal:
+            out["heal"] = _heal(mgr, svc, agents, nodes, n_replicas)
+        if rn is not None:
+            out["raft_entries_applied"] = rn.stats["applied"]
+            out["wal_bytes"] = wal_bytes(raft_root)
+        return out
+    finally:
+        for a in agents:
+            a.stop()
+        if mgr is not None:
+            mgr.stop()
+        if rn is not None:
+            rn.stop()
+            rn.store._proposer = None
+
+
+def _heal(mgr, svc, agents, nodes, n_replicas):
+    """Stop the first agent; its node must go DOWN and its replicas come
+    back RUNNING on the others.  Returns the seconds to each."""
+    dead = nodes[0].id
+    t0 = time.monotonic()
+    agents[0].stop()
+    _wait(lambda: mgr.store.view(lambda tx: tx.get(Node, dead)).status.state
+          == NodeState.DOWN, "the stopped agent's node DOWN")
+    down_s = time.monotonic() - t0
+
+    def healed():
+        live = [t for t in mgr.control_api.list_tasks(service_id=svc.id)
+                if t.desired_state == TaskState.RUNNING]
+        return (len(live) == n_replicas
+                and all(t.status.state == TaskState.RUNNING
+                        and t.node_id != dead for t in live))
+
+    _wait(healed, "the stopped node's replicas RUNNING elsewhere")
+    live = [t for t in mgr.control_api.list_tasks(service_id=svc.id)
+            if t.desired_state == TaskState.RUNNING]
+    per_node = {}
+    for t in live:
+        per_node[t.node_id] = per_node.get(t.node_id, 0) + 1
+    return {"down_s": down_s, "running_s": time.monotonic() - t0,
+            "nodes": len(per_node)}

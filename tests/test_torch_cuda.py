@@ -1477,3 +1477,54 @@ def test_replicated_control_on_card_matches_cpu():
     cs.check_control_memory(card, "replicated control, 40 nodes")
     for stage in cs.CONTROL_STAGES:
         assert card["rows"][stage] == cpu["rows"][stage], stage
+
+
+def test_million_swarm_on_card_matches_cpu():
+    """Config 13's run (``workload.million_swarm``) at 100 sessions
+    (``chip_smoke.CFG13_PARITY``) on the card and through the CPU plain
+    path: every replica on the same node by creation index, equal shed
+    ledgers, rounds and fan-out counts, no kernel build inside the timed
+    tick, and K1F and K4's carry launched on the card."""
+    _card()
+    import chip_smoke as cs
+    from swarmkit_tpu_torch import workload
+    from swarmkit_tpu_torch.ops import TorchPlanner
+
+    card = workload.million_swarm(lambda: TorchPlanner(device="cuda"),
+                                  **cs.CFG13_PARITY)
+    cpu = workload.million_swarm(lambda: TorchPlanner(device="cpu"),
+                                 **cs.CFG13_PARITY)
+    assert card["placements"] == cpu["placements"]
+    for key in ("sheds", "writeback_rounds", "fanout_messages",
+                "fanout_changes", "decisions"):
+        assert card[key] == cpu[key], key
+    assert card["sheds"]["dispatcher"] >= 1
+    assert not any(card["compiles"].values()) and card["build_s"] == 0.0
+    assert card["launches"][K.FUSED_FEASIBILITY.name] > 0
+    assert card["launches"][K.FUSED_CARRY.name] > 0
+
+
+def test_e2e_on_card():
+    """bench.py's e2e (``workload.e2e``, 5 agents x 500 replicas) with
+    ``Manager()``: the leader plans on a ``TorchPlanner`` on the card and
+    launches K1, every replica RUNNING within 1 of even, and the card's
+    allocated memory after the manager stops no higher than before."""
+    _card()
+    import gc
+
+    from swarmkit_tpu_torch import workload
+    from swarmkit_tpu_torch.ops import cuda
+
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    cuda.reset_launch_counts(K.KERNELS)
+    run = workload.e2e()
+    torch.cuda.synchronize()
+    assert K.FEASIBILITY.launches > 0
+    gc.collect()
+    assert torch.cuda.memory_allocated() <= before
+    assert run["planner"] == "TorchPlanner"
+    assert run["planner_device"].startswith("cuda")
+    counts = list(run["per_host"].values())
+    assert sum(counts) == 500 and max(counts) - min(counts) <= 1

@@ -1,8 +1,10 @@
 """The port stands alone: no module of ``swarmkit_tpu_torch`` and not
 ``chip_smoke.py`` imports ``jax`` or anything of ``swarmkit_tpu`` (each
 module of the consensus layer, the security package and the manager's API
-surfaces is also imported alone in a fresh interpreter), and the
-planner's entry point defaults to the card."""
+surfaces is also imported alone in a fresh interpreter), the planner's
+entry point defaults to the card, and the manager and agent modules are
+the reference's text (``manager.py`` differs only where it builds a
+``TorchPlanner``)."""
 
 import ast
 import pathlib
@@ -28,6 +30,13 @@ CONSENSUS_MODULES = (
     "manager.watchapi", "manager.controlapi", "manager.resourceapi",
     "manager.logbroker", "manager.keymanager", "manager.rolemanager",
     "manager.metrics")
+#: the manager's leader side, the node agent and the agent's remotes: the
+#: reference's text, byte for byte
+COPIED_MODULES = (
+    "manager/__init__", "manager/drivers", "manager/deallocator",
+    "manager/csi", "manager/dispatcher", "remotes", "agent/__init__",
+    "agent/exec", "agent/storage", "agent/csivol", "agent/worker",
+    "agent/agent", "agent/testutils", "agent/procexec")
 
 
 def _imported(path):
@@ -69,7 +78,9 @@ def test_port_files_exist():
                      "swarmkit_tpu_torch/" + name.replace(".", "/")
                      + ("/__init__.py" if name in ("state.raft", "security")
                         else ".py")
-                     for name in CONSENSUS_MODULES):
+                     for name in CONSENSUS_MODULES) + tuple(
+                     f"swarmkit_tpu_torch/{name}.py"
+                     for name in COPIED_MODULES + ("manager/manager",)):
         assert must in names
 
 
@@ -85,7 +96,8 @@ def test_no_jax_or_reference_import(path):
     "swarmkit_tpu_torch.ops.streaming", "swarmkit_tpu_torch.ops.planner",
     "swarmkit_tpu_torch.ops.preempt", "swarmkit_tpu_torch.parallel.sharded",
     "swarmkit_tpu_torch.workload", "swarmkit_tpu_torch.utils.sampling",
-    "swarmkit_tpu_torch.orchestrator", "swarmkit_tpu_torch.manager"] + [
+    "swarmkit_tpu_torch.orchestrator", "swarmkit_tpu_torch.manager",
+    "swarmkit_tpu_torch.agent", "swarmkit_tpu_torch.remotes"] + [
         f"swarmkit_tpu_torch.{name}" for name in CONSENSUS_MODULES])
 def test_import_loads_no_jax(module):
     """Importing a port module (and everything it imports) in a fresh
@@ -160,18 +172,81 @@ def test_device_helpers_default_to_cuda(helper):
     assert all(t.device.type == "cpu" for t in tensors)
 
 
+def _reference_all(path):
+    """``__all__`` of a reference module, read from its text: the
+    reference's manager package does not import on every jax."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return ast.literal_eval(node.value)
+    raise AssertionError(f"{path} has no __all__")
+
+
 def test_manager_exports_only_what_is_ported():
-    """The port's ``manager`` package carries the task allocator and the
-    API surfaces every raft member serves: it exports exactly their
-    reference names, and no ``Manager``, dispatcher or CSI manager, which
-    are not ported yet."""
+    """The port's ``manager`` package exports exactly the reference's
+    names, ``Manager``, the dispatcher and the CSI manager included."""
     import swarmkit_tpu_torch.manager as manager
-    assert manager.__all__ == [
-        "Allocator", "Collector", "ControlAPI", "KeyManager", "LogBroker",
-        "LogMessage", "LogSelector", "PortAllocator", "ResourceAPI",
-        "WatchRequest", "WatchServer"]
-    for name in ("Manager", "Dispatcher", "CSIManager"):
-        assert not hasattr(manager, name)
+    assert manager.__all__ == _reference_all(
+        ROOT / "swarmkit_tpu" / "manager" / "__init__.py")
+    for name in manager.__all__:
+        assert hasattr(manager, name)
+    import swarmkit_tpu_torch.agent as agent
+    assert agent.__all__ == _reference_all(
+        ROOT / "swarmkit_tpu" / "agent" / "__init__.py")
+
+
+@pytest.mark.parametrize("name", COPIED_MODULES)
+def test_manager_and_agent_modules_are_the_reference_text(name):
+    """The dispatcher, the CSI controller, the deallocator, the driver
+    provider, the remotes and every agent module are the reference's
+    text (their imports are relative)."""
+    port = ROOT / "swarmkit_tpu_torch" / f"{name}.py"
+    ref = ROOT / "swarmkit_tpu" / f"{name}.py"
+    assert port.read_text() == ref.read_text()
+
+
+#: the only lines of ``manager/manager.py`` that differ from the
+#: reference's: the planner's import, the ``device`` argument (kept and
+#: resolved in the caller's thread) and the planner the leader builds
+MANAGER_DIFF_REMOVED = [
+    "from ..ops import TPUPlanner",
+    "                 scheduler_pipeline_depth: Optional[int] = None):",
+    '        escape hatch)."""',
+    "            planner = TPUPlanner() if self.use_device_scheduler else None",
+]
+MANAGER_DIFF_ADDED = [
+    "from ..ops import TorchPlanner",
+    "                 scheduler_pipeline_depth: Optional[int] = None,",
+    "                 device=None):",
+    "        escape hatch).",
+    "        ``device``: where the leader's ``TorchPlanner`` runs (None -> the",
+    "        card).  It is resolved here, in the caller's thread: leadership",
+    "        builds the planner on the leadership worker, which logs a failure",
+    "        and goes on, so a missing card would otherwise leave a manager",
+    '        running with no scheduler and no loops."""',
+    "        self.device = device",
+    "        if use_device_scheduler:",
+    "            from ..ops.convert import resolve_device",
+    "            resolve_device(device)",
+    "            planner = (TorchPlanner(device=self.device)",
+    "                       if self.use_device_scheduler else None)",
+]
+
+
+def test_manager_differs_from_the_reference_only_at_the_planner():
+    import difflib
+    port = (ROOT / "swarmkit_tpu_torch" / "manager" / "manager.py"
+            ).read_text().splitlines()
+    ref = (ROOT / "swarmkit_tpu" / "manager" / "manager.py"
+           ).read_text().splitlines()
+    removed, added = [], []
+    for line in difflib.unified_diff(ref, port, lineterm="", n=0):
+        if line.startswith(("---", "+++", "@@")):
+            continue
+        (removed if line[0] == "-" else added).append(line[1:])
+    assert removed == MANAGER_DIFF_REMOVED
+    assert added == MANAGER_DIFF_ADDED
 
 
 @pytest.mark.parametrize("name", ORCHESTRATOR_MODULES[1:] + (
