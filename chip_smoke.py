@@ -210,6 +210,22 @@ Phases, each of which exits non-zero on failure:
     RUNNING on the four others (the heal); the same over a single-voter
     raft with a sealed WAL; the card's allocated memory after each
     manager stops no higher than before it was built.
+28. the daemons (``workload.daemon_swarm``): three ``Swarmd`` managers
+    (raft over TCP with mutual TLS, sealed WALs) and 16 workers joined
+    with their tokens over ``RemoteDispatcherClient``, on loopback in
+    this process; a service of 380 replicas made through
+    ``cli.run_command`` and a ``RemoteControlClient`` to the leader,
+    twenty a node, the leader's scheduler a ``TorchPlanner`` on the card
+    (K1-K3 launched, no group on the host path); ``m0``'s daemon stopped:
+    a survivor leads with a new ``TorchPlanner`` on the card, the workers
+    fail over through their remotes, ``m0``'s node goes DOWN and its
+    replicas come back RUNNING on the others; ``service scale web=432``
+    through the CLI: 24 on each of the 18 nodes; every daemon stopped,
+    the card's memory no higher than before, ``rafttool`` reading ``m1``'s
+    sealed state dir (``web`` at 432, every WAL entry decoded); the same
+    script at one manager, three workers and 12 replicas on the card and
+    on the host path gives equal replicas per node, before and after a
+    worker's stop.
 
 The native plane is on for the whole run (it is built first, and the
 script fails without it); ``swarm_native_commit_fallbacks`` must stay 0.
@@ -217,7 +233,7 @@ The small-group router is off by default, so every phase but the
 router's own trickle puts every supported group on the card, and fails
 if a group went to the host path (``groups_small_to_host``,
 ``groups_breaker_to_host``, ``groups_device_error``, ``groups_fallback``).
-Phases 22-27 run last.  Over the whole run, the breaker's own phase
+Phases 22-28 run last.  Over the whole run, the breaker's own phase
 aside, no counter of
 ``ops.planner.DEVICE_FAULT_COUNTERS`` (a device error or an open breaker
 on any route: groups, gang verdicts, victim picks) may move.
@@ -5206,6 +5222,172 @@ def phase_e2e(torch, K, cuda, workload, card):
     return out
 
 
+# ---------------------------------------------------- phase 28: the daemons
+
+def phase_swarmd(torch, K, cuda, workload, card):
+    """Phase 28: ``workload.daemon_swarm`` at three managers and 16
+    workers on the card (create through the CLI, the leader's failover,
+    the scale through the CLI), ``rafttool`` on a surviving follower's
+    sealed state dir, the card's memory after every daemon stopped; then
+    the parity script (``workload.SWARMD_PARITY``) on the card and on the
+    host path."""
+    import shutil
+    import tempfile
+
+    from swarmkit_tpu_torch import rafttool
+
+    def allocated():
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    lab = "swarmd"
+    seen = {}
+
+    def on_running(leader):
+        torch.cuda.synchronize()
+        seen["launches"] = cuda.launch_counts(K.KERNELS)
+        seen["stats"] = dict(leader.manager.scheduler.batch_planner.stats)
+
+    before = allocated()
+    root = tempfile.mkdtemp(prefix="swarmd-")
+    try:
+        cuda.reset_launch_counts(K.KERNELS)
+        run = workload.daemon_swarm(root, snapshot=True,
+                                    on_running=on_running)
+        torch.cuda.synchronize()
+        launches = cuda.launch_counts(K.KERNELS)
+        after = allocated()
+        state = run["state_dir"]
+        services = rafttool.dump_objects(state, "services")
+        wal = rafttool.dump_wal(state)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    n_nodes = workload.SWARMD_MANAGERS + workload.SWARMD_WORKERS
+    per, ttr = run["per_host"], run["time_to_running"]
+    heal, scaled = per["heal"], per["scale"]
+    undecoded = sum(r.get("actions") == "<undecodable>" for r in wal)
+    print(f"swarmd: {workload.SWARMD_MANAGERS} managers + "
+          f"{workload.SWARMD_WORKERS} workers up in {run['bootstrap_s']:.2f}"
+          f" s; {workload.SWARMD_REPLICAS} replicas through the CLI, time "
+          f"to running p50 {ttr['p50_s']:.3f} s, p90 {ttr['p90_s']:.3f}, "
+          f"p99 {ttr['p99_s']:.3f}, max {ttr['max_s']:.3f}; "
+          f"{run['stopped']} (the leader) stopped: "
+          f"{run['leader']} leads after {run['leader_s']:.2f} s on "
+          f"{run['new_planner']} ({run['new_planner_device']}), its node "
+          f"DOWN after {run['down_s']:.2f} s, every replica RUNNING after "
+          f"{run['running_s']:.2f} s (flapped {run['flapped']}; "
+          f"{len(run['on_leader'])} of {workload.SWARMD_WORKERS} workers "
+          f"on the leader then); heal {sorted(heal.values())}; scaled to "
+          f"{workload.SWARMD_SCALED}: {sorted(scaled.values())} in "
+          f"{run['scale_s']:.2f} s; snapshot {run['snapshot_s']:.2f} s; stop "
+          f"{run['stop_s']:.2f} s; rafttool read {len(wal)} WAL records of "
+          f"{os.path.basename(state)}; launches "
+          f"{ {k: v for k, v in launches.items() if v} } (create "
+          f"{ {k: v for k, v in seen['launches'].items() if v} }); card "
+          f"memory {before} -> {after} bytes; on {card}", flush=True)
+    for key in ("planner", "new_planner"):
+        dev = run[key + "_device"] or ""
+        check(run[key] == "TorchPlanner" and dev.startswith("cuda"),
+              f"{lab}: the {key.replace('_', ' ')} is {run[key]} on {dev}")
+    check(run["stopped"].startswith("m") and run["leader"].startswith("m")
+          and run["leader"] != run["stopped"],
+          f"{lab}: {run['leader']} leads after {run['stopped']} stopped")
+    check(len(per["create"]) == n_nodes and set(per["create"].values())
+          == {workload.SWARMD_REPLICAS // n_nodes},
+          f"{lab}: replicas per node after the create {per['create']}")
+    for k in (K.FEASIBILITY, K.SEG_SUM, K.WATERFILL):
+        check(seen["launches"][k.name] > 0,
+              f"{lab}: {k.name} never launched for the create")
+    for key in HOST_ROUTES:
+        check(seen["stats"].get(key, 0) == 0,
+              f"{lab}: {key} = {seen['stats'].get(key)}")
+    # a node that went DOWN on the way (its agent late to the new leader)
+    # lost its replicas; the others stay within one of each other, and
+    # every worker among them failed over to the leader through remotes
+    steady = [n for h, n in heal.items() if h not in run["flapped"]]
+    late = [f"w{i}" for i in range(workload.SWARMD_WORKERS)
+            if f"w{i}" not in run["on_leader"]]
+    check(set(late) <= set(run["flapped"]),
+          f"{lab}: workers {late} not on the leader after the heal, "
+          f"flapped {run['flapped']}")
+    check(run["stopped"] not in heal
+          and sum(heal.values()) == workload.SWARMD_REPLICAS
+          and max(steady) - min(steady) <= 1,
+          f"{lab}: replicas per node after the heal {heal} (flapped: "
+          f"{run['flapped']})")
+    check(run["stopped"] not in scaled
+          and len(scaled) >= n_nodes - 1 - len(run["flapped"])
+          and sum(scaled.values()) == workload.SWARMD_SCALED
+          and workload.swarm_spread_ok(heal, scaled),
+          f"{lab}: replicas per node after the scale {scaled} (after the "
+          f"heal {heal})")
+    check(run["flapped"] or (len(scaled) == n_nodes - 1 and set(
+        scaled.values()) == {workload.SWARMD_SCALED // (n_nodes - 1)}),
+          f"{lab}: no node flapped, yet the scale is uneven: {scaled}")
+    check(after <= before, f"{lab}: card memory {after} bytes after every "
+          f"daemon stopped, {before} before the first was built")
+    check([(o["spec"]["annotations"]["name"],
+            o["spec"]["replicated"]["replicas"]) for o in services]
+          == [("web", workload.SWARMD_SCALED)],
+          f"{lab}: rafttool dump-object services on "
+          f"{os.path.basename(state)} gave "
+          f"{[o['spec']['annotations']['name'] for o in services]}")
+    check(wal and undecoded == 0,
+          f"{lab}: rafttool dump-wal: {undecoded} of {len(wal)} records "
+          "undecodable")
+
+    def parity_run(on_card):
+        root = tempfile.mkdtemp(prefix="swarmd-parity-")
+        try:
+            return workload.daemon_swarm(root, use_device_scheduler=on_card,
+                                         **workload.SWARMD_PARITY)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+
+    # the two small swarms side by side: each waits on heartbeats most of
+    # its time
+    from concurrent.futures import ThreadPoolExecutor
+    t_parity = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        runs = {name: pool.submit(parity_run, on_card)
+                for name, on_card in (("card", True), ("host", False))}
+        parity = {name: f.result() for name, f in runs.items()}
+    plab = (f"swarmd parity ({workload.SWARMD_PARITY['n_managers']} manager"
+            f", {workload.SWARMD_PARITY['n_workers']} workers)")
+    check(parity["card"]["planner_device"].startswith("cuda")
+          and parity["host"]["planner"] is None,
+          f"{plab}: planners {parity['card']['planner_device']} / "
+          f"{parity['host']['planner']}")
+    for stage in ("create", "heal"):
+        a = sorted(parity["card"]["per_host"][stage].values())
+        b = sorted(parity["host"]["per_host"][stage].values())
+        check(a == b, f"{plab}: replicas per node after the {stage}: {a} "
+              f"on the card, {b} on the host path")
+    card_run = parity["card"]["per_host"]
+    print(f"{plab}: {workload.SWARMD_PARITY['replicas']} replicas per node "
+          f"{sorted(card_run['create'].values())}, after a worker's stop "
+          f"{sorted(card_run['heal'].values())} on the card and on the host "
+          f"path ({time.perf_counter() - t_parity:.2f} s, side by side)",
+          flush=True)
+    keep = ("bootstrap_s", "time_to_running", "stopped", "leader",
+            "final_leader", "leader_s",
+            "down_s", "running_s", "scale_s", "snapshot_s", "stop_s",
+            "flapped", "on_leader",
+            "per_host", "planner", "planner_device", "new_planner",
+            "new_planner_device", "heartbeat_s")
+    out = {k: run[k] for k in keep}
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    out["create_launches"] = {k: v for k, v in seen["launches"].items()
+                              if v}
+    out["memory"] = {"before": before, "after": after}
+    out["wal_records"] = len(wal)
+    out["parity"] = {name: {k: r[k] for k in ("per_host", "down_s",
+                                              "running_s")}
+                     for name, r in parity.items()}
+    return out
+
+
 def phase(name, fn, *args, **kw):
     """``fn(*args, **kw)``, its seconds kept in ``PHASE_S[name]``."""
     t0 = time.perf_counter()
@@ -5359,6 +5541,7 @@ def main():
     swarm = phase("million_swarm", phase_million_swarm, torch, K, cuda,
                   workload, TorchPlanner, card)
     e2e = phase("e2e", phase_e2e, torch, K, cuda, workload, card)
+    swarmd = phase("swarmd", phase_swarmd, torch, K, cuda, workload, card)
     faults3 = device_faults(registry, planner_mod)
     moved = {k: faults1[k] - faults0[k] + faults3[k] - faults2[k]
              for k in faults0}
@@ -5408,7 +5591,7 @@ def main():
               "breaker": breaker, "service_life": life,
               "tenant_storm": tenant, "live_manager": live,
               "replicated_control": control, "million_swarm": swarm,
-              "e2e": e2e, "cryptography": crypto,
+              "e2e": e2e, "swarmd": swarmd, "cryptography": crypto,
               "device_faults": moved,
               "phase_seconds": PHASE_S,
               "profiler_sessions": PROFILE_LOG,

@@ -91,7 +91,7 @@ from .models import (
     ReplicatedService, Resources, ResourceRequirements, Service, ServiceMode,
     ServiceSpec, SpreadOver, Task, TaskSpec, TaskState, TaskStatus, Version,
 )
-from .models.types import now
+from .models.types import NodeRole, now
 from .state import MemoryStore
 from .utils import new_id
 from .utils.gctune import paused_gc
@@ -1812,3 +1812,340 @@ def _heal(mgr, svc, agents, nodes, n_replicas):
         per_node[t.node_id] = per_node.get(t.node_id, 0) + 1
     return {"down_s": down_s, "running_s": time.monotonic() - t0,
             "nodes": len(per_node)}
+
+
+# ------------------------------------------------ the daemons (swarmd.py)
+
+#: three managers, the HA size Docker's swarm documentation recommends,
+#: and sixteen workers: twenty replicas a node, 24 after the scale.  The
+#: three managers share one interpreter here, and each write passes
+#: through three sealed raft members in it: at a hundred a node the
+#: replicated orchestrator's create held the store's lock for 74 s and
+#: the leader lost its term (NVIDIA H100 host, chip_smoke.py phase 28)
+SWARMD_MANAGERS = 3
+SWARMD_WORKERS = 16
+SWARMD_REPLICAS = 380
+SWARMD_SCALED = 432
+#: the parity shape: one manager, three workers, three replicas a node;
+#: no leader changes there, so a one-second heartbeat is safe
+SWARMD_PARITY = dict(n_managers=1, n_workers=3, replicas=12, scale_to=None,
+                     stop="worker", heartbeat=1.0)
+SWARMD_TIMEOUT = 120.0
+#: raft's tick for the managers here.  ``RaftNode`` ticks every 0.02 s
+#: and calls an election after 10-20 ticks of silence; three members and
+#: sixteen agents in one interpreter starve a member's thread for longer
+#: than that, and the leader lost its term in the middle of a create (on
+#: the CPU).  At 0.1 s an election needs 1-2 s of silence (phase 25's
+#: members in one interpreter tick at 0.3 s); a manager in a process of
+#: its own keeps the default
+SWARMD_RAFT_TICK_S = 0.1
+#: the heartbeat the script sets through ``cluster update`` so a stopped
+#: daemon's node goes DOWN in seconds.  After a leader change the new
+#: leader's dispatcher waits three periods for each agent to register
+#: again, and an agent whose remotes still favour the dead leader's
+#: address can take longer than that (``daemon_swarm``'s ``flapped``)
+SWARMD_HEARTBEAT_S = 2.0
+#: the service's restart delay (``--restart-delay``; Docker's default is
+#: 5 s): each wave of replacements after a node goes DOWN waits it out
+SWARMD_RESTART_DELAY_S = 1.0
+
+
+def swarmd_tools(device=None):
+    """The port's daemon, CLI and wire clients as ``daemon_swarm`` takes
+    them; every daemon gets ``device`` (None: the card)."""
+    from types import SimpleNamespace
+
+    from .cli import run_command
+    from .net import RemoteControlClient, issue_certificate
+    from .swarmd import Swarmd
+    return SimpleNamespace(Swarmd=Swarmd, run_command=run_command,
+                           RemoteControlClient=RemoteControlClient,
+                           issue_certificate=issue_certificate,
+                           daemon_kw={"device": device})
+
+
+def _swarm_wait(cond, what, timeout=SWARMD_TIMEOUT):
+    """Poll ``cond()`` every 0.1 s until it returns something true and
+    return that; RuntimeError naming ``what`` after ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while True:
+        got = cond()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"{what}: not within {timeout} s")
+        time.sleep(0.1)
+
+
+def _swarm_settled(api, service_id, n, dead=None):
+    """The service's tasks desired RUNNING once ``n`` of them run and
+    none on ``dead``, else None."""
+    live = [t for t in api.list_tasks(service_id=service_id)
+            if t.desired_state == TaskState.RUNNING]
+    if len(live) == n and all(t.status.state == TaskState.RUNNING
+                              and t.node_id != dead for t in live):
+        return live
+    return None
+
+
+def _swarm_hosts(api):
+    return {n.id: (n.description.hostname if n.description else n.id)
+            for n in api.list_nodes()}
+
+
+def _swarm_per_host(api, tasks):
+    host = _swarm_hosts(api)
+    per = {}
+    for t in tasks:
+        per[host[t.node_id]] = per.get(host[t.node_id], 0) + 1
+    return dict(sorted(per.items()))
+
+
+def _swarm_ready(api, n):
+    return sum(x.status.state == NodeState.READY
+               for x in api.list_nodes()) == n
+
+
+def swarm_spread_ok(before, after):
+    """Whether ``after`` (replicas a hostname) is what a spread makes of
+    ``before`` when it places the difference at once: every node that
+    gained a replica ends within one of the least loaded node of
+    ``after``.  Without a node that came back empty it means every node
+    within one of even."""
+    lo = min(after.values())
+    return all(n <= lo + 1 for h, n in after.items()
+               if n > before.get(h, 0))
+
+
+def _swarm_leader(daemons):
+    """The manager daemon whose manager leads with its loops up."""
+    for d in daemons:
+        m = d.manager
+        if (d.raft_node is not None and d.raft_node.is_leader
+                and m is not None and m.is_leader
+                and m.dispatcher is not None and m.scheduler is not None):
+            return d
+    return None
+
+
+def _swarm_cli(tools, managers, op, argv, timeout=SWARMD_TIMEOUT):
+    """``cli.run_command(argv)`` through a ``RemoteControlClient`` (the
+    operator certificate ``op``) to whichever of ``managers`` leads, again
+    after a failure, as a client does around a leadership change.  A
+    create that a dropped reply had already committed counts as done.
+    RuntimeError with the last error after ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    last = None
+    while time.monotonic() < deadline:
+        leader = _swarm_leader(managers)
+        if leader is not None:
+            client = tools.RemoteControlClient(leader.server.addr, op)
+            try:
+                return tools.run_command(argv, client)
+            except Exception as e:
+                if type(e).__name__ == "AlreadyExists":
+                    return str(e)
+                last = e
+            finally:
+                client.close()
+        time.sleep(0.3)
+    raise RuntimeError(f"{' '.join(argv)}: not within {timeout} s "
+                       f"({last!r})")
+
+
+def _swarm_planner(daemon):
+    p = daemon.manager.scheduler.batch_planner
+    if p is None:
+        return None, None
+    return type(p).__name__, str(p.device)
+
+
+def daemon_swarm(root, n_managers=SWARMD_MANAGERS, n_workers=SWARMD_WORKERS,
+                 replicas=SWARMD_REPLICAS, scale_to=SWARMD_SCALED,
+                 stop="leader", heartbeat=SWARMD_HEARTBEAT_S,
+                 use_device_scheduler=True, tools=None, snapshot=False,
+                 on_running=None):
+    """A swarm of ``swarmd`` daemons in this process, on loopback: the
+    operator's path from bootstrap to failover.
+
+    ``m0`` bootstraps (raft over TCP with mutual TLS, a sealed WAL under
+    ``root/m0``) and, before anyone joins, drops the heartbeat to
+    ``heartbeat`` seconds through ``cli.run_command(["cluster", "update",
+    ...])`` on its control API; ``m1``.. join with the manager token over
+    ``join_raft``; ``n_workers`` daemons join with the worker token; every
+    daemon runs the test executor, and each manager's raft ticks every
+    ``SWARMD_RAFT_TICK_S``.  The service restarts a replica after
+    ``SWARMD_RESTART_DELAY_S``.  Once every node is READY and every
+    daemon's remotes hold every manager (heartbeats carry the list), an
+    operator certificate (manager token) drives ``cli.run_command(
+    ["service", "create", ...])`` through a ``RemoteControlClient`` to the
+    leading manager's remote API.  Then ``stop="leader"`` stops the leading
+    manager's daemon (``m0`` unless a leadership change came first; its
+    manager and its agent): a survivor must take over, building its own
+    planner; ``stop="worker"`` stops the first worker.  Either way the
+    stopped node must go DOWN and its replicas come back RUNNING on the
+    others.  A node besides the stopped one that lost a replica on the way
+    is ``flapped`` (it went DOWN: its agent did not register with the new
+    leader in time); ``on_leader`` names the workers whose sessions are on
+    the leader once every replica runs again.  Then ``scale_to`` scales the
+    service through the CLI against the leader, without waiting for a
+    flapped node to come back.  Every CLI call goes to whichever manager
+    leads and is made again after a failure, as a client does around a
+    leadership change. ``state_dir`` is a surviving follower's state dir;
+    with ``snapshot`` that follower snapshots after one more write (the
+    scale said again), so its sealed state dir holds the final store.
+
+    ``tools`` is ``swarmd_tools(device)`` (the default: the card) or
+    another package's daemon, CLI and clients with the same names.
+    ``on_running(leader)`` is called once every replica first runs.  Every
+    wait is bounded by ``SWARMD_TIMEOUT`` seconds and raises; every daemon
+    is stopped before this returns.
+
+    Returns the replicas a hostname after the create, the heal and the
+    scale, the seconds from the create to each replica's RUNNING as the
+    store committed it, the seconds from the stop to a new leader, to DOWN
+    and to RUNNING, the leader's planner class and device before and after
+    the stop, and that state dir."""
+    tools = tools or swarmd_tools()
+    run = tools.run_command
+    daemons, managers, workers = [], [], []
+
+    def make(name, **kw):
+        d = tools.Swarmd(state_dir=os.path.join(root, name), hostname=name,
+                         executor="test",
+                         use_device_scheduler=use_device_scheduler,
+                         **tools.daemon_kw, **kw)
+        daemons.append(d)
+        d.start()
+        if d.raft_node is not None:
+            d.raft_node.tick_interval = SWARMD_RAFT_TICK_S
+        return d
+
+    n_nodes = n_managers + n_workers
+    out = {"managers": n_managers, "workers": n_workers,
+           "replicas": replicas, "heartbeat_s": heartbeat}
+    try:
+        t0 = time.monotonic()
+        m0 = make("m0", manager=True, listen_remote_api=("127.0.0.1", 0))
+        managers.append(m0)
+        api = m0.manager.control_api
+        out["heartbeat"] = run(["cluster", "update", "--heartbeat-period",
+                                f"{heartbeat:g}"], api)
+        # the dispatcher takes the period from its store watch; an agent
+        # that registers before that keeps the old one until it beats
+        _swarm_wait(lambda: m0.manager.dispatcher.config.heartbeat_period
+                    == heartbeat, "the dispatcher on the new heartbeat")
+        mtoken = m0.manager.root_ca.join_token(NodeRole.MANAGER)
+        wtoken = m0.manager.root_ca.join_token(NodeRole.WORKER)
+        for i in range(1, n_managers):
+            managers.append(make(
+                f"m{i}", manager=True, join_addr=m0.server.addr,
+                join_token=mtoken, listen_remote_api=("127.0.0.1", 0)))
+        for i in range(n_workers):
+            workers.append(make(f"w{i}", join_addr=m0.server.addr,
+                                join_token=wtoken))
+        _swarm_wait(lambda: _swarm_ready(api, n_nodes),
+                    f"{n_nodes} nodes READY")
+        _swarm_wait(lambda: all(len(d.remotes.weights()) >= n_managers
+                                for d in daemons),
+                    f"every daemon's remotes holding the {n_managers} "
+                    "managers")
+        out["bootstrap_s"] = time.monotonic() - t0
+
+        op = tools.issue_certificate(m0.server.addr, new_id(), mtoken)
+        t_create = time.time()
+        out["create"] = _swarm_cli(tools, managers, op, [
+            "service", "create", "--name", "web", "--image", "nginx:alpine",
+            "--replicas", str(replicas), "--restart-delay",
+            f"{SWARMD_RESTART_DELAY_S:g}"])
+        svc = next(s for s in api.list_services()
+                   if s.spec.annotations.name == "web")
+        done = _swarm_wait(lambda: _swarm_settled(api, svc.id, replicas),
+                           f"{replicas} replicas RUNNING")
+        lat = sorted((t.status.applied_at or t.status.timestamp) - t_create
+                     for t in done)
+
+        def pct(p):
+            return lat[min(len(lat) - 1, int(p * len(lat)))]
+
+        out["time_to_running"] = {"p50_s": pct(0.50), "p90_s": pct(0.90),
+                                  "p99_s": pct(0.99), "max_s": lat[-1]}
+        out["per_host"] = {"create": _swarm_per_host(api, done)}
+        leader = _swarm_wait(lambda: _swarm_leader(managers),
+                             "a manager leading with its loops")
+        out["planner"], out["planner_device"] = _swarm_planner(leader)
+        if on_running is not None:
+            on_running(leader)
+
+        victim = leader if stop == "leader" else workers[0]
+        out["stopped"] = victim.hostname
+        dead = victim.node.node_id
+        survivors = [d for d in managers if d is not victim]
+        workers = [d for d in workers if d is not victim]
+        t1 = time.monotonic()
+        daemons.remove(victim)
+        victim.stop()
+        leader = _swarm_wait(lambda: _swarm_leader(survivors),
+                             "a surviving manager leading with its loops")
+        out["leader_s"] = time.monotonic() - t1
+        out["leader"] = leader.hostname
+        out["new_planner"], out["new_planner_device"] = \
+            _swarm_planner(leader)
+        # any survivor's store holds what the leader committed
+        api = survivors[0].manager.control_api
+        _swarm_wait(lambda: api.get_node(dead).status.state
+                    == NodeState.DOWN, "the stopped daemon's node DOWN")
+        out["down_s"] = time.monotonic() - t1
+        live = _swarm_wait(
+            lambda: _swarm_settled(api, svc.id, replicas, dead),
+            "the stopped node's replicas RUNNING elsewhere")
+        out["running_s"] = time.monotonic() - t1
+        host = _swarm_hosts(api)
+        out["per_host"]["heal"] = _swarm_per_host(api, live)
+        # a node that lost a replica it ran before the stop went DOWN on
+        # the way and came back, if at all, empty
+        kept = {t.id for t in live}
+        out["flapped"] = sorted({host[t.node_id] for t in done
+                                 if t.id not in kept and t.node_id != dead})
+        # the agents that registered with the new leader in its window
+        cur = _swarm_wait(lambda: _swarm_leader(survivors),
+                          "a surviving manager leading with its loops")
+        out["on_leader"] = sorted(
+            d.hostname for d in workers
+            if getattr(d.node.agent.client, "_current", None)
+            == cur.server.addr)
+
+        if scale_to is not None:
+            t3 = time.monotonic()
+            out["scale"] = _swarm_cli(tools, survivors, op, [
+                "service", "scale", f"web={scale_to}"])
+            scaled = _swarm_wait(
+                lambda: _swarm_settled(api, svc.id, scale_to, dead),
+                f"{scale_to} replicas RUNNING")
+            out["scale_s"] = time.monotonic() - t3
+            out["per_host"]["scale"] = _swarm_per_host(api, scaled)
+        leader = _swarm_wait(lambda: _swarm_leader(survivors),
+                             "a surviving manager leading with its loops")
+        out["final_leader"] = leader.hostname
+        keep = next((d for d in survivors if d is not leader), leader)
+        t3 = time.monotonic()
+        if snapshot:
+            # rafttool's dump-object reads the snapshot: a follower
+            # snapshots after the next applied entry (a leader busy
+            # sealing the whole store would miss its heartbeats)
+            snaps = keep.raft_node.stats["snapshots"]
+            interval = keep.raft_node.snapshot_interval
+            keep.raft_node.snapshot_interval = 1
+            _swarm_cli(tools, survivors, op, [
+                "service", "scale", f"web={scale_to or replicas}"])
+            _swarm_wait(lambda: keep.raft_node.stats["snapshots"] > snaps,
+                        f"a snapshot on {keep.hostname}")
+            keep.raft_node.snapshot_interval = interval
+            out["snapshot_s"] = time.monotonic() - t3
+        out["state_dir"] = keep.state_dir
+    finally:
+        t2 = time.monotonic()
+        for d in reversed(daemons):
+            d.stop()
+        out["stop_s"] = time.monotonic() - t2
+    return out

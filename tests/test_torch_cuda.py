@@ -1528,3 +1528,31 @@ def test_e2e_on_card():
     assert run["planner_device"].startswith("cuda")
     counts = list(run["per_host"].values())
     assert sum(counts) == 500 and max(counts) - min(counts) <= 1
+
+
+def test_swarmd_parity_on_card():
+    """Phase 28's parity script (``workload.SWARMD_PARITY``: one
+    ``Swarmd`` manager, three workers, 12 replicas, a worker stopped) on
+    the card and on the host path: the leader plans on a ``TorchPlanner``
+    on the card, and the replicas per node are equal both ways after the
+    create and after the heal."""
+    _card()
+    from swarmkit_tpu_torch.security.ca import HAVE_CRYPTOGRAPHY
+    if not HAVE_CRYPTOGRAPHY:
+        pytest.skip("the daemons' CA needs the 'cryptography' package")
+    import tempfile
+
+    from swarmkit_tpu_torch import workload
+
+    runs = {}
+    for name, on_card in (("card", True), ("host", False)):
+        with tempfile.TemporaryDirectory() as root:
+            runs[name] = workload.daemon_swarm(
+                root, use_device_scheduler=on_card, **workload.SWARMD_PARITY)
+    assert runs["card"]["planner"] == "TorchPlanner"
+    assert runs["card"]["planner_device"].startswith("cuda")
+    assert runs["host"]["planner"] is None
+    for stage in ("create", "heal"):
+        assert sorted(runs["card"]["per_host"][stage].values()) \
+            == sorted(runs["host"]["per_host"][stage].values()), stage
+    assert sorted(runs["card"]["per_host"]["heal"].values()) == [4, 4, 4]

@@ -4,7 +4,10 @@ module of the consensus layer, the security package and the manager's API
 surfaces is also imported alone in a fresh interpreter), the planner's
 entry point defaults to the card, and the manager and agent modules are
 the reference's text (``manager.py`` differs only where it builds a
-``TorchPlanner``)."""
+``TorchPlanner``), as are ``net/``, ``template.py``, ``node.py`` and
+``cli.py``; ``swarmd.py`` differs only at its device and ``rafttool.py``
+only in its usage lines, and ``Swarmd()`` resolves its device in the
+caller's thread."""
 
 import ast
 import pathlib
@@ -37,6 +40,11 @@ COPIED_MODULES = (
     "manager/csi", "manager/dispatcher", "remotes", "agent/__init__",
     "agent/exec", "agent/storage", "agent/csivol", "agent/worker",
     "agent/agent", "agent/testutils", "agent/procexec")
+#: the transport, the templates, the node and the operator CLI: the
+#: reference's text, byte for byte
+ENTRY_COPIED_MODULES = (
+    "net/__init__", "net/wire", "net/raft_transport", "net/server",
+    "net/client", "template", "node", "cli")
 
 
 def _imported(path):
@@ -80,7 +88,8 @@ def test_port_files_exist():
                         else ".py")
                      for name in CONSENSUS_MODULES) + tuple(
                      f"swarmkit_tpu_torch/{name}.py"
-                     for name in COPIED_MODULES + ("manager/manager",)):
+                     for name in COPIED_MODULES + ENTRY_COPIED_MODULES + (
+                         "manager/manager", "swarmd", "rafttool")):
         assert must in names
 
 
@@ -97,7 +106,10 @@ def test_no_jax_or_reference_import(path):
     "swarmkit_tpu_torch.ops.preempt", "swarmkit_tpu_torch.parallel.sharded",
     "swarmkit_tpu_torch.workload", "swarmkit_tpu_torch.utils.sampling",
     "swarmkit_tpu_torch.orchestrator", "swarmkit_tpu_torch.manager",
-    "swarmkit_tpu_torch.agent", "swarmkit_tpu_torch.remotes"] + [
+    "swarmkit_tpu_torch.agent", "swarmkit_tpu_torch.remotes",
+    "swarmkit_tpu_torch.net", "swarmkit_tpu_torch.template",
+    "swarmkit_tpu_torch.node", "swarmkit_tpu_torch.cli",
+    "swarmkit_tpu_torch.swarmd", "swarmkit_tpu_torch.rafttool"] + [
         f"swarmkit_tpu_torch.{name}" for name in CONSENSUS_MODULES])
 def test_import_loads_no_jax(module):
     """Importing a port module (and everything it imports) in a fresh
@@ -258,3 +270,130 @@ def test_orchestrator_modules_are_the_reference_text(name):
     port = ROOT / "swarmkit_tpu_torch" / "orchestrator" / f"{name}.py"
     ref = ROOT / "swarmkit_tpu" / "orchestrator" / f"{name}.py"
     assert port.resolve().read_text() == ref.resolve().read_text()
+
+
+@pytest.mark.parametrize("name", ENTRY_COPIED_MODULES)
+def test_entry_modules_are_the_reference_text(name):
+    """``net/``, ``template.py``, ``node.py`` and ``cli.py`` are the
+    reference's text (their imports are relative; ``cli.main``'s
+    ``Manager()`` is the port's, so it schedules on the card)."""
+    port = ROOT / "swarmkit_tpu_torch" / f"{name}.py"
+    ref = ROOT / "swarmkit_tpu" / f"{name}.py"
+    assert port.read_text() == ref.read_text()
+
+
+def _diff(name):
+    import difflib
+    port = (ROOT / "swarmkit_tpu_torch" / f"{name}.py"
+            ).read_text().splitlines()
+    ref = (ROOT / "swarmkit_tpu" / f"{name}.py").read_text().splitlines()
+    removed, added = [], []
+    for line in difflib.unified_diff(ref, port, lineterm="", n=0):
+        if line.startswith(("---", "+++", "@@")):
+            continue
+        (removed if line[0] == "-" else added).append(line[1:])
+    return removed, added
+
+
+#: the only lines of ``swarmd.py`` that differ from the reference's: the
+#: module docstring's three commands, the ``device`` keyword (kept,
+#: resolved in the caller's thread, passed to every ``Manager`` the
+#: daemon builds) and ``main()``'s ``--device`` option
+SWARMD_DIFF_REMOVED = [
+    "    python -m swarmkit_tpu.swarmd --manager --state-dir /tmp/m0 \\",
+    "    python -m swarmkit_tpu.swarmd --state-dir /tmp/w0 \\",
+    "    python -m swarmkit_tpu.swarmd --manager --state-dir /tmp/m1 \\",
+    "                 clock=None, rng: Optional[random.Random] = None):",
+    "            use_device_scheduler=self.use_device_scheduler)",
+    "        if args.listen_metrics else None)",
+]
+SWARMD_DIFF_ADDED = [
+    "    python -m swarmkit_tpu_torch.swarmd --manager --state-dir /tmp/m0 \\",
+    "    python -m swarmkit_tpu_torch.swarmd --state-dir /tmp/w0 \\",
+    "    python -m swarmkit_tpu_torch.swarmd --manager --state-dir /tmp/m1 \\",
+    "                 clock=None, rng: Optional[random.Random] = None,",
+    "                 device=None):",
+    "        # where every Manager this daemon builds runs its leader's",
+    "        # TorchPlanner (None -> the card).  Resolved here, in the caller's",
+    "        # thread: a runtime promotion builds its Manager on the role",
+    "        # watcher, which logs a failure and retries forever",
+    "        self.device = device",
+    "        if use_device_scheduler:",
+    "            from .ops.convert import resolve_device",
+    "            resolve_device(device)",
+    "            use_device_scheduler=self.use_device_scheduler,",
+    "            device=self.device)",
+    '    parser.add_argument("--device", default=None,',
+    """                        help="where the leader's scheduler runs: the card \"""",
+    """                             "(default) or 'cpu' for the plain versions")""",
+    "        if args.listen_metrics else None,",
+    "        device=args.device)",
+]
+#: ``rafttool.py`` differs only in its docstring's six usage lines
+RAFTTOOL_VERBS = ("dump-wal <state-dir> [unlock-key]",
+                  "dump-snapshot <state-dir> [unlock-key]",
+                  "dump-object <state-dir> <collection>",
+                  "decrypt <state-dir> <out-dir> [key]",
+                  "downgrade-key <state-dir> <unlock-key>",
+                  "renew-certs <state-dir> [unlock-key]")
+
+
+def test_swarmd_differs_from_the_reference_only_at_the_device():
+    assert _diff("swarmd") == (SWARMD_DIFF_REMOVED, SWARMD_DIFF_ADDED)
+
+
+def test_rafttool_differs_from_the_reference_only_in_its_usage():
+    assert _diff("rafttool") == (
+        [f"    python -m swarmkit_tpu.rafttool {v}" for v in RAFTTOOL_VERBS],
+        [f"    python -m swarmkit_tpu_torch.rafttool {v}"
+         for v in RAFTTOOL_VERBS])
+
+
+def test_swarmd_resolves_its_device_in_the_callers_thread(tmp_path):
+    """``Swarmd()`` with the device scheduler on and no device means the
+    card: it raises at construction where there is none (a promotion on
+    the role watcher would swallow the error and retry forever), and
+    ``device="cpu"`` or the host path construct anywhere.  Every
+    ``Manager`` the daemon builds gets the same device."""
+    from swarmkit_tpu_torch.swarmd import Swarmd
+    if torch.cuda.is_available():
+        assert Swarmd(str(tmp_path)).device is None
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Swarmd(str(tmp_path))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Swarmd(str(tmp_path), manager=True, executor="test")
+    assert Swarmd(str(tmp_path), device="cpu").device == "cpu"
+    assert Swarmd(str(tmp_path), use_device_scheduler=False).device is None
+    with pytest.raises(ValueError):
+        Swarmd(str(tmp_path), device="meta")
+
+
+def test_swarmd_main_takes_a_device(monkeypatch, tmp_path):
+    """``python -m swarmkit_tpu_torch.swarmd --device cpu`` builds its
+    daemon with ``device="cpu"``; without ``--device`` the daemon gets
+    None, the card."""
+    from swarmkit_tpu_torch import swarmd
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    class Probe:
+        def __init__(self, **kw):
+            seen.append(kw)
+
+        def start(self):
+            raise Stop
+
+        def stop(self):
+            pass
+
+    monkeypatch.setattr(swarmd, "Swarmd", Probe)
+    monkeypatch.setattr(swarmd.logging, "basicConfig", lambda **kw: None)
+    for argv, want in ((["--device", "cpu"], "cpu"), ([], None)):
+        with pytest.raises(Stop):
+            swarmd.main(["--state-dir", str(tmp_path), "--manager"] + argv)
+        assert seen[-1]["device"] == want
+        assert seen[-1]["use_device_scheduler"] is True
+
