@@ -225,7 +225,21 @@ Phases, each of which exits non-zero on failure:
     sealed state dir (``web`` at 432, every WAL entry decoded); the same
     script at one manager, three workers and 12 replicas on the card and
     on the host path gives equal replicas per node, before and after a
-    worker's stop.
+    worker's stop;
+29. the simulator (``swarmkit_tpu_torch/sim``): its ten scenarios that
+    run a device planner (``workload.SIM_DEVICE_SCENARIOS``: pipelined
+    commit under a leader crash, the fused differential, the streaming
+    churn, leader crashes and partitions mid-commit at depths 2 and 1, the
+    preemption storm, the tenant storm and the gang deadlock; every new
+    leader builds its planner mid-run) at seed ``SIM_SEED`` through
+    ``run_scenario(..., device="cuda")`` and again with ``device="cpu"``:
+    no violation, equal trace hashes, events, stats, violations and
+    journey ledgers, equal span traces but for ``plan.compile``, kernels
+    launched on the card (K9 by the storm, K8 by the gang deadlock, K7 by
+    the churn), the off-card counters moved as on the CPU (the fused
+    differential trips its breakers on purpose) and no device error, and
+    the card's memory after the phase no higher than before it but for
+    the kernels' workspaces of first use.
 
 The native plane is on for the whole run (it is built first, and the
 script fails without it); ``swarm_native_commit_fallbacks`` must stay 0.
@@ -233,8 +247,9 @@ The small-group router is off by default, so every phase but the
 router's own trickle puts every supported group on the card, and fails
 if a group went to the host path (``groups_small_to_host``,
 ``groups_breaker_to_host``, ``groups_device_error``, ``groups_fallback``).
-Phases 22-28 run last.  Over the whole run, the breaker's own phase
-aside, no counter of
+Phases 22-29 run last.  Over the whole run, the breaker's own phase
+and the simulator's (which holds them to its CPU twin's) aside, no
+counter of
 ``ops.planner.DEVICE_FAULT_COUNTERS`` (a device error or an open breaker
 on any route: groups, gang verdicts, victim picks) may move.
 
@@ -5388,6 +5403,136 @@ def phase_swarmd(torch, K, cuda, workload, card):
     return out
 
 
+# -------------------------------------------------- phase 29: the simulator
+
+#: the seed every device scenario of the simulator runs at, on the card and
+#: on the CPU
+SIM_SEED = 5
+#: the registry counters of work that left the card: a device error, an
+#: open breaker or the small-group router
+OFF_CARD_ROUTE = 'swarm_planner_groups{route="host_small"}'
+#: counters no scenario may move even where its script trips a breaker
+#: (``fused-differential-churn`` does, on both devices): a device error
+DEVICE_ERRORS = ("swarm_planner_groups_device_error",
+                 "swarm_planner_gang_device_error",
+                 "swarm_planner_preempt_device_error")
+
+
+def workspace_bytes(K):
+    """Bytes of the kernels' per-device workspaces on the card (K2's
+    accumulator and its outputs per segment count, K8's workspace): made at
+    the first use of a shape and kept, each tensor rounded up to the caching
+    allocator's 512-byte blocks."""
+    stack = [list(K._SEG_SUM_ACC.values()), list(K._SEG_SUM_OUT.values()),
+             list(K._GANG_WORK.values())]
+    total = 0
+    while stack:
+        x = stack.pop()
+        if isinstance(x, (tuple, list)):
+            stack.extend(x)
+        elif hasattr(x, "element_size") and x.is_cuda:
+            total += -(-x.numel() * x.element_size() // 512) * 512
+    return total
+
+
+def phase_sim(torch, K, P, cuda, workload, registry, planner_mod, card):
+    """Phase 29: the simulator's ten device scenarios
+    (``workload.SIM_DEVICE_SCENARIOS``) at ``SIM_SEED`` through the port's
+    ``run_scenario`` on the card and on the CPU: each run free of
+    violations, the two runs' reports equal (engine trace hash, events,
+    stats, violations, journey ledger) and their span traces equal but for
+    ``plan.compile``; kernels launched on the card (K9 by the preemption
+    storm, K8 by the gang deadlock, K7 by the steady-state churn); the
+    counters of work that left the card moved on the card exactly as on
+    the CPU and no device error; card memory after the phase back at its
+    level before it but for the kernels' workspaces of first use."""
+    import importlib
+    scenario = importlib.import_module("swarmkit_tpu_torch.sim.scenario")
+    kernels = K.KERNELS + P.KERNELS
+    must = {"preemption-storm": P.VICTIMS, "gang-deadlock": K.GANG_FIT,
+            "steady-state-churn": K.SCATTER}
+    watched = planner_mod.DEVICE_FAULT_COUNTERS + (OFF_CARD_ROUTE,)
+    dumps = os.path.join("chiprun_out", "sim_flightrec")
+    os.makedirs(dumps, exist_ok=True)
+
+    def allocated():
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    def counters():
+        return {k: registry.get_counter(k) for k in watched}
+
+    def run(name, device):
+        c0, t0 = counters(), time.perf_counter()
+        rep = scenario.run_scenario(name, SIM_SEED, device=device,
+                                    flightrec_dir=dumps)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        moved = {k: v - c0[k] for k, v in counters().items() if v != c0[k]}
+        return rep, seconds, moved
+
+    before, work0 = allocated(), workspace_bytes(K)
+    out = {}
+    for name in workload.SIM_DEVICE_SCENARIOS:
+        lab = f"sim {name} (seed {SIM_SEED})"
+        cuda.reset_launch_counts(kernels)
+        on_card, card_s, card_moved = run(name, "cuda")
+        launches = {k: v for k, v in cuda.launch_counts(kernels).items()
+                    if v}
+        on_cpu, cpu_s, cpu_moved = run(name, "cpu")
+        for dev, rep in (("card", on_card), ("cpu", on_cpu)):
+            check(rep.ok and not rep.violations,
+                  f"{lab}: violations on the {dev}: {rep.violations[:3]} "
+                  f"(post-mortem {rep.flightrec_path})")
+        for key in ("trace_hash", "events", "stats", "violations",
+                    "journeys_sha256"):
+            check(getattr(on_card, key) == getattr(on_cpu, key),
+                  f"{lab}: {key} differs between the card and the CPU")
+        spans_card = workload.sim_obs_events(on_card.obs_trace)
+        spans_cpu = workload.sim_obs_events(on_cpu.obs_trace)
+        first = next((i for i, (a, b) in enumerate(zip(spans_card,
+                                                       spans_cpu))
+                      if a != b), min(len(spans_card), len(spans_cpu)))
+        check(spans_card == spans_cpu,
+              f"{lab}: span traces differ ({len(spans_card)} spans on the "
+              f"card, {len(spans_cpu)} on the CPU; first difference at "
+              f"{first}: "
+              f"{spans_card[first] if first < len(spans_card) else None} / "
+              f"{spans_cpu[first] if first < len(spans_cpu) else None})")
+        check(launches, f"{lab}: no kernel launched on the card")
+        if name in must:
+            check(launches.get(must[name].name, 0) > 0,
+                  f"{lab}: {must[name].name} never launched ({launches})")
+        check(card_moved == cpu_moved,
+              f"{lab}: off-card counters moved {card_moved} on the card, "
+              f"{cpu_moved} on the CPU")
+        check(not any(card_moved.get(k) for k in DEVICE_ERRORS)
+              and not card_moved.get(OFF_CARD_ROUTE),
+              f"{lab}: work left the card: {card_moved}")
+        print(f"{lab}: {card_s:.2f} s on the card, {cpu_s:.2f} s on the "
+              f"CPU; {on_card.events} events, trace {on_card.trace_hash[:12]}"
+              f", {len(spans_card)} spans; launches {launches}"
+              + (f"; scripted breaker counters {card_moved}"
+                 if card_moved else ""), flush=True)
+        out[name] = {"card_s": card_s, "cpu_s": cpu_s,
+                     "events": on_card.events,
+                     "trace_hash": on_card.trace_hash,
+                     "spans": len(spans_card), "launches": launches,
+                     "counters_moved": card_moved}
+    after, work1 = allocated(), workspace_bytes(K)
+    check(after - before <= work1 - work0,
+          f"sim: card memory {before} -> {after} bytes over the phase, "
+          f"above the kernels' new workspaces ({work1 - work0} bytes)")
+    print(f"sim: {len(out)} device scenarios equal on the card and on the "
+          f"CPU; card memory {before} -> {after} bytes (new workspaces "
+          f"{work1 - work0} bytes); on {card}", flush=True)
+    return {"seed": SIM_SEED, "scenarios": out,
+            "memory": {"before": before, "after": after,
+                       "new_workspaces": work1 - work0}}
+
+
 def phase(name, fn, *args, **kw):
     """``fn(*args, **kw)``, its seconds kept in ``PHASE_S[name]``."""
     t0 = time.perf_counter()
@@ -5547,6 +5692,10 @@ def main():
              for k in faults0}
     check(not any(moved.values()), f"work left the card for a device "
           f"fault or an open breaker: {moved}")
+    # after the run-wide check: a sim scenario may trip a breaker on
+    # purpose, and the phase holds those counters to its CPU twin's
+    sim = phase("sim", phase_sim, torch, K, P, cuda, workload, registry,
+                planner_mod, card)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in PHASE_S.items()),
           flush=True)
@@ -5591,7 +5740,8 @@ def main():
               "breaker": breaker, "service_life": life,
               "tenant_storm": tenant, "live_manager": live,
               "replicated_control": control, "million_swarm": swarm,
-              "e2e": e2e, "swarmd": swarmd, "cryptography": crypto,
+              "e2e": e2e, "swarmd": swarmd, "sim": sim,
+              "cryptography": crypto,
               "device_faults": moved,
               "phase_seconds": PHASE_S,
               "profiler_sessions": PROFILE_LOG,

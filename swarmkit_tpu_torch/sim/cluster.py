@@ -1,0 +1,2946 @@
+"""SimCluster: an in-process multi-manager / multi-agent cluster driven
+entirely by the simulation engine.
+
+Two layers share one event loop, one virtual clock, and one seeded RNG:
+
+* **Consensus layer** — N raft members built on the real ``RaftCore``
+  (the same sans-IO state machine production uses) with an in-memory
+  WAL that models durability faithfully: every Ready's hard state and
+  entries persist BEFORE messages send, a crash loses all volatile
+  state but keeps the WAL, and a crash-with-truncation loses the last
+  k WAL records ("died before fsync").  Messages route through
+  ``SimNetwork`` with seeded delay/drop/duplication and partitions.
+
+* **Control-plane layer** — two modes share one agent/fault vocabulary:
+
+  - *standalone* (``SimControlPlane``, the original subsystem shape):
+    the real ``Scheduler`` and ``Dispatcher`` run single-threaded
+    against one standalone leader store under virtual time while the
+    consensus layer churns alongside; committed raft entries and store
+    commits are invariant-checked independently.
+  - *raft-attached* (``RaftControlPlane``, the failover scenarios):
+    EVERY member owns a replicated ``MemoryStore`` fed from its raft
+    log; the full control plane — scheduler, dispatcher, restart
+    supervisor, replicated + global orchestrators — cold-starts on
+    whichever member is the ready leader, writing through a
+    member-bound ``SimRaftProposer`` (leadership-epoch fenced), and is
+    torn down by the member's own role-transition handler the instant
+    it is deposed.  Blocking on consensus pumps VIRTUAL time
+    (re-entrant ``engine.run_until``), so agent traffic, elections and
+    faults keep flowing while a control write is in flight.
+
+Determinism contract: all object ids the simulation creates are
+deterministic strings (``utils.identity.set_id_source`` is installed
+for the run, so even orchestrator-created tasks get seeded ids), every
+random draw comes from the engine's seeded RNG tree, and RaftCore
+broadcasts iterate peers in sorted order — so a run's trace hash is a
+pure function of (scenario, seed).
+"""
+
+from __future__ import annotations
+
+import heapq
+import json
+import os
+from typing import Callable, Dict, List, Optional
+
+from ..manager.dispatcher import Config_ as DispatcherConfig, Dispatcher, \
+    DispatcherError, ErrOverloaded
+from ..models import (
+    Annotations, Node, NodeDescription, NodeSpec, NodeState, NodeStatus,
+    ReplicatedService, Resources, Service, ServiceMode, ServiceSpec, Task,
+    TaskSpec, TaskState, TaskStatus, Version,
+)
+from ..models.types import TERMINAL_STATES, now
+from ..scheduler import Scheduler
+from ..scheduler.filters import VolumesFilter
+from ..state.raft.core import (
+    ENTRY_CONF, Entry, HardState, LEADER, RaftCore,
+)
+from ..state.raft.node import NotLeader, ProposalDropped, \
+    ReadUnavailable, StaleEpoch
+from ..state.store import MemoryStore
+from ..utils.identity import set_id_source
+from .engine import SimEngine
+from .faults import NetConfig, SimNetwork
+from .invariants import (
+    GangInvariants, OverloadInvariants, PipelineInvariants,
+    PreemptionInvariants, QosInvariants, RaftInvariants, ReadInvariants,
+    TaskInvariants, UpdateInvariants, Violations,
+    check_placement_quality, entry_digest,
+)
+
+#: entry-data prefix marking replicated control-plane store actions —
+#: member stores apply (only) these; opaque workload payloads and the
+#: standalone scenarios' store traffic are invisible to them
+CP_MAGIC = b"cpstore:"
+
+#: the failures the sim treats as "leadership/RPC fallout, retry later"
+#: — enumerated (DispatcherError covers invalid/expired sessions,
+#: NotLeader/StaleEpoch/ProposalDropped cover a deposal landing inside
+#: a store write), NOT a blanket Exception: the simulator exists to
+#: surface unexpected control-plane crashes, so anything else must
+#: propagate and fail the scenario loudly.  Shared by the agents'
+#: dispatcher RPCs and the control plane's own step/attach paths.
+AGENT_RPC_ERRORS = (DispatcherError, NotLeader, ProposalDropped)
+
+
+class SimManager:
+    """One raft member with an in-memory durable WAL and (in
+    raft-attached mode) a replicated control-plane store."""
+
+    TICK = 0.1   # seconds of virtual time per raft tick
+
+    def __init__(self, member_id: str, peers: List[str], engine: SimEngine,
+                 net: SimNetwork, raft_inv: RaftInvariants,
+                 with_store: bool = False):
+        self.id = member_id
+        self.peers = list(peers)
+        self.engine = engine
+        self.net = net
+        self.raft_inv = raft_inv
+        self.alive = True
+        self.stopped = False
+        self._tick_scale = 1.0   # clock-skew fault: >1 ticks slower
+        # durable state ("disk"): survives crashes, lost records only
+        # through explicit truncation faults
+        self._wal_records: List[tuple] = []   # ("hs", HardState)|("ent", Entry)
+        # apply taps for data entries: each is called (member_id, entry)
+        # per applied non-conf entry and returns True when it consumed
+        # the apply (ran the proposing store's commit callback) —
+        # SimRaftProposer completes its waiters through this, mirroring
+        # RaftNode._apply_entry's waiter handling.  Unconsumed CP_MAGIC
+        # entries replay into the member's replicated store below.
+        self.apply_taps: List[Callable[[str, Entry], bool]] = []
+        # role-transition hooks (member, role, term) — the raft-attached
+        # control plane detaches/fences through these; re-wired across
+        # restarts because _new_core rebuilds the core object
+        self.transition_hooks: List[Callable[["SimManager", str, int],
+                                             None]] = []
+        # replicated control-plane store (raft-attached mode): rebuilt
+        # from the WAL on restart like a real manager's
+        self.store: Optional[MemoryStore] = MemoryStore() if with_store \
+            else None
+        self._with_store = with_store
+        # the member-bound proposer wired into self.store._proposer by
+        # the control plane; kept here so restart() re-wires it into the
+        # REBUILT store (a proposer-less rebuild would silently commit
+        # post-restart writes locally, without consensus or fencing)
+        self.store_proposer = None
+        # entries whose store apply must wait: the store's update lock is
+        # held by an in-flight local proposal (single thread), so remote
+        # applies queue here and drain on the next tick after release
+        self._deferred_entries: List[Entry] = []
+        self.restarts = 0
+        self.core = self._new_core()
+        net.register(member_id, self._on_message)
+        self._schedule_tick()
+
+    @property
+    def tick_scale(self) -> float:
+        return self._tick_scale
+
+    @tick_scale.setter
+    def tick_scale(self, value: float) -> None:
+        # clock-skew bookkeeping: while ANY member ticks off-rate, the
+        # lease's "no election fits in this window" argument is void —
+        # every core's lease_gate reads this registry
+        self._tick_scale = value
+        if value == 1.0:
+            self.engine.clock_skew_members.discard(self.id)
+        else:
+            self.engine.clock_skew_members.add(self.id)
+
+    def _new_core(self) -> RaftCore:
+        core = RaftCore(self.id, self.peers, rng=self.engine.fork_rng(),
+                        prevote=True)
+        core.on_transition = self._on_transition
+        # leader lease sized to one election timeout of VIRTUAL time
+        # (TICK seconds per raft tick), drift margin shaved in the core;
+        # auto-disabled while any clock-skew fault is live
+        core.lease_duration = core.election_tick * self.TICK
+        core.lease_gate = \
+            lambda: not self.engine.clock_skew_members
+        return core
+
+    def _on_transition(self, member_id: str, role: str, term: int) -> None:
+        # role transitions land in the flight recorder under virtual
+        # time — part of the deterministic post-mortem a failing seed
+        # dumps (scenario.run_scenario) — then fan out to control-plane
+        # hooks (detach-and-fence on deposal)
+        from ..obs.flightrec import flightrec
+        flightrec.record_raft(member_id, role, term)
+        for hook in list(self.transition_hooks):
+            hook(self, role, term)
+
+    # ------------------------------------------------------------ event loop
+
+    def _schedule_tick(self) -> None:
+        def loop():
+            if self.stopped:
+                return
+            if self.alive:
+                self._drain_deferred()
+                self.core.tick()
+                self.pump()
+            self.engine.after(self.TICK * self.tick_scale,
+                              f"{self.id} tick", loop)
+        self.engine.after(self.TICK * self.tick_scale,
+                          f"{self.id} tick", loop)
+
+    def _on_message(self, msg) -> None:
+        if not self.alive:
+            return
+        self.core.step(msg)
+        self.pump()
+
+    def pump(self) -> None:
+        """The Ready loop: persist -> send -> apply -> advance, exactly
+        the ordering RaftNode uses (durability before visibility)."""
+        while self.core.has_ready():
+            rd = self.core.ready()
+            if rd.hard_state is not None:
+                self._wal_records.append(
+                    ("hs", HardState(rd.hard_state.term,
+                                     rd.hard_state.voted_for,
+                                     rd.hard_state.commit)))
+            for e in rd.entries:
+                self._wal_records.append(
+                    ("ent", Entry(e.term, e.index, e.data, e.type)))
+            for m in rd.messages:
+                self.net.send(m)
+            for e in rd.committed:
+                self._apply(e)
+            self.core.advance(rd)
+        if self.core.role == LEADER:
+            self.raft_inv.observe_leader(self.core.term, self.id)
+
+    def _apply(self, e: Entry, replay: bool = False) -> None:
+        self.raft_inv.observe_apply(self.id, e.index, e.term,
+                                    f"{e.type}:{entry_digest(e.data)}")
+        if e.type == ENTRY_CONF:
+            try:
+                change = json.loads(e.data)
+                self.core.apply_conf_change(change["op"], change["id"])
+            except Exception:
+                pass
+            return
+        if not e.data:
+            return
+        consumed = False
+        if not replay:
+            # give proposers a chance to run the proposing store's commit
+            # callback in the apply path (RaftNode._apply_entry parity);
+            # a fenced/cancelled waiter leaves the entry unconsumed and
+            # it replays into the member store like a remote entry
+            for tap in list(self.apply_taps):
+                if tap(self.id, e):
+                    consumed = True
+                    break
+        if consumed or self.store is None \
+                or not e.data.startswith(CP_MAGIC):
+            return
+        if not replay and (self._deferred_entries
+                           or self.store._update_lock._lock.locked()):
+            # the single thread is inside this store's own update (an
+            # in-flight proposal pumping virtual time): applying now
+            # would deadlock on the update lock.  Queue in log order;
+            # the tick loop drains after the lock is released.
+            self._deferred_entries.append(e)
+            return
+        self._apply_store_entry(e)
+
+    def _apply_store_entry(self, e: Entry) -> None:
+        from ..state import serde
+        try:
+            actions = serde.entry_to_actions(e.data[len(CP_MAGIC):])
+            self.store.apply_store_actions(actions)
+        except Exception as exc:
+            # a member store that cannot apply a committed entry is
+            # DIVERGED — that must fail the run loudly, not limp on
+            self.raft_inv.v.record(
+                "store-apply-failed",
+                f"{self.id} failed to apply committed entry {e.index}: "
+                f"{type(exc).__name__}: {exc}")
+
+    def _drain_deferred(self) -> None:
+        while self._deferred_entries \
+                and not self.store._update_lock._lock.locked():
+            self._apply_store_entry(self._deferred_entries.pop(0))
+
+    # ---------------------------------------------------------------- faults
+
+    def crash(self, truncate_wal: int = 0) -> None:
+        """Lose all volatile state; optionally lose the last
+        ``truncate_wal`` WAL records.
+
+        Truncation models a crash BEFORE fsync — which is OUTSIDE raft's
+        fault model: this member already acked those records, so the
+        cluster may have counted it toward a commit majority.  Default
+        scenarios and the fuzzer therefore crash with the WAL intact;
+        truncation exists precisely so tests can inject a durability bug
+        and prove the invariant checkers catch it (see
+        tests/test_sim.py::test_checker_detects_seeded_durability_bug)."""
+        if not self.alive:
+            return
+        self.alive = False
+        # volatile state dies with the process: un-applied remote
+        # entries will be re-applied from the WAL on restart
+        self._deferred_entries.clear()
+        if truncate_wal > 0:
+            dropped = self._wal_records[-truncate_wal:]
+            del self._wal_records[-truncate_wal:]
+            self.engine.log(
+                f"fault crash {self.id} truncate={len(dropped)}")
+        else:
+            self.engine.log(f"fault crash {self.id}")
+        self.net.isolate(self.id)
+
+    def restart(self) -> None:
+        if self.alive:
+            return
+        self.restarts += 1
+        hs, entries = self._replay_wal()
+        self.core = self._new_core()
+        self.core.load(hs, entries, None)
+        if self._with_store:
+            # rebuild the replicated store from the WAL, like a real
+            # manager's bootstrap: replaying the committed prefix below
+            # converges it bit-for-bit with the cluster's stores.  The
+            # member-bound proposer carries over — if this member leads
+            # again, its writes must ride consensus, fenced, as before.
+            self.store = MemoryStore(proposer=self.store_proposer)
+        # re-apply the committed prefix to the (new) state machine; the
+        # invariant ledger cross-checks every re-applied entry
+        for e in self.core.entries_from(1):
+            if e.index > self.core.commit_index:
+                break
+            self._apply(e, replay=True)
+            self.core.applied_index = e.index
+        self.alive = True
+        self.net.rejoin(self.id)
+        self.engine.log(f"fault restart {self.id} "
+                        f"commit={self.core.commit_index}")
+
+    def _replay_wal(self):
+        """Mirror RaftLogger._load_wal: later entry records override
+        earlier ones at the same or higher index (truncation)."""
+        hs = HardState()
+        entries: List[Entry] = []
+        for kind, rec in self._wal_records:
+            if kind == "hs":
+                hs = HardState(rec.term, rec.voted_for, rec.commit)
+            else:
+                while entries and entries[-1].index >= rec.index:
+                    entries.pop()
+                entries.append(rec)
+        # a truncated WAL may report a commit index beyond the surviving
+        # entries; clamp like a real bootstrap would (can't commit what
+        # is not on disk)
+        last = entries[-1].index if entries else 0
+        if hs.commit > last:
+            hs = HardState(hs.term, hs.voted_for, last)
+        return hs, entries
+
+
+class SimAgent:
+    """A worker: registers with the dispatcher, heartbeats, advances the
+    task FSM one step per cycle, fails tasks on command."""
+
+    FSM_NEXT = {
+        TaskState.ASSIGNED: TaskState.ACCEPTED,
+        TaskState.ACCEPTED: TaskState.PREPARING,
+        TaskState.PREPARING: TaskState.READY,
+        TaskState.READY: TaskState.STARTING,
+        TaskState.STARTING: TaskState.RUNNING,
+    }
+
+    def __init__(self, node_id: str, cp: "SimControlPlane",
+                 interval: float = 1.0):
+        self.node_id = node_id
+        self.cp = cp
+        self.engine = cp.engine
+        self.interval = interval
+        self.rate_scale = 1.0      # clock-skew fault
+        self.alive = True
+        self.partitioned = False
+        self.fail_p = 0.0          # per-step chance of failing a RUNNING task
+        self.session: Optional[str] = None
+        # follower-served sessions (RaftControlPlane.follower_reads):
+        # the member currently owning this agent's session, plus the
+        # re-resolution backoff state (a failed member is avoided for a
+        # jittered window instead of hammered)
+        self._member_id: Optional[str] = None
+        self._avoid: Dict[str, float] = {}
+        self._fail_attempts = 0
+        # thundering-herd spread: after a session failure the NEXT
+        # re-registration waits out a seeded jittered window, so a
+        # leader failover doesn't re-register the whole fleet inside
+        # one heartbeat interval
+        self._reg_defer_until = 0.0
+        # admission-shed backoff: an ErrOverloaded status batch is
+        # re-queued client-side (level-triggered re-derive) behind a
+        # jittered window instead of hammering the saturated edge
+        self._shed_attempts = 0
+        self._send_defer_until = 0.0
+        self._rng = cp.engine.fork_rng()
+        self._schedule()
+
+    def _schedule(self) -> None:
+        def loop():
+            if self.cp.stopped:
+                return
+            self.step()
+            self.engine.after(self.interval * self.rate_scale,
+                              f"agent {self.node_id} step", loop)
+        # deterministic phase offset so agents don't step in lockstep
+        self.engine.after(self._rng.random() * self.interval,
+                          f"agent {self.node_id} step", loop)
+
+    # ------------------------------------------------------------------ step
+
+    def step(self) -> None:
+        if not self.alive or self.partitioned:
+            return
+        cp = self.cp
+        if getattr(cp, "follower_reads", False):
+            self._step_follower(cp)
+            return
+        if getattr(cp, "busy", False):
+            # a control-plane write is pumping virtual time through this
+            # very event: touching the leader store now would deadlock
+            # the single thread on its update lock.  Model it as RPC
+            # backpressure — retry on the next agent step.
+            return
+        d = cp.dispatcher
+        if d is None:
+            return   # no leader control plane right now (failover gap)
+        if self.session is None \
+                and self.engine.clock.elapsed() < self._reg_defer_until:
+            return   # spread re-registration phase after a failure
+        drain = getattr(cp, "drain_deferred", None)
+        if drain is not None:
+            drain()   # never stage an RPC's write over a deferred backlog
+        cp.busy = True
+        try:
+            if self.session is None:
+                # the description carries the worker's resources: a
+                # registration without them would zero the node's
+                # capacity and starve reservation-carrying bands (the
+                # preemption scenarios schedule against these numbers)
+                self.session, _ = d.register(
+                    self.node_id,
+                    description=NodeDescription(
+                        hostname=self.node_id,
+                        resources=Resources(nano_cpus=8 * 10 ** 9,
+                                            memory_bytes=32 << 30)))
+                self.engine.log(f"agent {self.node_id} registered")
+                self._fail_attempts = 0
+            else:
+                d.heartbeat(self.node_id, self.session)
+            # keep using the dispatcher captured above: the register/
+            # heartbeat pump may have deposed the leader mid-step, and
+            # the cp.dispatcher property would now be None — a stopped
+            # dispatcher raises DispatcherError, which is handled
+            self._advance_tasks(d)
+        except ErrOverloaded:
+            # admission shed at the session edge: the session (if any)
+            # is STILL VALID — back off and retry, don't re-register
+            self._note_shed(None)
+        except AGENT_RPC_ERRORS:
+            # an RPC failure — invalid session, dispatcher stopping, a
+            # proposal fenced by leadership loss — drops the session;
+            # the agent re-registers with whoever leads next, behind a
+            # seeded jittered window (thundering-herd spread)
+            from ..remotes import backoff_with_jitter
+            self.session = None
+            self._reg_defer_until = self.engine.clock.elapsed() + \
+                backoff_with_jitter(self._fail_attempts, self._rng,
+                                    base=0.25)
+            self._fail_attempts += 1
+        finally:
+            cp.busy = False
+
+    def _note_shed(self, updates) -> None:
+        """An ErrOverloaded from the dispatcher edge: the RPC was shed
+        by admission control, NOT a session failure.  Record what the
+        client observed (the overload invariants audit that every shed
+        is dispatcher-counted and every shed task recovers), then back
+        off behind the existing jittered-backoff seam — degraded is
+        never silently lossy: ``_advance_tasks`` is level-triggered
+        from committed rows, so the same updates re-derive and re-send
+        once the window passes."""
+        from ..remotes import backoff_with_jitter
+        t = self.engine.clock.elapsed()
+        delay = backoff_with_jitter(self._shed_attempts, self._rng,
+                                    base=0.5)
+        self._shed_attempts += 1
+        self._send_defer_until = t + delay
+        if self.session is None:
+            # a shed REGISTRATION: hold the retry too
+            self._reg_defer_until = t + delay
+        inv = getattr(self.cp, "overload_inv", None)
+        if inv is not None:
+            inv.note_client_shed(self.node_id, updates)
+
+    # --------------------------------------------- follower-served mode
+
+    def _resolve_member(self) -> Optional["SimManager"]:
+        """Session member by node-id hash over the member ring, skipping
+        dead/avoided members and — when an alternative exists — the
+        current leader: consumer sessions stay pinned to followers, off
+        the coordinator.  Sticky: the current member is kept while it
+        remains acceptable."""
+        import zlib
+        cp = self.cp
+        members = cp.sim.managers
+        t = self.engine.clock.elapsed()
+        leader = cp.sim.leader()
+
+        def ok(m, allow_leader):
+            return (m.alive and m.store is not None
+                    and self._avoid.get(m.id, 0.0) <= t
+                    and (allow_leader or m is not leader))
+
+        cur = next((m for m in members if m.id == self._member_id), None)
+        if cur is not None and self.session is not None \
+                and ok(cur, allow_leader=False):
+            return cur
+        start = zlib.crc32(self.node_id.encode()) % len(members)
+        fallback = None
+        for k in range(len(members)):
+            m = members[(start + k) % len(members)]
+            if ok(m, allow_leader=False):
+                return m
+            if fallback is None and ok(m, allow_leader=True):
+                fallback = m
+        return fallback    # only the leader (or nothing) is left
+
+    def _step_follower(self, cp) -> None:
+        """Follower-served session step: register/heartbeat against the
+        sharded member's local dispatcher, read assignments from ITS
+        replicated store, report status through it (the write forwards
+        to the leader).  On any session failure, re-resolve to a
+        DIFFERENT member with jittered backoff on the failed one."""
+        from ..remotes import backoff_with_jitter, count_reconnect
+        if cp.busy:
+            return
+        if self.session is None \
+                and self.engine.clock.elapsed() < self._reg_defer_until:
+            return   # spread re-registration phase after a failure
+        member = self._resolve_member()
+        if member is None:
+            return
+        d = cp.plane_for(member)
+        if d is None:
+            return
+        cp.drain_deferred()
+        cp.busy = True
+        try:
+            if self.session is None or self._member_id != member.id:
+                if self.session is not None \
+                        and self._member_id is not None:
+                    # graceful handoff: release the old session so the
+                    # previous member never TTL-expires us into DOWN
+                    old = cp.plane_for_id(self._member_id)
+                    if old is not None:
+                        old.release_session(self.node_id, self.session)
+                self.session, _ = d.register(
+                    self.node_id,
+                    description=NodeDescription(
+                        hostname=self.node_id,
+                        resources=Resources(nano_cpus=8 * 10 ** 9,
+                                            memory_bytes=32 << 30)))
+                cp.session_owner[self.node_id] = member.id
+                self._member_id = member.id
+                self._fail_attempts = 0
+                self.engine.log(f"agent {self.node_id} registered "
+                                f"on {member.id}")
+            else:
+                d.heartbeat(self.node_id, self.session)
+            cp.count_read(member)
+            self._advance_tasks(d, store=member.store)
+        except ErrOverloaded:
+            # admission shed: the session stays valid, the member stays
+            # resolvable — back off, don't fail over
+            self._note_shed(None)
+        except AGENT_RPC_ERRORS:
+            # session failover: avoid THIS member for a jittered window
+            # so the re-register lands on a different one
+            self.session = None
+            if cp.session_owner.get(self.node_id) == member.id:
+                cp.session_owner.pop(self.node_id, None)
+            self._member_id = None
+            self._avoid[member.id] = self.engine.clock.elapsed() + \
+                backoff_with_jitter(self._fail_attempts, self._rng,
+                                    base=0.5)
+            self._fail_attempts += 1
+            cp.read_stats["agent_reconnects"] += 1
+            count_reconnect("session_invalid")
+            self.engine.log(f"agent {self.node_id} session failover "
+                            f"off {member.id}")
+        finally:
+            cp.busy = False
+
+    def _advance_tasks(self, d=None, store=None) -> None:
+        from ..state.store import ByNode
+        if d is None:
+            d = self.cp.dispatcher
+            if d is None:
+                return
+        if store is None:
+            store = self.cp.store
+        if store is None:
+            return
+        tasks = store.view(
+            lambda tx: tx.find(Task, ByNode(self.node_id)))
+        updates = []
+        for t in sorted(tasks, key=lambda t: t.id):
+            state = TaskState(t.status.state)
+            if state in TERMINAL_STATES:
+                continue
+            if t.desired_state >= TaskState.SHUTDOWN:
+                updates.append((t.id, TaskStatus(
+                    state=TaskState.SHUTDOWN, timestamp=now(),
+                    message="sim shutdown")))
+                continue
+            if state == TaskState.RUNNING:
+                if self.fail_p and self._rng.random() < self.fail_p:
+                    updates.append((t.id, TaskStatus(
+                        state=TaskState.FAILED, timestamp=now(),
+                        message="sim fault", err="injected failure")))
+                    self.engine.log(f"agent {self.node_id} failed task "
+                                    f"{t.id}")
+                elif t.desired_state == TaskState.COMPLETE:
+                    # job task (jobs orchestrator): runs to completion
+                    # one agent step after reaching RUNNING
+                    updates.append((t.id, TaskStatus(
+                        state=TaskState.COMPLETE, timestamp=now(),
+                        message="sim job complete")))
+                continue
+            nxt = self.FSM_NEXT.get(state)
+            if nxt is None or nxt > t.desired_state:
+                # hold at the desired band: a rolling update stages its
+                # replacement at desired READY until the old task stops
+                # (the restart supervisor then flips desired to RUNNING)
+                continue
+            poison = getattr(self.cp, "poison_versions", None)
+            if (poison and nxt == TaskState.RUNNING
+                    and t.spec_version is not None
+                    and t.spec_version.index in poison):
+                # rollout-poison fault: tasks of a poisoned spec version
+                # die on startup, deterministically — the update
+                # supervisor's failure monitor must pause or roll back
+                updates.append((t.id, TaskStatus(
+                    state=TaskState.FAILED, timestamp=now(),
+                    message="sim poison", err="injected version failure")))
+                self.engine.log(f"fault rollout-poison {self.node_id} "
+                                f"task {t.id}")
+                continue
+            poison_svc = getattr(self.cp, "poison_services", None)
+            if (poison_svc and nxt == TaskState.RUNNING
+                    and t.service_id in poison_svc):
+                # stage-poison fault (pipeline-chaos): every task of the
+                # marked service dies on startup — the pipeline
+                # supervisor must observe the failures and halt the
+                # downstream stages
+                updates.append((t.id, TaskStatus(
+                    state=TaskState.FAILED, timestamp=now(),
+                    message="sim poison", err="injected stage failure")))
+                self.engine.log(f"fault stage-poison {self.node_id} "
+                                f"task {t.id}")
+                continue
+            updates.append((t.id, TaskStatus(
+                state=nxt, timestamp=now(), message="sim")))
+        if updates:
+            if self.engine.clock.elapsed() < self._send_defer_until:
+                return   # shed backoff window: re-derive next step
+            try:
+                d.update_task_status(self.node_id, self.session, updates)
+                self._shed_attempts = 0
+            except ErrOverloaded:
+                # the edge shed this batch whole: session stays valid,
+                # the level-triggered loop re-sends after the backoff
+                self._note_shed(updates)
+            except AGENT_RPC_ERRORS:
+                self.session = None
+
+    # ---------------------------------------------------------------- faults
+
+    def crash(self) -> None:
+        if self.alive:
+            self.alive = False
+            self.session = None
+            self.engine.log(f"fault agent-crash {self.node_id}")
+
+    def restart(self) -> None:
+        if not self.alive:
+            self.alive = True
+            self.engine.log(f"fault agent-restart {self.node_id}")
+
+    def partition(self, on: bool) -> None:
+        self.partitioned = on
+        self.engine.log(f"fault agent-partition {self.node_id} "
+                        f"{'on' if on else 'off'}")
+
+
+class _MuxAgent(SimAgent):
+    """One multiplexed session: full ``SimAgent`` semantics — register,
+    heartbeat, FSM advance, faults, follower failover — but NO private
+    engine timer.  The owning :class:`MuxAgentFleet`'s shared wheel
+    re-arms it after every step."""
+
+    def __init__(self, node_id: str, cp, fleet: "MuxAgentFleet",
+                 interval: float = 1.0):
+        # set BEFORE super().__init__: the base constructor calls
+        # _schedule(), which we route to the fleet's wheel
+        self._fleet = fleet
+        super().__init__(node_id, cp, interval=interval)
+
+    def _schedule(self) -> None:
+        # the same deterministic phase spread a solo agent gets, armed
+        # on the shared wheel instead of a per-agent engine timer
+        self._fleet._arm(self, self._rng.random() * self.interval)
+
+
+class MuxAgentFleet:
+    """The million-swarm harness (ISSUE 20 tentpole): thousands of
+    dispatcher sessions multiplexed over ONE engine timer, one due-heap
+    ("heartbeat wheel") and one per-tick RPC budget — the driver pops
+    due sessions, steps each through the ordinary ``SimAgent`` path,
+    and re-arms it at its own jittered cadence.  Sessions the budget
+    could not serve stay due and drain on the next tick: client-side
+    queueing IS the backpressure model, nothing is dropped.
+
+    Seed-deterministic by construction: each session forks its own RNG
+    from the engine tree (same draws as a solo agent), and the wheel
+    orders ties by a monotone sequence number.
+
+    Attach the fleet at scenario-setup time, BEFORE the run starts:
+    the first leader's bootstrap creates worker Node records for every
+    agent present on ``cp.agents`` at that moment.
+
+    ``stats`` exposes the knobs the overload tests pin:
+
+    * ``steps`` / ``driver_ticks`` — total sessions served / timer fires
+    * ``max_due_backlog`` — peak count of due-but-unserved sessions
+      right after a tick (the budget's queueing signal)
+    * ``max_concurrent_registrations`` — peak registrations inside one
+      driver tick; the thundering-herd test bounds this after a leader
+      failover (the agents' seeded re-registration jitter spreads it)
+    """
+
+    def __init__(self, cp, n_sessions: int, interval: float = 1.0,
+                 driver_interval: float = 0.25, rpc_budget: int = 256,
+                 prefix: str = "f"):
+        self.cp = cp
+        self.engine = cp.engine
+        self.interval = interval
+        self.driver_interval = driver_interval
+        self.rpc_budget = rpc_budget
+        self._wheel: List[tuple] = []   # (due, seq, agent)
+        self._seq = 0
+        self.stats = {"steps": 0, "driver_ticks": 0,
+                      "max_due_backlog": 0,
+                      "max_concurrent_registrations": 0}
+        self.agents: List[_MuxAgent] = [
+            _MuxAgent(f"{prefix}{i}", cp, self, interval=interval)
+            for i in range(n_sessions)]
+        cp.agents.extend(self.agents)
+        self.engine.every(driver_interval, "fleet driver", self._drive)
+
+    def _arm(self, agent: SimAgent, delay: float) -> None:
+        self._seq += 1
+        heapq.heappush(self._wheel,
+                       (self.engine.clock.elapsed() + delay,
+                        self._seq, agent))
+
+    def _drive(self):
+        if self.cp.stopped:
+            return False
+        self.stats["driver_ticks"] += 1
+        t = self.engine.clock.elapsed()
+        budget = self.rpc_budget
+        registrations = 0
+        while self._wheel and self._wheel[0][0] <= t and budget > 0:
+            _, _, a = heapq.heappop(self._wheel)
+            budget -= 1
+            had_session = a.session is not None
+            a.step()
+            self.stats["steps"] += 1
+            if a.session is not None and not had_session:
+                registrations += 1
+            # stepping may have pumped virtual time (a store write on
+            # this stack re-enters the engine); re-read the clock so the
+            # re-arm lands relative to NOW, not the tick's start
+            self._arm(a, a.interval * a.rate_scale)
+        if registrations > self.stats["max_concurrent_registrations"]:
+            self.stats["max_concurrent_registrations"] = registrations
+        backlog = sum(1 for e in self._wheel if e[0] <= t)
+        if backlog > self.stats["max_due_backlog"]:
+            self.stats["max_due_backlog"] = backlog
+        return None
+
+
+class SimRaftProposer:
+    """MemoryStore ``Proposer`` backed by the sim's consensus layer:
+    proposals ride the real RaftCore through SimNetwork faults, and
+    commit callbacks run in the proposing member's apply path (the
+    ``SimManager.apply_taps`` seam), mirroring RaftNode's waiter
+    handling.
+
+    Two modes:
+
+    * **unbound** (``member=None``) — routes each proposal to whichever
+      member currently leads; the original shape the pipelined-commit
+      scenario drives a standalone store with.
+    * **member-bound** — the proposer IS one member's consensus
+      identity (RaftNode parity): proposals are refused unless that
+      member is the ready leader, every proposal carries the
+      leadership epoch it was created under, entry data is tagged
+      ``CP_MAGIC`` so every member's replicated store applies it, and
+      the commit callback is fenced — a proposal whose epoch was
+      fenced (deposal, explicit ``fence_epoch``) fails WITHOUT running
+      its commit callback even when the entry itself commits (the
+      member store then converges through the remote-apply path,
+      exactly like RaftNode).  ``enforce_fencing=False`` disables the
+      fence (checker-sensitivity tests): a stale commit then RUNS and
+      the ``no-stale-epoch-commit`` invariant must catch it.
+
+    Implements the async pair (``propose_async``/``wait_proposal``) the
+    store's chunk-pipelined block commit uses, so leader churn against
+    in-flight pipelined proposals is simulatable deterministically.
+    ``wait_proposal`` advances VIRTUAL time by pumping the engine;
+    ``engine.run_until`` is re-entrant, so this may be driven from
+    inside engine events (control steps) as well as top-level code.
+    """
+
+    PUMP = 0.05      # virtual seconds per wait slice
+    TIMEOUT = 30.0   # virtual seconds before a proposal is abandoned
+
+    #: virtual seconds an unanswered read-index request waits before the
+    #: barrier re-asks (the leader it targeted may be gone)
+    READ_RETRY = 1.0
+
+    def __init__(self, sim: "Sim", member: Optional[SimManager] = None,
+                 violations: Optional[Violations] = None):
+        self.sim = sim
+        self.member = member
+        self.violations = violations
+        self.enforce_fencing = True
+        #: checker-sensitivity seam: False serves linearizable reads
+        #: WITHOUT the barrier — follower-reads-never-uncommitted must
+        #: then catch the stale view
+        self.enforce_read_barrier = True
+        #: read-plane observer (ReadInvariants): judges every served view
+        self.read_observer = None
+        self._pending: Dict[tuple, dict] = {}
+        self.stats = {"proposed": 0, "committed": 0, "dropped": 0,
+                      "stale_epoch_rejects": 0}
+        # one-shot "fault native-commit-plane store" coverage line (see
+        # propose_async): logged when the first binary block entry rides
+        # consensus with the native decode plane active
+        self._native_cov_logged = False
+        self.read_stats = {"reads": 0, "lease": 0, "read_index": 0,
+                           "unavailable": 0}
+        if member is not None:
+            member.apply_taps.append(self._on_apply)
+        else:
+            for m in sim.managers:
+                m.apply_taps.append(self._on_apply)
+
+    # ------------------------------------------------------------- fencing
+
+    @property
+    def leadership_epoch(self) -> Optional[int]:
+        """Fencing token for the store's epoch pinning (RaftNode
+        parity); None in unbound mode (no fencing identity)."""
+        if self.member is None:
+            return None
+        return self.member.core.leadership_epoch
+
+    # ------------------------------------------------------------- proposer
+
+    def propose_async(self, actions, commit_cb=None, epoch=None) -> dict:
+        from ..state import serde
+        if self.member is not None:
+            target = self.member
+            core = target.core
+            if core.role != LEADER or not core.leader_ready \
+                    or not target.alive:
+                raise NotLeader(f"{target.id} is not a ready leader")
+            cur = core.leadership_epoch
+            if epoch is None:
+                epoch = cur
+            elif epoch != cur:
+                # pre-serialization fence (RaftNode parity): the reign
+                # this commit was planned under is over
+                self.stats["stale_epoch_rejects"] += 1
+                raise StaleEpoch(
+                    f"{target.id}: proposal epoch {epoch} fenced "
+                    f"(current {cur})")
+        else:
+            target = self.sim.leader()
+            if target is None:
+                raise RuntimeError("no ready raft leader to propose to")
+        data = serde.actions_to_entry_data(actions)
+        if data.startswith(serde.BLOCK_ENTRY_MAGIC) \
+                and not self._native_cov_logged:
+            # one-shot coverage line: the chaos sweep's fault-type x
+            # component gate (scripts/chaos_sweep.py REQUIRED_CELLS)
+            # requires the NATIVE columnar commit plane to have actually
+            # carried a block through consensus — an empty cell means
+            # the native path silently rotted out of the sweep
+            self._native_cov_logged = True
+            from .. import native
+            if native.get_commit() is not None:
+                self.sim.engine.log("fault native-commit-plane store")
+        if self.member is not None:
+            data = CP_MAGIC + data
+        index = target.core.propose(data)
+        target.pump()
+        waiter = {"member": target, "index": index, "epoch": epoch,
+                  "commit_cb": commit_cb, "done": False, "ok": False,
+                  "deadline": self.sim.engine.clock.elapsed()
+                  + self.TIMEOUT}
+        self._pending[(target.id, index)] = waiter
+        self.stats["proposed"] += 1
+        return waiter
+
+    def wait_proposal(self, waiter: dict) -> None:
+        eng = self.sim.engine
+        while not waiter["done"]:
+            m = waiter["member"]
+            if not m.alive or m.stopped:
+                # the proposing member is gone: its store can never run
+                # the commit callback, so the proposal fails here even
+                # if the entry later commits cluster-wide (a real
+                # manager rebuilds its store from the WAL on restart)
+                self._fail(waiter)
+                break
+            if waiter["epoch"] is not None \
+                    and m.core.leadership_epoch != waiter["epoch"]:
+                # fenced: deposed (or deposed-and-re-elected) since this
+                # proposal was created — fail fast, don't wait for the
+                # commit outcome
+                self._fail(waiter)
+                break
+            if m.core.role != LEADER \
+                    and m.core.commit_index < waiter["index"]:
+                self._fail(waiter)   # deposed before the entry committed
+                break
+            if eng.clock.elapsed() >= waiter["deadline"]:
+                if waiter["epoch"] is not None and m.core.role == LEADER \
+                        and m.core.leadership_epoch == waiter["epoch"]:
+                    # a bound proposal is never abandoned while its reign
+                    # lasts (RaftNode has no proposal timeout either, by
+                    # design): failing it here would orphan an entry that
+                    # can still commit — and later apply BEHIND a newer
+                    # proposal's store write, inverting apply order on
+                    # the leader store.  Check-quorum deposes an isolated
+                    # leader within ~2 election timeouts, which fences
+                    # the epoch and fails this waiter properly.
+                    waiter["deadline"] = eng.clock.elapsed() + self.TIMEOUT
+                else:
+                    self._fail(waiter)
+                    break
+            eng.run_until(eng.clock.elapsed() + self.PUMP)
+        if not waiter["ok"]:
+            self.stats["dropped"] += 1
+            raise ProposalDropped("sim raft proposal dropped")
+        self.stats["committed"] += 1
+
+    def propose(self, actions, commit_cb=None, epoch=None) -> None:
+        self.wait_proposal(self.propose_async(actions, commit_cb,
+                                              epoch=epoch))
+
+    # ----------------------------------------------------- read barrier
+
+    def _skew_active(self) -> bool:
+        return bool(self.sim.engine.clock_skew_members)
+
+    def read_barrier(self, timeout: Optional[float] = None) -> dict:
+        """Linearizable read barrier on THIS member (the store's
+        ``read_view(linearizable=True)`` capability): resolve the
+        cluster's confirmed commit index through the raft read-index
+        protocol (leader-lease fast path when the core's lease is valid
+        and no clock-skew fault is live), then pump virtual time until
+        this member's applied state — including deferred store entries —
+        covers it.  Works on leaders AND followers; raises
+        ReadUnavailable when no leader confirms within ``timeout``
+        (degraded, never stale).  The ReadInvariants observer judges
+        every serve."""
+        from ..utils.metrics import registry as _metrics
+        m = self.member
+        if m is None:
+            return {"lease": False, "index": 0}
+        eng = self.sim.engine
+        obs = self.read_observer
+        token = obs.begin_read(m) if obs is not None else None
+        self.read_stats["reads"] += 1
+        t0 = eng.clock.elapsed()
+        if not self.enforce_read_barrier:
+            # sensitivity seam: serve the local view unverified — the
+            # follower-reads-never-uncommitted checker must fire when
+            # this member trails the committed frontier
+            if obs is not None:
+                obs.served(m, token, lease=False,
+                           skew_active=self._skew_active())
+            return {"lease": False, "index": m.core.applied_index}
+        deadline = t0 + (self.TIMEOUT if timeout is None else timeout)
+        store0 = m.store
+        core = m.core
+        minted: List[int] = []
+        seq: Optional[int] = None
+        asked_at = t0
+        barrier = lease = None
+        while True:
+            if not m.alive or m.stopped or m.store is not store0:
+                # crashed (or crash-restarted onto a rebuilt store) mid-
+                # barrier: the caller's view object is dead — fail, never
+                # serve it
+                self.read_stats["unavailable"] += 1
+                raise ReadUnavailable(f"{m.id} went down mid-read")
+            core = m.core   # a restart swaps the core object
+            if seq is None:
+                seq = core.request_read()
+                asked_at = eng.clock.elapsed()
+                if seq is not None:
+                    minted.append(seq)
+                    m.pump()   # flush the read_index message out
+            if seq is not None:
+                res = core.read_results.pop(seq, None)
+                if res is not None:
+                    index, ok, is_lease = res
+                    if ok:
+                        barrier, lease = index, is_lease
+                        break
+                    seq = None   # refused: retry against whoever leads
+                elif eng.clock.elapsed() - asked_at >= self.READ_RETRY:
+                    seq = None   # silence: the asked leader is likely gone
+            if eng.clock.elapsed() >= deadline:
+                self.read_stats["unavailable"] += 1
+                _metrics.counter(
+                    'swarm_lease_reads{result="unavailable"}')
+                for s in minted:
+                    core.read_results.pop(s, None)
+                raise ReadUnavailable(
+                    f"{m.id}: no leader confirmed a read barrier "
+                    f"within {deadline - t0:.1f}s")
+            eng.run_until(eng.clock.elapsed() + self.PUMP)
+        for s in minted:
+            core.read_results.pop(s, None)
+        # local catch-up: applied index past the barrier AND the store
+        # apply backlog drained (deferred entries are committed-but-
+        # unapplied — serving over them would miss sealed changes)
+        while True:
+            if not m.alive or m.stopped or m.store is not store0:
+                self.read_stats["unavailable"] += 1
+                raise ReadUnavailable(f"{m.id} went down mid-read")
+            m._drain_deferred()
+            if core.applied_index >= barrier \
+                    and not m._deferred_entries:
+                break
+            if eng.clock.elapsed() >= deadline:
+                self.read_stats["unavailable"] += 1
+                raise ReadUnavailable(
+                    f"{m.id}: applied {core.applied_index} never "
+                    f"reached the read barrier {barrier}")
+            eng.run_until(eng.clock.elapsed() + self.PUMP)
+        self.read_stats["lease" if lease else "read_index"] += 1
+        _metrics.counter('swarm_lease_reads{result="lease"}' if lease
+                         else 'swarm_lease_reads{result="read_index"}')
+        # same meaning as RaftNode's export: last read lease-served?
+        _metrics.gauge("swarm_lease_enabled", 1.0 if lease else 0.0)
+        _metrics.timer("swarm_read_index_latency").observe(
+            eng.clock.elapsed() - t0)
+        if obs is not None:
+            obs.served(m, token, lease=lease,
+                       skew_active=self._skew_active())
+        return {"lease": lease, "index": barrier}
+
+    # ------------------------------------------------------------ apply tap
+
+    def _on_apply(self, member_id: str, entry) -> bool:
+        """Apply-path waiter completion; returns True when this tap
+        consumed the entry (ran/settled the commit callback)."""
+        waiter = self._pending.pop((member_id, entry.index), None)
+        if waiter is None or waiter["done"]:
+            return False
+        if waiter["epoch"] is not None:
+            core = waiter["member"].core
+            stale = (core.role != LEADER
+                     or core.leadership_epoch != waiter["epoch"])
+            if stale:
+                if self.enforce_fencing:
+                    # commit-delivery fence: the entry committed but its
+                    # reign is over — the proposer sees failure and the
+                    # member store converges via the remote-apply path
+                    # (we return False so _apply replays it)
+                    self.stats["stale_epoch_rejects"] += 1
+                    waiter["done"] = True
+                    waiter["ok"] = False
+                    return False
+                if self.violations is not None:
+                    # fencing disabled (checker-sensitivity): the stale
+                    # commit callback WILL run — that is the safety
+                    # violation this invariant exists to catch
+                    self.violations.record(
+                        "no-stale-epoch-commit",
+                        f"{member_id} ran a commit callback for entry "
+                        f"{entry.index} proposed under epoch "
+                        f"{waiter['epoch']} (current "
+                        f"{core.leadership_epoch}, role {core.role})")
+        ok = True
+        if waiter["commit_cb"] is not None:
+            try:
+                waiter["commit_cb"]()
+            except Exception:
+                ok = False
+        waiter["ok"] = ok
+        waiter["done"] = True
+        return True
+
+    def _fail(self, waiter: dict) -> None:
+        self._pending.pop((waiter["member"].id, waiter["index"]), None)
+        waiter["done"] = True
+        waiter["ok"] = False
+
+
+class SimControlPlane:
+    """Standalone-mode control plane: one leader store + real Scheduler
+    + real Dispatcher, driven synchronously under virtual time while the
+    consensus layer churns alongside.  The raft-attached mode
+    (``RaftControlPlane`` below) is what the failover scenarios run."""
+
+    def __init__(self, engine: SimEngine, violations: Violations,
+                 n_agents: int, control_interval: float = 0.5):
+        self.engine = engine
+        self.stopped = False
+        self.busy = False   # agent-step guard (shared SimAgent surface)
+        self.store = MemoryStore()
+        self.invariants = TaskInvariants(violations, self.store)
+        self.dispatcher = Dispatcher(
+            self.store,
+            DispatcherConfig(heartbeat_period=2.0, heartbeat_epsilon=0.2,
+                             grace_multiplier=3.0, rate_limit_period=0.0,
+                             orphan_timeout=20.0),
+            rng=engine.fork_rng())
+        # pipeline_depth=1: the committer thread of the pipelined tick
+        # would break the sim's single-threaded determinism contract;
+        # chunk-pipelined PROPOSALS (store-level, single-threaded) are
+        # exercised by the pipelined-commit-churn scenario instead
+        self.scheduler = Scheduler(self.store, pipeline_depth=1)
+        self.scheduler.pipeline.add_filter(
+            VolumesFilter(self.scheduler.volumes))
+        self._task_seq = 0
+        self._replaced: set = set()
+        self.service = Service(
+            id="svc-sim",
+            spec=ServiceSpec(
+                annotations=Annotations(name="sim"),
+                mode=ServiceMode.REPLICATED,
+                replicated=ReplicatedService(replicas=0),
+                task=TaskSpec()),
+            spec_version=Version(index=1))
+        self.store.update(lambda tx: tx.create(self.service))
+
+        self.agents: List[SimAgent] = []
+        for i in range(n_agents):
+            node = Node(
+                id=f"w{i}",
+                spec=NodeSpec(annotations=Annotations(name=f"w{i}")),
+                status=NodeStatus(state=NodeState.UNKNOWN),
+                description=NodeDescription(
+                    hostname=f"w{i}",
+                    resources=Resources(nano_cpus=8 * 10 ** 9,
+                                        memory_bytes=32 << 30)))
+            self.store.update(lambda tx, n=node: tx.create(n))
+            self.agents.append(SimAgent(f"w{i}", self))
+
+        # dispatcher up, worker thread replaced by control_step
+        self.dispatcher.run(start_worker=False)
+        self.store.view(self.scheduler._setup_tasks_list)
+        engine.every(control_interval, "control step", self.control_step)
+
+    # -------------------------------------------------------------- workload
+
+    def create_tasks(self, n: int) -> None:
+        def cb(tx):
+            for _ in range(n):
+                self._task_seq += 1
+                tx.create(Task(
+                    id=f"t{self._task_seq:05d}",
+                    service_id=self.service.id,
+                    slot=self._task_seq,
+                    desired_state=TaskState.RUNNING,
+                    spec=self.service.spec.task,
+                    spec_version=Version(index=1),
+                    status=TaskStatus(state=TaskState.PENDING,
+                                      timestamp=now())))
+        self.store.update(cb)
+        self.engine.log(f"workload create {n} tasks")
+
+    # ---------------------------------------------------------- control loop
+
+    def control_step(self) -> object:
+        if self.stopped:
+            return False
+        self.dispatcher.process_deadlines()
+        self.dispatcher._flush_updates()
+        self.scheduler._resync()
+        n = self.scheduler.tick()
+        if n:
+            self.engine.log(f"scheduler assigned {n}")
+        self._restart_step()
+        self.invariants.drain()
+        return None
+
+    def _restart_step(self) -> None:
+        """Minimal orchestrator stand-in: replace terminal tasks whose
+        desired state is still RUNNING (new task id, same slot — the
+        restart supervisor's contract; the full orchestrators are
+        exercised separately by the block-contract tests)."""
+        tasks = self.store.view(lambda tx: tx.find(Task))
+        to_replace = [
+            t for t in sorted(tasks, key=lambda t: t.id)
+            if TaskState(t.status.state) in TERMINAL_STATES
+            and t.desired_state == TaskState.RUNNING
+            and t.id not in self._replaced]
+        if not to_replace:
+            return
+
+        def cb(tx):
+            for t in to_replace:
+                self._replaced.add(t.id)
+                cur = tx.get(Task, t.id)
+                if cur is not None:
+                    cur = cur.copy()
+                    cur.desired_state = TaskState.SHUTDOWN
+                    tx.update(cur)
+                self._task_seq += 1
+                tx.create(Task(
+                    id=f"t{self._task_seq:05d}",
+                    service_id=self.service.id,
+                    slot=t.slot,
+                    desired_state=TaskState.RUNNING,
+                    spec=self.service.spec.task,
+                    spec_version=Version(index=1),
+                    status=TaskStatus(state=TaskState.PENDING,
+                                      timestamp=now())))
+        self.store.update(cb)
+        self.engine.log(f"restart replaced {len(to_replace)}")
+
+
+class SimMemberControl:
+    """The real control plane cold-started on ONE member's replicated
+    store: scheduler, dispatcher, restart supervisor, and the
+    replicated + global orchestrators, all writing through the member's
+    epoch-fenced ``SimRaftProposer`` and all driven synchronously by
+    ``step()`` under virtual time.  Built when the member becomes the
+    ready leader; ``detach()``-ed (by the member's own role-transition
+    handler) the instant it is deposed."""
+
+    def __init__(self, member: SimManager, cp: "RaftControlPlane"):
+        from ..orchestrator import (
+            GlobalOrchestrator, JobsOrchestrator, ReplicatedOrchestrator,
+            RestartSupervisor,
+        )
+        from ..orchestrator.update import Supervisor as UpdateSupervisor
+        self.member = member
+        self.cp = cp
+        self.detached = False
+        store = member.store
+        self.store = store
+        store.pipeline_depth = cp.store_pipeline_depth
+        if cp.block_proposal_max_items is not None:
+            store.BLOCK_PROPOSAL_MAX_ITEMS = cp.block_proposal_max_items
+        self.dispatcher = Dispatcher(
+            store,
+            DispatcherConfig(heartbeat_period=2.0, heartbeat_epsilon=0.2,
+                             grace_multiplier=3.0, rate_limit_period=0.0,
+                             orphan_timeout=20.0),
+            rng=cp.engine.fork_rng(),
+            # follower-served mode: sessions live on the per-member read
+            # planes — the leader's control dispatcher owns no shard and
+            # must not grace-DOWN nodes that never register with it
+            shard_filter=(lambda nid: False) if cp.follower_reads
+            else None)
+        cp.apply_overload_seams(self.dispatcher)
+        from ..manager.allocator import Allocator
+        self.allocator = Allocator(store)
+        self.restarts = RestartSupervisor(store, start_worker=False)
+        planner = cp.planner_factory() if cp.planner_factory else None
+        # scheduler pipeline_depth=1: the tick committer THREAD would
+        # break determinism; store-level chunk-pipelined proposals
+        # (pipeline_depth above) are the pipelining under test here
+        self.scheduler = Scheduler(store, batch_planner=planner,
+                                   pipeline_depth=1,
+                                   preempt_budget=cp.preempt_budget,
+                                   preempt_cooldown=cp.preempt_cooldown,
+                                   tick_budget_s=cp.tick_budget_s)
+        # checker-sensitivity seam: preemption off means a feasible
+        # higher-priority task can starve — no-priority-inversion fires
+        self.scheduler.preempt_enabled = cp.preemption_enabled
+        # checker-sensitivity seam: quota enforcement off means a
+        # bursting tenant's committed usage runs past its quota —
+        # quota-never-exceeded fires
+        self.scheduler.quota_enabled = cp.quota_enabled
+        self.scheduler.pipeline.add_filter(
+            VolumesFilter(self.scheduler.volumes))
+        # the autoscaler in threadless mode: step() pumps drive() under
+        # virtual time; decisions read the scenario-driven sampler seam
+        from ..orchestrator.autoscaler import (
+            Supervisor as AutoscaleSupervisor,
+        )
+        self.autoscaler = AutoscaleSupervisor(
+            store, sampler=cp.autoscale_sampler, start_worker=False)
+        # pipeline DAG supervisor (ISSUE 16), threadless like the
+        # autoscaler: release/halt verdicts ride consensus on Service
+        # rows, so the successor leader's supervisor resumes them
+        from ..orchestrator.pipeline import PipelineSupervisor
+        self.pipeline = PipelineSupervisor(store, start_worker=False)
+        # jobs orchestrator (run-to-completion work coexisting with
+        # services): driven threadless like the other orchestrators, so
+        # job iterations survive leader failover via the replicated store
+        self.jobs = JobsOrchestrator(store, restarts=self.restarts)
+        # REAL rolling-update supervisors in threadless mode: the
+        # orchestrators' reconcile hands dirty slots to them, and
+        # step() pumps their FSMs under virtual time — spec rollouts
+        # (parallelism, delay, monitor window, pause/rollback) run
+        # through consensus exactly like production, zero threads
+        self.replicated = ReplicatedOrchestrator(
+            store, restarts=self.restarts,
+            updater=UpdateSupervisor(store, self.restarts,
+                                     start_worker=False))
+        self.global_ = GlobalOrchestrator(
+            store, restarts=self.restarts,
+            updater=UpdateSupervisor(store, self.restarts,
+                                     start_worker=False))
+        # (orchestrator, subscription, tick) driver tuples — the event
+        # loops of the real orchestrators, minus their threads
+        self._drivers: List[tuple] = []
+
+    def cold_start(self) -> None:
+        """Adopt the replicated store: dispatcher up, scheduler mirrors
+        built, orchestrators init'd + startup task-consistency pass
+        (taskinit re-arms the previous leader's delayed restarts).
+        Store writes here ride consensus — the caller handles a
+        mid-cold-start deposal by detaching and retrying later."""
+        from ..orchestrator import taskinit
+        store = self.store
+        self.dispatcher.run(start_worker=False)
+        store.view(self.scheduler._setup_tasks_list)
+        # allocator first: it moves NEW tasks to PENDING — the state the
+        # scheduler and orchestrators act on
+        sub = store.queue.subscribe(accepts_blocks=True)
+        self._drivers.append((self.allocator, sub, self.allocator._tick))
+        self.allocator._resync()
+        for orch, tick in ((self.replicated, self.replicated._tick),
+                           (self.global_, self.global_._tick_tasks),
+                           (self.jobs, self.jobs._tick)):
+            sub = store.queue.subscribe(accepts_blocks=True)
+            self._drivers.append((orch, sub, tick))
+            taskinit.check_tasks(store, store.view(), orch, self.restarts)
+            orch._resync()
+
+    def step(self) -> None:
+        """One synchronous control-plane step, mirroring the production
+        loops' cadence: dispatcher deadlines + status flush, scheduler
+        resync/preassigned/tick, orchestrator event intake + ticks,
+        restart timer pump.  Aborts between phases once detached — a
+        deposal can land inside any store write below."""
+        from ..state.events import Event, EventSnapshotRestore
+        self.dispatcher.process_deadlines()
+        if self.detached:
+            # a deposal landed inside process_deadlines' store write:
+            # the buffered statuses die with the reign (detach chose
+            # dispatcher.stop(flush=False)) — flushing them here would
+            # be the deposed-loops-still-writing bug the invariant hunts
+            return
+        self.dispatcher._flush_updates()
+        if self.detached:
+            return
+        self.scheduler._resync()
+        if self.scheduler.pending_preassigned_tasks:
+            self.scheduler._process_preassigned_tasks()
+        n = self.scheduler.tick()
+        if n:
+            self.cp.engine.log(f"scheduler assigned {n}")
+        for orch, sub, tick in self._drivers:
+            if self.detached:
+                return
+            while True:
+                ev = sub.poll()
+                if ev is None:
+                    break
+                if isinstance(ev, EventSnapshotRestore):
+                    orch._resync()
+                elif isinstance(ev, Event):
+                    orch._handle_event(ev)
+            tick()
+        # pump the rolling-update FSMs (their store writes ride
+        # consensus; a deposal inside one propagates like any other
+        # control write and the caller detaches)
+        for orch in (self.replicated, self.global_):
+            if self.detached:
+                return
+            orch.updater.drive()
+        if self.detached:
+            return
+        # autoscale decisions ride consensus like every control write;
+        # a deposal inside one propagates and the caller detaches
+        self.autoscaler.drive()
+        if self.detached:
+            return
+        # pipeline release/halt verdicts ride consensus the same way
+        self.pipeline.drive()
+        if self.detached:
+            return
+        self.restarts.drive()
+
+    def detach(self) -> None:
+        """Tear the loops down WITHOUT writing to the store: a deposed
+        member's buffered work must die with its reign (the successor
+        re-learns everything from the replicated store + agent
+        re-registration), and detach can run nested inside one of this
+        member's own in-flight proposals, where a store write would
+        deadlock the single thread."""
+        if self.detached:
+            return
+        self.detached = True
+        for orch in (self.replicated, self.global_):
+            try:
+                # threadless cancel: aborts in-flight rollouts without
+                # store writes; the successor's reconcile resumes them
+                # from the replicated update_status
+                orch.updater.cancel_all()
+            except Exception:
+                pass
+        try:
+            self.restarts.stop()     # cancels delayed starts; threadless
+        except Exception:
+            pass
+        try:
+            self.autoscaler.stop()   # never writes; threadless no-op+flag
+        except Exception:
+            pass
+        try:
+            self.pipeline.stop()     # never writes; threadless no-op+flag
+        except Exception:
+            pass
+        for _, sub, _ in self._drivers:
+            try:
+                self.store.queue.unsubscribe(sub)
+            except Exception:
+                pass
+        self._drivers.clear()
+        try:
+            self.dispatcher.stop(flush=False)
+        except Exception:
+            pass
+
+
+class _LeaderWriteProxy:
+    """Write-side store surface for a follower-mode dispatcher: every
+    session-mutating write routes to the CURRENT leader's replicated
+    store (and from there through consensus back to every member's local
+    store, where the follower-served reads pick it up).  Raises
+    DispatcherError during leaderless gaps — the dispatcher's flush
+    paths re-queue and retry."""
+
+    def __init__(self, cp: "RaftControlPlane"):
+        self.cp = cp
+
+    def _store(self) -> MemoryStore:
+        mc = self.cp.active
+        if mc is None or mc.detached or not mc.member.alive:
+            raise DispatcherError("no leader to forward the write to")
+        return mc.store
+
+    def batch(self, cb):
+        return self._store().batch(cb)
+
+    def update(self, cb):
+        return self._store().update(cb)
+
+
+class SimWatcher:
+    """A watch-stream consumer pinned to follower members: attaches to a
+    member's replicated store through the REAL WatchServer surface,
+    consumes Task events with resume tokens, and on member loss (crash,
+    rebuild, overflow, promotion to leader) reattaches to a DIFFERENT
+    member resuming from its token — the payload stream must stay
+    gap-free and dup-free across every hop (WatchContinuity judges it at
+    scenario end).  ``ResumeCompacted`` is handled by snapshot re-sync:
+    re-list from a current view and open a fresh continuity segment."""
+
+    def __init__(self, cp: "RaftControlPlane", name: str, request,
+                 interval: float = 0.5):
+        from ..manager.watchapi import compile_filter
+        from .invariants import WatchContinuity
+        self.cp = cp
+        self.name = name
+        self.engine = cp.engine
+        self.request = request
+        self.index = len(cp.watchers)   # spreads watchers over members
+        self.continuity = WatchContinuity(
+            cp.violations, compile_filter(request), cp.sim.managers,
+            tag=name)
+        #: checker-sensitivity seam: added to the resume token on every
+        #: reattach (-1 re-delivers the last event = dup; +1 skips the
+        #: next = gap); 0 in correct operation
+        self.resume_skew = 0
+        self.member: Optional[SimManager] = None
+        self._store = None
+        self.stream = None
+        self.token: Optional[int] = None
+        #: continuity segments: {"start": version, "events": [(v, a, id)]}
+        #: — a new segment opens only on snapshot re-sync
+        self.segments: List[dict] = []
+        self.hops = 0
+        self.resyncs = 0
+        self.events_seen = 0
+        self._rng = cp.engine.fork_rng()
+        cp.engine.every(interval, f"watcher {name}", self.step,
+                        phase=self._rng.random() * interval)
+
+    def _pick_member(self) -> Optional[SimManager]:
+        members = self.cp.sim.managers
+        leader = self.cp.sim.leader()
+        followers = [m for m in members
+                     if m.alive and m.store is not None
+                     and m is not leader]
+        if followers:
+            return followers[(self.index + self.hops) % len(followers)]
+        return next((m for m in members
+                     if m.alive and m.store is not None), None)
+
+    def _attach(self) -> None:
+        from ..manager.watchapi import ResumeCompacted, WatchServer
+        m = self._pick_member()
+        if m is None:
+            return
+        if self.stream is not None:
+            try:
+                self.stream.close()
+            except Exception:
+                pass
+            self.stream = None
+        if self.member is not None and m is not self.member:
+            self.hops += 1
+        self.member = m
+        self._store = m.store
+        server = WatchServer(m.store)
+        if self.token is None:
+            # first attach: start the stream (and its continuity
+            # segment) at the member's current version
+            self.token = m.store.version
+            self.segments.append({"start": self.token, "events": []})
+            req = self._req(self.token)
+            self.stream = server.watch(req)
+            self.engine.log(f"watcher {self.name} attach {m.id} "
+                            f"v{self.token}")
+            return
+        try:
+            self.stream = server.watch(
+                self._req(self.token + self.resume_skew))
+            self.engine.log(f"watcher {self.name} resume {m.id} "
+                            f"v{self.token}")
+        except ResumeCompacted:
+            # snapshot re-sync: the changelog no longer reaches the
+            # token — re-list from a current view and restart continuity
+            self.resyncs += 1
+            self.token = m.store.version
+            self.segments.append({"start": self.token, "events": []})
+            self.stream = server.watch(self._req(self.token))
+            self.engine.log(f"watcher {self.name} resync {m.id} "
+                            f"v{self.token}")
+
+    def _req(self, resume_from: int):
+        import dataclasses
+        return dataclasses.replace(self.request,
+                                   resume_from_version=resume_from)
+
+    def step(self) -> object:
+        if self.cp.stopped:
+            return False
+        if self.cp.busy:
+            # a control-plane write is mid-flight on this very stack
+            # (single thread): attaching now would take watch_from's
+            # update lock under the held one — catch up next step
+            return None
+        self.drain()
+        return None
+
+    def drain(self) -> None:
+        m = self.member
+        stale = (m is None or not m.alive or m.store is not self._store
+                 or self.stream is None or self.stream.closed)
+        leader = self.cp.sim.leader()
+        if not stale and m is leader:
+            # drain off a freshly promoted leader: consumers belong on
+            # followers (when any are available)
+            if any(x for x in self.cp.sim.managers
+                   if x.alive and x.store is not None and x is not m):
+                stale = True
+        if stale:
+            self._attach()
+            if self.stream is None:
+                return
+        while True:
+            ev = self.stream.poll()
+            if ev is None:
+                break
+            if not self.segments:
+                self.segments.append({"start": 0, "events": []})
+            self.segments[-1]["events"].append(
+                (ev.version, ev.action, ev.obj.id))
+            self.token = ev.version
+            self.events_seen += 1
+        self.cp.count_read(self.member)
+
+
+class RaftControlPlane:
+    """Raft-attached control plane (ROADMAP item 8): every member holds
+    a replicated store, the full control plane runs on the current
+    leader only, and leadership hand-off is driven by the members' own
+    role transitions — stop the old leader's loops, fence its epoch,
+    cold-start on the successor from the replicated store.
+
+    Safety is watched continuously by two invariants on top of the
+    shared checkers:
+
+    * ``control-loops-only-on-leader`` — every control step verifies the
+      attached loops belong to a live, current leader; a deposed member
+      still holding loops is a violation (the transition handler must
+      have detached it).
+    * ``no-stale-epoch-commit`` — recorded by the member-bound proposers
+      when a commit callback would run under a fenced epoch (only
+      reachable with ``enforce_fencing`` disabled; the
+      checker-sensitivity test proves the checker fires).
+    """
+
+    def __init__(self, engine: SimEngine, violations: Violations,
+                 sim: "Sim", n_agents: int,
+                 control_interval: float = 0.5):
+        self.engine = engine
+        self.violations = violations
+        self.sim = sim
+        self.n_agents = n_agents
+        self.stopped = False
+        self.busy = False
+        self.active: Optional[SimMemberControl] = None
+        # scenario knobs, applied at (re)attach time
+        self.planner_factory: Optional[Callable[[], object]] = None
+        self.store_pipeline_depth = 1
+        self.block_proposal_max_items: Optional[int] = None
+        #: checker-sensitivity seam: False breaks the detach-on-deposal
+        #: handler so control-loops-only-on-leader must fire
+        self.detach_on_depose = True
+        self.desired_replicas = 0
+        self._bootstrapped = False
+        self.attaches = 0
+        # ---- rolling-update workload surface
+        #: spec versions whose tasks die on startup (rollout-poison
+        #: fault, consumed by SimAgent); healed by Sim.finish
+        self.poison_versions: set = set()
+        #: service ids whose tasks die on startup (stage-poison fault,
+        #: pipeline-chaos); healed by Sim.finish like poison_versions
+        self.poison_services: set = set()
+        #: monotone spec-version mint for rollout(); the bootstrap
+        #: service is version 1
+        self._next_version = 1
+        #: FIFO of not-yet-applied rollouts — a queue, not a slot: a
+        #: rollout minted while an earlier one is still retrying across
+        #: a failover gap must not drop it (its registered expectation
+        #: would turn into a false convergence violation)
+        self._pending_rollouts: List[tuple] = []
+        self.rollouts = 0
+        #: scenario-registered convergence expectations, judged at
+        #: finish against the merged update-state history:
+        #: (version, frozenset of UpdateState ints, by_virtual_ts, label)
+        self.update_expectations: List[tuple] = []
+        #: opt-in post-convergence placement-quality bound (see
+        #: invariants.check_placement_quality); None disables
+        self.placement_quality_bound: Optional[float] = None
+        # ---- autoscaler + tenant QoS scenario surface (ISSUE 12)
+        #: checker-sensitivity seam: False disables the scheduler's
+        #: quota plane so quota-never-exceeded must fire
+        self.quota_enabled = True
+        #: scenario-driven per-service load (demand units) feeding the
+        #: autoscalers' sampler seam deterministically
+        self.service_load: Dict[str, float] = {}
+        #: (kind, sid, replicas, by, label) autoscale expectations:
+        #: kind "reach" = some committed change >= replicas by ``by``;
+        #: kind "converge" = back at exactly ``replicas`` by ``by`` AND
+        #: at scenario end
+        self.autoscale_expectations: List[tuple] = []
+        #: (min_priority, t0, t1) burst windows for the cross-band p99
+        #: invariant
+        self.band_p99_expectations: List[tuple] = []
+        #: archived QoS material from crash-replaced checkers
+        self._qos_replicas_archive: List[tuple] = []
+        self._qos_samples_archive: List[tuple] = []
+        #: cumulative quota clamps across leader attach epochs (+ the
+        #: one-shot "fault quota-clamp scheduler" coverage line)
+        self.quota_clamp_total = 0
+        self._quota_clamps_prev = 0
+        # ---- priority & preemption scenario surface
+        #: checker-sensitivity seam: False disables the scheduler's
+        #: preemption pass so no-priority-inversion must fire
+        self.preemption_enabled = True
+        #: scheduler knobs, applied at (re)attach (None = defaults)
+        self.preempt_budget: Optional[int] = None
+        self.preempt_cooldown: Optional[float] = None
+        #: PreemptionInvariants knobs (per-member checkers)
+        self.preempt_inversion_bound = 25.0
+        self.preempt_thrash_bound = 3
+        #: end-state expectation: the scenario requires >= 1 preemption
+        #: to have been observed (coverage, not safety)
+        self.expect_preemptions = False
+        #: (service_id, total_completions) end-state job expectations
+        self.job_expectations: List[tuple] = []
+        # ---- gang & pipeline scenario surface (ISSUE 16)
+        #: (service_id, want_running, label) end-state expectations: the
+        #: service must show >= want_running RUNNING tasks at finish
+        self.service_expectations: List[tuple] = []
+        #: (service_id, pipeline state, label) end-state expectations on
+        #: the replicated PipelineStatus verdict
+        self.pipeline_expectations: List[tuple] = []
+        #: preemption records archived from crash-replaced checkers
+        self._preempt_archive: List[tuple] = []
+        self._dispatcher_totals = {"heartbeats": 0, "expirations": 0,
+                                   "sheds": 0, "hb_stretches": 0,
+                                   "premature_expirations": 0}
+        # ---- overload-protection plane (ISSUE 20)
+        #: DispatcherConfig field overrides (max_sessions,
+        #: hb_stretch_start, max_pending_updates, max_terminal_tasks,
+        #: ...) applied to EVERY dispatcher the plane builds — the
+        #: leader's control dispatcher and the follower read planes
+        self.dispatcher_overrides: Dict[str, object] = {}
+        #: scheduler tick deadline budget (virtual seconds; None = off),
+        #: applied at (re)attach
+        self.tick_budget_s: Optional[float] = None
+        #: checker-sensitivity seam: False makes heartbeat-period
+        #: stretching promise a long window but enforce the UNstretched
+        #: deadline — heartbeat-liveness-under-stretch must fire
+        self.stretch_extends_deadline = True
+        #: checker-sensitivity seam: False sheds WITHOUT counting —
+        #: overload-sheds-are-counted-and-recovered must fire
+        self.count_sheds = True
+        self.overload_inv = OverloadInvariants(violations, self)
+        self._sheds_prev = 0
+        self._hb_stretches_prev = 0
+        # ---- follower-served read plane (ISSUE 11)
+        #: scenario knob: serve agent sessions + watch streams from the
+        #: members' replicated stores (sharded by node-id hash), writes
+        #: forwarded to the leader
+        self.follower_reads = False
+        #: node id -> member id currently owning its session (shared so
+        #: a sharded dispatcher never DOWNs a node registered elsewhere)
+        self.session_owner: Dict[str, str] = {}
+        self._planes: Dict[str, tuple] = {}   # member id -> (store, disp)
+        self._member_was_alive: Dict[str, bool] = {}
+        self.read_inv = ReadInvariants(violations, sim.managers)
+        self.watchers: List[SimWatcher] = []
+        self.read_stats = {"reads_leader": 0, "reads_follower": 0,
+                           "probe_ok": 0, "probe_unavailable": 0,
+                           "agent_reconnects": 0, "stale_probe_refused": 0}
+        #: end-state expectation (read-storm scenarios): probes must
+        #: degrade to read-index latency, never fail outright
+        self.expect_reads_never_fail = False
+        self.proposers: Dict[str, SimRaftProposer] = {}
+        for m in sim.managers:
+            p = SimRaftProposer(sim, member=m, violations=violations)
+            p.read_observer = self.read_inv
+            m.store._proposer = p
+            m.store_proposer = p     # survives store rebuilds (restart)
+            self.proposers[m.id] = p
+            m.transition_hooks.append(self._member_transition)
+        # per-member-store task invariants (rebuilt when a restart
+        # replaces the store object)
+        self._inv: Dict[str, tuple] = {}
+        # update-state history outlives checker replacement: a member
+        # whose store was crash-rebuilt gets a fresh checker, but the
+        # states its old checker observed still count toward the
+        # convergence expectations
+        self._update_history: List[tuple] = []
+        # the p99 bound's cadence: one control step + the scheduler's
+        # commit-debounce ceiling — the scheduler's own latency model,
+        # not a per-scenario constant (QosInvariants.band_p99_bound)
+        from ..scheduler.scheduler import MAX_LATENCY
+        self._qos_cadence = control_interval + MAX_LATENCY
+        self.agents: List[SimAgent] = [
+            SimAgent(f"w{i}", self) for i in range(n_agents)]
+        engine.every(control_interval, "control step", self.control_step)
+
+    # ------------------------------------------------------- shared surface
+
+    @property
+    def store(self) -> Optional[MemoryStore]:
+        """The authoritative store view: the active leader's, else the
+        most-caught-up member's (stats/agents after a failover gap)."""
+        if self.active is not None and not self.active.detached:
+            return self.active.store
+        best = None
+        for m in self.sim.managers:
+            if m.store is not None and (
+                    best is None or m.store.version > best.version):
+                best = m.store
+        return best
+
+    @property
+    def dispatcher(self) -> Optional[Dispatcher]:
+        mc = self.active
+        if mc is None or mc.detached or not mc.member.alive:
+            return None
+        return mc.dispatcher
+
+    @property
+    def dispatcher_stats(self) -> Dict[str, int]:
+        """Accumulated across every leader's dispatcher (attach epochs)
+        and, in follower-served mode, every member's read plane."""
+        totals = dict(self._dispatcher_totals)
+        mc = self.active
+        if mc is not None:
+            for k in totals:
+                totals[k] += mc.dispatcher.stats.get(k, 0)
+        for _store, d in self._planes.values():
+            for k in totals:
+                totals[k] += d.stats.get(k, 0)
+        return totals
+
+    def apply_overload_seams(self, d: Dispatcher) -> None:
+        """Overload-plane knobs + checker-sensitivity seams, applied to
+        every dispatcher this plane builds (leader control plane and
+        follower read planes alike — bounds are plane-wide policy)."""
+        for k, v in self.dispatcher_overrides.items():
+            setattr(d.config, k, v)
+        d.stretch_extends_deadline = self.stretch_extends_deadline
+        d.count_sheds = self.count_sheds
+
+    # ------------------------------------------- follower-served reads
+
+    def enable_follower_reads(self) -> None:
+        """Switch the consumer plane to follower-served mode: agents
+        shard their sessions across members by node-id hash (preferring
+        non-leaders), served from each member's local replicated store;
+        only session-mutating writes forward to the leader."""
+        self.follower_reads = True
+
+    def _shard_member_id(self, node_id: str) -> str:
+        import zlib
+        members = self.sim.managers
+        return members[zlib.crc32(node_id.encode()) % len(members)].id
+
+    def plane_for_id(self, member_id: str) -> Optional[Dispatcher]:
+        entry = self._planes.get(member_id)
+        return entry[1] if entry is not None else None
+
+    def plane_for(self, m: SimManager) -> Optional[Dispatcher]:
+        """This member's follower-mode dispatcher over its replicated
+        store, rebuilt whenever a crash-restart replaced the store."""
+        if not self.follower_reads or m.store is None or not m.alive:
+            return None
+        entry = self._planes.get(m.id)
+        if entry is not None and entry[0] is m.store:
+            return entry[1]
+        if entry is not None:
+            for k in self._dispatcher_totals:
+                self._dispatcher_totals[k] += entry[1].stats.get(k, 0)
+            try:
+                entry[1].stop(flush=False)
+            except Exception:
+                pass
+        d = Dispatcher(
+            m.store,
+            DispatcherConfig(heartbeat_period=2.0, heartbeat_epsilon=0.2,
+                             grace_multiplier=3.0, rate_limit_period=0.0,
+                             orphan_timeout=20.0),
+            rng=self.engine.fork_rng(),
+            write_store=_LeaderWriteProxy(self),
+            shard_filter=lambda nid, mid=m.id:
+                self.session_owner.get(nid, self._shard_member_id(nid))
+                == mid)
+        # a reg-grace deadline only DOWNs a node with no live session on
+        # ANY member (ownership is control-plane-wide state)
+        d.reg_grace_check = \
+            lambda nid: self.session_owner.get(nid) is None
+        self.apply_overload_seams(d)
+        d.run(start_worker=False)
+        if os.environ.get("SWARM_BATCH_FANOUT", "1") != "0":
+            # batched assignment fan-out is the DEFAULT consumer plane
+            # (ISSUE 13 satellite; opt-out escape hatch only): one store
+            # subscription per plane, per-node batched flushes driven
+            # from process_deadlines — the ≤⌈N/batch⌉-sends contract
+            d.enable_batched_fanout()
+        self._planes[m.id] = (m.store, d)
+        return d
+
+    def _reap_dead_member_sessions(self, member_id: str) -> None:
+        """A member died: its sessions are orphaned.  Clear ownership and
+        hand the nodes a registration-grace window on a surviving plane —
+        live agents re-register elsewhere well inside it; truly dead ones
+        get marked DOWN so their tasks heal."""
+        orphans = [nid for nid, mid in self.session_owner.items()
+                   if mid == member_id]
+        if not orphans:
+            return
+        for nid in orphans:
+            self.session_owner.pop(nid, None)
+        for m in self.sim.managers:
+            d = self.plane_for(m)
+            if d is not None:
+                d.adopt_registration_grace(orphans)
+                break
+
+    def count_read(self, member: Optional[SimManager]) -> None:
+        """Attribute one consumer read to the serving member's role and
+        refresh the leader-share gauge (the 'consumers off the
+        coordinator' headline number)."""
+        if member is None:
+            return
+        from ..utils.metrics import registry as _metrics
+        leader = self.sim.leader()
+        key = "reads_leader" if member is leader else "reads_follower"
+        self.read_stats[key] += 1
+        total = (self.read_stats["reads_leader"]
+                 + self.read_stats["reads_follower"])
+        _metrics.gauge("swarm_leader_read_share",
+                       self.read_stats["reads_leader"] / total)
+
+    def leader_read_share(self) -> float:
+        total = (self.read_stats["reads_leader"]
+                 + self.read_stats["reads_follower"])
+        return self.read_stats["reads_leader"] / total if total else 0.0
+
+    def linearizable_read(self, member: SimManager, cb,
+                          timeout: Optional[float] = None):
+        """One linearizable read served by ``member`` (leader or
+        follower): runs the read barrier, serves the local view, and
+        counts the read toward the leader-share gauge."""
+        self.count_read(member)
+        return member.store.read_view(cb, linearizable=True,
+                                      timeout=timeout)
+
+    def add_watchers(self, n: int, request=None,
+                     interval: float = 0.5) -> None:
+        """Attach ``n`` follower-pinned watch consumers (resume-token
+        continuity judged at scenario end)."""
+        from ..manager.watchapi import WatchRequest
+        for _ in range(n):
+            req = request if request is not None \
+                else WatchRequest(kinds=[Task])
+            self.watchers.append(SimWatcher(
+                self, f"watch{len(self.watchers)}", req,
+                interval=interval))
+
+    def start_read_probes(self, interval: float = 1.0,
+                          timeout: float = 20.0) -> None:
+        """Periodic linearizable read probes round-robining the follower
+        members (the read-storm workload): under churn they must degrade
+        to read-index latency — outright failures are counted and, with
+        ``expect_reads_never_fail``, judged at scenario end."""
+        state = {"i": 0}
+
+        def probe():
+            if self.stopped or self.sim.finishing:
+                return False
+            if self.busy:
+                return None   # a control write is mid-flight on this stack
+            members = [m for m in self.sim.managers
+                       if m.alive and m.store is not None]
+            leader = self.sim.leader()
+            cands = [m for m in members if m is not leader] or members
+            if not cands:
+                return None
+            m = cands[state["i"] % len(cands)]
+            state["i"] += 1
+            try:
+                self.linearizable_read(
+                    m, lambda tx: len(tx.find(Task)), timeout=timeout)
+                self.read_stats["probe_ok"] += 1
+            except ReadUnavailable:
+                self.read_stats["probe_unavailable"] += 1
+                self.engine.log(f"read probe unavailable on {m.id}")
+            return None
+
+        self.engine.every(interval, "read probe", probe, phase=0.3)
+
+    # ---------------------------------------------------------- transitions
+
+    def _member_transition(self, member: SimManager, role: str,
+                           term: int) -> None:
+        mc = self.active
+        if mc is not None and mc.member is member and role != LEADER:
+            if self.detach_on_depose:
+                # fence FIRST: even proposals already past their role
+                # checks can no longer commit under the old reign
+                member.core.fence_epoch()
+                self._detach(f"{member.id} deposed (term {term})")
+
+    def _detach(self, reason: str) -> None:
+        mc, self.active = self.active, None
+        if mc is None:
+            return
+        self.engine.log(f"control detach {mc.member.id}: {reason}")
+        for k in self._dispatcher_totals:
+            self._dispatcher_totals[k] += mc.dispatcher.stats.get(k, 0)
+        self.quota_clamp_total += \
+            mc.scheduler.stats.get("quota_clamps", 0)
+        mc.detach()
+
+    def quota_clamps(self) -> int:
+        """Quota clamps across every leader's scheduler (attach epochs)."""
+        total = self.quota_clamp_total
+        mc = self.active
+        if mc is not None:
+            total += mc.scheduler.stats.get("quota_clamps", 0)
+        return total
+
+    def _attach(self, member: SimManager) -> None:
+        # the deposal window may have left committed entries deferred
+        # (the old reign's failing proposal held the store lock while
+        # they applied): they MUST land before the new reign reads or
+        # writes the store, or apply order inverts against the cluster
+        member._drain_deferred()
+        self.attaches += 1
+        mc = SimMemberControl(member, self)
+        self.active = mc
+        self.engine.log(
+            f"control attach {member.id} term={member.core.term} "
+            f"epoch={member.core.leadership_epoch}")
+        self.busy = True
+        try:
+            mc.cold_start()
+        except AGENT_RPC_ERRORS as e:
+            # leadership lost mid-cold-start: tear down, retry on the
+            # next leader.  Anything else propagates — a broken control
+            # plane must fail the scenario, not log-and-limp.
+            self.engine.log(f"control cold-start aborted on {member.id}: "
+                            f"{type(e).__name__}")
+            self._detach("cold start failed")
+        finally:
+            self.busy = False
+
+    # --------------------------------------------------------- control step
+
+    def _checker_for(self, m: SimManager) -> Optional[tuple]:
+        """(TaskInvariants, UpdateInvariants, PreemptionInvariants,
+        QosInvariants, GangInvariants, PipelineInvariants) for a
+        member's replicated store, rebuilt when a restart replaces the
+        store object."""
+        if m.store is None:
+            return None
+        entry = self._inv.get(m.id)
+        if entry is None or entry[0] is not m.store:
+            if entry is not None:
+                self._update_history.extend(entry[2].history)
+                self._preempt_archive.extend(entry[3].preempted)
+                self._qos_replicas_archive.extend(
+                    entry[4].replica_history)
+                self._qos_samples_archive.extend(entry[4].band_samples)
+            entry = (m.store,
+                     TaskInvariants(self.violations, m.store),
+                     UpdateInvariants(self.violations, m.store, tag=m.id),
+                     PreemptionInvariants(
+                         self.violations, m.store, tag=m.id,
+                         inversion_bound=self.preempt_inversion_bound,
+                         thrash_bound=self.preempt_thrash_bound),
+                     QosInvariants(self.violations, m.store, tag=m.id,
+                                   cadence=self._qos_cadence),
+                     GangInvariants(self.violations, m.store, tag=m.id),
+                     PipelineInvariants(self.violations, m.store,
+                                        tag=m.id))
+            self._inv[m.id] = entry
+        return entry[1:]
+
+    def drain_deferred(self) -> None:
+        """Apply any backlog of committed-but-deferred entries on the
+        active member's store before a control-plane write stages
+        against it (see SimManager._deferred_entries)."""
+        mc = self.active
+        if mc is not None and mc.member.alive:
+            mc.member._drain_deferred()
+
+    def control_step(self) -> object:
+        if self.stopped:
+            return False
+        sim = self.sim
+        # deferred backlogs drain BEFORE any member's store is read or
+        # written this step — a write staged over an un-drained backlog
+        # would commit ahead of older log entries (order inversion)
+        for m in sim.managers:
+            if m.alive and m.store is not None:
+                m._drain_deferred()
+        mc = self.active
+        if mc is not None:
+            m = mc.member
+            if not m.alive or m.stopped:
+                self._detach(f"{m.id} crashed")
+            elif m.core.role != LEADER:
+                # the transition handler must have detached already; a
+                # deposed member still holding live control loops is the
+                # split-brain this invariant exists to catch
+                self.violations.record(
+                    "control-loops-only-on-leader",
+                    f"{m.id} still runs control loops as {m.core.role} "
+                    f"(term {m.core.term})")
+                self._detach(f"{m.id} deposed (checker)")
+        if self.active is None and not self.busy:
+            lead = sim.leader()
+            if lead is not None and lead.store is not None:
+                self._attach(lead)
+        mc = self.active
+        if mc is not None and not self.busy:
+            self.busy = True
+            try:
+                if not self._bootstrapped:
+                    self._bootstrap(mc.store)
+                mc.step()
+            except AGENT_RPC_ERRORS as e:
+                # leadership lost inside a store write: the loops'
+                # internal rollback paths have run; the successor takes
+                # over from the replicated store.  Any OTHER exception
+                # propagates and fails the scenario — masking a genuine
+                # control-plane crash would defeat the simulator.
+                self.engine.log(
+                    f"control step aborted: {type(e).__name__}")
+            finally:
+                self.busy = False
+        # drain the per-store task + update invariants (single-threaded:
+        # nothing is in flight between control steps)
+        for m in sim.managers:
+            checkers = self._checker_for(m)
+            if checkers is not None:
+                for inv in checkers:
+                    inv.drain()
+        if self.follower_reads:
+            # member deaths orphan their session shard; survivors adopt
+            # a registration-grace window for the affected nodes
+            for m in sim.managers:
+                was = self._member_was_alive.get(m.id, True)
+                if was and not m.alive:
+                    self._reap_dead_member_sessions(m.id)
+                self._member_was_alive[m.id] = m.alive
+            if not self.busy:
+                # drive every member's follower dispatcher threadless:
+                # TTL/grace deadlines + forwarded status flushes
+                self.busy = True
+                try:
+                    for m in sim.managers:
+                        d = self.plane_for(m)
+                        if d is None:
+                            continue
+                        d.process_deadlines()
+                        d._flush_updates()
+                finally:
+                    self.busy = False
+        for w in self.watchers:
+            w.continuity.ensure()
+            w.continuity.drain()
+        # coverage line: the first ACTUAL quota clamp marks the cell —
+        # honest coverage, not a scripted log (chaos_sweep REQUIRED_CELLS)
+        qc = self.quota_clamps()
+        if qc and not self._quota_clamps_prev:
+            self.engine.log("fault quota-clamp scheduler")
+        self._quota_clamps_prev = qc
+        # same honest-coverage pattern for the overload plane: the first
+        # ACTUAL admission shed / heartbeat stretch marks its cell
+        ds = self.dispatcher_stats
+        sheds = ds.get("sheds", 0)
+        if sheds and not self._sheds_prev:
+            self.engine.log("fault overload-shed dispatcher")
+        self._sheds_prev = sheds
+        stretches = ds.get("hb_stretches", 0)
+        if stretches and not self._hb_stretches_prev:
+            self.engine.log("fault heartbeat-stretch agent")
+        self._hb_stretches_prev = stretches
+        return None
+
+    # ----------------------------------------------- autoscaler + QoS
+
+    def autoscale_sampler(self, service_id: str) -> Optional[dict]:
+        """The supervisors' sampler seam, driven by the scenario's
+        ``service_load`` — deterministic by construction (virtual time,
+        no registry reads)."""
+        load = self.service_load.get(service_id)
+        if load is None:
+            return None
+        return {"load": load}
+
+    def set_load(self, service_id: str, load: float) -> None:
+        """Set the observed demand for one service (the autoscaler's
+        input signal)."""
+        self.service_load[service_id] = load
+        self.engine.log(f"workload load {service_id}={load:g}")
+
+    def configure_tenants(self, tenants: Dict[str, object]) -> None:
+        """Create/replace the default Cluster's per-tenant quotas
+        (ClusterSpec.tenants); retried across failover gaps."""
+        from ..models.objects import Cluster
+        from ..models.specs import ClusterSpec
+
+        def cb(tx):
+            cur = tx.get(Cluster, "cluster-default")
+            if cur is None:
+                tx.create(Cluster(
+                    id="cluster-default",
+                    spec=ClusterSpec(
+                        annotations=Annotations(name="default"),
+                        tenants=dict(tenants))))
+            else:
+                cur = cur.copy()
+                cur.spec.tenants = dict(tenants)
+                tx.update(cur)
+        self._apply_workload(f"tenants {sorted(tenants)}", cb)
+
+    def expect_autoscale(self, sid: str, at_least: int,
+                         by: float) -> None:
+        """The scale-up must commit >= ``at_least`` replicas by ``by``
+        virtual seconds — across whatever failovers happen meanwhile."""
+        self.autoscale_expectations.append(
+            ("reach", sid, at_least, by, "autoscale-scale-up"))
+
+    def expect_autoscale_converge(self, sid: str, to: int,
+                                  by: float) -> None:
+        """Load removed => replicas must return to ``to`` by ``by`` AND
+        still be there at scenario end (autoscale-converges)."""
+        self.autoscale_expectations.append(
+            ("converge", sid, to, by, "autoscale-converges"))
+
+    def expect_band_p99(self, min_priority: int, t0: float,
+                        t1: float) -> None:
+        """Register a burst window for no-cross-band-p99-violation."""
+        self.band_p99_expectations.append((min_priority, t0, t1))
+
+    def _qos_checkers(self) -> List[QosInvariants]:
+        return [entry[4] for entry in self._inv.values()]
+
+    def merged_replica_history(self) -> List[tuple]:
+        """Committed replica changes, deduped across member checkers:
+        every member observes the same committed change SEQUENCE per
+        service (laggards see a prefix), so the merged history is the
+        longest observed sequence, stamped at the earliest observation
+        of each position."""
+        per_source: Dict[str, List[List[tuple]]] = {}
+        sources = [self._qos_replicas_archive] + [
+            c.replica_history for c in self._qos_checkers()]
+        for src in sources:
+            by_sid: Dict[str, List[tuple]] = {}
+            for t, sid, replicas in src:
+                by_sid.setdefault(sid, []).append((t, replicas))
+            for sid, seq in by_sid.items():
+                per_source.setdefault(sid, []).append(seq)
+        out: List[tuple] = []
+        for sid, seqs in per_source.items():
+            # one authoritative sequence per service: the longest (a
+            # crash-rebuilt checker's fresh tail is shorter and its
+            # changes were also observed by the surviving members);
+            # ties resolve to the earliest-stamped observer
+            best = min(seqs, key=lambda s: (-len(s), s[0][0] if s
+                                            else 0.0))
+            out.extend((t, sid, replicas) for t, replicas in best)
+        out.sort()
+        return out
+
+    def _merged_band_data(self):
+        """(samples, open_pending) deduped across member checkers +
+        archives: every member observes the same committed stream, so
+        first-writer-wins by task id."""
+        samples: Dict[str, tuple] = {}
+        for s in self._qos_samples_archive:
+            samples.setdefault(s[0], s)
+        for c in self._qos_checkers():
+            for s in c.band_samples:
+                samples.setdefault(s[0], s)
+        open_pending: Dict[str, tuple] = {}
+        for c in self._qos_checkers():
+            for tid, entry in c.pending_open.items():
+                if tid not in samples:
+                    open_pending.setdefault(tid, entry)
+        return list(samples.values()), list(open_pending.values())
+
+    # -------------------------------------------------------------- workload
+
+    def _bootstrap(self, store: MemoryStore) -> None:
+        """First-leader bootstrap: worker Node records + the replicated
+        service, replicated to every member.  Idempotent — a retry after
+        a dropped-but-committed proposal skips existing objects."""
+        def cb(tx):
+            # every agent the scenario attached BEFORE first leadership
+            # — including a MuxAgentFleet's multiplexed sessions — gets
+            # its worker Node record here
+            for nid in [a.node_id for a in self.agents]:
+                if tx.get(Node, nid) is None:
+                    tx.create(Node(
+                        id=nid,
+                        spec=NodeSpec(annotations=Annotations(name=nid)),
+                        status=NodeStatus(state=NodeState.UNKNOWN),
+                        description=NodeDescription(
+                            hostname=nid,
+                            resources=Resources(nano_cpus=8 * 10 ** 9,
+                                                memory_bytes=32 << 30))))
+            if tx.get(Service, "svc-sim") is None:
+                from ..models.types import (
+                    UpdateConfig, UpdateFailureAction,
+                )
+                # virtual-time-sized update/rollback knobs: a ROLLBACK
+                # runs under the RESTORED spec's rollback config
+                # (reference behavior), so the base spec must carry one
+                # or rollbacks crawl at the 30s-monitor defaults.  The
+                # rollback cadence pushes through churn (CONTINUE):
+                # chaos-injected task failures during a rollback would
+                # otherwise trip the threshold and PAUSE it (a rollback
+                # never rolls back), turning unlucky seeds into
+                # convergence-bound "violations" that are really
+                # correct FSM behavior
+                cadence = dict(parallelism=3, delay=0.2, monitor=1.5,
+                               max_failure_ratio=0.2)
+                tx.create(Service(
+                    id="svc-sim",
+                    spec=ServiceSpec(
+                        annotations=Annotations(name="sim"),
+                        mode=ServiceMode.REPLICATED,
+                        replicated=ReplicatedService(
+                            replicas=self.desired_replicas),
+                        task=TaskSpec(),
+                        update=UpdateConfig(**cadence),
+                        rollback=UpdateConfig(
+                            failure_action=UpdateFailureAction.CONTINUE,
+                            **cadence)),
+                    spec_version=Version(index=1)))
+        store.update(cb)
+        self._bootstrapped = True
+        self.engine.log("workload bootstrap replicated")
+
+    def scale(self, replicas: int) -> None:
+        """Set the replicated service's replica count through the
+        leader store; the replicated orchestrator materializes/removes
+        tasks on its next tick.  Retries while no leader control plane
+        is up (failover gaps) — deterministic, event-driven."""
+        self.desired_replicas = replicas
+        mc = self.active
+        if (self.stopped or mc is None or mc.detached or self.busy
+                or not self._bootstrapped):
+            self.engine.after(0.5, "scale retry",
+                              lambda: self._scale_if_current(replicas))
+            return
+        self.busy = True
+        try:
+            def cb(tx):
+                svc = tx.get(Service, "svc-sim")
+                if svc is None:
+                    return
+                svc = svc.copy()
+                svc.spec.replicated.replicas = replicas
+                tx.update(svc)
+            mc.store.update(cb)
+            self.engine.log(f"workload scale {replicas}")
+        except AGENT_RPC_ERRORS as e:
+            self.engine.log(f"workload scale failed: {type(e).__name__}")
+            self.engine.after(0.5, "scale retry",
+                              lambda: self._scale_if_current(replicas))
+        finally:
+            self.busy = False
+
+    def _scale_if_current(self, replicas: int) -> None:
+        # a newer scale() call supersedes the retry chain
+        if replicas == self.desired_replicas:
+            self.scale(replicas)
+
+    def create_tasks(self, n: int) -> None:
+        """Shared scenario surface: grow the workload by ``n`` replicas
+        (the orchestrator creates the tasks — ids are deterministic via
+        the sim's id source)."""
+        self.scale(self.desired_replicas + n)
+
+    # ------------------------------------------- priority / jobs workloads
+
+    def _apply_workload(self, label: str, cb) -> None:
+        """Write a workload mutation through the leader store, retrying
+        across failover gaps (the scale()/rollout() discipline); ``cb``
+        must be idempotent — a dropped-but-committed proposal retries."""
+        mc = self.active
+        if (self.stopped or mc is None or mc.detached or self.busy
+                or not self._bootstrapped):
+            self.engine.after(0.5, f"{label} retry",
+                              lambda: self._apply_workload(label, cb))
+            return
+        self.busy = True
+        try:
+            mc.store.update(cb)
+            self.engine.log(f"workload {label}")
+        except AGENT_RPC_ERRORS as e:
+            self.engine.log(
+                f"workload {label} failed: {type(e).__name__}")
+            self.engine.after(0.5, f"{label} retry",
+                              lambda: self._apply_workload(label, cb))
+        finally:
+            self.busy = False
+
+    def add_service(self, sid: str, replicas: int, priority: int = 0,
+                    nano_cpus: int = 0, memory_bytes: int = 0,
+                    tenant: str = "", autoscale=None,
+                    gang_min: int = 0, gang_id: str = "",
+                    depends_on=None,
+                    on_upstream_failure: str = "halt") -> None:
+        """Create a replicated service in a priority band, optionally
+        with per-task reservations (the preemption scenarios' workload:
+        bands contending for finite node capacity), a tenant label
+        (quota enforcement — the ``swarm.tenant`` annotation the
+        orchestrator propagates onto every task), an autoscaling
+        policy, gang placement (``gang_min`` > 0 opts every task into
+        an all-or-nothing unit keyed by ``gang_id`` or the service),
+        and pipeline dependencies (``depends_on`` upstream service
+        names gate the stage behind the PipelineSupervisor).  The
+        SERVICE-level priority is used deliberately — it exercises the
+        ServiceSpec.priority -> task spec propagation path."""
+        from ..models.types import GangConfig, Placement, \
+            ResourceRequirements
+        from ..scheduler.quota import TENANT_LABEL
+
+        def cb(tx):
+            if tx.get(Service, sid) is not None:
+                return
+            res = ResourceRequirements(reservations=Resources(
+                nano_cpus=nano_cpus, memory_bytes=memory_bytes))
+            labels = {TENANT_LABEL: tenant} if tenant else {}
+            placement = Placement(gang=GangConfig(min_size=gang_min)) \
+                if gang_min > 0 else Placement()
+            tx.create(Service(
+                id=sid,
+                spec=ServiceSpec(
+                    annotations=Annotations(name=sid, labels=labels),
+                    mode=ServiceMode.REPLICATED,
+                    replicated=ReplicatedService(replicas=replicas),
+                    task=TaskSpec(resources=res, placement=placement,
+                                  gang_id=gang_id),
+                    priority=priority,
+                    autoscale=autoscale,
+                    depends_on=list(depends_on or ()),
+                    on_upstream_failure=on_upstream_failure),
+                spec_version=Version(index=1)))
+        self._apply_workload(
+            f"service {sid} x{replicas} prio={priority}"
+            + (f" gang>={gang_min}" if gang_min > 0 else "")
+            + (f" after={','.join(depends_on)}" if depends_on else ""),
+            cb)
+
+    def run_job(self, sid: str, total: int, max_concurrent: int = 0,
+                priority: int = 0) -> None:
+        """Create a replicated run-to-completion job (jobs orchestrator:
+        ``total`` unique slots, at most ``max_concurrent`` in flight)."""
+        from ..models.specs import ReplicatedJob
+
+        def cb(tx):
+            if tx.get(Service, sid) is not None:
+                return
+            tx.create(Service(
+                id=sid,
+                spec=ServiceSpec(
+                    annotations=Annotations(name=sid),
+                    mode=ServiceMode.REPLICATED_JOB,
+                    replicated_job=ReplicatedJob(
+                        total_completions=total,
+                        max_concurrent=max_concurrent),
+                    task=TaskSpec(),
+                    priority=priority),
+                spec_version=Version(index=1)))
+        self._apply_workload(f"job {sid} x{total}", cb)
+
+    def expect_job_complete(self, sid: str, total: int) -> None:
+        """End-state bound: the job must show ``total`` completions."""
+        self.job_expectations.append((sid, total))
+
+    def expect_service_running(self, sid: str, running: int,
+                               label: str = "gang-converges") -> None:
+        """End-state bound: >= ``running`` tasks of ``sid`` RUNNING at
+        finish (the gang scenarios' convergence claim: every deferred
+        gang eventually placed in full)."""
+        self.service_expectations.append((sid, running, label))
+
+    def expect_pipeline_state(self, sid: str, state: str,
+                              label: str = "pipeline-converges") -> None:
+        """End-state bound on the replicated pipeline verdict of
+        ``sid`` ("released" / "halted" / "waiting")."""
+        self.pipeline_expectations.append((sid, state, label))
+
+    # --------------------------------------------------------- spec rollouts
+
+    def rollout(self, image: str, update=None, rollback=None,
+                poison: bool = False) -> int:
+        """Spec-bump the sim service to ``image`` through the leader
+        store (controlapi.update_service shape: previous spec saved,
+        spec version minted, update_status cleared) — the replicated
+        orchestrator's UpdateSupervisor then rolls the slots over.
+        ``poison=True`` marks the minted version so agents fail its
+        tasks on startup (exercising pause/rollback).  Retries across
+        failover gaps; returns the minted spec version index."""
+        self._next_version += 1
+        version = self._next_version
+        if poison:
+            self.poison_versions.add(version)
+        self._pending_rollouts.append((image, version, update, rollback))
+        self.rollouts += 1
+        self.engine.log(f"workload rollout {image} v{version}"
+                        + (" poisoned" if poison else ""))
+        self._rollout_step()
+        return version
+
+    def _rollout_step(self) -> None:
+        if not self._pending_rollouts or self.stopped:
+            return
+        pending = self._pending_rollouts[0]
+        image, version, update, rollback = pending
+        mc = self.active
+        if (mc is None or mc.detached or self.busy
+                or not self._bootstrapped):
+            self.engine.after(0.5, "rollout retry", self._rollout_step)
+            return
+        self.busy = True
+        try:
+            def cb(tx):
+                svc = tx.get(Service, "svc-sim")
+                if svc is None:
+                    return
+                if svc.spec_version and svc.spec_version.index >= version:
+                    return   # already applied (idempotent retry)
+                svc = svc.copy()
+                old_spec = svc.spec
+                spec = old_spec.copy()
+                spec.task = spec.task.copy()
+                from ..models.specs import ContainerSpec
+                spec.task.container = ContainerSpec(image=image)
+                if update is not None:
+                    spec.update = update
+                if rollback is not None:
+                    spec.rollback = rollback
+                svc.previous_spec = old_spec
+                svc.previous_spec_version = svc.spec_version
+                svc.spec = spec
+                svc.spec_version = Version(index=version)
+                svc.update_status = None
+                tx.update(svc)
+            mc.store.update(cb)
+            if self._pending_rollouts \
+                    and self._pending_rollouts[0] is pending:
+                self._pending_rollouts.pop(0)
+            self.engine.log(f"workload rollout applied v{version}")
+            if self._pending_rollouts:
+                # a queued successor (minted during a failover gap)
+                # applies on its own step, not inside this one's
+                # busy window
+                self.engine.after(0.0, "rollout next", self._rollout_step)
+        except AGENT_RPC_ERRORS as e:
+            self.engine.log(f"workload rollout failed: {type(e).__name__}")
+            self.engine.after(0.5, "rollout retry", self._rollout_step)
+        finally:
+            self.busy = False
+
+    def expect_update(self, version: int, states, by: float,
+                      label: str = "update-convergence-within-bound"
+                      ) -> None:
+        """Register a convergence bound: version must be observed in one
+        of ``states`` (UpdateState values) by virtual time ``by``."""
+        self.update_expectations.append(
+            (version, frozenset(int(s) for s in states), by, label))
+
+    # ----------------------------------------------------- end-state checks
+
+    def _update_checkers(self) -> List[UpdateInvariants]:
+        return [entry[2] for entry in self._inv.values()]
+
+    def merged_update_history(self) -> List[tuple]:
+        """Archived history (from crash-replaced checkers) + every live
+        checker's — the single source both finish-time judging and the
+        stats report read."""
+        history = list(self._update_history)
+        history.extend(h for c in self._update_checkers()
+                       for h in c.history)
+        return history
+
+    def check_end_state(self, violations: Violations) -> None:
+        """Finish-time checks: flush deferred completion checks, judge
+        the registered convergence expectations against the merged
+        per-member histories (any member observing a state counts —
+        a crash-rebuilt store starts a fresh history), the preemption
+        requeue/coverage checks, the job-completion expectations, and
+        the opt-in placement-quality bound."""
+        for c in self._update_checkers():
+            c.finalize()
+        pre_checkers = [entry[3] for entry in self._inv.values()]
+        for c in pre_checkers:
+            c.finalize()
+        if self.expect_preemptions:
+            seen = len(self._preempt_archive) + max(
+                (c.seen_preemptions for c in pre_checkers), default=0)
+            if not seen:
+                violations.record(
+                    "preemptions-observed",
+                    "scenario expected priority preemption to fire but "
+                    "no preemption marker was ever committed")
+        if self.job_expectations and self.store is not None:
+            tasks = self.store.view(lambda tx: tx.find(Task))
+            for sid, total in self.job_expectations:
+                done = sum(1 for t in tasks
+                           if t.service_id == sid and t.status.state
+                           == int(TaskState.COMPLETE))
+                if done < total:
+                    violations.record(
+                        "job-completions-converge",
+                        f"job {sid}: {done}/{total} completions after "
+                        "heal+grace — job iterations lost across "
+                        "failover")
+        # ---- gang & pipeline end checks (ISSUE 16)
+        if self.service_expectations and self.store is not None:
+            tasks = self.store.view(lambda tx: tx.find(Task))
+            for sid, want, label in self.service_expectations:
+                running = sum(
+                    1 for t in tasks
+                    if t.service_id == sid
+                    and TaskState(t.status.state) == TaskState.RUNNING
+                    and t.desired_state <= TaskState.RUNNING)
+                if running < want:
+                    violations.record(
+                        label,
+                        f"service {sid}: {running}/{want} tasks RUNNING "
+                        "after heal+grace — the gang/stage never "
+                        "converged")
+        if self.pipeline_expectations and self.store is not None:
+            svc_rows = {s.id: s for s in self.store.view(
+                lambda tx: tx.find(Service))}
+            for sid, want_state, label in self.pipeline_expectations:
+                s = svc_rows.get(sid)
+                st = s.pipeline_status if s is not None else None
+                got = st.state if st is not None else "waiting"
+                if got != want_state:
+                    reason = (f" (reason: {st.reason})"
+                              if st is not None and st.reason else "")
+                    violations.record(
+                        label,
+                        f"pipeline stage {sid}: verdict {got!r} at "
+                        f"finish, expected {want_state!r}{reason}")
+        history = self.merged_update_history()
+        for version, states, by, label in self.update_expectations:
+            hit = [h for h in history
+                   if h[2] == version and h[3] in states and h[0] <= by]
+            if not hit:
+                seen = sorted({(h[2], h[3]) for h in history})
+                violations.record(
+                    label,
+                    f"version {version} never reached states {sorted(states)} "
+                    f"by t={by:.1f} (observed (version,state) pairs: "
+                    f"{seen})")
+        if self.placement_quality_bound is not None \
+                and self.store is not None:
+            check_placement_quality(violations, self.store,
+                                    self.placement_quality_bound)
+        # ---- autoscaler + QoS end checks
+        for c in self._qos_checkers():
+            c.drain()
+        history = self.merged_replica_history()
+        final_replicas: Dict[str, int] = {}
+        if self.store is not None:
+            for s in self.store.view(lambda tx: tx.find(Service)):
+                if s.spec.replicated is not None:
+                    final_replicas[s.id] = s.spec.replicated.replicas
+        for kind, sid, replicas, by, label in self.autoscale_expectations:
+            if kind == "reach":
+                hit = [h for h in history
+                       if h[1] == sid and h[2] >= replicas
+                       and h[0] <= by]
+                if not hit:
+                    seen = [h[2] for h in history if h[1] == sid]
+                    violations.record(
+                        label,
+                        f"service {sid} never reached {replicas} "
+                        f"replicas by t={by:.1f} (observed {seen}) — "
+                        "the scale-up was lost (failover?)")
+            else:   # converge
+                hit = [h for h in history
+                       if h[1] == sid and h[2] == replicas
+                       and h[0] <= by]
+                if not hit or final_replicas.get(sid) != replicas:
+                    violations.record(
+                        label,
+                        f"service {sid}: load removed but replicas "
+                        f"never settled back at {replicas} by "
+                        f"t={by:.1f} (final "
+                        f"{final_replicas.get(sid)}) — the autoscaler "
+                        "failed to converge")
+        if self.band_p99_expectations:
+            qos = next(iter(self._qos_checkers()), None)
+            if qos is not None:
+                samples, open_pending = self._merged_band_data()
+                for min_prio, t0, t1 in self.band_p99_expectations:
+                    qos.check_band_p99(
+                        min_prio, t0, t1, violations,
+                        samples=samples,
+                        open_pending=[(p, since)
+                                      for p, since in open_pending])
+        # ---- read-plane end checks
+        for w in self.watchers:
+            w.drain()                 # catch up after the heal grace
+            w.continuity.ensure()
+            w.continuity.drain()
+            w.continuity.judge(w)
+        if self.watchers and not any(w.events_seen for w in self.watchers):
+            violations.record(
+                "watch-resume-no-gap-no-dup",
+                "watchers attached but consumed zero events — the "
+                "follower-served watch plane never carried the workload")
+        if self.expect_reads_never_fail \
+                and self.read_stats["probe_unavailable"]:
+            violations.record(
+                "read-storm-degraded",
+                f"{self.read_stats['probe_unavailable']} linearizable "
+                "read probe(s) failed outright under churn — reads must "
+                "degrade to read-index latency, never to errors")
+        # ---- overload-plane end checks (ISSUE 20): every client-observed
+        # shed is dispatcher-counted, every shed task recovered, and no
+        # node expired inside its promised heartbeat window
+        self.overload_inv.finalize()
+
+
+class Sim:
+    """Top-level harness: engine + consensus layer + control plane +
+    invariant sinks.  Use as a context manager (installs the virtual
+    clock into models.types.now() and the deterministic id source, and
+    restores both afterwards)."""
+
+    def __init__(self, seed: int, n_managers: int = 3, n_agents: int = 5,
+                 net_config: Optional[NetConfig] = None,
+                 raft_cp: bool = False):
+        """``raft_cp=True`` runs the raft-attached control plane
+        (``RaftControlPlane``): per-member replicated stores, leader-only
+        loops, epoch-fenced proposals.  False keeps the original
+        standalone control-plane store alongside the consensus layer."""
+        self.seed = seed
+        self.engine = SimEngine(seed)
+        # the virtual clock must be live BEFORE any component exists:
+        # the dispatcher stamps registration-grace deadlines at run()
+        # time, and a wall-clock value leaking into the deadline heap
+        # would both break determinism and park those deadlines decades
+        # past virtual time.  __exit__ restores the real clock.
+        self.engine.clock.install()
+        # deterministic ids for everything minted during the run —
+        # session ids, orchestrator-created tasks — so event order (and
+        # the flight-recorder dump) is a pure function of the seed
+        self._id_seq = 0
+        set_id_source(self._next_id)
+        self.violations = Violations(self.engine)
+        self.net = SimNetwork(self.engine, net_config)
+        self.raft_inv = RaftInvariants(self.violations)
+        member_ids = [f"m{i}" for i in range(n_managers)]
+        self.finishing = False
+        self.managers = [
+            SimManager(mid, member_ids, self.engine, self.net,
+                       self.raft_inv, with_store=raft_cp)
+            for mid in member_ids]
+        if raft_cp:
+            self.cp = RaftControlPlane(self.engine, self.violations,
+                                       self, n_agents)
+        else:
+            self.cp = SimControlPlane(self.engine, self.violations,
+                                      n_agents)
+        self.proposed = 0
+        self.committed_target = 0
+
+    def _next_id(self) -> str:
+        self._id_seq += 1
+        return f"sim{self.seed & 0xFFFFFFFF:08x}{self._id_seq:014d}"
+
+    # ---------------------------------------------------------------- clock
+
+    def __enter__(self) -> "Sim":
+        self.engine.clock.install()     # idempotent
+        set_id_source(self._next_id)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.engine.clock.uninstall()
+        set_id_source(None)
+
+    # ---------------------------------------------------------------- raft
+
+    def leader(self) -> Optional[SimManager]:
+        for m in self.managers:
+            if m.alive and m.core.role == LEADER and m.core.leader_ready:
+                return m
+        return None
+
+    def propose(self, payload: bytes) -> bool:
+        m = self.leader()
+        if m is None:
+            return False
+        m.core.propose(payload)
+        m.pump()
+        self.proposed += 1
+        return True
+
+    def start_raft_workload(self, interval: float = 0.4) -> None:
+        def work():
+            if self.finishing:
+                return False
+            self.propose(f"op-{self.proposed:05d}".encode())
+            return None
+        self.engine.every(interval, "raft workload", work)
+
+    def stepdown_leader(self) -> None:
+        m = self.leader()
+        if m is not None:
+            self.engine.log(f"fault stepdown {m.id}")
+            m.core.step_down()
+            m.pump()
+
+    # -------------------------------------------------------------- running
+
+    def run(self, duration: float) -> None:
+        self.engine.run_until(duration)
+
+    def finish(self, grace: float = 20.0) -> None:
+        """Heal every fault, give the cluster ``grace`` virtual seconds
+        to converge, then run end-state checks."""
+        self.finishing = True
+        self.net.heal_all()
+        # rollout-poison heals with every other fault: replacements of
+        # the once-poisoned version may now start, so a paused update
+        # settles instead of churning failed restarts through the grace
+        getattr(self.cp, "poison_versions", set()).clear()
+        getattr(self.cp, "poison_services", set()).clear()
+        for m in self.managers:
+            m.tick_scale = 1.0
+            if not m.alive:
+                m.restart()
+        for a in self.cp.agents:
+            a.rate_scale = 1.0
+            a.fail_p = 0.0
+            a.partition(False)
+            a.restart()
+        self.engine.run_until(self.engine.clock.elapsed() + grace)
+        self._check_convergence()
+        self.cp.stopped = True
+        for m in self.managers:
+            m.stopped = True
+
+    def _check_convergence(self) -> None:
+        target = self.raft_inv.max_committed()
+        for m in self.managers:
+            if not m.alive:
+                continue
+            if m.core.applied_index < target:
+                self.violations.record(
+                    "post-heal-convergence",
+                    f"{m.id} applied only {m.core.applied_index} of "
+                    f"{target} committed entries after heal+grace")
+        terms = {m.core.term for m in self.managers if m.alive}
+        if len(terms) > 1:
+            self.violations.record(
+                "post-heal-convergence",
+                f"terms did not converge after heal+grace: {sorted(terms)}")
+        if isinstance(self.cp, RaftControlPlane):
+            # failover re-placement: after every fault is healed and the
+            # grace ran, the successor's control plane must have placed
+            # every live task — a PENDING unplaced task means the
+            # hand-off lost work
+            store = self.cp.store
+            if store is not None:
+                tasks, services = store.view(
+                    lambda tx: (tx.find(Task), tx.find(Service)))
+                # pipeline-gated stages are intentionally unplaced: a
+                # halted (or never-released) stage's pending tasks are
+                # the DAG gate working, not lost work
+                gated = set()
+                for s in services:
+                    if s.spec.depends_on:
+                        st = s.pipeline_status
+                        if st is None or st.state != "released":
+                            gated.add(s.id)
+                stuck = [
+                    t for t in tasks
+                    if t.desired_state == TaskState.RUNNING
+                    and TaskState(t.status.state) == TaskState.PENDING
+                    and not t.node_id
+                    and t.service_id not in gated]
+                if stuck:
+                    self.violations.record(
+                        "failover-replacement",
+                        f"{len(stuck)} tasks still unplaced after "
+                        "heal+grace")
+            self.cp.check_end_state(self.violations)
+
+    # ----------------------------------------------------------------- stats
+
+    def stats(self) -> Dict[str, object]:
+        store = self.cp.store
+        tasks = store.view(lambda tx: tx.find(Task)) \
+            if store is not None else []
+        by_state: Dict[str, int] = {}
+        for t in tasks:
+            k = TaskState(t.status.state).name
+            by_state[k] = by_state.get(k, 0) + 1
+        if isinstance(self.cp, RaftControlPlane):
+            disp = self.cp.dispatcher_stats
+        else:
+            disp = self.cp.dispatcher.stats
+        out = {
+            "events": self.engine.events_run,
+            "net": dict(self.net.stats),
+            "raft": {
+                "proposed": self.proposed,
+                "max_committed": self.raft_inv.max_committed(),
+                "terms_seen": len(self.raft_inv.leaders),
+                "restarts": sum(m.restarts for m in self.managers),
+            },
+            "tasks": by_state,
+            "heartbeats": disp.get("heartbeats", 0),
+            "expirations": disp.get("expirations", 0),
+        }
+        if isinstance(self.cp, RaftControlPlane):
+            from ..models.types import UpdateState
+            states = sorted({UpdateState(h[3]).name
+                             for h in self.cp.merged_update_history()
+                             if h[3] >= 0})
+            out["control"] = {
+                "attaches": self.cp.attaches,
+                "quota_clamps": self.cp.quota_clamps(),
+                "autoscale_changes": len(
+                    self.cp.merged_replica_history()),
+                "stale_epoch_rejects": sum(
+                    p.stats["stale_epoch_rejects"]
+                    for p in self.cp.proposers.values()),
+                "proposed": sum(p.stats["proposed"]
+                                for p in self.cp.proposers.values()),
+                "committed": sum(p.stats["committed"]
+                                 for p in self.cp.proposers.values()),
+                "rollouts": self.cp.rollouts,
+                "update_states": states,
+            }
+            reads = dict(self.cp.read_stats)
+            for k in ("reads", "lease", "read_index", "unavailable"):
+                reads[k] = sum(p.read_stats[k]
+                               for p in self.cp.proposers.values())
+            reads["leader_share"] = round(
+                self.cp.leader_read_share(), 4)
+            reads["watch_events"] = sum(
+                w.events_seen for w in self.cp.watchers)
+            reads["watch_hops"] = sum(
+                w.hops for w in self.cp.watchers)
+            out["reads"] = reads
+            out["overload"] = {
+                "sheds": disp.get("sheds", 0),
+                "client_sheds": self.cp.overload_inv.client_sheds,
+                "shed_tasks": len(self.cp.overload_inv.shed_tasks),
+                "hb_stretches": disp.get("hb_stretches", 0),
+                "premature_expirations": disp.get(
+                    "premature_expirations", 0),
+            }
+            fleets = [a._fleet for a in self.cp.agents
+                      if isinstance(a, _MuxAgent)]
+            if fleets:
+                fleet = fleets[0]
+                out["fleet"] = dict(fleet.stats)
+                out["fleet"]["sessions"] = len(fleet.agents)
+        return out

@@ -77,10 +77,15 @@ is RUNNING.  ``e2e`` is bench.py's ``run_e2e`` (swarm-bench): a
 ``Manager``, agents with a ``TestExecutor`` on its dispatcher and a
 service created through its control API, timed to RUNNING, optionally
 over a single-voter raft and through a heal after an agent stops.
+
+``SIM_DEVICE_SCENARIOS`` names the simulator's scenarios that build a
+device planner (``sim/scenario.py``), and ``sim_obs_events`` puts a sim
+report's span trace in a form two planners can be compared in.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import random
 import time
@@ -2148,4 +2153,39 @@ def daemon_swarm(root, n_managers=SWARMD_MANAGERS, n_workers=SWARMD_WORKERS,
         for d in reversed(daemons):
             d.stop()
         out["stop_s"] = time.monotonic() - t2
+    return out
+
+
+# ------------------------------------------------------------- simulator
+
+#: the simulator's scenarios whose fault timelines run a device planner:
+#: three build their own (``TorchPlanner(device=sim.device)``) and seven
+#: set ``cp.planner_factory``, so every new leader builds one mid-run
+SIM_DEVICE_SCENARIOS = (
+    "pipelined-commit-churn", "fused-differential-churn",
+    "steady-state-churn", "leader-crash-mid-tick", "leader-crash-mid-tick-d1",
+    "partition-pipelined-commit", "partition-pipelined-commit-d1",
+    "preemption-storm", "tenant-storm", "gang-deadlock")
+
+
+def sim_obs_events(obs_trace: str, drop=("plan.compile",)) -> list:
+    """A sim report's span trace (``SimReport.obs_trace``) as a list of
+    events two runs can be compared by: the spans named in ``drop`` left
+    out, and each span's ``span_id`` and ``parent_id`` replaced by its
+    parent's name (a left-out span shifts every later id).  On the card
+    the first kernel build in a process records one ``plan.compile``;
+    against the reference's planner, drop ``plan.refresh`` as well (the
+    port's resident-state span, which the reference does not record)."""
+    events = json.loads(obs_trace)["traceEvents"]
+    names = {e["args"]["span_id"]: e["name"] for e in events
+             if "span_id" in e.get("args", {})}
+    out = []
+    for e in events:
+        if e.get("name") in drop:
+            continue
+        args = dict(e.get("args", {}))
+        if "span_id" in args:
+            del args["span_id"]
+            args["parent"] = names.get(args.pop("parent_id", None))
+        out.append({**e, "args": args})
     return out

@@ -1556,3 +1556,28 @@ def test_swarmd_parity_on_card():
         assert sorted(runs["card"]["per_host"][stage].values()) \
             == sorted(runs["host"]["per_host"][stage].values()), stage
     assert sorted(runs["card"]["per_host"]["heal"].values()) == [4, 4, 4]
+
+
+def test_sim_scenario_on_card_matches_cpu():
+    """The simulator's gang deadlock (two gangs contending under agent
+    churn and a leader stepdown; every new leader builds its planner on
+    the card mid-run) reports on the card as on the CPU: the engine's
+    trace hash, events, stats, violations and journey ledger, and the
+    span trace but for ``plan.compile``; K8 launched on the card."""
+    _card()
+    import importlib
+
+    from swarmkit_tpu_torch import workload
+
+    scenario = importlib.import_module("swarmkit_tpu_torch.sim.scenario")
+    launches = K.GANG_FIT.launches
+    card = scenario.run_scenario("gang-deadlock", 5, device="cuda")
+    torch.cuda.synchronize()
+    assert K.GANG_FIT.launches > launches
+    cpu = scenario.run_scenario("gang-deadlock", 5, device="cpu")
+    assert card.ok and cpu.ok, (card.violations, cpu.violations)
+    for key in ("trace_hash", "events", "stats", "violations",
+                "journeys_sha256"):
+        assert getattr(card, key) == getattr(cpu, key), key
+    assert workload.sim_obs_events(card.obs_trace) \
+        == workload.sim_obs_events(cpu.obs_trace)

@@ -7,7 +7,8 @@ the reference's text (``manager.py`` differs only where it builds a
 ``TorchPlanner``), as are ``net/``, ``template.py``, ``node.py`` and
 ``cli.py``; ``swarmd.py`` differs only at its device and ``rafttool.py``
 only in its usage lines, and ``Swarmd()`` resolves its device in the
-caller's thread."""
+caller's thread.  The simulator (``sim/``) and its sweep drivers
+(``scripts/``) are covered too."""
 
 import ast
 import pathlib
@@ -45,6 +46,12 @@ COPIED_MODULES = (
 ENTRY_COPIED_MODULES = (
     "net/__init__", "net/wire", "net/raft_transport", "net/server",
     "net/client", "template", "node", "cli")
+#: the simulator and its two sweep drivers (tests/test_torch_sim_entry.py
+#: pins their text to the reference's)
+SIM_MODULES = (
+    "sim/__init__", "sim/__main__", "sim/clock", "sim/engine", "sim/faults",
+    "sim/invariants", "sim/cluster", "sim/scenario", "sim/fuzz",
+    "scripts/__init__", "scripts/chaos_sweep", "scripts/failover_fuzz")
 
 
 def _imported(path):
@@ -88,8 +95,9 @@ def test_port_files_exist():
                         else ".py")
                      for name in CONSENSUS_MODULES) + tuple(
                      f"swarmkit_tpu_torch/{name}.py"
-                     for name in COPIED_MODULES + ENTRY_COPIED_MODULES + (
-                         "manager/manager", "swarmd", "rafttool")):
+                     for name in COPIED_MODULES + ENTRY_COPIED_MODULES
+                     + SIM_MODULES + ("manager/manager", "swarmd",
+                                      "rafttool")):
         assert must in names
 
 
@@ -109,7 +117,10 @@ def test_no_jax_or_reference_import(path):
     "swarmkit_tpu_torch.agent", "swarmkit_tpu_torch.remotes",
     "swarmkit_tpu_torch.net", "swarmkit_tpu_torch.template",
     "swarmkit_tpu_torch.node", "swarmkit_tpu_torch.cli",
-    "swarmkit_tpu_torch.swarmd", "swarmkit_tpu_torch.rafttool"] + [
+    "swarmkit_tpu_torch.swarmd", "swarmkit_tpu_torch.rafttool",
+    "swarmkit_tpu_torch.sim", "swarmkit_tpu_torch.sim.__main__",
+    "swarmkit_tpu_torch.scripts.chaos_sweep",
+    "swarmkit_tpu_torch.scripts.failover_fuzz"] + [
         f"swarmkit_tpu_torch.{name}" for name in CONSENSUS_MODULES])
 def test_import_loads_no_jax(module):
     """Importing a port module (and everything it imports) in a fresh
