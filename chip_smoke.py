@@ -239,7 +239,23 @@ Phases, each of which exits non-zero on failure:
     the churn), the off-card counters moved as on the CPU (the fused
     differential trips its breakers on purpose) and no device error, and
     the card's memory after the phase no higher than before it but for
-    the kernels' workspaces of first use.
+    the kernels' workspaces of first use;
+30. lint: swarmlint (``swarmkit_tpu_torch/analysis``) over the port's
+    roots against ``swarmlint_torch_baseline.json`` on the card's host
+    (in a spawned process started with the run, so that its seconds
+    overlap the earlier phases): no new finding, no stale or unjustified
+    baseline entry, no parse error; then the card's own sync report: one headline tick (its one
+    per-group plan through ``dispatch_group``) and one config-7 tick (its
+    fused run through ``dispatch_fused_run``) at their builders' widths
+    (10,000 nodes) and cut depths (``LINT_HEADLINE_TASKS``,
+    ``LINT_CFG7_TASKS``), each twice: once plain, once with only those
+    two dispatch methods (wrapped here, not in the package) under
+    ``torch.cuda.set_sync_debug_mode("warn")``.  Each sync the CUDA
+    runtime reports is charged to its innermost frame under
+    ``swarmkit_tpu_torch/``; the phase fails where one comes from a line
+    the device rule (``device-path-purity``) does not report, new or
+    baselined, and where the debug run's plans differ from the plain
+    run's.  Every sync site is printed with its count.
 
 The native plane is on for the whole run (it is built first, and the
 script fails without it); ``swarm_native_commit_fallbacks`` must stay 0.
@@ -301,6 +317,10 @@ OVERHEAD_RUNS = 5
 #: integer operations a row of K5 and K11 needs: the binpack key (6), its
 #: histogram bin and sum (3), the placement (3)
 PACK_OPS = 12
+#: phase 30's cut depths: its ticks run at the headline's and config 7's
+#: widths (10,000 nodes) with these task counts
+LINT_HEADLINE_TASKS = 10_000
+LINT_CFG7_TASKS = 10_000
 
 
 def fail(msg):
@@ -5533,6 +5553,192 @@ def phase_sim(torch, K, P, cuda, workload, registry, planner_mod, card):
                        "new_workspaces": work1 - work0}}
 
 
+#: the site of a sync reported while the debug mode was on but outside
+#: the wrapped dispatch method's frames (seen once in two runs on an
+#: H100, charged to the scheduler line that calls the wrapper)
+OUTSIDE_DISPATCH = ("outside the dispatch method", 0)
+
+
+def sync_sites(torch, fn, method, stacks=None):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: its
+    result, and a Counter of the syncs the CUDA runtime reported, each
+    keyed by its innermost frame under ``swarmkit_tpu_torch/`` (repo
+    relative path, line) below the planner's ``method`` frame, or by
+    ``OUTSIDE_DISPATCH`` when the stack holds no such frame.  The first
+    stack seen at each site (its last eight frames) goes into
+    ``stacks``."""
+    import traceback
+    import warnings
+    root = os.path.dirname(os.path.abspath(__file__))
+    pkg = os.path.join(root, "swarmkit_tpu_torch") + os.sep
+    sites = Counter()
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        site = OUTSIDE_DISPATCH
+        stack = traceback.extract_stack()[:-1]
+        top = next((i for i, fr in enumerate(stack) if fr.name == method
+                    and fr.filename.endswith(os.path.join("ops",
+                                                          "planner.py"))),
+                   None)
+        for fr in reversed(stack[top or len(stack):]):
+            if fr.filename.startswith(pkg):
+                site = (os.path.relpath(fr.filename, root)
+                        .replace(os.sep, "/"), fr.lineno)
+                break
+        sites[site] += 1
+        if stacks is not None and site not in stacks:
+            stacks[site] = [f"{os.path.basename(fr.filename)}:{fr.lineno} "
+                            f"{fr.name}" for fr in stack[-8:]]
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sites
+
+
+def lint_tick(torch, build, Scheduler, TorchPlanner, debug, stacks=None):
+    """One tick of ``build()``'s cluster on a fresh ``TorchPlanner()``:
+    its recorded plans, and with ``debug`` the sync sites of its
+    ``dispatch_group`` and ``dispatch_fused_run`` calls (the instance's
+    two methods wrapped in :func:`sync_sites`) and their call counts."""
+    store = build()[0]
+    planner = TorchPlanner()
+    sites, calls = Counter(), Counter()
+    if debug:
+        for name in ("dispatch_group", "dispatch_fused_run"):
+            method = getattr(planner, name)
+
+            def wrapped(*a, _method=method, _name=name, **kw):
+                out, found = sync_sites(torch, lambda: _method(*a, **kw),
+                                        _name, stacks)
+                sites.update(found)
+                calls[_name] += 1
+                return out
+            setattr(planner, name, wrapped)
+    sched = Scheduler(store, batch_planner=planner)
+    store.view(sched._setup_tasks_list)
+    with PlanRecorder() as rec:
+        sched._process_preassigned_tasks()
+        sched.tick()
+        torch.cuda.synchronize()
+    return rec.plans, sites, calls, dict(planner.stats)
+
+
+def run_lint(root):
+    """swarmlint over the port's roots of the checkout at ``root``,
+    against its baseline: the counts, the seconds, the report when it is
+    not clean, and the (path, line) of every device-rule finding, new or
+    baselined.  Stdlib only (it runs in a process of its own)."""
+    from swarmkit_tpu_torch.analysis import lint_tree
+    from swarmkit_tpu_torch.analysis.reporters import human_report
+    t0 = time.perf_counter()
+    res = lint_tree(root)
+    return {"seconds": time.perf_counter() - t0, "ok": res.ok,
+            "modules": len(res.modules), "rules": res.rules,
+            "new": len(res.new), "baselined": len(res.baselined),
+            "stale": len(res.stale), "unjustified": len(res.unjustified),
+            "parse_errors": sum(f.rule == "parse-error" for f in res.raw),
+            "report": "" if res.ok else human_report(res),
+            "device_lines": sorted({(f.path, f.line) for f in res.raw
+                                    if f.rule == "device-path-purity"})}
+
+
+def start_lint():
+    """Phase 30's lint in a spawned process of its own, started with the
+    run so that its seconds overlap the card's phases: (executor,
+    future)."""
+    import concurrent.futures
+    import multiprocessing
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    return pool, pool.submit(run_lint,
+                             os.path.dirname(os.path.abspath(__file__)))
+
+
+def phase_lint(torch, workload, Scheduler, TorchPlanner, card, lint_job):
+    """Phase 30: the port's linter on the card's host (``lint_job``, from
+    :func:`start_lint`), then the card's own sync report for the dispatch
+    stage held to the device rule."""
+    pool, future = lint_job
+    try:
+        res = future.result(timeout=600)
+    finally:
+        pool.shutdown()
+    print(f"lint: {res['modules']} modules, {len(res['rules'])} rules, "
+          f"{res['new']} new, {res['baselined']} baselined, "
+          f"{res['stale']} stale, {res['unjustified']} unjustified, "
+          f"{res['parse_errors']} parse errors in {res['seconds']:.2f} s "
+          "(in a process of its own, beside the earlier phases)",
+          flush=True)
+    check(res["ok"] and not res["parse_errors"],
+          "lint: the port's tree is not clean:\n" + res["report"])
+    reported = set(map(tuple, res["device_lines"]))
+
+    runs = {}
+    builders = (
+        ("headline", LINT_HEADLINE_TASKS, workload.headline_cluster,
+         "dispatch_group"),
+        ("config 7", LINT_CFG7_TASKS, workload.many_service_cluster,
+         "dispatch_fused_run"))
+    all_sites, stacks = Counter(), {}
+    for label, n_tasks, cluster, entry in builders:
+        def build(cluster=cluster, n_tasks=n_tasks):
+            return cluster(n_tasks=n_tasks)
+        t0 = time.perf_counter()
+        plain, _, _, _ = lint_tick(torch, build, Scheduler, TorchPlanner,
+                                   debug=False)
+        plans, sites, calls, stats = lint_tick(torch, build, Scheduler,
+                                               TorchPlanner, debug=True,
+                                               stacks=stacks)
+        seconds = time.perf_counter() - t0
+        check(calls[entry] >= 1, f"lint {label}: {entry} never ran "
+              f"({dict(calls)})")
+        check(plans and same_plans(plain, plans),
+              f"lint {label}: the plans under the sync debug mode differ "
+              "from the plain run's")
+        all_sites.update(sites)
+        runs[label] = {
+            "tasks": n_tasks, "calls": dict(calls),
+            "plans": len(plans), "seconds": seconds,
+            "groups_fused": stats.get("groups_fused", 0),
+            "fused_chunks": stats.get("fused_chunks", 0),
+            "sync_sites": {f"{p}:{ln}": c for (p, ln), c in sites.items()}}
+        print(f"lint {label}: {dict(calls)} at {n_tasks} tasks (depth "
+              f"cut), {len(plans)} plans equal to the plain "
+              f"run's, {sum(sites.values())} syncs in the dispatch stage "
+              f"({seconds:.2f} s)", flush=True)
+    outside = all_sites.pop(OUTSIDE_DISPATCH, 0)
+    if outside:
+        print(f"lint: {outside} sync(s) reported while the debug mode was "
+              "on but outside the dispatch methods' frames; stack "
+              f"{stacks[OUTSIDE_DISPATCH]}", flush=True)
+    for (path, line), count in sorted(all_sites.items()):
+        ok = (path, line) in reported
+        print(f"lint: sync at {path}:{line} x{count}: "
+              f"{'reported by device-path-purity' if ok else 'NOT REPORTED'}"
+              + ("" if ok else f"; stack {stacks[(path, line)]}"),
+              flush=True)
+    missed = sorted(s for s in all_sites if s not in reported)
+    check(not missed, f"lint: syncs the device rule does not report: "
+          f"{missed}")
+    print(f"lint: every sync in the dispatch stage is at a line the "
+          f"device rule reports ({len(all_sites)} sites) on {card}",
+          flush=True)
+    return {"modules": res["modules"], "rules": res["rules"],
+            "new": res["new"], "baselined": res["baselined"],
+            "lint_s": res["seconds"], "runs": runs,
+            "outside_dispatch": outside,
+            "sync_sites": {f"{p}:{ln}": c
+                           for (p, ln), c in sorted(all_sites.items())}}
+
+
 def phase(name, fn, *args, **kw):
     """``fn(*args, **kw)``, its seconds kept in ``PHASE_S[name]``."""
     t0 = time.perf_counter()
@@ -5576,6 +5782,7 @@ def main():
         fail(f"the swarmkit_tpu_torch package is not importable: {exc}")
 
     t_start = time.perf_counter()
+    lint_job = start_lint()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -5696,6 +5903,8 @@ def main():
     # purpose, and the phase holds those counters to its CPU twin's
     sim = phase("sim", phase_sim, torch, K, P, cuda, workload, registry,
                 planner_mod, card)
+    lint = phase("lint", phase_lint, torch, workload, Scheduler,
+                 TorchPlanner, card, lint_job)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in PHASE_S.items()),
           flush=True)
@@ -5740,7 +5949,7 @@ def main():
               "breaker": breaker, "service_life": life,
               "tenant_storm": tenant, "live_manager": live,
               "replicated_control": control, "million_swarm": swarm,
-              "e2e": e2e, "swarmd": swarmd, "sim": sim,
+              "e2e": e2e, "swarmd": swarmd, "sim": sim, "lint": lint,
               "cryptography": crypto,
               "device_faults": moved,
               "phase_seconds": PHASE_S,

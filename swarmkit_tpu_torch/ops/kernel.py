@@ -612,7 +612,7 @@ def _waterfill(*, cap: torch.Tensor, k_seg: torch.Tensor, seg: torch.Tensor,
 def _waterfill_scratch_bytes(L: int) -> int:
     """Global scratch K3 needs for ``L`` segments: 0 while its
     per-segment state fits the cluster's shared memory."""
-    return int(_cuda.library().sk_waterfill_scratch_bytes(L))
+    return _cuda.library().sk_waterfill_scratch_bytes(L)
 
 
 def _waterfill_into(*, cap, k_seg, seg, L: int, out, e=None, svc_tasks=None,
@@ -1697,7 +1697,7 @@ _GANG_WORK: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _gang_work(n: int, g: int, dev) -> Optional[torch.Tensor]:
-    nbytes = int(_cuda.library().sk_gang_fit_work_bytes(n, g))
+    nbytes = _cuda.library().sk_gang_fit_work_bytes(n, g)
     if not nbytes:
         return None
     key = (dev.index, _cuda.stream_handle())

@@ -171,7 +171,7 @@ def _select_victims_plain(inp: VictimInputs, cpu_d: int, mem_d: int,
 def _scratch_bytes(n: int) -> int:
     """K9's scratch for ``n`` nodes: per node its key, surpluses, used
     mask and prefix length, and the keys' first tree level."""
-    return int(_cuda.library().sk_select_victims_scratch_bytes(n))
+    return _cuda.library().sk_select_victims_scratch_bytes(n)
 
 
 def select_victims(inp: VictimInputs, cpu_d: int, mem_d: int, gen_d: int,

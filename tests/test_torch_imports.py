@@ -8,7 +8,11 @@ the reference's text (``manager.py`` differs only where it builds a
 ``cli.py``; ``swarmd.py`` differs only at its device and ``rafttool.py``
 only in its usage lines, and ``Swarmd()`` resolves its device in the
 caller's thread.  The simulator (``sim/``) and its sweep drivers
-(``scripts/``) are covered too."""
+(``scripts/``) are covered too, and so are the linter (``analysis/``) and
+the three drivers that read the package (``scripts/swarmlint.py``,
+``train_scorer.py``, ``trace_report.py``); each ``analysis/`` module but
+``rules/device.py`` (written anew for PyTorch) differs from the
+reference's, its package name aside, only at the lines pinned below."""
 
 import ast
 import pathlib
@@ -52,6 +56,15 @@ SIM_MODULES = (
     "sim/__init__", "sim/__main__", "sim/clock", "sim/engine", "sim/faults",
     "sim/invariants", "sim/cluster", "sim/scenario", "sim/fuzz",
     "scripts/__init__", "scripts/chaos_sweep", "scripts/failover_fuzz")
+#: the linter and the drivers that read the package
+ANALYSIS_MODULES = (
+    "analysis/__init__", "analysis/baseline", "analysis/core",
+    "analysis/reporters", "analysis/runner", "analysis/rules/__init__",
+    "analysis/rules/backpressure", "analysis/rules/determinism",
+    "analysis/rules/device", "analysis/rules/fencing",
+    "analysis/rules/layering", "analysis/rules/locking",
+    "analysis/rules/metrics", "scripts/swarmlint", "scripts/train_scorer",
+    "scripts/trace_report")
 
 
 def _imported(path):
@@ -96,8 +109,8 @@ def test_port_files_exist():
                      for name in CONSENSUS_MODULES) + tuple(
                      f"swarmkit_tpu_torch/{name}.py"
                      for name in COPIED_MODULES + ENTRY_COPIED_MODULES
-                     + SIM_MODULES + ("manager/manager", "swarmd",
-                                      "rafttool")):
+                     + SIM_MODULES + ANALYSIS_MODULES
+                     + ("manager/manager", "swarmd", "rafttool")):
         assert must in names
 
 
@@ -120,7 +133,10 @@ def test_no_jax_or_reference_import(path):
     "swarmkit_tpu_torch.swarmd", "swarmkit_tpu_torch.rafttool",
     "swarmkit_tpu_torch.sim", "swarmkit_tpu_torch.sim.__main__",
     "swarmkit_tpu_torch.scripts.chaos_sweep",
-    "swarmkit_tpu_torch.scripts.failover_fuzz"] + [
+    "swarmkit_tpu_torch.scripts.failover_fuzz",
+    "swarmkit_tpu_torch.analysis", "swarmkit_tpu_torch.scripts.swarmlint",
+    "swarmkit_tpu_torch.scripts.train_scorer",
+    "swarmkit_tpu_torch.scripts.trace_report"] + [
         f"swarmkit_tpu_torch.{name}" for name in CONSENSUS_MODULES])
 def test_import_loads_no_jax(module):
     """Importing a port module (and everything it imports) in a fresh
@@ -408,3 +424,226 @@ def test_swarmd_main_takes_a_device(monkeypatch, tmp_path):
         assert seen[-1]["device"] == want
         assert seen[-1]["use_device_scheduler"] is True
 
+
+
+def test_analysis_imports_no_torch():
+    """The linter is stdlib over the AST: importing it (and every rule)
+    in a fresh interpreter loads neither torch nor numpy."""
+    code = ("import sys, swarmkit_tpu_torch.analysis\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'numpy', 'jax', 'swarmkit_tpu'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+#: the only lines of each ``analysis/`` module that differ from the
+#: reference's once its package name is the port's: (removed, added).
+#: ``rules/device.py`` is written anew for PyTorch; the modules absent here
+#: are the reference's text but for the package name
+ANALYSIS_PINNED = {
+    '__init__': (
+        [
+            '``python scripts/swarmlint.py``; the framework lives in',
+        ],
+        [
+            '``python -m swarmkit_tpu_torch.scripts.swarmlint``; the framework lives in',
+        ],
+    ),
+    'core': (
+        [
+            '        # modules like swarmd.py, and for scripts/ / bench.py); computed',
+        ],
+        [
+            '        # modules like swarmd.py, and for chip_smoke.py); computed',
+        ],
+    ),
+    'rules/backpressure': (
+        [
+            'HOT_ROOTS = ("swarmkit_tpu_torch/manager/", "swarmkit_tpu_torch/scheduler/")',
+        ],
+        [
+            'HOT_ROOTS = ("swarmkit_tpu_torch/manager/",',
+            '             "swarmkit_tpu_torch/scheduler/")',
+        ],
+    ),
+    'rules/determinism': (
+        [
+            'crypto (``security/``), and host-side tooling (``scripts/``,',
+            '``bench.py``) that measures real time on purpose.',
+            '    "scripts/",',
+            '    "bench.py",',
+        ],
+        [
+            "crypto (``security/``), and host-side tooling (the port's ``scripts/``",
+            'and ``probes/``, ``workload.py`` and ``chip_smoke.py``) that measures',
+            'real time on purpose.',
+            '',
+            "torch's global RNG is the port's third source of hidden state:",
+            '',
+            '* ``torch.rand*`` / ``randn*`` / ``randint*`` / ``randperm`` /',
+            '  ``multinomial`` / ``normal`` / ``bernoulli`` / ``poisson`` with no',
+            '  ``generator=`` draw from it — pass a seeded ``torch.Generator``;',
+            '* ``torch.manual_seed`` / ``torch.seed`` (and the ``torch.cuda`` twins)',
+            '  reseed it for every caller in the process;',
+            '* a ``torch.Generator()`` that is never seeded (no ``.manual_seed`` on',
+            '  it anywhere in the module) starts from a default seed no caller',
+            '  chose.',
+            '    "swarmkit_tpu_torch/scripts/",',
+            '    "swarmkit_tpu_torch/probes/",',
+            '    "swarmkit_tpu_torch/workload.py",',
+            '    "chip_smoke.py",',
+            "# torch's global-RNG draws: legal only with an explicit generator=",
+            '_TORCH_RANDOM_FNS = {"rand", "rand_like", "randn", "randn_like", "randint",',
+            '                     "randint_like", "randperm", "multinomial", "normal",',
+            '                     "bernoulli", "poisson"}',
+            '',
+            "# calls that (re)seed torch's process-wide generators",
+            '_TORCH_GLOBAL_SEEDS = {"torch.manual_seed", "torch.seed",',
+            '                       "torch.random.manual_seed", "torch.random.seed",',
+            '                       "torch.cuda.manual_seed", "torch.cuda.manual_seed_all",',
+            '                       "torch.cuda.seed", "torch.cuda.seed_all"}',
+            '',
+            '',
+            'def _seeded_generators(tree: ast.AST) -> set:',
+            '    """Source forms (``g``, ``self._gen``) that a ``.manual_seed(...)``',
+            '    call is made on anywhere in the module."""',
+            '    out = set()',
+            '    for node in ast.walk(tree):',
+            '        if isinstance(node, ast.Call) \\',
+            '                and isinstance(node.func, ast.Attribute) \\',
+            '                and node.func.attr == "manual_seed":',
+            '            out.add(ast.unparse(node.func.value))',
+            '    return out',
+            '',
+            '',
+            'def _unseeded_generator(node: ast.Call, seeded: set) -> bool:',
+            '    """True for a ``torch.Generator(...)`` that is neither seeded in',
+            '    the same expression (``torch.Generator().manual_seed(s)``) nor bound',
+            '    to a name the module seeds later."""',
+            '    p = parent_of(node)',
+            '    if isinstance(p, ast.Attribute) and p.attr == "manual_seed":',
+            '        return False',
+            '    if isinstance(p, (ast.Assign, ast.AnnAssign)):',
+            '        targets = p.targets if isinstance(p, ast.Assign) else [p.target]',
+            '        return not any(ast.unparse(t) in seeded for t in targets)',
+            '    return True',
+            '',
+            '        seeded = _seeded_generators(mod.tree)',
+            '            elif dotted.startswith("torch.") \\',
+            '                    and dotted.rsplit(".", 1)[1] in _TORCH_RANDOM_FNS \\',
+            '                    and dotted.count(".") == 1 \\',
+            '                    and not any(kw.arg in ("generator", None)',
+            '                                for kw in node.keywords):',
+            '                out.append(mod.finding(',
+            '                    self.name, node,',
+            '                    f"{dotted}() with no generator= draws from torch\'s "',
+            '                    "global RNG; pass a seeded torch.Generator"))',
+            '            elif dotted in _TORCH_GLOBAL_SEEDS:',
+            '                out.append(mod.finding(',
+            '                    self.name, node,',
+            '                    f"{dotted}() reseeds torch\'s process-wide RNG for "',
+            '                    "every caller; seed a torch.Generator of your own"))',
+            '            elif dotted == "torch.Generator" \\',
+            '                    and _unseeded_generator(node, seeded):',
+            '                out.append(mod.finding(',
+            '                    self.name, node,',
+            '                    "torch.Generator() that is never seeded: call "',
+            '                    ".manual_seed(seed) on it (its default seed is no "',
+            '                    "caller\'s choice)"))',
+        ],
+    ),
+    'rules/layering': (
+        [
+            '  tree, never the reverse (``scripts/`` and ``bench.py`` are drivers',
+            '  and exempt).',
+            '            "security", "analysis"}',
+            'SIM_IMPORTERS_EXEMPT = ("scripts/", "bench.py", "tests/")',
+            '                   "manager internals, sim in-process only")',
+        ],
+        [
+            "  tree, never the reverse (the port's ``scripts/`` and ``probes/``,",
+            '  ``workload.py`` and ``chip_smoke.py`` are drivers and exempt);',
+            '* the port stands alone: no module of ``swarmkit_tpu_torch`` and not',
+            '  ``chip_smoke.py`` imports ``jax`` or the reference package',
+            '  ``swarmkit_tpu`` (only tests import both).',
+            '            "security", "analysis", "scripts", "probes"}',
+            'SIM_IMPORTERS_EXEMPT = ("swarmkit_tpu_torch/scripts/",',
+            '                        "swarmkit_tpu_torch/probes/",',
+            '                        "swarmkit_tpu_torch/workload.py", "chip_smoke.py",',
+            '                        "tests/")',
+            '',
+            '#: top-level modules no package of the port may import, and the paths',
+            '#: that rule holds for',
+            'FOREIGN = ("jax", "jaxlib", "swarmkit_tpu")',
+            'PORT_PATHS = ("swarmkit_tpu_torch/", "chip_smoke.py")',
+            '                   "manager internals, sim in-process only, no jax")',
+            '        in_port = mod.relpath.startswith(PORT_PATHS)',
+            '            foreign = [d for d in targets if d.split(".")[0] in FOREIGN]',
+            '            if in_port and foreign:',
+            '                out.append(mod.finding(',
+            '                    self.name, node,',
+            '                    f"{mod.package or \'top-level\'} must not import "',
+            '                    f"{foreign[0]}: the port imports neither jax nor "',
+            '                    "swarmkit_tpu"))',
+        ],
+    ),
+    'rules/locking': (
+        [
+            '  ``jax.device_get``, ``block_until_ready``, sleeps) under it would',
+            '  couple XLA latency into every writer, and is flagged.',
+        ],
+        [
+            '  ``jax.device_get``, ``block_until_ready``, sleeps; in the port any',
+            '  ``.synchronize()`` and ``finish_fetch``) under it would couple device',
+            '  latency into every writer, and is flagged.',
+            "        # the port's device syncs: torch.cuda / an event / a stream",
+            "        # .synchronize() and the fetch stage's wait",
+            '        "synchronize", "finish_fetch",',
+            '        "synchronize", "finish_fetch",',
+        ],
+    ),
+    'runner': (
+        [
+            '#: what `scripts/swarmlint.py` (and the tier-1 test) lints by default',
+            'DEFAULT_ROOTS = ("swarmkit_tpu_torch", "scripts", "bench.py")',
+            'DEFAULT_BASELINE = "swarmlint_baseline.json"',
+            '',
+            '_SKIP_DIRS = {"__pycache__", ".git", "native", "build"}',
+            "            # normalize ('./bench.py', absolute paths) to the canonical",
+        ],
+        [
+            '#: what `python -m swarmkit_tpu_torch.scripts.swarmlint` (and the tier-1',
+            '#: test) lints by default',
+            'DEFAULT_ROOTS = ("swarmkit_tpu_torch", "chip_smoke.py")',
+            'DEFAULT_BASELINE = "swarmlint_torch_baseline.json"',
+            '',
+            '_SKIP_DIRS = {"__pycache__", ".git", "native", "build", "_build"}',
+            "            # normalize ('./chip_smoke.py', absolute paths) to the canonical",
+        ],
+    ),
+}
+
+
+def _analysis_diff(name):
+    import difflib
+    import re
+    port = (ROOT / "swarmkit_tpu_torch" / "analysis" / f"{name}.py"
+            ).read_text().splitlines()
+    ref = re.sub(r"\bswarmkit_tpu\b", "swarmkit_tpu_torch",
+                 (ROOT / "swarmkit_tpu" / "analysis" / f"{name}.py"
+                  ).read_text()).splitlines()
+    removed, added = [], []
+    for line in difflib.unified_diff(ref, port, lineterm="", n=0):
+        if line.startswith(("---", "+++", "@@")):
+            continue
+        (removed if line[0] == "-" else added).append(line[1:])
+    return removed, added
+
+
+@pytest.mark.parametrize("name", [
+    m[len("analysis/"):] for m in ANALYSIS_MODULES
+    if m.startswith("analysis/") and m != "analysis/rules/device"])
+def test_analysis_differs_from_the_reference_only_at_its_pinned_lines(name):
+    assert _analysis_diff(name) == ANALYSIS_PINNED.get(name, ([], []))

@@ -187,9 +187,30 @@ def test_swarmd_worker_cert_renewal_e2e():
                 manager=True, listen_remote_api=("127.0.0.1", 0),
                 use_device_scheduler=False, device="cpu")
     m0.start()
-    # swap in a short node-cert lifetime AFTER bootstrap so manager
-    # infra certs are unaffected
-    m0.manager.root_ca.node_cert_expiry = 6.0
+    # a short node-cert lifetime AFTER bootstrap so manager infra certs
+    # are unaffected, set through the cluster spec: the leader's CA
+    # reconciler re-applies ``ca_config.node_cert_expiry`` every second
+    # (manager.py ``_apply_ca_config``), so a value written straight
+    # onto the CA is overwritten whenever leadership comes up after it
+    api = m0.manager.control_api
+    try:
+        poll(lambda: api.store.view(
+            lambda tx: tx.find(Cluster, ByName("default"))), timeout=20,
+            msg="the leader should create the default cluster")
+
+        def short_expiry(tx):
+            # read and write in one transaction: the leader's own startup
+            # writes bump the cluster's version under a copy read earlier
+            c = tx.find(Cluster, ByName("default"))[0].copy()
+            c.spec.ca_config.node_cert_expiry = 6.0
+            tx.update(c)
+        api.store.update(short_expiry)
+        poll(lambda: m0.manager.root_ca.node_cert_expiry == 6.0,
+             timeout=20,
+             msg="CA picks up node_cert_expiry from the cluster spec")
+    except BaseException:
+        m0.stop()
+        raise
     worker = Swarmd(state_dir=tempfile.mkdtemp(), hostname="w0",
                     join_addr=m0.server.addr,
                     join_token=m0.manager.root_ca.join_token(0),
@@ -214,7 +235,6 @@ def test_swarmd_worker_cert_renewal_e2e():
         # and the session keeps working on the new cert (next heartbeats
         # run on fresh connections eventually; just assert liveness)
         from swarmkit_tpu_torch.models.types import NodeState
-        api = m0.manager.control_api
 
         def worker_ready():
             nodes = [n for n in api.list_nodes()
